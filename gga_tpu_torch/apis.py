@@ -1,5 +1,7 @@
-"""Inference entry points (port of ``gga_tpu/apis.py``): build the GGA
-detector and run stage-3 pseudo-label inference on a batch of clouds."""
+"""Entry points (port of ``gga_tpu/apis.py`` and the train step of
+``gga_tpu/train``): build the GGA detector and run stage-3 pseudo-label
+inference on a batch of clouds, or build a trainer and take GGA weak
+train steps."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,6 +14,8 @@ from .device import resolve_device
 from .models.detectors.centerpoint_gga import (GGADetector, GGAModelConfig,
                                                decode_detections)
 from .models.layers import init_params
+from .train.loop import TrainState, gga_train_step
+from .train.optim import build_optimizer
 
 
 @dataclasses.dataclass
@@ -74,3 +78,34 @@ def inference_detector(bundle: DetectorBundle, points):
     return dict(boxes_3d=out['boxes'][0][v].cpu().numpy(),
                 scores_3d=out['scores'][0][v].cpu().numpy(),
                 labels_3d=out['labels'][0][v].cpu().numpy())
+
+
+def init_trainer(cfg: GGAModelConfig, total_steps, state_dict=None,
+                 device='cuda', seed=0) -> TrainState:
+    """The detector in train mode on ``device`` with the GGA optimizer
+    (``build_optimizer(total_steps)``) and a generator for the per-step
+    SRL draws, seeded with ``seed``. Weights as ``init_detector``."""
+    model = init_detector(cfg, state_dict, device, seed).model.train()
+    return TrainState(model=model,
+                      optimizer=build_optimizer(model.parameters(),
+                                                total_steps),
+                      step=0, generator=torch.Generator().manual_seed(seed))
+
+
+_BATCH_DTYPES = dict(points=torch.float32, points_valid=torch.bool,
+                     labels=torch.int32, obj_valid=torch.bool,
+                     init_pseudo=torch.float32, boxes_img=torch.float32,
+                     bdry_masks=torch.bool, lidar2img=torch.float32,
+                     ibp_xy=torch.float32, ibp_valid=torch.bool)
+
+
+def train_step(trainer: TrainState, batch, mark=None):
+    """One GGA weak train step on a batch (the dict of
+    ``train.loop.gga_train_step``, as tensors or numpy arrays).
+
+    ``mark`` is the step's stage hook (see ``gga_train_step``). Returns
+    the step's logs as 0-d tensors on the trainer's device."""
+    dev = next(trainer.model.parameters()).device
+    b = {k: torch.as_tensor(batch[k], dtype=dt, device=dev)
+         for k, dt in _BATCH_DTYPES.items()}
+    return gga_train_step(trainer, b, trainer.model.cfg.head, mark)

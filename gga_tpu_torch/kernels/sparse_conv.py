@@ -1,39 +1,40 @@
-"""Fused gather-GEMM sparse convolution: the CUDA kernel and its plain
-PyTorch version.
+"""Fused gather-GEMM sparse convolution and its weight gradient: the CUDA
+kernels and their plain PyTorch versions.
 
 ``gather_gemm_conv(features [R, C], nmap [K, Q], weights [K, C, D])``
 computes ``out[q] = sum_k [nmap[k, q] >= 0] * features[nmap[k, q]] @
 weights[k]`` with an f32 sum rounded once to the input dtype. It is the
 port of ``gga_tpu/ops/pallas/window_gather.py:_window_conv`` and runs the
 forward of every sparse conv of the encoder (submanifold convs through
-their neighbor map, strided convs through their rulebook map).
+their neighbor map, strided convs through their rulebook map) and the
+input gradient of every submanifold conv (same map, weights flipped over
+k and transposed).
 
-On a CPU tensor the wrapper runs ``gather_gemm_conv_plain``. On a CUDA
-tensor it launches the kernel in ``csrc/gather_gemm.cu`` or raises. The
-kernel is compiled with ``nvcc`` for ``sm_90a`` on first use into
-``build/`` beside this file and loaded with ``ctypes``.
+``gather_gemm_dw(features [R, C], nmap [K, Q], dout [Q, D])`` computes
+the weight gradient ``dW[k] = sum_q [nmap[k, q] >= 0] *
+features[nmap[k, q]]^T dout[q]`` as f32 ``[K, C, D]``: the port of
+``window_gather.py:_window_dw``, used by every sparse conv's backward.
+
+On a CPU tensor each wrapper runs its plain version. On a CUDA tensor it
+launches its kernel (``csrc/gather_gemm.cu``, ``csrc/gather_gemm_dw.cu``)
+or raises.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
-
 import torch
 
-_SRC = Path(__file__).resolve().parent / 'csrc' / 'gather_gemm.cu'
-_BUILD = Path(__file__).resolve().parent / 'build'
-# the most dynamic shared memory one block may use on an H100
-_MAX_SMEM = 232448
+from . import _build
+from ._build import I, P
 
-launches = 0  # kernel launches since the caller last set this to 0
+launches = 0     # gather_gemm_conv launches since the caller set this to 0
+dw_launches = 0  # gather_gemm_dw launches since the caller set this to 0
 
-_lib = None
-_lib_lock = threading.Lock()
+_CONV = 'gather_gemm'
+_DW = 'gather_gemm_dw'
+_CONV_SIG = {'gga_gather_gemm_conv_bf16': ([P] * 4 + [I] * 5 + [P], I),
+             'gga_gather_gemm_smem_bytes': ([I], I)}
+_DW_SIG = {'gga_gather_gemm_dw_bf16': ([P] * 5 + [I] * 6 + [P], I),
+           'gga_gather_gemm_dw_splits': ([I] * 4, I)}
 
 
 def gather_gemm_conv_plain(features, nmap, weights):
@@ -49,73 +50,36 @@ def gather_gemm_conv_plain(features, nmap, weights):
     return out.to(features.dtype)
 
 
-def _nvcc():
-    path = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
-    if not os.path.exists(path):
-        raise RuntimeError('nvcc not found: gather_gemm_conv needs the CUDA '
-                           'toolkit to build its kernel')
-    return path
+def gather_gemm_dw_plain(features, nmap, dout):
+    """``dW[k] = where(nmap[k] >= 0, features[nmap[k]], 0)^T @ dout`` in
+    f32, as gga_tpu's ``einsum('knc,nd->kcd', ...,
+    preferred_element_type=float32)`` (``ops/sparse.py:715-719``)."""
+    hit = (nmap >= 0)[..., None]
+    g = torch.where(hit, features[nmap.clamp(min=0)], 0)     # [K, Q, C]
+    return torch.einsum('kqc,qd->kcd', g.float(), dout.float())
 
 
 def build():
-    """Compile (once per source version) and load the kernel library."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:12]
-        so = _BUILD / f'libgather_gemm_{digest}.so'
-        if not so.exists():
-            _BUILD.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f'.{os.getpid()}.tmp')
-            cmd = [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
-                   '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
-                   '-o', str(tmp), str(_SRC)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f'nvcc failed ({res.returncode}):\n'
-                                   f'{res.stdout}\n{res.stderr}')
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        fn = lib.gga_gather_gemm_conv_bf16
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.gga_gather_gemm_smem_bytes.argtypes = [ctypes.c_int]
-        lib.gga_gather_gemm_smem_bytes.restype = ctypes.c_int
-        _lib = lib
-        return lib
+    """Compile (once per source version) and load the forward kernel."""
+    return _build.load(_CONV, _CONV_SIG)
 
 
-def _check(features, nmap, weights):
-    if not (features.is_cuda and nmap.device == features.device
-            and weights.device == features.device):
-        raise ValueError('gather_gemm_conv: features, nmap and weights must '
-                         'lie on one CUDA device')
-    if features.dtype != torch.bfloat16 or weights.dtype != torch.bfloat16:
-        raise TypeError('gather_gemm_conv: the CUDA kernel takes bf16 '
-                        f'features and weights, got {features.dtype} and '
-                        f'{weights.dtype}')
+def build_dw():
+    """Compile (once per source version) and load the dW kernel."""
+    return _build.load(_DW, _DW_SIG)
+
+
+def _check(what, features, nmap, other, other_name, aligned):
+    _build.check_cuda(what, [('features', features), ('nmap', nmap),
+                             (other_name, other)], aligned)
+    if features.dtype != torch.bfloat16 or other.dtype != torch.bfloat16:
+        raise TypeError(f'{what}: the CUDA kernel takes bf16 features and '
+                        f'{other_name}, got {features.dtype} and '
+                        f'{other.dtype}')
     if nmap.dtype != torch.int32:
-        raise TypeError(f'gather_gemm_conv: nmap must be int32, got '
-                        f'{nmap.dtype}')
-    if features.dim() != 2 or nmap.dim() != 2 or weights.dim() != 3:
-        raise ValueError('gather_gemm_conv: expected features [R, C], '
-                         'nmap [K, Q] and weights [K, C, D]')
-    K, C, _ = weights.shape
-    if nmap.shape[0] != K or features.shape[1] != C:
-        raise ValueError(f'gather_gemm_conv: shapes disagree: features '
-                         f'{tuple(features.shape)}, nmap {tuple(nmap.shape)}'
-                         f', weights {tuple(weights.shape)}')
-    for name, t in (('features', features), ('nmap', nmap),
-                    ('weights', weights)):
-        if not t.is_contiguous():
-            raise ValueError(f'gather_gemm_conv: {name} must be contiguous')
-    if features.data_ptr() % 16:
-        raise ValueError('gather_gemm_conv: features must be 16-byte aligned')
-    if max(features.numel(), nmap.numel(), weights.numel()) >= 2 ** 31:
-        raise ValueError('gather_gemm_conv: a dimension product overflows '
-                         'the kernel\'s int32 sizes')
+        raise TypeError(f'{what}: nmap must be int32, got {nmap.dtype}')
+    if features.dim() != 2 or nmap.dim() != 2:
+        raise ValueError(f'{what}: expected features [R, C] and nmap [K, Q]')
 
 
 def gather_gemm_conv(features, nmap, weights):
@@ -127,23 +91,67 @@ def gather_gemm_conv(features, nmap, weights):
     global launches
     if features.device.type == 'cpu':
         return gather_gemm_conv_plain(features, nmap, weights)
-    _check(features, nmap, weights)
-    lib = build()
+    _check('gather_gemm_conv', features, nmap, weights, 'weights',
+           ('features',))
+    if weights.dim() != 3:
+        raise ValueError('gather_gemm_conv: expected weights [K, C, D]')
     K, C, D = weights.shape
+    if nmap.shape[0] != K or features.shape[1] != C:
+        raise ValueError(f'gather_gemm_conv: shapes disagree: features '
+                         f'{tuple(features.shape)}, nmap {tuple(nmap.shape)}'
+                         f', weights {tuple(weights.shape)}')
+    lib = build()
     Q = nmap.shape[1]
-    if lib.gga_gather_gemm_smem_bytes(C) > _MAX_SMEM:
+    if lib.gga_gather_gemm_smem_bytes(C) > _build.MAX_SMEM:
         raise ValueError(f'gather_gemm_conv: input width C={C} needs more '
                          'shared memory than a block has')
     out = torch.empty((Q, D), dtype=features.dtype, device=features.device)
     if Q == 0 or D == 0:
         return out
     with torch.cuda.device(features.device):
-        stream = torch.cuda.current_stream(features.device).cuda_stream
         err = lib.gga_gather_gemm_conv_bf16(
             features.data_ptr(), nmap.data_ptr(), weights.data_ptr(),
-            out.data_ptr(), features.shape[0], C, K, Q, D, stream)
-    if err != 0:
-        raise RuntimeError(f'gather_gemm_conv: kernel launch failed with '
-                           f'CUDA error {err}')
+            out.data_ptr(), features.shape[0], C, K, Q, D,
+            _build.stream_of(features))
+    _build.check_launch('gather_gemm_conv', err)
     launches += 1
+    return out
+
+
+def gather_gemm_dw(features, nmap, dout):
+    """``dW [K, C, D] f32 = sum_q where(nmap[:, q] >= 0,
+    features[nmap[:, q]], 0)^T dout[q]``.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel
+    (bf16 features and dout) or raise. The kernel splits Q over blocks,
+    writes each split's partial sum to an f32 scratch and adds the
+    splits in a fixed order, so the result is the same from run to run."""
+    global dw_launches
+    if features.device.type == 'cpu':
+        return gather_gemm_dw_plain(features, nmap, dout)
+    _check('gather_gemm_dw', features, nmap, dout, 'dout',
+           ('features', 'dout'))
+    if dout.dim() != 2 or dout.shape[0] != nmap.shape[1]:
+        raise ValueError(f'gather_gemm_dw: shapes disagree: nmap '
+                         f'{tuple(nmap.shape)}, dout {tuple(dout.shape)}')
+    R, C = features.shape
+    K, Q = nmap.shape
+    D = dout.shape[1]
+    lib = build_dw()
+    splits = lib.gga_gather_gemm_dw_splits(K, C, D, Q)
+    out = torch.empty((K, C, D), dtype=torch.float32, device=features.device)
+    if out.numel() == 0:
+        return out
+    scratch = torch.empty((splits, K, C, D), dtype=torch.float32,
+                          device=features.device)
+    if scratch.numel() >= 2 ** 31:
+        raise ValueError('gather_gemm_dw: the split scratch overflows the '
+                         'kernel\'s int32 sizes')
+    with torch.cuda.device(features.device):
+        err = lib.gga_gather_gemm_dw_bf16(
+            features.data_ptr(), nmap.data_ptr(), dout.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), R, C, K, Q, D, splits,
+            _build.stream_of(features))
+    _build.check_launch('gather_gemm_dw', err)
+    dw_launches += 1
     return out

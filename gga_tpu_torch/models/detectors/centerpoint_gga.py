@@ -1,7 +1,8 @@
-"""The GGA weak detector for inference: voxelize -> HardSimpleVFE ->
-SparseEncoder -> SECOND -> SECONDFPN -> CenterHead, and the decode to
-merged per-scene detections (port of
-``gga_tpu/models/detectors/centerpoint_gga.py``).
+"""The GGA weak detector: voxelize -> HardSimpleVFE -> SparseEncoder ->
+SECOND -> SECONDFPN -> CenterHead, and the decode to merged per-scene
+detections (port of ``gga_tpu/models/detectors/centerpoint_gga.py``).
+In train mode (``model.train()``) every batch norm uses the batch's
+statistics and updates its running ones, as gga_tpu's ``train=True``.
 
 Submodules carry mmdet3d's names (``pts_middle_encoder``,
 ``pts_backbone``, ``pts_neck``, ``pts_bbox_head``), so the state_dict
@@ -18,18 +19,10 @@ from torch import nn
 from ...ops.voxelize import hard_voxelize
 from ..backbones.second import SECOND
 from ..dense_heads import centerpoint_head as cp
+from ..dense_heads.centerpoint_head_gga import GGAHeadConfig
 from ..middle_encoders import SparseEncoder
 from ..necks.second_fpn import SECONDFPN
 from ..voxel_encoders import HardSimpleVFE
-
-
-@dataclasses.dataclass(frozen=True)
-class GGAHeadConfig:
-    """The fields of gga_tpu's GGAHeadConfig that inference reads."""
-    voxel_size: Tuple[float, float, float] = (0.05, 0.05, 0.1)
-    point_cloud_range: Tuple[float, ...] = (0, -40, -3, 70.4, 40, 1)
-    grid_size: Tuple[int, int, int] = (1408, 1600, 40)   # (nx, ny, nz)
-    out_size_factor: int = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +68,7 @@ class GGAModelConfig:
     def small(cls):
         """Accuracy-bench variant: full range at 0.1 m voxels, budgets
         sized for ~8k-point scenes so nothing truncates."""
-        head = GGAHeadConfig(grid_size=(704, 800, 40),
+        head = GGAHeadConfig(grid_size=(704, 800, 40), max_objs=16,
                              voxel_size=(0.1, 0.1, 0.1))
         return cls(
             voxel_size=(0.1, 0.1, 0.1),
@@ -95,7 +88,7 @@ class GGAModelConfig:
     def tiny(cls):
         """Small variant for CPU tests: ~1/6 grid, thin channels."""
         head = GGAHeadConfig(
-            grid_size=(224, 256, 40),
+            grid_size=(224, 256, 40), max_objs=16,
             point_cloud_range=(0., -40., -3., 71.68, 40., 1.),
             voxel_size=(0.32, 0.3125, 0.1))
         return cls(
@@ -134,8 +127,9 @@ class GGADetector(nn.Module):
         self.pts_bbox_head = cp.CenterHead(sum(c.neck_channels), c.tasks,
                                            c.share_conv_channel)
 
-    def extract_bev(self, points, points_valid):
-        """points [B, P, 4] f32; points_valid [B, P] -> BEV NCHW."""
+    def extract_bev(self, points, points_valid, diag=None):
+        """points [B, P, 4] f32; points_valid [B, P] -> BEV NCHW. A dict
+        ``diag`` receives the encoder's occupancy diagnostics."""
         c = self.cfg
         vox = hard_voxelize(points, points_valid,
                             voxel_size=tuple(c.voxel_size),
@@ -146,11 +140,11 @@ class GGADetector(nn.Module):
         feats = feats.to(getattr(torch, c.compute_dtype))
         vvalid = (torch.arange(c.max_voxels, device=points.device)[None]
                   < vox['num_voxels'][:, None])
-        return self.pts_middle_encoder(feats, vox['coords'], vvalid)
+        return self.pts_middle_encoder(feats, vox['coords'], vvalid, diag)
 
-    def forward(self, points, points_valid):
+    def forward(self, points, points_valid, diag=None):
         """Returns a list over tasks of head-output dicts (NHWC f32 maps)."""
-        bev = self.extract_bev(points, points_valid)
+        bev = self.extract_bev(points, points_valid, diag)
         return self.pts_bbox_head(self.pts_neck(self.pts_backbone(bev)))
 
 

@@ -4,8 +4,10 @@ sparse conv modules and the dense ConvModule (port of
 
 Sparse convs run batch-flat: features ``[B*N, C]`` and maps ``[K, B*M]``
 whose rows are offset into the flat array, so one
-``gather_gemm_conv`` launch covers the whole batch. Conv weights are
-cast to the input dtype (bf16 on the fast path), norms compute in f32.
+``gather_gemm_conv`` launch covers the whole batch. They go through the
+autograd Functions of ``ops/sparse.py``, which receive the f32 weights,
+cast them to the input dtype (bf16 on the fast path) inside, and return
+the weight gradient in f32. Norms compute in f32.
 
 Sparse conv weights are ``[K, C, D]`` inside the modules; their
 state_dict uses spconv2's ``[D, kz, ky, kx, C]`` layout, so a released
@@ -17,7 +19,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels import sparse_conv
 from ..ops import sparse as sp
 
 
@@ -138,12 +139,6 @@ class _SparseConv(nn.Module):
                 self.weight.shape)
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
-    def _conv(self, feats, nmap):
-        """feats [B, N, C] through a flat map [K, Q] -> [Q, D]."""
-        B, N, C = feats.shape
-        return sparse_conv.gather_gemm_conv(
-            feats.reshape(B * N, C), nmap, self.weight.to(feats.dtype))
-
 
 class SubMConv3d(_SparseConv):
     """Submanifold conv on a precomputed batch-flat neighbor map (gga_tpu
@@ -154,9 +149,9 @@ class SubMConv3d(_SparseConv):
 
     def forward(self, feats, valid, nmap):
         """feats [B, N, C]; valid [B, N]; nmap [K, B*N] -> [B, N, D]."""
-        B, N, _ = feats.shape
-        out = self._conv(feats, nmap)
-        out = torch.where(valid.reshape(-1, 1), out, 0)
+        B, N, C = feats.shape
+        out = sp.SubMConvFunction.apply(feats.reshape(B * N, C),
+                                        valid.reshape(-1), nmap, self.weight)
         return out.reshape(B, N, self.out_channels)
 
 
@@ -172,12 +167,17 @@ class SparseConv3d(_SparseConv):
         self.out_budget = out_budget
 
     def forward(self, st: sp.SparseTensor) -> sp.SparseTensor:
-        oc, ov, og, fwd_flat = sp.downsample_rulebook_compact(
+        """The backward maps are built only where autograd records."""
+        grad = torch.is_grad_enabled()
+        oc, ov, og, fwd_flat, *bwd = sp.downsample_rulebook_compact(
             st.coords, st.valid, st.grid, self.kernel_size, self.stride,
-            self.padding, self.out_budget)
-        out = self._conv(st.features, fwd_flat)
-        out = torch.where(ov.reshape(-1, 1), out, 0)
-        B, M = ov.shape
+            self.padding, self.out_budget, backward=grad)
+        bwd_d, parity = bwd if grad else (None, None)
+        B, N, C = st.features.shape
+        out = sp.StridedConvFunction.apply(
+            st.features.reshape(B * N, C), self.weight, fwd_flat, bwd_d,
+            parity, ov.reshape(-1), self.kernel_size, self.stride)
+        M = ov.shape[1]
         return sp.SparseTensor(out.reshape(B, M, self.out_channels), oc, ov,
                                og)
 

@@ -40,6 +40,8 @@ class SparseEncoder(nn.Module):
                 'tile_stages and remat_blocks are TPU options of gga_tpu; '
                 'the port runs the row engine only')
         self.sparse_shape = tuple(sparse_shape)
+        self.stage_budgets = tuple(stage_budgets)
+        self.out_budget = out_budget
         self.conv_input = nn.Sequential(
             SubMConv3d(in_channels, base_channels),
             MaskedBatchNorm(base_channels))
@@ -72,21 +74,35 @@ class SparseEncoder(nn.Module):
         return flatten_nmap(sp.build_neighbor_map(st.coords, st.valid,
                                                   st.grid))
 
-    def forward(self, feats, coords, valid):
-        """feats [B, V, C]; coords [B, V, 3] (z, y, x) sorted; valid [B, V]."""
+    def forward(self, feats, coords, valid, diag=None):
+        """feats [B, V, C]; coords [B, V, 3] (z, y, x) sorted; valid [B, V].
+
+        With a dict ``diag``, records the budget occupancy after each
+        strided conv (``occupancy_stage{i}``, ``occupancy_out``: mean
+        active sites per scene over the budget; 1.0 means the budget
+        saturated), as gga_tpu sows them."""
         st = sp.SparseTensor(feats, coords, valid, self.sparse_shape)
         nmap = self._subm_map(st)
         conv, bn = self.conv_input
         st.features = F.relu(bn(conv(feats, valid, nmap), valid))
-        for layer in self.encoder_layers.values():
+        for i, layer in enumerate(self.encoder_layers.values()):
             for block in layer:
                 if isinstance(block, SparseConvBlock):
                     st = block(st)
+                    if diag is not None:
+                        diag[f'occupancy_stage{i}'] = _occupancy(
+                            st.valid, self.stage_budgets[i])
                     nmap = self._subm_map(st)
                 else:
                     st.features = block(st.features, st.valid, nmap)
         st = self.conv_out(st)
+        if diag is not None:
+            diag['occupancy_out'] = _occupancy(st.valid, self.out_budget)
         return _densify(st)
+
+
+def _occupancy(valid, budget):
+    return valid.sum(-1).float().mean() / budget
 
 
 def _densify(st):
