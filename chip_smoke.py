@@ -12,7 +12,8 @@ paths on one NVIDIA card.
    of all 21 sparse conv calls; each is replayed through gather_gemm_conv
    and its plain version, |kernel - plain| <= 1e-2 * max|plain| + one bf16
    ulp, and both are timed with CUDA events beside the card's bound (the
-   bytes count each distinct source row the call's map hits once).
+   bytes count each distinct source row the call's map hits once); one row
+   per (K, C, D) with its share of the bound (bound_ms / ms).
 4. Stage-3 phase: ``apis.infer`` on distinct batches after a warm-up, with
    the launch count read around the run (exactly 21 per forward), scenes/s,
    a per-stage breakdown, a torch.profiler view, and the BEV map and head
@@ -28,11 +29,13 @@ paths on one NVIDIA card.
    batch-norm statistics. Prints scenes/s, a per-stage breakdown and a
    profile of one step.
 6. Train kernel phase: every recorded call is replayed through its kernel
-   and plain version (gather_gemm_dw |kernel - plain| <= 1e-4 max|plain|;
+   and plain version (gather_gemm_dw |kernel - plain| <= 1e-4 max|plain|,
+   and a second kernel call on the same inputs gives the same bits;
    gather_rows and gather_rows_t, the latter on the step's strided maps,
    exactly; render_heatmap |kernel - plain| <= 1e-6 with the same pixels
    at 1.0; the 16 input-gradient convs at the bf16 tolerance of 3.) and
-   timed beside the bound and, for gather_rows, index_select.
+   timed beside the bound (per (K, C, D) with its share for the two
+   sparse-conv kernels) and, for gather_rows, index_select.
 7. Whole step, kernels vs plain: one step's loss and gradients with every
    kernel and with every plain version, from the same weights, batch and
    SRL draw: loss within 1e-2 relative, grad norm within 5e-2 relative,
@@ -41,8 +44,10 @@ paths on one NVIDIA card.
    moves that gradient further (the bf16 step is that sensitive at this
    operating point), within twice that distance and never below 0.97;
    each batch-norm statistics update within 1e-2 of its largest entry.
-8. Prints one JSON line describing the kernels, the card, then, as the
-   last line, {"ok": true, "device": {...}}. Any failed phase exits
+   The plain step's one-ulp grad-norm change is printed beside.
+8. Prints one JSON line describing the kernels (each with its time,
+   launches, bound and bound_share = bound_ms / ms), the card, then, as
+   the last line, {"ok": true, "device": {...}}. Any failed phase exits
    non-zero.
 
 Everything it measures is also written to chiprun_out/chip_smoke.json.
@@ -249,7 +254,7 @@ def print_conv_rows(title, rows):
     print(title)
     print(f'{"K":>3} {"C":>4} {"D":>4} {"calls":>5} {"Q":>7} {"hits":>9} '
           f'{"MB":>8} {"GFLOP":>7} {"ms":>8} {"plain_ms":>9} {"bound_ms":>9} '
-          f'{"max_err":>8}')
+          f'{"share":>6} {"max_err":>8}')
     shapes = {}
     for r in rows:
         shapes.setdefault((r['K'], r['C'], r['D']), []).append(r)
@@ -261,6 +266,7 @@ def print_conv_rows(title, rows):
               f'{s["hits"]:>9} {s["bytes"] / 1e6:>8.2f} '
               f'{s["flops"] / 1e9:>7.2f} {s["ms"]:>8.4f} '
               f'{s["plain_ms"]:>9.4f} {bound:>9.5f} '
+              f'{100 * bound / s["ms"]:>5.1f}% '
               f'{max(r["max_abs_err"] for r in rs):>8.4f}')
 
 
@@ -518,8 +524,12 @@ def dw_rows(torch, sparse_conv, calls):
     real, plain = sparse_conv.gather_gemm_dw, sparse_conv.gather_gemm_dw_plain
     for i, (_, (f, nmap, dout)) in enumerate(calls):
         out = real(f, nmap, dout)
+        again = real(f, nmap, dout)
         ref = plain(f, nmap, dout)
         torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            fail(f'train kernels: gather_gemm_dw call {i} {tuple(out.shape)} '
+                 'gave other bits on a second call')
         err = float((out - ref).abs().max())
         scale = float(ref.abs().max())
         if not err <= DW_RTOL * scale:
@@ -705,7 +715,7 @@ def step_comparison(torch, mods, trainer, batch):
         loss_p, norm_p, g_p, bn_p = loss_and_grads(torch, trainer, batch,
                                                    srl)
         with input_ulp_noise(torch, trainer.model):
-            _, _, g_n, _ = loss_and_grads(torch, trainer, batch, srl)
+            _, norm_n, g_n, _ = loss_and_grads(torch, trainer, batch, srl)
 
     def cosines(a, b):
         return {n: float(torch.nn.functional.cosine_similarity(
@@ -727,6 +737,7 @@ def step_comparison(torch, mods, trainer, batch):
                loss_rel=abs(loss_k - loss_p) / abs(loss_p),
                grad_norm_kernel=norm_k, grad_norm_plain=norm_p,
                grad_norm_rel=abs(norm_k - norm_p) / norm_p,
+               grad_norm_rel_plain_ulp_noise=abs(norm_n - norm_p) / norm_p,
                conv_weight_grads=len(cos), min_cosine=min(cos.values()),
                min_cosine_plain_ulp_noise=min(cos_noise.values()),
                bn_update_max_rel_err=bn_err[worst_bn], bn_buffers=len(bn_err),
@@ -753,15 +764,15 @@ def step_comparison(torch, mods, trainer, batch):
 def kernel_entry(name, source, replaces, launches, rows, library_ms=None):
     bytes_ms = sum(r['bytes_ms'] for r in rows)
     flops_ms = sum(r['flops_ms'] for r in rows)
+    ms = sum(r['ms'] for r in rows)
+    bound = sum(max(r['bytes_ms'], r['flops_ms']) for r in rows)
     return dict(
         name=name, route='cuda', source=f'gga_tpu_torch/kernels/csrc/{source}',
         replaces=replaces, launches=launches,
-        max_abs_err=max(r['max_abs_err'] for r in rows),
-        ms=sum(r['ms'] for r in rows),
-        plain_ms=sum(r['plain_ms'] for r in rows),
-        bound_ms=sum(max(r['bytes_ms'], r['flops_ms']) for r in rows),
+        max_abs_err=max(r['max_abs_err'] for r in rows), ms=ms,
+        plain_ms=sum(r['plain_ms'] for r in rows), bound_ms=bound,
         bound_by='bytes' if bytes_ms >= flops_ms else 'operations',
-        library_ms=library_ms)
+        library_ms=library_ms, bound_share=bound / ms)
 
 
 def main():
@@ -883,7 +894,9 @@ def main():
           f'vs {cmp_step["loss_plain"]:.6g} (rel {cmp_step["loss_rel"]:.3g}),'
           f' grad norm {cmp_step["grad_norm_kernel"]:.6g} vs '
           f'{cmp_step["grad_norm_plain"]:.6g} (rel '
-          f'{cmp_step["grad_norm_rel"]:.3g}), min cosine of the '
+          f'{cmp_step["grad_norm_rel"]:.3g}; plain step, one ulp of input '
+          f'noise: {cmp_step["grad_norm_rel_plain_ulp_noise"]:.3g}), min '
+          f'cosine of the '
           f'{N_CONVS} sparse conv weight gradients '
           f'{cmp_step["min_cosine"]:.6f} (plain step, one ulp of input '
           f'noise: {cmp_step["min_cosine_plain_ulp_noise"]:.6f}); batch-norm '

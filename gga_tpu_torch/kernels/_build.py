@@ -2,9 +2,10 @@
 shared library with a plain C interface, loaded with ``ctypes``.
 
 Each source under ``csrc/`` is compiled at first use for ``sm_90a`` into
-``build/`` beside this file (gitignored). The library is named by the
-source's digest, so an edited source rebuilds and an unchanged one loads
-the library already there. ``build_all`` starts one ``nvcc`` per source at
+``build/`` beside this file (gitignored). The library is named by a digest
+of the source, every shared header ``csrc/*.cuh`` and the nvcc flags, so
+an edit to any of them rebuilds and an unchanged tree loads the library
+already there. ``build_all`` starts one ``nvcc`` per source at
 once and waits for all of them, so a fresh checkout builds in the time of
 the slowest source.
 
@@ -29,6 +30,9 @@ MAX_SMEM = 232448
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+# nvcc flags besides the output and the source
+FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+         '-shared', '-Xcompiler', '-fPIC')
 
 _libs = {}
 _lock = threading.Lock()
@@ -44,8 +48,11 @@ def _nvcc():
 
 def _so_path(name):
     src = CSRC / f'{name}.cu'
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return src, BUILD / f'lib{name}_{digest}.so'
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob('*.cuh')):
+        h.update(header.name.encode() + b'\0' + header.read_bytes())
+    h.update('\0'.join(FLAGS).encode())
+    return src, BUILD / f'lib{name}_{h.hexdigest()[:12]}.so'
 
 
 def _start(name):
@@ -55,8 +62,7 @@ def _start(name):
         return None
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f'.{os.getpid()}.tmp')
-    cmd = [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-           '-O3', '-shared', '-Xcompiler', '-fPIC', '-o', str(tmp), str(src)]
+    cmd = [_nvcc(), *FLAGS, '-o', str(tmp), str(src)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True), tmp, so
 

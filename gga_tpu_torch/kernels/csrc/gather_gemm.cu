@@ -7,204 +7,473 @@
 //
 // Replaces gga_tpu/ops/pallas/window_gather.py:_window_conv (the TPU
 // kernel _conv_kernel). It computes the forward of every submanifold conv
-// (nmap = the stage's neighbor map) and of every strided conv (nmap = the
-// rulebook's forward map) of the sparse encoder. The TPU kernel's
-// wide-row view, one-hot window selection and overflow fallback are not
-// carried over: a block here loads its own indices and gathers the rows
-// it needs straight from device memory.
+// (nmap = the stage's neighbor map), of every strided conv (nmap = the
+// rulebook's forward map) and the input gradient of every submanifold
+// conv (same map, weights flipped over k and transposed). The TPU
+// kernel's wide-row view, one-hot window selection and overflow fallback
+// are not carried over: the kernel reads its own indices and gathers the
+// rows it needs straight from device memory.
 //
-// What bounds it on an H100: the work is 2 * hits * C * D flops against
-// the gathered rows (hits * C * 2 bytes, mostly from L2 since every row is
-// gathered by up to K outputs) plus one [Q, D] write. At the encoder's
-// widths (C, D <= 128) that is well under the ~295 flop/byte the tensor
-// cores need, so the kernel is bound by memory traffic, not by the MMAs.
-// The design keeps each output row's K partial sums in registers, so the
-// [K, Q, C] gathered intermediate of the plain version never reaches
-// device memory and each output row is written once. It skips an offset
-// whose indices are all misses in the tile (most offsets at stage 0).
+// What bounds it on an H100. The work is 2 * hits * C * D flops against
+// the gathered rows (hits * C * 2 bytes, from L2: each row is gathered by
+// up to K outputs), the weights and one [Q, D] write. At the encoder's
+// widths the flops bound sits below the bytes bound (per stage-3 forward
+// 0.18 ms of tensor-core time against 0.28 ms of device memory), so the
+// kernel is bound by memory, and in practice by the latency and the rate
+// of the row gathers: every output row is a chain of K dependent gathers.
+// The earlier design ran that chain as K serial round trips (load
+// indices, vote, gather, stage W[k] with 2-byte transposed stores, MMA)
+// with no copy in flight during the MMAs. Two paths replace it.
 //
-// Simple first design, one block per tile of BM = 64 output rows, four
-// warps of 16 rows each, all output columns of the block per warp:
-//   for each offset k:
-//     load the tile's 64 indices; skip k if all miss
-//     gather the hit rows into shared memory (zeros for misses and for
-//     the columns that pad C up to the MMA depth of 16)
-//     stage W[k] (transposed, zero-padded) in shared memory
-//     mma.sync m16n8k16 bf16 -> f32 into register accumulators
-//   round and write the [64, BN] tile once.
-// D wider than 128 is split over blockIdx.y. No wgmma, TMA or pipelining
-// yet: those belong to a later, faster version.
+// Narrow path (C and D <= 32, even: conv_input and stages 0-1, forward and
+// input gradient). W of all K offsets stays resident in shared memory
+// (<= 69 KB), loaded once per persistent block in its natural [C, D]
+// layout. Each warp then owns 16 output rows at a time and needs no
+// barrier: for a chunk of offsets it loads the A fragments of mma.sync
+// m16n8k16 straight from the gathered feature rows into registers (4-byte
+// loads; zeros for misses and the C padding) while the next chunk's
+// indices load, then runs the MMAs with B fragments from the resident W by
+// ldmatrix .trans.
+// An offset that no row of the warp hits is skipped. With a few hundred
+// such independent chains per SM the gather latency is hidden by
+// parallelism instead of by a ring.
+//
+// Tile path (everything else: C or D >= 64 and odd widths), one block per
+// tile of BM output rows and BN <= 128 output columns:
+//   1. Indices once: the block copies its whole [K, BM] index tile with
+//      cp.async in one round trip (an index >= R traps) and lists the
+//      offsets with at least one hit. An all-miss tile writes zeros.
+//   2. A ring of cp.async stages: pipeline item i is (live offset, C chunk
+//      of <= 128 columns). Its rows are gathered by 16-byte cp.async with
+//      zero-fill (misses, C padding; 8- or 4-byte copies for rows that are
+//      not 16-byte multiples) and its W[k] tile is copied in its natural
+//      [C, D] layout, while the MMAs of item i - 2 run. Three stages, or
+//      two where that lets two blocks share an SM (64 -> 128). The copy
+//      loops and the ring's positions are written for few instructions:
+//      at the wide stages the kernel is bound by issuing them as much as
+//      by the L2 gathers.
+//   3. mma.sync m16n8k16 bf16 -> f32, A by ldmatrix, B by ldmatrix .trans
+//      from the row-major W tile: no transposed staging anywhere. Warps
+//      tile 32 x BN / 2 (BN >= 64) or 16 x BN.
+//   4. The [BM, BN] result is rounded to bf16 once, staged in shared
+//      memory and written with 16-byte stores.
+// mma.sync rather than wgmma: the tensor-core time at full rate (0.18 ms a
+// forward) is below the memory time, and the measured kernels run at 8-16 %
+// of the bytes bound at the wide stages, paced by issuing the ring's copies
+// and its ldmatrix and MMA work one after the other; at 128 -> 128 the
+// MMAs are about half of that, where wgmma would be the next step.
+// D wider than 128 is split over blockIdx.y; C wider than 128 takes several
+// items per offset. Offsets into features, nmap and W are 64-bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gather_tile.cuh"
+
 namespace {
 
-constexpr int BM = 64;        // output rows per block
-constexpr int THREADS = 128;  // four warps, 16 rows each
+using namespace gga;
 
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+constexpr int MAX_SMEM = 232448;  // per block, H100
+
+// ---- narrow path ----------------------------------------------------------
+
+constexpr int N_WARPS = 8;
+constexpr int N_THREADS = 32 * N_WARPS;
+
+__host__ inline int narrow_smem(int K, int kp, int bn) {
+  return K * kp * (bn + 8) * 2;
 }
 
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// KP = C padded to 16 (16 or 32), BN = D padded to 16 (16 or 32)
+template <int KP, int BN>
+__global__ void __launch_bounds__(N_THREADS)
+conv_narrow(const bf16* __restrict__ feat, const int* __restrict__ nmap,
+            const bf16* __restrict__ w, bf16* __restrict__ out, int R, int C,
+            int K, int Q, int D) {
+  constexpr int LDB = BN + 8;
+  constexpr int KS = KP / 16;  // MMA k steps per offset
+  constexpr int NT = BN / 8;
+  constexpr int KC = KP == 16 ? 9 : 3;  // offsets a warp holds at once
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* wres = reinterpret_cast<bf16*>(smem);  // [K][KP][LDB]
 
-// Row pitch of the shared tiles, in bf16 elements: C padded to the MMA
-// depth (16) plus 8 so that consecutive rows start on different banks.
-__host__ __device__ __forceinline__ int row_pitch(int C) {
-  return ((C + 15) & ~15) + 8;
-}
-
-// NT = number of 8-wide MMA column tiles per block (BN = 8 * NT columns).
-template <int NT>
-__global__ void __launch_bounds__(THREADS)
-gather_gemm_kernel(const __nv_bfloat16* __restrict__ feat,
-                   const int* __restrict__ nmap,
-                   const __nv_bfloat16* __restrict__ w,
-                   __nv_bfloat16* __restrict__ out,
-                   int R, int C, int K, int Q, int D) {
-  constexpr int BN = NT * 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int Cp = (C + 15) & ~15;
-  const int ld = row_pitch(C);
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // [BM][ld]
-  __nv_bfloat16* Bs = As + BM * ld;                              // [BN][ld]
-  int* rows = reinterpret_cast<int*>(Bs + BN * ld);              // [BM]
-
-  const int q0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int g = lane >> 2;  // MMA group id: fragment row (A, C) / column (B)
-  const int t = lane & 3;   // thread in group: fragment column pair
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  const int g = lane >> 2;
+  const int t = lane & 3;
 
+  for (int k = 0; k < K; ++k) {  // zeros past C and D
+    copy_tile_async<N_THREADS>(wres + k * KP * LDB, LDB, KP, BN,
+                               w + static_cast<size_t>(k) * C * D, D, 0, C, 0,
+                               D, tid);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // The warp walks (16-row tile, chunk of KC offsets) positions; the
+  // indices of the next position load while the current one's rows are
+  // gathered and multiplied.
+  const int tiles = ceil_div(Q, 16);
+  const int stride = gridDim.x * N_WARPS;
+  auto load_idx = [&](int tile, int k0, int (&xa)[KC], int (&xb)[KC]) {
+    const int qa = tile * 16 + g;  // fragment rows g and g + 8
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      const size_t base = static_cast<size_t>(k0 + j) * Q;
+      const bool ok = tile < tiles && k0 + j < K;
+      xa[j] = ok && qa < Q ? __ldg(nmap + base + qa) : -1;
+      xb[j] = ok && qa + 8 < Q ? __ldg(nmap + base + qa + 8) : -1;
+    }
+  };
+  int tile = blockIdx.x * N_WARPS + warp;
+  int k0 = 0;
+  int ia[KC], ib[KC];
+  load_idx(tile, k0, ia, ib);
   float acc[NT][4];
 #pragma unroll
-  for (int i = 0; i < NT; ++i) {
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  }
-
-  for (int k = 0; k < K; ++k) {
-    __syncthreads();  // the previous offset's MMAs are done with the tiles
-    int any = 0;
-    if (tid < BM) {
-      const int q = q0 + tid;
-      int r = -1;
-      if (q < Q) {
-        r = nmap[static_cast<size_t>(k) * Q + q];
-        if (r >= R) __trap();  // an index past the feature rows is a caller bug
-      }
-      rows[tid] = r;
-      any = r >= 0;
+  for (int i = 0; i < NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  while (tile < tiles) {
+    int next_tile = tile, next_k0 = k0 + KC;
+    if (next_k0 >= K) {
+      next_tile += stride;
+      next_k0 = 0;
     }
-    if (!__syncthreads_or(any)) continue;  // uniform: every thread skips
+    int na[KC], nb[KC];
+    load_idx(next_tile, next_k0, na, nb);
 
-    // gather the tile's rows (64-bit offsets: R * C exceeds 2^31 easily)
-    if ((C & 7) == 0) {
-      const int chunks = Cp >> 3;  // 16-byte chunks per shared row
-      for (int e = tid; e < BM * chunks; e += THREADS) {
-        const int r = e / chunks;
-        const int c = (e - r * chunks) << 3;
-        const int src = rows[r];
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (src >= 0 && c < C) {
-          v = *reinterpret_cast<const uint4*>(
-              feat + static_cast<size_t>(src) * C + c);
+    // a[j][s]: rows g / g + 8, columns 16 s + 2 t (+ 8), zeros past C
+    uint32_t a[KC][KS][4];
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      if (ia[j] >= R || ib[j] >= R) __trap();  // a caller bug
+      const uint32_t* ra = reinterpret_cast<const uint32_t*>(
+          feat + static_cast<size_t>(ia[j] < 0 ? 0 : ia[j]) * C);
+      const uint32_t* rb = reinterpret_cast<const uint32_t*>(
+          feat + static_cast<size_t>(ib[j] < 0 ? 0 : ib[j]) * C);
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        const int c = 16 * s + 2 * t;
+        a[j][s][0] = ia[j] >= 0 && c < C ? __ldg(ra + c / 2) : 0u;
+        a[j][s][1] = ib[j] >= 0 && c < C ? __ldg(rb + c / 2) : 0u;
+        a[j][s][2] = ia[j] >= 0 && c + 8 < C ? __ldg(ra + c / 2 + 4) : 0u;
+        a[j][s][3] = ib[j] >= 0 && c + 8 < C ? __ldg(rb + c / 2 + 4) : 0u;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      if (!__any_sync(0xffffffffu, ia[j] >= 0 || ib[j] >= 0)) continue;
+      const bf16* wk = wres + (k0 + j) * KP * LDB;
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t b[4];
+          load_b_pair(b, wk + 16 * s * LDB + np * 16, LDB, lane);
+          mma_16816(acc[2 * np], a[j][s], b[0], b[1]);
+          mma_16816(acc[2 * np + 1], a[j][s], b[2], b[3]);
         }
-        *reinterpret_cast<uint4*>(As + r * ld + c) = v;
-      }
-    } else {  // rows not 16-byte aligned (e.g. C = 4): scalar loads
-      for (int e = tid; e < BM * Cp; e += THREADS) {
-        const int r = e / Cp;
-        const int c = e - r * Cp;
-        const int src = rows[r];
-        __nv_bfloat16 v = zero;
-        if (src >= 0 && c < C) v = feat[static_cast<size_t>(src) * C + c];
-        As[r * ld + c] = v;
       }
     }
-    // stage W[k][:, n0:n0+BN] transposed, so a B fragment is one 32-bit load
-    const __nv_bfloat16* wk = w + static_cast<size_t>(k) * C * D;
-    for (int e = tid; e < Cp * BN; e += THREADS) {
-      const int c = e / BN;
-      const int n = e - c * BN;
-      __nv_bfloat16 v = zero;
-      if (c < C && n0 + n < D) v = wk[static_cast<size_t>(c) * D + n0 + n];
-      Bs[n * ld + c] = v;
-    }
-    __syncthreads();
 
-    // PTX fragment layouts of mma.m16n8k16 (bf16): A reg i holds row
-    // g (+8 for regs 1, 3), columns 2t, 2t+1 (+8 for regs 2, 3); B reg j
-    // holds rows 2t, 2t+1 (+8 for reg 1) of column g.
-    const __nv_bfloat16* a0 = As + (warp * 16 + g) * ld + 2 * t;
-    const __nv_bfloat16* a1 = a0 + 8 * ld;
-    for (int kk = 0; kk < Cp; kk += 16) {
-      uint32_t a[4];
-      a[0] = lds32(a0 + kk);
-      a[1] = lds32(a1 + kk);
-      a[2] = lds32(a0 + kk + 8);
-      a[3] = lds32(a1 + kk + 8);
+    if (next_k0 == 0) {
+      // the tile is done: round once; rows g and g + 8, columns 8 nt + 2 t
+      // (D is even)
+      const int qa = tile * 16 + g;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        const __nv_bfloat16* b = Bs + (nt * 8 + g) * ld + kk + 2 * t;
-        mma_16816(acc[nt], a, lds32(b), lds32(b + 8));
+        const int col = nt * 8 + 2 * t;
+        if (col < D && qa < Q) {
+          *reinterpret_cast<__nv_bfloat162*>(
+              out + static_cast<size_t>(qa) * D + col) =
+              __floats2bfloat162_rn(acc[nt][0], acc[nt][1]);
+        }
+        if (col < D && qa + 8 < Q) {
+          *reinterpret_cast<__nv_bfloat162*>(
+              out + static_cast<size_t>(qa + 8) * D + col) =
+              __floats2bfloat162_rn(acc[nt][2], acc[nt][3]);
+        }
+        acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
       }
     }
-  }
-
-  // C fragment: regs 0, 1 are row g, columns 2t, 2t+1; regs 2, 3 row g+8
+    tile = next_tile;
+    k0 = next_k0;
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int col = n0 + nt * 8 + 2 * t;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int q = q0 + warp * 16 + g + 8 * h;
-      if (q >= Q) continue;
-      __nv_bfloat16* o = out + static_cast<size_t>(q) * D + col;
-      if (col < D) o[0] = __float2bfloat16_rn(acc[nt][2 * h]);
-      if (col + 1 < D) o[1] = __float2bfloat16_rn(acc[nt][2 * h + 1]);
+    for (int j = 0; j < KC; ++j) {
+      ia[j] = na[j];
+      ib[j] = nb[j];
     }
   }
 }
 
-template <int NT>
-int launch(const void* feat, const void* nmap, const void* w, void* out,
-           int R, int C, int K, int Q, int D, cudaStream_t stream) {
-  const size_t smem =
-      static_cast<size_t>(BM + NT * 8) * row_pitch(C) * sizeof(__nv_bfloat16) +
-      BM * sizeof(int);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gather_gemm_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+template <int KP, int BN>
+int launch_narrow(const void* feat, const void* nmap, const void* w, void* out,
+                  int R, int C, int K, int Q, int D, cudaStream_t stream) {
+  const auto kern = conv_narrow<KP, BN>;
+  const int smem = narrow_smem(K, KP, BN);
+  int fit = 0;
+  const cudaError_t err = card_blocks(reinterpret_cast<const void*>(kern),
+                                      N_THREADS, smem, &fit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = ceil_div(ceil_div(Q, 16), N_WARPS);
+  if (blocks > fit) blocks = fit;  // persistent: one wave
+  kern<<<blocks, N_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(feat), static_cast<const int*>(nmap),
+      static_cast<const bf16*>(w), static_cast<bf16*>(out), R, C, K, Q, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- tile path ------------------------------------------------------------
+
+constexpr int CK = 128;  // input columns per pipeline item
+
+// Shared memory: [K][BM] indices, K flags, K + 1 live-list entries, then
+// the ring.
+__host__ __device__ inline int head_bytes(int K, int bm) {
+  return ((K * bm + 2 * K + 1) * 4 + 15) & ~15;
+}
+
+struct Plan {
+  int bm;      // output rows per tile: 16 per warp
+  int bn;      // output columns per block
+  int stages;  // ring depth
+  int smem;    // bytes
+};
+
+__host__ __device__ inline int stage_elems(int bm, int ck, int bn) {
+  return bm * (ck + 8) + ck * (bn + 8);
+}
+
+__host__ inline int smem_for(int K, int C, int bm, int bn, int stages) {
+  const int cp = round16(C);
+  const int ck = cp < CK ? cp : CK;
+  int ring = stages * stage_elems(bm, ck, bn);
+  if (ring < bm * (bn + 8)) ring = bm * (bn + 8);  // the epilogue's staging
+  return head_bytes(K, bm) + ring * 2;
+}
+
+__host__ inline Plan plan_for(int K, int C, int D) {
+  Plan p;
+  p.bn = D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
+  p.bm = p.bn <= 32 ? 64 : 128;
+  // three stages, or two where only two let a second block share the SM
+  const int three = smem_for(K, C, p.bm, p.bn, 3);
+  const int two = smem_for(K, C, p.bm, p.bn, 2);
+  p.stages = three > MAX_SMEM || (three > MAX_SMEM / 2 && two <= MAX_SMEM / 2)
+                 ? 2 : 3;
+  p.smem = p.stages == 3 ? three : two;
+  return p;
+}
+
+// at most stages - 2 groups in flight
+__device__ __forceinline__ void wait_ring(int stages) {
+  if (stages >= 3) cp_async_wait<1>();
+  else cp_async_wait<0>();
+}
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(2 * BM)
+conv_tile(const bf16* __restrict__ feat, const int* __restrict__ nmap,
+          const bf16* __restrict__ w, bf16* __restrict__ out, int R, int C,
+          int K, int Q, int D, int stages) {
+  constexpr int WARPS = BM / 16;
+  constexpr int THREADS = 32 * WARPS;
+  constexpr int WN = BN >= 64 ? 2 : 1;   // warps along the columns
+  constexpr int WM = WARPS / WN;         // warps along the rows
+  constexpr int MT = BM / (16 * WM);     // 16-row MMA tiles per warp
+  constexpr int NT = BN / (8 * WN);      // 8-column MMA tiles per warp
+  constexpr int LDB = BN + 8;
+  static_assert(NT % 2 == 0, "B fragments come in pairs of 8 columns");
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int cp = round16(C);
+  const int ck = cp < CK ? cp : CK;
+  const int nck = ceil_div(cp, CK);      // pipeline items per offset
+  const int lda = ck + 8;
+  int* idx = reinterpret_cast<int*>(smem);  // [K][BM]
+  int* flag = idx + K * BM;                 // [K]
+  int* live = flag + K;                     // [K] live offsets, then count
+  bf16* ring = reinterpret_cast<bf16*>(smem + head_bytes(K, BM));
+  const int a_elems = BM * lda;
+  const int stage = stage_elems(BM, ck, BN);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row0 = (warp / WN) * MT * 16;  // warp's first row in the tile
+  const int col0 = (warp % WN) * NT * 8;   // warp's first column
+  const int q0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+
+  // 1. the tile's indices of all offsets, by cp.async in one round trip
+  //    (rows past Q arrive as 0 and are set to -1 below); live offsets
+  for (int k = tid; k < K; k += THREADS) flag[k] = 0;
+  if ((Q & 3) == 0 && (reinterpret_cast<uintptr_t>(nmap) & 15) == 0) {
+    for (int e = tid; e < K * BM / 4; e += THREADS) {
+      const int k = e / (BM / 4);
+      const int m = (e - k * (BM / 4)) * 4;
+      const bool ok = q0 + m < Q;  // Q % 4 == 0: whole chunks in or out
+      cp_async<16>(idx + k * BM + m,
+                   ok ? nmap + static_cast<size_t>(k) * Q + q0 + m : nmap, ok);
+    }
+  } else {
+    for (int e = tid; e < K * BM; e += THREADS) {
+      const int k = e / BM;
+      const int q = q0 + (e & (BM - 1));
+      cp_async<4>(idx + e, q < Q ? nmap + static_cast<size_t>(k) * Q + q : nmap,
+                  q < Q);
+    }
   }
-  const dim3 grid((Q + BM - 1) / BM, (D + NT * 8 - 1) / (NT * 8));
-  gather_gemm_kernel<NT><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(feat), static_cast<const int*>(nmap),
-      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(out),
-      R, C, K, Q, D);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int e = tid; e < K * BM; e += THREADS) {
+    const int r = q0 + (e & (BM - 1)) < Q ? idx[e] : -1;
+    if (r >= R) __trap();  // an index past the feature rows is a caller bug
+    if (r >= 0) flag[e / BM] = 1;
+    idx[e] = r;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int k0 = 0; k0 < K; k0 += 32) {
+      const bool on = k0 + lane < K && flag[k0 + lane];
+      const unsigned bits = __ballot_sync(0xffffffffu, on);
+      if (on) live[n + __popc(bits & ((1u << lane) - 1u))] = k0 + lane;
+      n += __popc(bits);
+    }
+    if (lane == 0) live[K] = n;
+  }
+  __syncthreads();
+  const int items = live[K] * nck;
+
+  // 2-3. the ring: item it = (live offset it / nck, C chunk it % nck), in
+  // ring slot it % stages; positions advance by counting, not dividing
+  int p_it = 0, p_li = 0, p_ci = 0, p_slot = 0;  // the next item to copy
+  auto issue = [&]() {
+    if (p_it < items) {
+      const int k = live[p_li];
+      const int c0 = p_ci * CK;
+      const int cw = min(ck, cp - c0);
+      bf16* a = ring + p_slot * stage;
+      const int* rows = idx + k * BM;
+      gather_rows_async<THREADS>(
+          a, lda, BM, [rows](int r) { return rows[r]; }, feat, C, c0, cw,
+          tid);
+      copy_tile_async<THREADS>(a + a_elems, LDB, cw, BN,
+                               w + static_cast<size_t>(k) * C * D, D, c0, C,
+                               n0, D, tid);
+    }
+    cp_async_commit();
+    ++p_it;
+    if (++p_ci == nck) {
+      p_ci = 0;
+      ++p_li;
+    }
+    if (++p_slot == stages) p_slot = 0;
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+
+  for (int s = 0; s < stages - 1; ++s) issue();
+  int ci = 0, slot = 0;  // the item being multiplied
+  for (int it = 0; it < items; ++it) {
+    wait_ring(stages);  // item it has landed for this thread
+    __syncthreads();    // ... for every thread; item it - 1's MMAs are done
+    issue();
+    const int cw = min(ck, cp - ci * CK);
+    const bf16* a_t = ring + slot * stage + row0 * lda;
+    const bf16* b_t = ring + slot * stage + a_elems + col0;
+    if (++ci == nck) ci = 0;
+    if (++slot == stages) slot = 0;
+    for (int kk = 0; kk < cw; kk += 16) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        load_a(a[mt], a_t + mt * 16 * lda + kk, lda, lane);
+      }
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        load_b_pair(b, b_t + kk * LDB + np * 16, LDB, lane);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_16816(acc[mt][2 * np], a[mt], b[0], b[1]);
+          mma_16816(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+
+  // 4. round once, stage [BM][BN] in the ring, 16-byte stores
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      bf16* o = ring + (row0 + mt * 16 + g) * LDB + col0 + nt * 8 + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(o) =
+          __floats2bfloat162_rn(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * LDB) =
+          __floats2bfloat162_rn(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+  }
+  __syncthreads();
+  if ((D & 7) == 0) {
+    constexpr int CH = BN / 8;
+    for (int e = tid; e < BM * CH; e += THREADS) {
+      const int r = e / CH;
+      const int c = (e - r * CH) * 8;
+      if (q0 + r < Q && n0 + c < D) {
+        *reinterpret_cast<uint4*>(out + static_cast<size_t>(q0 + r) * D + n0 +
+                                  c) =
+            *reinterpret_cast<const uint4*>(ring + r * LDB + c);
+      }
+    }
+  } else {
+    for (int e = tid; e < BM * BN; e += THREADS) {
+      const int r = e / BN;
+      const int c = e - r * BN;
+      if (q0 + r < Q && n0 + c < D) {
+        out[static_cast<size_t>(q0 + r) * D + n0 + c] = ring[r * LDB + c];
+      }
+    }
+  }
+}
+
+template <int BM, int BN>
+int launch_tile(const Plan& p, const void* feat, const void* nmap,
+                const void* w, void* out, int R, int C, int K, int Q, int D,
+                cudaStream_t stream) {
+  const auto kern = conv_tile<BM, BN>;
+  int fit = 0;  // lifts the kernel's shared-memory limit on first use
+  const cudaError_t err = card_blocks(reinterpret_cast<const void*>(kern),
+                                      2 * BM, p.smem, &fit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<dim3(ceil_div(Q, BM), ceil_div(D, BN)), 2 * BM, p.smem, stream>>>(
+      static_cast<const bf16*>(feat), static_cast<const int*>(nmap),
+      static_cast<const bf16*>(w), static_cast<bf16*>(out), R, C, K, Q, D,
+      p.stages);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Shared memory a block needs for input width C (at the widest column
-// split), so the caller can refuse widths the card cannot hold.
+// Shared memory a block needs for input width C at K = 27 and the widest
+// column split, so the caller can refuse what the card cannot hold.
 extern "C" int gga_gather_gemm_smem_bytes(int C) {
-  return (BM + 128) * row_pitch(C) * static_cast<int>(sizeof(__nv_bfloat16)) +
-         BM * static_cast<int>(sizeof(int));
+  return plan_for(27, C, 128).smem;
 }
 
 // Returns the cudaError_t of the launch (0 = launched).
@@ -214,8 +483,21 @@ extern "C" int gga_gather_gemm_conv_bf16(const void* feat, const void* nmap,
                                          void* stream) {
   if (Q <= 0 || D <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 16) return launch<2>(feat, nmap, w, out, R, C, K, Q, D, s);
-  if (D <= 32) return launch<4>(feat, nmap, w, out, R, C, K, Q, D, s);
-  if (D <= 64) return launch<8>(feat, nmap, w, out, R, C, K, Q, D, s);
-  return launch<16>(feat, nmap, w, out, R, C, K, Q, D, s);
+  if (C <= 32 && C % 2 == 0 && D <= 32 && D % 2 == 0 &&
+      narrow_smem(K, round16(C), round16(D)) <= MAX_SMEM / 2) {
+    if (C <= 16) {
+      return D <= 16 ? launch_narrow<16, 16>(feat, nmap, w, out, R, C, K, Q, D, s)
+                     : launch_narrow<16, 32>(feat, nmap, w, out, R, C, K, Q, D, s);
+    }
+    return D <= 16 ? launch_narrow<32, 16>(feat, nmap, w, out, R, C, K, Q, D, s)
+                   : launch_narrow<32, 32>(feat, nmap, w, out, R, C, K, Q, D, s);
+  }
+  const Plan p = plan_for(K, C, D);
+  if (p.smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  switch (p.bn) {
+    case 16: return launch_tile<64, 16>(p, feat, nmap, w, out, R, C, K, Q, D, s);
+    case 32: return launch_tile<64, 32>(p, feat, nmap, w, out, R, C, K, Q, D, s);
+    case 64: return launch_tile<128, 64>(p, feat, nmap, w, out, R, C, K, Q, D, s);
+    default: return launch_tile<128, 128>(p, feat, nmap, w, out, R, C, K, Q, D, s);
+  }
 }

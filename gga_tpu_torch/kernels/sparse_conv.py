@@ -92,7 +92,7 @@ def gather_gemm_conv(features, nmap, weights):
     if features.device.type == 'cpu':
         return gather_gemm_conv_plain(features, nmap, weights)
     _check('gather_gemm_conv', features, nmap, weights, 'weights',
-           ('features',))
+           ('features', 'weights'))
     if weights.dim() != 3:
         raise ValueError('gather_gemm_conv: expected weights [K, C, D]')
     K, C, D = weights.shape
@@ -138,16 +138,19 @@ def gather_gemm_dw(features, nmap, dout):
     K, Q = nmap.shape
     D = dout.shape[1]
     lib = build_dw()
-    splits = lib.gga_gather_gemm_dw_splits(K, C, D, Q)
     out = torch.empty((K, C, D), dtype=torch.float32, device=features.device)
     if out.numel() == 0:
         return out
-    scratch = torch.empty((splits, K, C, D), dtype=torch.float32,
-                          device=features.device)
-    if scratch.numel() >= 2 ** 31:
-        raise ValueError('gather_gemm_dw: the split scratch overflows the '
-                         'kernel\'s int32 sizes')
     with torch.cuda.device(features.device):
+        splits = lib.gga_gather_gemm_dw_splits(K, C, D, Q)
+        if splits < 1:
+            raise ValueError(f'gather_gemm_dw: (K, C, D) = {(K, C, D)} needs '
+                             'more shared memory than a block has')
+        scratch = torch.empty((splits, K, C, D), dtype=torch.float32,
+                              device=features.device)
+        if scratch.numel() >= 2 ** 31:
+            raise ValueError('gather_gemm_dw: the split scratch overflows '
+                             'the kernel\'s int32 sizes')
         err = lib.gga_gather_gemm_dw_bf16(
             features.data_ptr(), nmap.data_ptr(), dout.data_ptr(),
             scratch.data_ptr(), out.data_ptr(), R, C, K, Q, D, splits,

@@ -15,7 +15,7 @@ plain version, on maps from the port's own builders where it takes maps:
   to bf16 once;
 - gather_gemm_dw (f32 output of bf16 inputs) at ``|kernel - plain| <=
   1e-3 * max|plain|``: both sum the same bf16 products in f32, in another
-  order, and round nothing else;
+  order, and round nothing else; two calls give the same bits;
 - gather_rows and gather_rows_t exactly: they copy bits;
 - render_heatmap at ``|kernel - plain| <= 1e-6`` (the two exps may differ
   by an ulp or two), with exactly the same pixels equal to 1.0.
@@ -95,18 +95,63 @@ def test_plain_version_is_a_masked_gather_gemm():
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
 
 
+# (map, C, D, K, Q): the encoder's widths on both sides of the narrow
+# path's limit (C and D <= 32 and even: W resident, A gathered into
+# registers) and the tile path's (the ring), C = 4, 12, 24 and 3 (rows
+# that are not 16-byte multiples: 8-byte, 16-byte and scalar copies),
+# C = 160 (two column chunks per offset), D = 20 (narrow path with D not a
+# multiple of 8) and 200 (split over the grid), K = 3 on both paths,
+# ragged Q, and synthetic maps
+_CONV_CASES = [
+    ('subm', 4, 16, 27, None), ('subm', 16, 16, 27, None),
+    ('subm', 32, 32, 27, 4093), ('subm', 32, 64, 27, None),
+    ('subm', 64, 64, 27, 4001), ('subm', 128, 128, 27, None),
+    ('strided', 64, 128, 27, 2047), ('subm', 24, 200, 27, None),
+    ('subm', 16, 20, 27, 4095), ('subm', 128, 128, 3, 4095),
+    ('subm', 160, 48, 27, None), ('subm', 12, 64, 27, 4094),
+    ('subm', 3, 40, 27, None), ('dense', 32, 32, 27, None),
+    ('dense', 128, 128, 27, 3001), ('single', 16, 16, 27, None),
+    ('single', 64, 128, 27, 3999), ('dup', 16, 32, 27, None),
+    ('dup', 16, 16, 3, 1001), ('dup', 64, 64, 3, 1001),
+]
+
+
+def _case_map(which, k, q):
+    """(nmap [k, Q] int32, source rows R): the port's neighbor map or
+    strided rulebook of a voxelized scene, or a synthetic map: 'dense'
+    (every offset hits every row), 'single' (one hit per 128-row tile),
+    'dup' (each source row hit by dozens of outputs); first k offsets,
+    first q rows."""
+    if which in ('subm', 'strided'):
+        subm, strided, rows = _scene_maps()
+        nmap = (subm if which == 'subm' else strided).numpy()
+    else:
+        rng = np.random.RandomState(11)
+        rows, n = 3000, 4096
+        if which == 'dense':
+            nmap = rng.randint(0, rows, (27, n))
+        elif which == 'single':
+            nmap = np.full((27, n), -1)
+            tiles = np.arange(0, n, 128)
+            nmap[rng.randint(0, 27, len(tiles)),
+                 tiles + rng.randint(0, 128, len(tiles))] = rng.randint(
+                     0, rows, len(tiles))
+        else:
+            dup = (np.arange(n)[None] * 5 + np.arange(27)[:, None]) // 64
+            nmap = np.where(rng.rand(27, n) < 0.7, dup % rows, -1)
+    return torch.from_numpy(
+        np.ascontiguousarray(nmap[:k, :q]).astype(np.int32)), rows
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('which,c,d', [
-    ('subm', 4, 16), ('subm', 16, 16), ('subm', 32, 64), ('subm', 128, 128),
-    ('strided', 64, 128), ('subm', 24, 200),
-])
-def test_cuda_kernel_matches_plain(which, c, d):
+@pytest.mark.parametrize('which,c,d,k,q', _CONV_CASES)
+def test_cuda_kernel_matches_plain(which, c, d, k, q):
     dev = _cuda()
-    subm, strided, rows = _scene_maps()
-    nmap = (subm if which == 'subm' else strided).to(dev)
+    nmap, rows = _case_map(which, k, q)
+    nmap = nmap.to(dev)
     rng = np.random.RandomState(c + d)
     f = torch.from_numpy(rng.randn(rows, c).astype(np.float32)).to(dev)
-    w = torch.from_numpy(rng.randn(27, c, d).astype(np.float32) * 0.2)
+    w = torch.from_numpy(rng.randn(k, c, d).astype(np.float32) * 0.2)
     f, w = f.bfloat16(), w.to(dev).bfloat16()
     before = sparse_conv.launches
     out = sparse_conv.gather_gemm_conv(f, nmap, w)
@@ -118,14 +163,17 @@ def test_cuda_kernel_matches_plain(which, c, d):
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_all_misses_give_zeros():
+@pytest.mark.parametrize('c,d,q', [(16, 32, 70), (128, 128, 300)])
+def test_cuda_kernel_all_misses_give_zeros(c, d, q):
     dev = _cuda()
-    f = torch.randn(100, 16, device=dev).bfloat16()
-    nmap = torch.full((27, 70), -1, dtype=torch.int32, device=dev)
-    w = torch.randn(27, 16, 32, device=dev).bfloat16()
+    f = torch.randn(100, c, device=dev).bfloat16()
+    nmap = torch.full((27, q), -1, dtype=torch.int32, device=dev)
+    w = torch.randn(27, c, d, device=dev).bfloat16()
+    dout = torch.randn(q, d, device=dev).bfloat16()
     out = sparse_conv.gather_gemm_conv(f, nmap, w)
+    dw = sparse_conv.gather_gemm_dw(f, nmap, dout)
     torch.cuda.synchronize()
-    assert (out == 0).all()
+    assert (out == 0).all() and (dw == 0).all()
 
 
 @pytest.mark.cuda
@@ -219,25 +267,41 @@ def test_plain_heatmap_is_one_exactly_at_each_valid_centre():
     assert ((out >= 0) & (out <= 1)).all()
 
 
+# (map, C, D, K, Q): every width of the encoder (warp tiles and offset
+# groups differ at each), C = 4, 3 and 24, C = 160 and D = 200 (two c and
+# d slabs), D = 20, K = 3, ragged Q (which also takes the 4-byte index
+# copies) and synthetic maps
+_DW_CASES = [
+    ('subm', 4, 16, 27, None), ('subm', 3, 16, 27, None),
+    ('subm', 16, 16, 27, 4093),
+    ('subm', 16, 32, 27, None), ('subm', 32, 32, 27, None),
+    ('subm', 32, 64, 27, 4001), ('subm', 64, 64, 27, None),
+    ('subm', 128, 128, 27, None), ('strided', 64, 128, 27, 2047),
+    ('subm', 24, 20, 27, None), ('subm', 128, 128, 3, 4095),
+    ('subm', 160, 200, 27, None), ('dense', 32, 32, 27, None),
+    ('dense', 128, 128, 27, 3001), ('single', 16, 16, 27, None),
+    ('dup', 64, 64, 27, None), ('dup', 16, 16, 3, 1001),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('which,c,d', [
-    ('subm', 4, 16), ('subm', 16, 16), ('subm', 32, 64), ('subm', 128, 128),
-    ('strided', 64, 128), ('subm', 24, 20),
-])
-def test_cuda_dw_kernel_matches_plain(which, c, d):
+@pytest.mark.parametrize('which,c,d,k,q', _DW_CASES)
+def test_cuda_dw_kernel_matches_plain(which, c, d, k, q):
     dev = _cuda()
-    subm, strided, rows = _scene_maps()
-    nmap = (subm if which == 'subm' else strided).to(dev)
+    nmap, rows = _case_map(which, k, q)
+    nmap = nmap.to(dev)
     rng = np.random.RandomState(c * 7 + d)
     f = torch.from_numpy(rng.randn(rows, c).astype(np.float32)).to(dev)
     dout = torch.from_numpy(rng.randn(nmap.shape[1], d).astype(np.float32))
     f, dout = f.bfloat16(), dout.to(dev).bfloat16()
     before = sparse_conv.dw_launches
     out = sparse_conv.gather_gemm_dw(f, nmap, dout)
+    again = sparse_conv.gather_gemm_dw(f, nmap, dout)
     ref = sparse_conv.gather_gemm_dw_plain(f, nmap, dout)
     torch.cuda.synchronize()
-    assert sparse_conv.dw_launches == before + 1
+    assert sparse_conv.dw_launches == before + 2
     assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert torch.equal(out, again)             # a fixed summation order
     assert ((out - ref).abs() <= 1e-3 * ref.abs().max()).all()
 
 
