@@ -36,6 +36,15 @@ paths on one NVIDIA card.
    at 1.0; the 16 input-gradient convs at the bf16 tolerance of 3.) and
    timed beside the bound (per (K, C, D) with its share for the two
    sparse-conv kernels) and, for gather_rows, index_select.
+   Every replayed call (here and in 3.) is timed twice: by CUDA events
+   around 20 back-to-back wrapper calls (``ms``; a call shorter than the
+   host's work per call reads the host's issue rate), and by the device's
+   own clock, the same 20 calls under torch.profiler (``device_ms``: the
+   self device time of the wrapper's kernels, found by name, per call;
+   "not measured" where the profiler saw none). For render_heatmap and
+   gather_rows_t it also prints the wrapper's host cost per call
+   (``host_ms``: a host clock around 100 calls, read before the
+   synchronize that follows them).
 7. Whole step, kernels vs plain: one step's loss and gradients with every
    kernel and with every plain version, from the same weights, batch and
    SRL draw: loss within 1e-2 relative, grad norm within 5e-2 relative,
@@ -45,10 +54,11 @@ paths on one NVIDIA card.
    operating point), within twice that distance and never below 0.97;
    each batch-norm statistics update within 1e-2 of its largest entry.
    The plain step's one-ulp grad-norm change is printed beside.
-8. Prints one JSON line describing the kernels (each with its time,
-   launches, bound and bound_share = bound_ms / ms), the card, then, as
-   the last line, {"ok": true, "device": {...}}. Any failed phase exits
-   non-zero.
+8. Prints one JSON line describing the kernels (each with its time
+   ms, device_ms, launches, bound and bound_share = bound_ms / ms,
+   device_bound_share = bound_ms / device_ms, host_ms where measured),
+   the card, then, as the last line, {"ok": true, "device": {...}}. Any
+   failed phase exits non-zero.
 
 Everything it measures is also written to chiprun_out/chip_smoke.json.
 """
@@ -68,6 +78,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, H100 SXM
 F32_FLOPS = 67e12          # f32 outside the tensor cores, H100 SXM
 SOURCES = ('gather_gemm', 'gather_gemm_dw', 'gather_rows', 'heatmap')
+# device kernels each wrapper launches, by name, for the profiler's times
+KERNEL_NAMES = dict(gather_gemm_conv=('conv_narrow', 'conv_tile'),
+                    gather_gemm_dw=('dw_kernel', 'dw_narrow', 'reduce_splits'),
+                    gather_rows=('gather_rows_kernel',),
+                    gather_rows_t=('gather_rows_t_kernel',),
+                    render_heatmap=('heatmap_kernel',))
 TRAIN_STEPS = 5
 DW_RTOL = 1e-4             # gather_gemm_dw vs plain, of max|plain| per call
 COSINE_MIN, COSINE_FLOOR = 0.99, 0.97  # whole-step weight-gradient gates
@@ -165,6 +181,46 @@ def event_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, reps, names):
+    """Device time per call of ``fn`` from torch.profiler: the summed
+    self device time of the kernels whose names contain one of ``names``
+    over ``reps`` calls, after one warm-up; None where the profiler saw
+    none of them (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then returns no device events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and any(n in e.key for n in names))
+        if us > 0:
+            return us / reps / 1e3
+    return None
+
+
+def host_ms(torch, fn, calls=100):
+    """Host time per call of ``fn``: a host clock around ``calls`` calls,
+    read before the synchronize that follows them."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e3
+
+
+def fmt_ms(ms):
+    return 'not measured' if ms is None else f'{ms:.4f} ms'
+
+
 def within_bf16_tolerance(torch, out, ref):
     """(ok, max |out - ref|) for |out - ref| <= 1e-2 max|ref| + ulp(ref)."""
     out, ref = out.float(), ref.float()
@@ -246,15 +302,28 @@ def conv_row(torch, sparse_conv, f, nmap, w, label):
     return dict(K=K, C=C, D=D, R=R, Q=Q, hits=hits, rows_read=read,
                 bytes=nbytes, flops=flops, max_abs_err=err,
                 ms=event_ms(torch, lambda: real(f, nmap, w), 20),
+                device_ms=device_ms(torch, lambda: real(f, nmap, w), 20,
+                                    KERNEL_NAMES['gather_gemm_conv']),
                 plain_ms=event_ms(torch, lambda: plain(f, nmap, w), 5),
                 bytes_ms=b_ms, flops_ms=f_ms)
 
 
+def sum_device_ms(rows):
+    """Summed device_ms of the rows, None if any row was not measured."""
+    ms = [r['device_ms'] for r in rows]
+    return None if None in ms else sum(ms)
+
+
+def share(bound, ms):
+    return 'not measured' if ms is None else f'{100 * bound / ms:.1f}%'
+
+
 def print_conv_rows(title, rows):
-    print(title)
+    print(title + '; ms by CUDA events around 20 calls, dev_ms by the '
+          'profiler\'s device clock')
     print(f'{"K":>3} {"C":>4} {"D":>4} {"calls":>5} {"Q":>7} {"hits":>9} '
-          f'{"MB":>8} {"GFLOP":>7} {"ms":>8} {"plain_ms":>9} {"bound_ms":>9} '
-          f'{"share":>6} {"max_err":>8}')
+          f'{"MB":>8} {"GFLOP":>7} {"ms":>8} {"dev_ms":>8} {"plain_ms":>9} '
+          f'{"bound_ms":>9} {"share":>6} {"dev_share":>9} {"max_err":>8}')
     shapes = {}
     for r in rows:
         shapes.setdefault((r['K'], r['C'], r['D']), []).append(r)
@@ -262,11 +331,13 @@ def print_conv_rows(title, rows):
         s = {k: sum(r[k] for r in rs) for k in
              ('hits', 'bytes', 'flops', 'ms', 'plain_ms')}
         bound = sum(max(r['bytes_ms'], r['flops_ms']) for r in rs)
+        dev = sum_device_ms(rs)
+        dev_s = 'not measured' if dev is None else f'{dev:.4f}'
         print(f'{K:>3} {C:>4} {D:>4} {len(rs):>5} {rs[0]["Q"]:>7} '
               f'{s["hits"]:>9} {s["bytes"] / 1e6:>8.2f} '
               f'{s["flops"] / 1e9:>7.2f} {s["ms"]:>8.4f} '
-              f'{s["plain_ms"]:>9.4f} {bound:>9.5f} '
-              f'{100 * bound / s["ms"]:>5.1f}% '
+              f'{dev_s:>8} {s["plain_ms"]:>9.4f} {bound:>9.5f} '
+              f'{share(bound, s["ms"]):>6} {share(bound, dev):>9} '
               f'{max(r["max_abs_err"] for r in rs):>8.4f}')
 
 
@@ -547,6 +618,9 @@ def dw_rows(torch, sparse_conv, calls):
                          bytes=nbytes, flops=flops, max_abs_err=err,
                          max_abs_plain=scale,
                          ms=event_ms(torch, lambda: real(f, nmap, dout), 20),
+                         device_ms=device_ms(
+                             torch, lambda: real(f, nmap, dout), 20,
+                             KERNEL_NAMES['gather_gemm_dw']),
                          plain_ms=event_ms(torch, lambda: plain(f, nmap, dout),
                                            5),
                          bytes_ms=b_ms, flops_ms=f_ms))
@@ -559,8 +633,8 @@ def dw_rows(torch, sparse_conv, calls):
 def rows_rows(torch, gr, calls, transposed):
     """gather_rows (or gather_rows_t on (features, map) pairs) vs plain,
     exact; gather_rows also against index_select on a zero-padded source."""
-    real = gr.gather_rows_t if transposed else gr.gather_rows
-    plain = gr.gather_rows_t_plain if transposed else gr.gather_rows_plain
+    name = 'gather_rows_t' if transposed else 'gather_rows'
+    real, plain = getattr(gr, name), getattr(gr, name + '_plain')
     rows = []
     for i, (src, idx) in enumerate(calls):
         out = real(src, idx)
@@ -577,10 +651,14 @@ def rows_rows(torch, gr, calls, transposed):
                    misses=int((idx < 0).sum()), rows_read=read, bytes=nbytes,
                    max_abs_err=0.0,
                    ms=event_ms(torch, lambda: real(src, idx), 20),
+                   device_ms=device_ms(torch, lambda: real(src, idx), 20,
+                                       KERNEL_NAMES[name]),
                    plain_ms=event_ms(torch, lambda: plain(src, idx), 20),
                    bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, flops_ms=0.0,
-                   library_ms=None)
-        if not transposed:
+                   library_ms=None, host_ms=None)
+        if transposed:
+            row['host_ms'] = host_ms(torch, lambda: real(src, idx))
+        else:
             src0 = torch.cat([src.new_zeros(1, src.shape[1]), src])
             idx1 = (idx + 1).long()
             if not torch.equal(torch.index_select(src0, 0, idx1), out):
@@ -588,16 +666,20 @@ def rows_rows(torch, gr, calls, transposed):
             row['library_ms'] = event_ms(
                 torch, lambda: torch.index_select(src0, 0, idx1), 20)
         rows.append(row)
-    name = 'gather_rows_t' if transposed else 'gather_rows'
     print(f'train kernels: {name} vs plain (exact) at {len(rows)} calls '
-          '(bytes = source rows hit + indices + output, each once)')
+          '(bytes = source rows hit + indices + output, each once; ms by '
+          'CUDA events, device by the profiler)')
     for r in rows:
         lib = ('' if r['library_ms'] is None
-               else f' index_select {r["library_ms"]:.4f} ms')
+               else f', index_select {r["library_ms"]:.4f} ms')
+        host = ('' if r['host_ms'] is None
+                else f', host {r["host_ms"]:.4f} ms a call')
         print(f'  src [{r["N"]}, {r["C"]}] idx {r["idx"]} misses '
               f'{r["misses"]}, rows read {r["rows_read"]}: {r["ms"]:.4f} ms, '
-              f'plain {r["plain_ms"]:.4f} ms, bound {r["bytes_ms"]:.5f} ms'
-              f'{lib}')
+              f'device {fmt_ms(r["device_ms"])}, plain '
+              f'{r["plain_ms"]:.4f} ms, bound {r["bytes_ms"]:.5f} ms '
+              f'(share {share(r["bytes_ms"], r["ms"])}, device '
+              f'{share(r["bytes_ms"], r["device_ms"])}){lib}{host}')
     return rows
 
 
@@ -605,6 +687,8 @@ def heatmap_rows(torch, heatmap, calls):
     rows = []
     real, plain = heatmap.render_heatmap, heatmap.render_heatmap_plain
     for centers, radii, valid, hw in (args for _, args in calls):
+        def call():
+            return real(centers, radii, valid, hw)
         out = real(centers, radii, valid, hw)
         ref = plain(centers, radii, valid, hw)
         torch.cuda.synchronize()
@@ -629,18 +713,22 @@ def heatmap_rows(torch, heatmap, calls):
         rows.append(dict(G=G, M=M, H=H, W=W, live=int(valid.sum()),
                          pairs=pairs, bytes=nbytes, flops=8 * pairs,
                          max_abs_err=err, ones=int((ref == 1.0).sum()),
-                         ms=event_ms(torch, lambda: real(centers, radii,
-                                                         valid, hw), 20),
+                         ms=event_ms(torch, call, 20),
+                         device_ms=device_ms(torch, call, 20,
+                                             KERNEL_NAMES['render_heatmap']),
+                         host_ms=host_ms(torch, call),
                          plain_ms=event_ms(torch, lambda: plain(
                              centers, radii, valid, hw), 5),
                          bytes_ms=b_ms, flops_ms=f_ms))
     for r in rows:
+        bound = max(r['bytes_ms'], r['flops_ms'])
         print(f'train kernels: render_heatmap vs plain: {r["G"]} maps of '
               f'{r["H"]}x{r["W"]}, {r["live"]} live of {r["G"] * r["M"]} '
               f'objects, {r["ones"]} centre pixels; max err '
-              f'{r["max_abs_err"]:.3g}; {r["ms"]:.4f} ms, plain '
-              f'{r["plain_ms"]:.4f} ms, bound '
-              f'{max(r["bytes_ms"], r["flops_ms"]):.5f}'
+              f'{r["max_abs_err"]:.3g}; {r["ms"]:.4f} ms by CUDA events, '
+              f'device {fmt_ms(r["device_ms"])} (share '
+              f'{share(bound, r["device_ms"])}), host {r["host_ms"]:.4f} ms '
+              f'a call, plain {r["plain_ms"]:.4f} ms, bound {bound:.5f}'
               f' ms ({r["bytes"]} bytes, {r["flops"]} ops)')
     return rows
 
@@ -765,14 +853,19 @@ def kernel_entry(name, source, replaces, launches, rows, library_ms=None):
     bytes_ms = sum(r['bytes_ms'] for r in rows)
     flops_ms = sum(r['flops_ms'] for r in rows)
     ms = sum(r['ms'] for r in rows)
+    dev = sum_device_ms(rows)
+    host = [r.get('host_ms') for r in rows]
     bound = sum(max(r['bytes_ms'], r['flops_ms']) for r in rows)
     return dict(
         name=name, route='cuda', source=f'gga_tpu_torch/kernels/csrc/{source}',
         replaces=replaces, launches=launches,
         max_abs_err=max(r['max_abs_err'] for r in rows), ms=ms,
-        plain_ms=sum(r['plain_ms'] for r in rows), bound_ms=bound,
+        device_ms=dev, plain_ms=sum(r['plain_ms'] for r in rows),
+        bound_ms=bound,
         bound_by='bytes' if bytes_ms >= flops_ms else 'operations',
-        library_ms=library_ms, bound_share=bound / ms)
+        library_ms=library_ms, bound_share=bound / ms,
+        device_bound_share=None if dev is None else bound / dev,
+        host_ms=None if None in host else sum(host))
 
 
 def main():
@@ -922,6 +1015,13 @@ def main():
                      'gga_tpu/ops/pallas/heatmap.py:57',
                      launches['render_heatmap'], hm_rows),
     ]
+    print('kernels, summed over the path\'s calls (ms by CUDA events, '
+          'device ms by the profiler, share of the bound):')
+    for k in kernels:
+        print(f'  {k["name"]:17s} {k["launches"]:4d} launches  ms '
+              f'{k["ms"]:.4f}  device {fmt_ms(k["device_ms"])}  bound '
+              f'{k["bound_ms"]:.5f}  share {100 * k["bound_share"]:.1f}% / '
+              f'{share(k["bound_ms"], k["device_ms"])}')
     print(f'chip_smoke: {time.perf_counter() - t_start:.1f} s after the '
           'card check')
 

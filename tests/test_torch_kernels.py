@@ -198,14 +198,34 @@ def _rows_case(seed, n, c, m, dtype):
     return src, idx
 
 
-def _heatmap_case(seed, G=6, M=40, H=50, W=44):
+def _heatmap_case(seed, G=6, M=40, H=50, W=44, kind='random'):
+    """(centers, radii, valid, (H, W)) of G maps of M object slots:
+    'random' centres a little past every edge with radii 0-8; 'edges'
+    centres on the corners and edges and one past them; 'radius' radii 0
+    and larger than a 16-row band and than W; 'overlap' objects stacked
+    on a few centres with several radii; 'empty' as 'random' with map 0
+    holding no valid object."""
     rng = np.random.RandomState(seed)
-    centers = torch.from_numpy(np.stack(
-        [rng.randint(-3, W + 3, (G, M)), rng.randint(-3, H + 3, (G, M))],
-        -1).astype(np.int32))
-    radii = torch.from_numpy(rng.randint(0, 9, (G, M)).astype(np.int32))
-    valid = torch.from_numpy(rng.rand(G, M) < 0.6)
-    return centers, radii, valid, (H, W)
+    cx = rng.randint(-3, W + 3, (G, M))
+    cy = rng.randint(-3, H + 3, (G, M))
+    radii = rng.randint(0, 9, (G, M))
+    valid = rng.rand(G, M) < 0.6
+    if kind == 'edges':
+        xs = np.array([0, W - 1, 0, W - 1, W // 2, W // 2, 0, W - 1, -1, W])
+        ys = np.array([0, 0, H - 1, H - 1, 0, H - 1, H // 2, H // 2, H, -1])
+        pick = rng.randint(0, len(xs), (G, M))
+        cx, cy = xs[pick], ys[pick]
+        radii = rng.randint(1, 9, (G, M))
+    elif kind == 'radius':
+        radii = rng.choice([0, 0, 3, 17, W + 5], (G, M))
+    elif kind == 'overlap':
+        cx = rng.randint(0, W, (G, 3))[:, rng.randint(0, 3, M)]
+        cy = rng.randint(0, H, (G, 3))[:, rng.randint(0, 3, M)]
+    elif kind == 'empty':
+        valid[0] = False
+    centers = np.ascontiguousarray(np.stack([cx, cy], -1), np.int32)
+    return (torch.from_numpy(centers), torch.from_numpy(radii.astype(np.int32)),
+            torch.from_numpy(valid), (H, W))
 
 
 def test_cpu_wrappers_of_the_train_kernels_take_plain_paths_uncounted():
@@ -305,16 +325,45 @@ def test_cuda_dw_kernel_matches_plain(which, c, d, k, q):
     assert ((out - ref).abs() <= 1e-3 * ref.abs().max()).all()
 
 
+def _rows_t_map(kind, k, q, rows, seed):
+    """nmap [k, q] int32 into ``rows`` source rows: 'random' (a third of
+    them -1), 'miss' (all -1), 'last' (half of them the last row), 'dup'
+    (each row gathered 37 times in a row)."""
+    rng = np.random.RandomState(seed)
+    nmap = np.where(rng.rand(k, q) < 1 / 3, -1, rng.randint(0, rows, (k, q)))
+    if kind == 'miss':
+        nmap[:] = -1
+    elif kind == 'last':
+        nmap = np.where(rng.rand(k, q) < 0.5, rows - 1, nmap)
+    elif kind == 'dup':
+        nmap = (np.arange(k * q).reshape(k, q) // 37) % rows
+    return torch.from_numpy(nmap.astype(np.int32))
+
+
+# (K, Q, map): Q = 1, 7, 8, 63 and 2499 (output rows [k, c, :] that start
+# at every alignment, and Q cutting the last 8-q store), K = 3 and 27, an
+# all-miss map, the last source row, duplicate indices
+_ROWS_T_MAPS = [
+    (8, 2499, 'random'), (27, 1, 'random'), (27, 7, 'random'),
+    (3, 8, 'random'), (27, 63, 'random'), (3, 2499, 'random'),
+    (27, 300, 'miss'), (27, 129, 'last'), (3, 1000, 'dup'),
+]
+
+
+# C = 3, 4, 6: rows that are not 16-byte multiples (narrower copies);
+# C = 24: 48-byte rows in a tile whose pitch is rounded up to 64; f32
+# C = 128: two passes over the 512-byte rows
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize('c', [3, 4, 6, 16, 64, 128])
-def test_cuda_gather_rows_match_plain_exactly(dtype, c):
+@pytest.mark.parametrize('c', [3, 4, 6, 16, 24, 32, 64, 128])
+@pytest.mark.parametrize('k,q,kind', _ROWS_T_MAPS)
+def test_cuda_gather_rows_match_plain_exactly(dtype, c, k, q, kind):
     dev = _cuda()
-    src, idx = _rows_case(c, 3000, c, 20000, dtype)
-    src, idx = src.to(dev), idx.to(dev)
+    src, _ = _rows_case(c, 3000, c, 1, dtype)
+    nmap = _rows_t_map(kind, k, q, 3000, c + q).to(dev)
+    src, idx = src.to(dev), nmap.reshape(-1)
     before = (gr.launches, gr.t_launches)
     out = gr.gather_rows(src, idx)
-    nmap = idx[:19992].reshape(8, -1)
     out_t = gr.gather_rows_t(src, nmap)
     torch.cuda.synchronize()
     assert (gr.launches, gr.t_launches) == (before[0] + 1, before[1] + 1)
@@ -322,10 +371,28 @@ def test_cuda_gather_rows_match_plain_exactly(dtype, c):
     assert torch.equal(out_t, gr.gather_rows_t_plain(src, nmap))
 
 
+# (G, M, H, W, objects): the train step's shape; W = 175 and 13 (not a
+# multiple of the kernel's 4-pixel stores); H = 199 and 1 (not a multiple
+# of its 16-row band); M = 499 and 1 (the tail of its 16-byte reads of
+# valid); objects on the edges and corners, of radius 0 and larger than a
+# band and than W, overlapping; a map with no valid object; G = 1; M =
+# 1500 (more slots than one cull round)
+_HEATMAP_CASES = [
+    (24, 500, 200, 176, 'random'), (24, 500, 200, 175, 'random'),
+    (6, 40, 50, 13, 'random'), (6, 40, 199, 44, 'random'),
+    (6, 40, 1, 44, 'random'), (24, 499, 200, 176, 'random'),
+    (8, 1, 30, 31, 'random'), (4, 40, 50, 44, 'edges'),
+    (4, 40, 50, 44, 'radius'), (4, 40, 61, 47, 'overlap'),
+    (3, 40, 50, 44, 'empty'), (1, 40, 50, 44, 'random'),
+    (2, 1500, 64, 40, 'random'),
+]
+
+
 @pytest.mark.cuda
-def test_cuda_heatmap_kernel_matches_plain():
+@pytest.mark.parametrize('g,m,h,w,kind', _HEATMAP_CASES)
+def test_cuda_heatmap_kernel_matches_plain(g, m, h, w, kind):
     dev = _cuda()
-    centers, radii, valid, hw = _heatmap_case(9, G=24, M=500, H=200, W=176)
+    centers, radii, valid, hw = _heatmap_case(9, g, m, h, w, kind)
     centers, radii, valid = centers.to(dev), radii.to(dev), valid.to(dev)
     before = heatmap.launches
     out = heatmap.render_heatmap(centers, radii, valid, hw)

@@ -75,10 +75,12 @@ def _takes_the_pallas_path(jmap, jhit, c):
     return not bool(ovf)
 
 
-def test_gather_rows_t_plain_matches_window_gather_t():
+# window_gather_t takes the powers of two that divide 128
+@pytest.mark.parametrize('c', [8, 16, 32, 64])
+def test_gather_rows_t_plain_matches_window_gather_t(c):
     jmap, jhit, nmap = _flat_map(seed=2)
-    assert _takes_the_pallas_path(jmap, jhit, 16)
-    f = np.random.RandomState(3).randn(nmap.shape[1], 16).astype(np.float32)
+    assert _takes_the_pallas_path(jmap, jhit, c)
+    f = np.random.RandomState(3).randn(nmap.shape[1], c).astype(np.float32)
     ref = wg.window_gather_t(jnp.asarray(f), jnp.asarray(jmap),
                              jnp.asarray(jhit), interpret=True)
     out = gr.gather_rows_t_plain(torch.from_numpy(f), torch.from_numpy(nmap))
@@ -101,17 +103,33 @@ def test_gather_gemm_dw_plain_matches_pallas_window_dw():
                                atol=1e-5 * np.abs(ref).max())
 
 
-def _objects(seed, M=40, H=48, W=176):
+def _objects(seed, M=40, H=48, W=176, kind='random'):
+    """One map's objects: 'random' centres inside the map, radii 2-8;
+    'radius0' a third of them of radius 0; 'corners' centres on the four
+    corners and one past them."""
     rng = np.random.RandomState(seed)
     centers = np.stack([rng.randint(0, W, M), rng.randint(0, H, M)],
                        -1).astype(np.int32)
     radii = rng.randint(2, 9, M).astype(np.int32)
     valid = rng.rand(M) > 0.3
+    if kind == 'radius0':
+        radii[::3] = 0
+    elif kind == 'corners':
+        corners = np.array([[0, 0], [W - 1, 0], [0, H - 1], [W - 1, H - 1],
+                            [-1, -1], [W, H]], np.int32)
+        centers = corners[rng.randint(0, len(corners), M)]
     return centers, radii, valid, (H, W)
 
 
-def test_plain_heatmap_matches_pallas_and_dyn():
-    maps = [_objects(s) for s in range(3)]
+# W = 175 (not a multiple of 4), H = 13 (not a multiple of the 8- and
+# 16-row tiles), radius 0, centres on the corners
+@pytest.mark.parametrize('h,w,kind', [(48, 176, 'random'),
+                                      (48, 175, 'random'),
+                                      (13, 176, 'random'),
+                                      (48, 176, 'radius0'),
+                                      (48, 176, 'corners')])
+def test_plain_heatmap_matches_pallas_and_dyn(h, w, kind):
+    maps = [_objects(s, H=h, W=w, kind=kind) for s in range(3)]
     hw = maps[0][3]
     out = heatmap.render_heatmap_plain(
         *(torch.from_numpy(np.stack([m[i] for m in maps])) for i in range(3)),
