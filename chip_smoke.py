@@ -54,7 +54,28 @@ paths on one NVIDIA card.
    operating point), within twice that distance and never below 0.97;
    each batch-norm statistics update within 1e-2 of its largest entry.
    The plain step's one-ulp grad-norm change is printed beside.
-8. Prints one JSON line describing the kernels (each with its time
+8. Workflow phase: stages 1-3 of the GGA workflow through the port's
+   command-line tools (``main(argv)``, in-process) on a KITTI-format mini
+   dataset written to a temporary dir (16 scenes, 8 train + 8 val, of
+   120 000 lidar points with about 20 000 in the camera's view, 8-16 Car /
+   Pedestrian / Cyclist boxes ahead of the camera, header-only PNGs):
+   ``create_data_gga``; ``train`` on configs/gga/gga_kitti.py in bf16 at
+   B = 8 for 4 steps (2 an epoch, a checkpoint each epoch), then
+   ``--resume`` to step 6; ``generate_pseudo_labels_gga`` on
+   configs/gga/gga_kitti_matching.py with ``--eval``. The counts are set
+   to 0 before each tool and read after it: 37 / 21 / 4 / 1 launches per
+   train step and 21 gather_gemm_conv per stage-3 batch, nothing else.
+   Fails unless every logged loss is finite, the resume
+   starts at step 4, each step ran at the lr cyclic_cos_schedule gives
+   for its count, the pseudo pkl holds 16 infos, and the stage-3 tool's
+   first batch of detections (every candidate slot, kept or not) equals
+   ``apis.infer`` on the same padded batch with the weights of the same
+   checkpoint. Prints stage-1 seconds
+   and which region grow ran, train scenes/s after the first step (loader
+   included) with the loader's share, the checkpoints' size and save /
+   load ms, and stage-3 scenes/s (load through matching), each beside the
+   card's name and power limit.
+9. Prints one JSON line describing the kernels (each with its time
    ms, device_ms, launches, bound and bound_share = bound_ms / ms,
    device_bound_share = bound_ms / device_ms, host_ms where measured),
    the card, then, as the last line, {"ok": true, "device": {...}}. Any
@@ -66,6 +87,7 @@ import contextlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -868,6 +890,305 @@ def kernel_entry(name, source, replaces, launches, rows, library_ms=None):
         host_ms=None if None in host else sum(host))
 
 
+# --- the GGA workflow through the port's command-line tools ---------------
+WF_CONFIG = 'configs/gga/gga_kitti.py'
+WF_MATCHING = 'configs/gga/gga_kitti_matching.py'
+WF_SPLITS = (8, 8)          # train, val scenes of the mini KITTI
+WF_POINTS = 120000          # raw lidar points a scene
+WF_STEPS = (4, 6)           # --max-steps of the first run, of the resume
+WF_DTYPE = 'bfloat16'
+WF_OPTIONS = ('log_interval=1',)
+# KITTI-like calibration (velodyne x forward -> camera z forward)
+VELO2CAM = np.array([[0., -1., 0., 0.], [0., 0., -1., -0.08],
+                     [1., 0., 0., -0.27], [0., 0., 0., 1.]])
+P2 = np.array([[721.54, 0., 609.56, 44.86], [0., 721.54, 172.85, 0.216],
+               [0., 0., 1., 0.0027], [0., 0., 0., 1.]])
+IMG_SHAPE = (375, 1242)
+# class: (dims l, w, h in m, share of the objects)
+WF_CLASSES = dict(Car=((3.9, 1.6, 1.56), 0.5),
+                  Pedestrian=((0.8, 0.6, 1.73), 0.25),
+                  Cyclist=((1.76, 0.6, 1.73), 0.25))
+
+
+def png_bytes(height, width):
+    """A minimal valid 8-bit grayscale PNG of zeros (the tools read only
+    its header)."""
+    import struct
+    import zlib
+
+    def chunk(kind, data):
+        return (struct.pack('>I', len(data)) + kind + data
+                + struct.pack('>I', zlib.crc32(kind + data) & 0xffffffff))
+    rows = bytes((width + 1) * height)       # filter byte 0 + pixels
+    return (b'\x89PNG\r\n\x1a\n'
+            + chunk(b'IHDR', struct.pack('>IIBBBBB', width, height, 8, 0,
+                                         0, 0, 0))
+            + chunk(b'IDAT', zlib.compress(rows)) + chunk(b'IEND', b''))
+
+
+def mini_kitti_scene(rng, n_points):
+    """One KITTI-scale scene: a 64-beam scan of ground and walls (lidar at
+    1.73 m, -24.8 to +2 degrees), 8-16 Car / Pedestrian / Cyclist boxes
+    5.5-40 m ahead inside the camera's view, their points, and a
+    reflectance. Returns (points [n_points, 4] f32, boxes [N, 7] lidar
+    bottom-centre, names)."""
+    n_obj = rng.randint(8, 17)
+    names, boxes = [], []
+    classes = list(WF_CLASSES)
+    shares = [WF_CLASSES[c][1] for c in classes]
+    while len(boxes) < n_obj:
+        name = classes[rng.choice(len(classes), p=shares)]
+        x = rng.uniform(5.5, 40.0)
+        y = x * np.tan(np.deg2rad(rng.uniform(-30, 30)))
+        if any(np.hypot(x - b[0], y - b[1]) < 4.0 for b in boxes):
+            continue
+        dims = np.array(WF_CLASSES[name][0]) * rng.uniform(0.9, 1.1, 3)
+        boxes.append([x, y, -1.73, *dims, rng.uniform(-np.pi, np.pi)])
+        names.append(name)
+    boxes = np.array(boxes)
+    obj_pts = []
+    for b in boxes:
+        dist = np.hypot(b[0], b[1])
+        n = int(np.clip(4000 * b[3] * b[5] / dist, 50, 700))
+        local = rng.uniform(-0.5, 0.5, (n, 3)) * b[3:6]
+        local[:, 2] += b[5] / 2
+        c, s = np.cos(b[6]), np.sin(b[6])
+        obj_pts.append(np.stack([local[:, 0] * c - local[:, 1] * s + b[0],
+                                 local[:, 0] * s + local[:, 1] * c + b[1],
+                                 local[:, 2] + b[2]], 1))
+    obj_pts = np.concatenate(obj_pts)
+    # the scan: beams at uniform elevation and azimuth; a beam returns
+    # from the ground, or from a wall 15-70 m out where one stands (40 %)
+    n_scan = n_points - len(obj_pts)
+    m = 2 * n_scan
+    elev = np.deg2rad(rng.uniform(-24.8, 2.0, m))
+    azim = rng.uniform(-np.pi, np.pi, m)
+    r = np.where(elev < 0, 1.73 / np.tan(-np.minimum(elev, -1e-3)), np.inf)
+    wall = rng.uniform(15, 70, m)
+    hit_wall = (rng.rand(m) < 0.4) & (wall < r)
+    r = np.where(hit_wall, wall, r)
+    keep = r < 80
+    r, elev, azim = r[keep], elev[keep], azim[keep]
+    scan = np.stack([r * np.cos(azim), r * np.sin(azim),
+                     np.maximum(r * np.tan(elev), -1.73)], 1)
+    scan[:, 2] += rng.randn(len(scan)) * 0.02
+    # no wall inside 3 m of an object, so each object's cluster is pure
+    near = (np.hypot(scan[:, None, 0] - boxes[None, :, 0],
+                     scan[:, None, 1] - boxes[None, :, 1]) < 3.0).any(1)
+    scan = scan[~(near & (scan[:, 2] > -1.5))][:n_scan]
+    pts = np.concatenate([scan, obj_pts])
+    refl = rng.rand(len(pts), 1)
+    return (np.concatenate([pts, refl], 1).astype(np.float32), boxes,
+            names)
+
+
+def write_mini_kitti(root, splits=WF_SPLITS, n_points=WF_POINTS, seed=0):
+    """A KITTI-format dataset under ``root``: training/{velodyne, calib,
+    label_2, image_2} and ImageSets/{train, val}.txt. Returns the points
+    each scene has in the camera's view."""
+    import os
+
+    from gga_tpu_torch.core import np_geometry as ng
+    rng = np.random.RandomState(seed)
+    sub = os.path.join(root, 'training')
+    for d in ('velodyne', 'calib', 'label_2', 'image_2'):
+        os.makedirs(os.path.join(sub, d), exist_ok=True)
+    os.makedirs(os.path.join(root, 'ImageSets'), exist_ok=True)
+    png = png_bytes(*IMG_SHAPE)
+    in_view, idx = [], 0
+    for split, n in zip(('train', 'val'), splits):
+        with open(os.path.join(root, 'ImageSets', f'{split}.txt'), 'w') as f:
+            f.write(''.join(f'{i:06d}\n' for i in range(idx, idx + n)))
+        for _ in range(n):
+            pts, boxes, names = mini_kitti_scene(rng, n_points)
+            pts.tofile(os.path.join(sub, 'velodyne', f'{idx:06d}.bin'))
+            in_view.append(len(ng.remove_outside_points(
+                pts, np.eye(4), VELO2CAM, P2, IMG_SHAPE)))
+            with open(os.path.join(sub, 'calib', f'{idx:06d}.txt'), 'w') as f:
+                for k in range(4):
+                    P = P2 if k == 2 else np.eye(4)
+                    f.write(f'P{k}: ' + ' '.join(
+                        f'{v:.12e}' for v in P[:3, :4].reshape(-1)) + '\n')
+                f.write('R0_rect: ' + ' '.join(
+                    f'{v:.12e}' for v in np.eye(3).reshape(-1)) + '\n')
+                for key, mat in (('Tr_velo_to_cam', VELO2CAM),
+                                 ('Tr_imu_to_velo', np.eye(4))):
+                    f.write(f'{key}: ' + ' '.join(
+                        f'{v:.12e}' for v in mat[:3, :4].reshape(-1)) + '\n')
+            cam = ng.box_lidar_to_camera(boxes, np.eye(4), VELO2CAM)
+            bbox = ng.boxes3d_to_image_bbox(cam, P2, IMG_SHAPE)
+            with open(os.path.join(sub, 'label_2', f'{idx:06d}.txt'),
+                      'w') as f:
+                for name, cb, bb in zip(names, cam, bbox):
+                    alpha = cb[6] - np.arctan2(cb[0], cb[2])
+                    f.write(f'{name} 0.00 0 {alpha:.2f} {bb[0]:.2f} '
+                            f'{bb[1]:.2f} {bb[2]:.2f} {bb[3]:.2f} '
+                            f'{cb[4]:.2f} {cb[5]:.2f} {cb[3]:.2f} '
+                            f'{cb[0]:.2f} {cb[1]:.2f} {cb[2]:.2f} '
+                            f'{cb[6]:.2f}\n')
+            with open(os.path.join(sub, 'image_2', f'{idx:06d}.png'),
+                      'wb') as f:
+                f.write(png)
+            idx += 1
+    return in_view
+
+
+def workflow_phase(torch, mods, card, tmp):
+    """Stages 1-3 through the port's CLIs (``main(argv)``, in-process) on
+    a KITTI-format mini dataset in ``tmp``, at the shipped configs' full
+    width in bf16. Main path: the counts are set to 0 just before each CLI
+    and read just after."""
+    import json as json_
+    import os
+    import pickle
+
+    from gga_tpu_torch import apis
+    from gga_tpu_torch.config import Config
+    from gga_tpu_torch.tools import create_data_gga, train
+    from gga_tpu_torch.tools import generate_pseudo_labels_gga as stage3
+    from gga_tpu_torch.train import checkpoints as ckpt
+    from gga_tpu_torch.train.optim import cyclic_cos_schedule
+
+    data, work = os.path.join(tmp, 'kitti'), os.path.join(tmp, 'work')
+    in_view = write_mini_kitti(data, WF_SPLITS, WF_POINTS)
+    n_scenes = sum(WF_SPLITS)
+    print(f'workflow: mini KITTI of {n_scenes} scenes x {WF_POINTS} points, '
+          f'{min(in_view)}-{max(in_view)} in the camera\'s view')
+    opts = ['--cfg-options', f'data_root={data}/',
+            f'model.compute_dtype={WF_DTYPE}', *WF_OPTIONS]
+    res = dict(points_in_view=in_view)
+
+    zero_counts(mods)
+    prep = create_data_gga.main(['kitti', '--root-path', data,
+                                 '--workers', str(os.cpu_count() or 8)])
+    if any(counts(mods).values()):
+        fail('workflow: stage 1 launched a kernel')
+    res['stage1'] = prep
+    print(f'{card}: workflow stage 1 (create_data_gga, {n_scenes} scenes): '
+          f'{prep["seconds"]:.2f} s; region grow: {prep["region_grow"]}')
+
+    cfg = Config.fromfile(str(ROOT / WF_CONFIG)).merge_from_options(
+        dict(kv.split('=', 1) for kv in opts[1:]))
+    batch = cfg.data.samples_per_gpu
+    runs = []
+    for i, max_steps in enumerate(WF_STEPS):
+        argv = [str(ROOT / WF_CONFIG), '--work-dir', work, '--device',
+                DEVICE, '--max-steps', str(max_steps), '--no-eval', *opts]
+        zero_counts(mods)
+        summ = train.main(argv + (['--resume'] if i else []))
+        got = counts(mods)
+        steps = summ['steps']
+        for name, per in PER_STEP.items():
+            if got[name] != per * steps:
+                fail(f'workflow: train CLI run {i + 1}: {got[name]} {name} '
+                     f'launches in {steps} steps, expected {per * steps}')
+        if got['gather_rows_t'] != 0:
+            fail('workflow: gather_rows_t ran under the train CLI')
+        summ['launches'] = got
+        runs.append(summ)
+        print(f'{card}: workflow train CLI run {i + 1}: steps '
+              f'{summ["start_step"]}-{summ["end_step"]} at B={batch}, '
+              f'{summ["scenes_per_s"]:.2f} scenes/s after the first step, '
+              f'loader included (loader wait '
+              f'{100 * summ["loader_wait_share"]:.1f} % of the wall time); '
+              f'launches {got}')
+    first, resumed = runs
+    if (first['start_step'], first['end_step']) != (0, WF_STEPS[0]):
+        fail(f'workflow: first train run took steps {first["start_step"]}-'
+             f'{first["end_step"]}')
+    if (resumed['start_step'], resumed['end_step']) != WF_STEPS:
+        fail(f'workflow: the resume ran steps {resumed["start_step"]}-'
+             f'{resumed["end_step"]}, expected {WF_STEPS[0]}-{WF_STEPS[1]}')
+    with open(os.path.join(work, 'train_log.jsonl')) as f:
+        lines = [json_.loads(ln) for ln in f]
+    if [ln['step'] for ln in lines] != list(range(1, WF_STEPS[1] + 1)):
+        fail(f'workflow: logged steps {[ln["step"] for ln in lines]}')
+    o = cfg.optimizer
+    for ln in lines:
+        # the grad norm may overflow f32 at random weights (BPL projects
+        # boxes of exp(dims) metres; gga_tpu's optax.global_norm does the
+        # same), and the clip then zeroes that step: only the loss gates
+        if not np.isfinite(ln['loss']):
+            fail(f'workflow: step {ln["step"]} loss {ln["loss"]}')
+        # step s runs at the schedule's value for optimizer count s - 1 of
+        # its run's total (--max-steps caps the total)
+        total = WF_STEPS[0] if ln['step'] <= WF_STEPS[0] else WF_STEPS[1]
+        want = cyclic_cos_schedule(o.lr, o.lr_target_ratio, o.step_ratio_up,
+                                   total)(ln['step'] - 1)
+        if not abs(ln['lr'] - want) <= 1e-12 * want:
+            fail(f'workflow: step {ln["step"]} ran at lr {ln["lr"]}, the '
+                 f'schedule gives {want}')
+    res.update(train=runs, losses=[ln['loss'] for ln in lines],
+               grad_norms=[ln['grad_norm'] for ln in lines],
+               lrs=[ln['lr'] for ln in lines])
+    ckpt_dir = os.path.join(work, 'checkpoints')
+    kept = ckpt.latest_step(ckpt_dir)
+    print(f'{card}: workflow checkpoints: newest step {kept}, '
+          f'{first["ckpt_bytes"] / 2 ** 20:.1f} MiB each, save ms '
+          f'{[round(v, 1) for v in first["ckpt_save_ms"] + resumed["ckpt_save_ms"]]}'
+          f', load (resume) {resumed["ckpt_load_ms"]:.1f} ms')
+    print(f'workflow: losses {[f"{v:.5g}" for v in res["losses"]]}, grad '
+          f'norms {[f"{v:.4g}" for v in res["grad_norms"]]}, lr '
+          f'{[f"{v:.4g}" for v in res["lrs"]]}')
+
+    # stage 3: the first batch's inputs and detections are kept
+    seen = []
+    real_infer = apis.infer
+
+    def keep_first(bundle, points, points_valid):
+        out = real_infer(bundle, points, points_valid)
+        if not seen:
+            seen.append((points, points_valid, {
+                k: v.clone() for k, v in out.items()}))
+        return out
+
+    pkl = os.path.join(tmp, 'pseudo', 'kitti_infos_trainval_GGA_pseudo.pkl')
+    argv = [str(ROOT / WF_MATCHING), '--checkpoint', ckpt_dir, '--eval',
+            '--device', DEVICE, '--out', pkl, *opts]
+    apis.infer = keep_first
+    zero_counts(mods)
+    try:
+        s3 = stage3.main(argv)
+    finally:
+        apis.infer = real_infer
+    got = counts(mods)
+    n_batches = -(-n_scenes // batch)
+    want = dict(gather_gemm_conv=N_CONVS * n_batches, gather_gemm_dw=0,
+                gather_rows=0, gather_rows_t=0, render_heatmap=0)
+    if got != want:
+        fail(f'workflow: stage-3 CLI launches {got}, expected {want}')
+    with open(pkl, 'rb') as f:
+        pseudo = pickle.load(f)
+    if len(pseudo) != n_scenes or s3['infos'] != n_scenes:
+        fail(f'workflow: the pseudo pkl holds {len(pseudo)} infos, expected '
+             f'{n_scenes}')
+    print(f'{card}: workflow stage-3 CLI: {n_scenes} scenes in '
+          f'{s3["seconds"]:.2f} s = {s3["scenes_per_s"]:.2f} scenes/s (load '
+          f'through matching); launches {got}; pseudo pkl {len(pseudo)} '
+          f'infos')
+    # the CLI's first batch against apis.infer with the same weights
+    points, valid, out = seen[0]
+    bundle, _ = apis.init_model(cfg, ckpt_dir, device=DEVICE)
+    ref = apis.infer(bundle, points, valid)
+    for key, v in out.items():
+        if not torch.equal(v, ref[key]):
+            fail(f'workflow: stage-3 CLI {key} of the first batch differs '
+                 'from apis.infer on the same padded batch and weights')
+    # every candidate slot is compared, kept or not: six steps from random
+    # weights may leave no box inside the decode's centre range
+    n_det = int(out['valid'].sum())
+    n_pseudo = sum(len(i['annos']['name']) for i in pseudo)
+    print(f'workflow: the stage-3 CLI\'s first batch equals apis.infer on '
+          f'the same padded batch ({tuple(points.shape)}) and checkpoint, '
+          f'all {out["scores"].numel()} candidate slots (max score '
+          f'{float(out["scores"].max()):.4g}): {n_det} kept detections; '
+          f'{n_pseudo} matched pseudo labels in the pkl')
+    res.update(stage3={k: v for k, v in s3.items() if k != 'ap'},
+               stage3_launches=got, first_batch_detections=n_det,
+               pseudo_infos=len(pseudo), pseudo_labels=n_pseudo)
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -996,6 +1317,12 @@ def main():
           f'updates of {cmp_step["bn_buffers"]} buffers within '
           f'{cmp_step["bn_update_max_rel_err"]:.3g} of their largest entry')
 
+    # --- stages 1-3 through the command-line tools -------------------------
+    del trainer, tbatches
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        wf = workflow_phase(torch, mods, card, tmp)
+
     launches = tr['launches']
     kernels = [
         kernel_entry('gather_gemm_conv', 'gather_gemm.cu',
@@ -1035,7 +1362,8 @@ def main():
                        train=tr, train_profile=tprof,
                        train_conv_calls=conv_rows, train_dw_calls=dwr,
                        train_gather_rows=gr_rows, train_gather_rows_t=grt_rows,
-                       train_heatmap=hm_rows, step_comparison=cmp_step),
+                       train_heatmap=hm_rows, step_comparison=cmp_step,
+                       workflow=wf),
                   fh, indent=1, default=str)
 
     print(card)

@@ -1,7 +1,8 @@
 """Entry points (port of ``gga_tpu/apis.py`` and the train step of
-``gga_tpu/train``): build the GGA detector and run stage-3 pseudo-label
-inference on a batch of clouds, or build a trainer and take GGA weak
-train steps."""
+``gga_tpu/train``): build the GGA detector (from a config object, or from
+a config file and a checkpoint dir) and run stage-3 pseudo-label
+inference on a batch of clouds or a list of scene infos, or build a
+trainer and take GGA weak train steps."""
 from __future__ import annotations
 
 import dataclasses
@@ -25,6 +26,17 @@ class DetectorBundle:
     device: torch.device
 
 
+def check_compute_dtype(cfg: GGAModelConfig, device):
+    """Raise unless ``cfg`` can run on ``device``: on CUDA the sparse-conv
+    kernels take bf16 features only, and an f32 model never falls back to
+    the plain version."""
+    if torch.device(device).type == 'cuda' and cfg.compute_dtype != 'bfloat16':
+        raise ValueError(
+            f'compute_dtype {cfg.compute_dtype!r} on CUDA: the sparse-conv '
+            'kernels take bf16 only; set model.compute_dtype to bfloat16 '
+            '(the CLIs: --cfg-options model.compute_dtype=bfloat16)')
+
+
 def init_detector(cfg: GGAModelConfig, state_dict=None, device='cuda',
                   seed=0) -> DetectorBundle:
     """The detector in eval mode on ``device``.
@@ -32,8 +44,10 @@ def init_detector(cfg: GGAModelConfig, state_dict=None, device='cuda',
     With a ``state_dict`` (mmdet3d keys, e.g. from
     ``convert.from_jax_variables``) the weights are loaded strictly;
     without one they are drawn from ``torch.Generator().manual_seed(seed)``.
-    Raises if ``device`` is CUDA and no card is present."""
+    Raises if ``device`` is CUDA and no card is present, or if ``cfg``
+    cannot run there (``check_compute_dtype``)."""
     dev = resolve_device(device)
+    check_compute_dtype(cfg, dev)
     model = GGADetector(cfg)
     if state_dict is None:
         gen = torch.Generator().manual_seed(seed)
@@ -69,6 +83,25 @@ def infer(bundle: DetectorBundle, points, points_valid):
     return {k: dets[k] for k in ('boxes', 'scores', 'labels', 'valid')}
 
 
+def init_model(config, checkpoint=None, device='cuda'):
+    """Config path (or ``Config``) + checkpoint dir -> (DetectorBundle,
+    Config) (apis/inference.init_model:38). Without a checkpoint the
+    weights are seeded random."""
+    from . import tools_lib
+    from .config import Config
+    if isinstance(config, str):
+        config = Config.fromfile(config)
+    return tools_lib.build_model_from_cfg(config, checkpoint, device), config
+
+
+def single_device_test(model_bundle, infos, batch_size=8):
+    """Batched inference over a list of scene infos with the output of
+    ``init_model`` (apis/test.single_gpu_test:12 equivalent)."""
+    from . import tools_lib
+    bundle, cfg = model_bundle
+    return tools_lib.run_inference(bundle, cfg, infos, batch_size)
+
+
 def inference_detector(bundle: DetectorBundle, points):
     """One point cloud [P, 4] (numpy) -> dict(boxes_3d [n, 7],
     scores_3d [n], labels_3d [n]) of the kept detections, as numpy."""
@@ -81,14 +114,16 @@ def inference_detector(bundle: DetectorBundle, points):
 
 
 def init_trainer(cfg: GGAModelConfig, total_steps, state_dict=None,
-                 device='cuda', seed=0) -> TrainState:
+                 device='cuda', seed=0, optimizer=None) -> TrainState:
     """The detector in train mode on ``device`` with the GGA optimizer
-    (``build_optimizer(total_steps)``) and a generator for the per-step
-    SRL draws, seeded with ``seed``. Weights as ``init_detector``."""
+    (``build_optimizer(params, total_steps, **optimizer)``, a config
+    file's ``optimizer`` block) and a generator for the per-step SRL
+    draws, seeded with ``seed``. Weights as ``init_detector``."""
     model = init_detector(cfg, state_dict, device, seed).model.train()
     return TrainState(model=model,
                       optimizer=build_optimizer(model.parameters(),
-                                                total_steps),
+                                                total_steps,
+                                                **(optimizer or {})),
                       step=0, generator=torch.Generator().manual_seed(seed))
 
 

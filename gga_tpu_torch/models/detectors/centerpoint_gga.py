@@ -60,9 +60,12 @@ class GGAModelConfig:
     # head's bias at log(prior) and the height head's at the gravity z
     task_dim_priors: Tuple[Tuple[float, float, float], ...] = None
     prior_ground_z: float = -1.73
-    # gga_tpu's TPU options; the port refuses them (SparseEncoder)
+    # gga_tpu's TPU options; the port refuses all but their defaults
+    # (SparseEncoder)
     remat_encoder: bool = False
     encoder_tile_stages: Tuple[int, ...] = ()
+    encoder_tile_shape: Tuple[int, int, int] = (2, 4, 4)
+    encoder_tile_budgets: Tuple[int, ...] = (0, 7168, 3072, 1536)
 
     @classmethod
     def small(cls):
@@ -118,7 +121,9 @@ class GGADetector(nn.Module):
             encoder_channels=c.encoder_channels,
             encoder_paddings=c.encoder_paddings,
             stage_budgets=c.encoder_budgets, out_budget=c.encoder_out_budget,
-            tile_stages=c.encoder_tile_stages, remat_blocks=c.remat_encoder)
+            tile_stages=c.encoder_tile_stages, remat_blocks=c.remat_encoder,
+            tile_shape=c.encoder_tile_shape,
+            tile_budgets=c.encoder_tile_budgets)
         self.pts_backbone = SECOND(self.pts_middle_encoder.bev_channels,
                                    c.backbone_channels, c.backbone_layers,
                                    c.backbone_strides)

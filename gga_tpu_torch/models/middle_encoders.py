@@ -21,8 +21,8 @@ class SparseEncoder(nn.Module):
 
     Returns the dense BEV map NCHW [B, C*D, H, W], channels flattened
     channel-major over (C, D) like the reference's ``view(N, C*D, H, W)``.
-    ``tile_stages`` and ``remat_blocks`` are gga_tpu's TPU options and are
-    refused."""
+    ``tile_stages``, ``remat_blocks``, ``tile_shape`` and ``tile_budgets``
+    are gga_tpu's TPU options: any value but their defaults is refused."""
 
     def __init__(self, in_channels=4, sparse_shape=(41, 1600, 1408),
                  base_channels=16, output_channels=128,
@@ -33,12 +33,15 @@ class SparseEncoder(nn.Module):
                  stage_budgets: Sequence[int] = (16000, 16000, 16000),
                  out_budget: int = 16000,
                  tile_stages: Tuple[int, ...] = (),
-                 remat_blocks: bool = False):
+                 remat_blocks: bool = False,
+                 tile_shape: Tuple[int, int, int] = (2, 4, 4),
+                 tile_budgets: Tuple[int, ...] = (0, 7168, 3072, 1536)):
         super().__init__()
-        if tile_stages or remat_blocks:
+        if (tile_stages or remat_blocks or tuple(tile_shape) != (2, 4, 4)
+                or tuple(tile_budgets) != (0, 7168, 3072, 1536)):
             raise NotImplementedError(
-                'tile_stages and remat_blocks are TPU options of gga_tpu; '
-                'the port runs the row engine only')
+                'tile_stages, remat_blocks, tile_shape and tile_budgets are '
+                'TPU options of gga_tpu; the port runs the row engine only')
         self.sparse_shape = tuple(sparse_shape)
         self.stage_budgets = tuple(stage_budgets)
         self.out_budget = out_budget

@@ -62,6 +62,14 @@ class GGAOptimizer:
     def zero_grad(self):
         self.adamw.zero_grad(set_to_none=True)
 
+    def state_dict(self):
+        """AdamW's moments and step plus the schedules' count."""
+        return dict(adamw=self.adamw.state_dict(), count=self.count)
+
+    def load_state_dict(self, state):
+        self.adamw.load_state_dict(state['adamw'])
+        self.count = int(state['count'])
+
     @torch.no_grad()
     def step(self):
         grads = [p.grad for p in self.params if p.grad is not None]
