@@ -54,17 +54,34 @@ paths on one NVIDIA card.
    operating point), within twice that distance and never below 0.97;
    each batch-norm statistics update within 1e-2 of its largest entry.
    The plain step's one-ulp grad-norm change is printed beside.
-8. Workflow phase: stages 1-3 of the GGA workflow through the port's
-   command-line tools (``main(argv)``, in-process) on a KITTI-format mini
-   dataset written to a temporary dir (16 scenes, 8 train + 8 val, of
-   120 000 lidar points with about 20 000 in the camera's view, 8-16 Car /
-   Pedestrian / Cyclist boxes ahead of the camera, header-only PNGs):
-   ``create_data_gga``; ``train`` on configs/gga/gga_kitti.py in bf16 at
-   B = 8 for 4 steps (2 an epoch, a checkpoint each epoch), then
-   ``--resume`` to step 6; ``generate_pseudo_labels_gga`` on
-   configs/gga/gga_kitti_matching.py with ``--eval``. The counts are set
-   to 0 before each tool and read after it: 37 / 21 / 4 / 1 launches per
-   train step and 21 gather_gemm_conv per stage-3 batch, nothing else.
+8. f32 phase: steps 3-7 for the sparse-conv kernels in f32 (the shipped
+   configs' dtype; the f32 entries of gather_gemm_conv and gather_gemm_dw,
+   FFMA): one forward's 21 and one train step's 37 + 21 calls replayed
+   against their plain f32 versions (TF32 off; conv within 1e-5, dW
+   within 2e-5 of max|plain| per call, dW the same bits on a second
+   call) and timed beside the f32 bound (67 TFLOP/s, bytes of 4-byte
+   elements); f32 stage-3 and train scenes/s with exact launch counts;
+   the forward with kernels within 1e-4 of max|plain|; one whole step
+   with kernels vs plain: loss within 1e-4 relative, grad norm within
+   1e-3, each weight gradient at cosine >= 0.9999, or >= 0.999 within
+   twice the plain step's one-f32-ulp distance, batch-norm updates within
+   1e-3.
+9. Workflow phase: stages 1-3 of the GGA workflow and the stage-4 export
+   through the port's command-line tools (``main(argv)``, in-process) on
+   a KITTI-format mini dataset written to a temporary dir (16 scenes, 8
+   train + 8 val, of 120 000 lidar points with about 20 000 in the
+   camera's view, 8-16 Car / Pedestrian / Cyclist boxes ahead of the
+   camera, header-only PNGs), the shipped configs as shipped (f32):
+   ``create_data_gga``; ``train`` on configs/gga/gga_kitti.py at B = 8
+   for 4 steps (2 an epoch, a checkpoint each epoch), then ``--resume``
+   to step 6; ``generate_pseudo_labels_gga`` on
+   configs/gga/gga_kitti_matching.py with ``--eval``; ``test`` with
+   ``--eval --format-only`` on the 8 val scenes and with ``--aug-test``
+   on 2 of them (6 variants a scene); ``create_data_gga_retrain_mono`` on
+   the pseudo pkl, its json's image and annotation counts held against
+   the infos. The counts are set to 0 before each tool and read after
+   it: 37 / 21 / 4 / 1 launches per train step and 21 gather_gemm_conv
+   per stage-3 batch and per TTA variant, nothing else.
    Fails unless every logged loss is finite, the resume
    starts at step 4, each step ran at the lr cyclic_cos_schedule gives
    for its count, the pseudo pkl holds 16 infos, and the stage-3 tool's
@@ -75,11 +92,12 @@ paths on one NVIDIA card.
    included) with the loader's share, the checkpoints' size and save /
    load ms, and stage-3 scenes/s (load through matching), each beside the
    card's name and power limit.
-9. Prints one JSON line describing the kernels (each with its time
-   ms, device_ms, launches, bound and bound_share = bound_ms / ms,
-   device_bound_share = bound_ms / device_ms, host_ms where measured),
-   the card, then, as the last line, {"ok": true, "device": {...}}. Any
-   failed phase exits non-zero.
+10. Prints one JSON line describing the kernels (each with its time
+    ms, device_ms, launches, bound and bound_share = bound_ms / ms,
+    device_bound_share = bound_ms / device_ms, host_ms where measured;
+    the f32 entries as gather_gemm_conv_f32 and gather_gemm_dw_f32), the
+    card, then, as the last line, {"ok": true, "device": {...}}. Any
+    failed phase exits non-zero.
 
 Everything it measures is also written to chiprun_out/chip_smoke.json.
 """
@@ -101,14 +119,26 @@ BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, H100 SXM
 F32_FLOPS = 67e12          # f32 outside the tensor cores, H100 SXM
 SOURCES = ('gather_gemm', 'gather_gemm_dw', 'gather_rows', 'heatmap')
 # device kernels each wrapper launches, by name, for the profiler's times
+# (the sparse-conv wrappers launch the *_f32 kernels on f32 tensors)
 KERNEL_NAMES = dict(gather_gemm_conv=('conv_narrow', 'conv_tile'),
                     gather_gemm_dw=('dw_kernel', 'dw_narrow', 'reduce_splits'),
+                    gather_gemm_conv_f32=('conv_f32',),
+                    gather_gemm_dw_f32=('dw_f32', 'reduce_splits'),
                     gather_rows=('gather_rows_kernel',),
                     gather_rows_t=('gather_rows_t_kernel',),
                     render_heatmap=('heatmap_kernel',))
 TRAIN_STEPS = 5
-DW_RTOL = 1e-4             # gather_gemm_dw vs plain, of max|plain| per call
-COSINE_MIN, COSINE_FLOOR = 0.99, 0.97  # whole-step weight-gradient gates
+# gates of each dtype: gather_gemm_conv and gather_gemm_dw vs plain, of
+# max|plain| per call (bf16 conv: 1e-2 of max|plain| plus one bf16 ulp);
+# the forward with kernels vs plain, of max|plain| (bf16: as the conv);
+# whole step: loss and grad norm relative, each sparse conv weight
+# gradient's cosine (cos_min, or cos_floor within twice the plain step's
+# one-ulp distance), batch-norm updates of their largest entry
+GATES = dict(
+    bfloat16=dict(conv=None, dw=1e-4, forward=None, loss=1e-2, norm=5e-2,
+                  cos_min=0.99, cos_floor=0.97, bn=1e-2),
+    float32=dict(conv=1e-5, dw=2e-5, forward=1e-4, loss=1e-4, norm=1e-3,
+                 cos_min=0.9999, cos_floor=0.999, bn=1e-3))
 # sparse convs of one full-width forward: 17 submanifold (conv_input + 8
 # basic blocks x 2) + 3 strided + conv_out; all but conv_input (whose
 # input is the VFE output) take an input gradient
@@ -119,13 +149,14 @@ PER_STEP = dict(gather_gemm_conv=N_CONVS + N_DGRAD, gather_gemm_dw=N_CONVS,
 DEVICE = 'cuda'
 
 
-def configs():
-    """(stage-3 config, train config): bench.py's operating point."""
+def configs(dtype='bfloat16'):
+    """(stage-3 config, train config): bench.py's operating point in
+    ``dtype``."""
     from gga_tpu_torch.models.dense_heads.centerpoint_head_gga import \
         GGAHeadConfig
     from gga_tpu_torch.models.detectors.centerpoint_gga import GGAModelConfig
-    return (GGAModelConfig(compute_dtype='bfloat16'),
-            GGAModelConfig(compute_dtype='bfloat16',
+    return (GGAModelConfig(compute_dtype=dtype),
+            GGAModelConfig(compute_dtype=dtype,
                            head=GGAHeadConfig(max_objs=M_OBJ)))
 
 
@@ -253,6 +284,26 @@ def within_bf16_tolerance(torch, out, ref):
     return ok, float(err.max())
 
 
+def within_tolerance(torch, out, ref, rtol):
+    """(ok, max |out - ref|): the bf16 tolerance where ``rtol`` is None,
+    else |out - ref| <= rtol max|ref|."""
+    if rtol is None:
+        return within_bf16_tolerance(torch, out, ref)
+    err = float((out.float() - ref.float()).abs().max())
+    return err <= rtol * float(ref.float().abs().max()), err
+
+
+def dtype_name(torch, t):
+    """'float32' or 'bfloat16': the GATES key of a tensor's dtype."""
+    return 'float32' if t.dtype == torch.float32 else 'bfloat16'
+
+
+def kernel_key(torch, name, t):
+    """The kernel's name in KERNEL_NAMES and the kernels line: the f32
+    entries carry a suffix."""
+    return name + '_f32' if t.dtype == torch.float32 else name
+
+
 @contextlib.contextmanager
 def recording(module, name, phase=lambda: None):
     """Replace ``module.name`` by a wrapper that records each call's
@@ -309,23 +360,28 @@ def conv_row(torch, sparse_conv, f, nmap, w, label):
     out = real(f, nmap, w)
     ref = plain(f, nmap, w)
     torch.cuda.synchronize()
-    ok, err = within_bf16_tolerance(torch, out, ref)
+    ok, err = within_tolerance(torch, out, ref,
+                               GATES[dtype_name(torch, f)]['conv'])
     if not ok:
-        fail(f'{label}: gather_gemm_conv (K, C, D) = {tuple(w.shape)} '
-             f'disagrees with the plain version, max abs err {err}')
+        fail(f'{label}: gather_gemm_conv {f.dtype} (K, C, D) = '
+             f'{tuple(w.shape)} disagrees with the plain version, max abs '
+             f'err {err}')
     R, C = f.shape
     K, Q = nmap.shape
     D = w.shape[2]
+    es = f.element_size()
     hits = int((nmap >= 0).sum())
     read = rows_read(torch, nmap)
-    nbytes = read * C * 2 + K * Q * 4 + K * C * D * 2 + Q * D * 2
+    nbytes = read * C * es + K * Q * 4 + K * C * D * es + Q * D * es
     flops = 2 * hits * C * D
-    b_ms, f_ms = bound_ms(nbytes, flops, BF16_FLOPS)
+    b_ms, f_ms = bound_ms(nbytes, flops, F32_FLOPS if es == 4 else BF16_FLOPS)
     return dict(K=K, C=C, D=D, R=R, Q=Q, hits=hits, rows_read=read,
                 bytes=nbytes, flops=flops, max_abs_err=err,
+                max_abs_plain=float(ref.float().abs().max()),
                 ms=event_ms(torch, lambda: real(f, nmap, w), 20),
-                device_ms=device_ms(torch, lambda: real(f, nmap, w), 20,
-                                    KERNEL_NAMES['gather_gemm_conv']),
+                device_ms=device_ms(
+                    torch, lambda: real(f, nmap, w), 20,
+                    KERNEL_NAMES[kernel_key(torch, 'gather_gemm_conv', f)]),
                 plain_ms=event_ms(torch, lambda: plain(f, nmap, w), 5),
                 bytes_ms=b_ms, flops_ms=f_ms)
 
@@ -363,25 +419,27 @@ def print_conv_rows(title, rows):
               f'{max(r["max_abs_err"] for r in rs):>8.4f}')
 
 
-def kernel_phase(torch, sparse_conv, bundle, pts, val, n_convs):
+def kernel_phase(torch, sparse_conv, bundle, pts, val, n_convs,
+                 label='kernel phase'):
     with recording(sparse_conv, 'gather_gemm_conv') as calls:
         with torch.no_grad():
             bundle.model(pts, val)
     torch.cuda.synchronize()
     if len(calls) != n_convs:
-        fail(f'kernel phase: expected {n_convs} sparse conv calls, saw '
+        fail(f'{label}: expected {n_convs} sparse conv calls, saw '
              f'{len(calls)}')
     with torch.no_grad():
-        rows = [conv_row(torch, sparse_conv, *args, f'kernel phase call {i}')
+        rows = [conv_row(torch, sparse_conv, *args, f'{label} call {i}')
                 for i, (_, args) in enumerate(calls)]
-    print_conv_rows(f'kernel phase: gather_gemm_conv vs plain at the path\'s '
+    print_conv_rows(f'{label}: gather_gemm_conv vs plain at the path\'s '
                     f'{n_convs} calls (bytes = feature rows hit + nmap + '
                     'weights + out, each once; flops = 2 * hits * C * D)',
                     rows)
     return rows
 
 
-def slice_phase(torch, sparse_conv, apis, bundle, batches, n_convs):
+def slice_phase(torch, sparse_conv, apis, bundle, batches, n_convs,
+                label='slice phase'):
     """Main path: the counts are set to 0 just before and read just after."""
     apis.infer(bundle, *batches[0])                       # warm-up
     torch.cuda.synchronize()
@@ -395,20 +453,20 @@ def slice_phase(torch, sparse_conv, apis, bundle, batches, n_convs):
     launches = sparse_conv.launches
     n_fwd = len(batches) - 1
     if launches != n_convs * n_fwd:
-        fail(f'slice phase: {launches} kernel launches for {n_fwd} forwards,'
+        fail(f'{label}: {launches} kernel launches for {n_fwd} forwards,'
              f' expected {n_convs * n_fwd}')
     ms = start.elapsed_time(end)
     n_valid = 0
     for out in outs:
         n = 3 * bundle.cfg.max_per_task
         if out['boxes'].shape != (B, n, 7) or out['scores'].shape != (B, n):
-            fail(f'slice phase: output shapes {out["boxes"].shape}')
+            fail(f'{label}: output shapes {out["boxes"].shape}')
         for key in ('boxes', 'scores'):
             if not torch.isfinite(out[key]).all():
-                fail(f'slice phase: non-finite {key}')
+                fail(f'{label}: non-finite {key}')
         n_valid += int(out['valid'].sum())
     if n_valid == 0:
-        fail('slice phase: no valid detection')
+        fail(f'{label}: no valid detection')
     return dict(launches=launches, forwards=n_fwd, ms=ms,
                 scenes_per_s=B * n_fwd / (ms / 1e3),
                 valid_detections=n_valid)
@@ -478,7 +536,8 @@ def print_profile(label, prof):
 
 
 def plain_comparison(torch, mods, bundle, pts, val):
-    """BEV map and head logits with the kernels vs with the plain versions."""
+    """BEV map and head logits with the kernels vs with the plain versions,
+    within the forward gate of the model's dtype."""
     m = bundle.model
 
     def run():
@@ -495,7 +554,8 @@ def plain_comparison(torch, mods, bundle, pts, val):
     for name, a, b in [('bev', bev_k, bev_p)] + [
             (f'heatmap_logits_task{t}', x, y)
             for t, (x, y) in enumerate(zip(hm_k, hm_p))]:
-        ok, err = within_bf16_tolerance(torch, a, b)
+        ok, err = within_tolerance(
+            torch, a, b, GATES[bundle.cfg.compute_dtype]['forward'])
         result[name] = dict(max_abs_err=err,
                             max_abs_plain=float(b.float().abs().max()))
         if not ok:
@@ -556,7 +616,7 @@ def finite_logs(torch, logs, label):
             fail(f'{label}: {key} is not finite ({v})')
 
 
-def train_phase(torch, apis, mods, trainer, batches):
+def train_phase(torch, apis, mods, trainer, batches, label='train phase'):
     """Main path: the counts are set to 0 just before the timed steps and
     read just after. Returns the phase's numbers."""
     params0 = {n: p.detach().clone()
@@ -585,24 +645,24 @@ def train_phase(torch, apis, mods, trainer, batches):
     n = len(batches)
     for name, per in PER_STEP.items():
         if got[name] != per * n:
-            fail(f'train phase: {got[name]} {name} launches in {n} steps, '
+            fail(f'{label}: {got[name]} {name} launches in {n} steps, '
                  f'expected {per * n}')
     if got['gather_rows_t'] != 0:
-        fail('train phase: gather_rows_t ran on the main path')
+        fail(f'{label}: gather_rows_t ran on the main path')
     for logs, ev in zip(all_logs, events):
         for i, name in enumerate(names):
             stage_ms[name] += ev[i].elapsed_time(ev[i + 1]) / n
-        finite_logs(torch, logs, 'train phase')
+        finite_logs(torch, logs, label)
     moved = sum(int(not torch.equal(p, params0[k]))
                 for k, p in trainer.model.named_parameters())
     if moved != len(params0):
-        fail(f'train phase: only {moved} of {len(params0)} parameter '
+        fail(f'{label}: only {moved} of {len(params0)} parameter '
              'tensors changed')
     bn_moved = sum(int(not torch.equal(b, stats0[k])
                        and bool(torch.isfinite(b).all()))
                    for k, b in trainer.model.named_buffers())
     if bn_moved != len(stats0):
-        fail(f'train phase: only {bn_moved} of {len(stats0)} batch-norm '
+        fail(f'{label}: only {bn_moved} of {len(stats0)} batch-norm '
              'statistics moved and stayed finite')
     last = {k: float(v) for k, v in all_logs[-1].items()}
     return dict(launches=got, steps=n, ms=ms,
@@ -612,7 +672,7 @@ def train_phase(torch, apis, mods, trainer, batches):
                 last_logs=last, params_moved=moved, bn_stats_moved=bn_moved)
 
 
-def dw_rows(torch, sparse_conv, calls):
+def dw_rows(torch, sparse_conv, calls, label='train kernels'):
     rows = []
     real, plain = sparse_conv.gather_gemm_dw, sparse_conv.gather_gemm_dw_plain
     for i, (_, (f, nmap, dout)) in enumerate(calls):
@@ -621,32 +681,36 @@ def dw_rows(torch, sparse_conv, calls):
         ref = plain(f, nmap, dout)
         torch.cuda.synchronize()
         if not torch.equal(out, again):
-            fail(f'train kernels: gather_gemm_dw call {i} {tuple(out.shape)} '
+            fail(f'{label}: gather_gemm_dw call {i} {tuple(out.shape)} '
                  'gave other bits on a second call')
         err = float((out - ref).abs().max())
         scale = float(ref.abs().max())
-        if not err <= DW_RTOL * scale:
-            fail(f'train kernels: gather_gemm_dw call {i} {tuple(out.shape)} '
-                 f'max abs err {err} > {DW_RTOL} * {scale}')
+        rtol = GATES[dtype_name(torch, f)]['dw']
+        if not err <= rtol * scale:
+            fail(f'{label}: gather_gemm_dw {f.dtype} call {i} '
+                 f'{tuple(out.shape)} max abs err {err} > {rtol} * {scale}')
         R, C = f.shape
         K, Q = nmap.shape
         D = dout.shape[1]
+        es = f.element_size()
         hits = int((nmap >= 0).sum())
         read = rows_read(torch, nmap)
-        nbytes = read * C * 2 + K * Q * 4 + Q * D * 2 + K * C * D * 4
+        nbytes = read * C * es + K * Q * 4 + Q * D * es + K * C * D * 4
         flops = 2 * hits * C * D
-        b_ms, f_ms = bound_ms(nbytes, flops, BF16_FLOPS)
+        b_ms, f_ms = bound_ms(nbytes, flops,
+                              F32_FLOPS if es == 4 else BF16_FLOPS)
         rows.append(dict(K=K, C=C, D=D, R=R, Q=Q, hits=hits, rows_read=read,
                          bytes=nbytes, flops=flops, max_abs_err=err,
                          max_abs_plain=scale,
                          ms=event_ms(torch, lambda: real(f, nmap, dout), 20),
                          device_ms=device_ms(
                              torch, lambda: real(f, nmap, dout), 20,
-                             KERNEL_NAMES['gather_gemm_dw']),
+                             KERNEL_NAMES[kernel_key(torch, 'gather_gemm_dw',
+                                                     f)]),
                          plain_ms=event_ms(torch, lambda: plain(f, nmap, dout),
                                            5),
                          bytes_ms=b_ms, flops_ms=f_ms))
-    print_conv_rows('train kernels: gather_gemm_dw vs plain at the step\'s '
+    print_conv_rows(f'{label}: gather_gemm_dw vs plain at the step\'s '
                     f'{len(rows)} calls (bytes = feature rows hit + nmap + '
                     'dout + f32 out; flops = 2 * hits * C * D)', rows)
     return rows
@@ -815,9 +879,11 @@ def input_ulp_noise(torch, model):
 
 def step_comparison(torch, mods, trainer, batch):
     """Loss and gradients of one step with the kernels vs the plain
-    versions, same weights, batch and SRL draw. The rounding noise of the
-    bf16 step is read without the kernels: the plain step against the
-    plain step with a one-ulp perturbation of the encoder input."""
+    versions, same weights, batch and SRL draw, within the gates of the
+    model's dtype. The step's rounding noise is read without the kernels:
+    the plain step against the plain step with a one-ulp perturbation (of
+    the model's dtype) of the encoder input."""
+    gate = GATES[trainer.model.cfg.compute_dtype]
     srl = torch.randn((3, B), generator=torch.Generator().manual_seed(5)).to(
         batch['labels'].device)
     loss_k, norm_k, g_k, bn_k = loss_and_grads(torch, trainer, batch, srl)
@@ -832,15 +898,15 @@ def step_comparison(torch, mods, trainer, batch):
             a[n].flatten(), b[n].flatten(), dim=0)) for n in a}
 
     cos, cos_noise = cosines(g_k, g_p), cosines(g_p, g_n)
-    # the bf16 step's batch-norm statistics: each buffer's update agrees
-    # within 1e-2 of its largest entry (means and variances in f32 of
-    # bf16 activations that differ by rounding)
+    # each batch-norm buffer's update agrees within the gate of its
+    # largest entry (means and variances in f32 of activations that
+    # differ by rounding)
     bn_err = {n: float((bn_k[n] - bn_p[n]).abs().max()
                        / bn_p[n].abs().max().clamp(min=1e-12)) for n in bn_p}
     if not all(torch.isfinite(v).all() for v in bn_k.values()):
         fail('step comparison: non-finite batch-norm statistics')
     worst_bn = max(bn_err, key=bn_err.get)
-    if not bn_err[worst_bn] <= 1e-2:
+    if not bn_err[worst_bn] <= gate['bn']:
         fail(f'step comparison: batch-norm update of {worst_bn} differs by '
              f'{bn_err[worst_bn]} of its largest entry')
     res = dict(loss_kernel=loss_k, loss_plain=loss_p,
@@ -855,19 +921,20 @@ def step_comparison(torch, mods, trainer, batch):
     if len(cos) != N_CONVS:
         fail(f'step comparison: {len(cos)} sparse conv weight gradients, '
              f'expected {N_CONVS}')
-    if not res['loss_rel'] <= 1e-2:
+    if not res['loss_rel'] <= gate['loss']:
         fail(f'step comparison: loss {loss_k} vs plain {loss_p}')
-    if not res['grad_norm_rel'] <= 5e-2:
+    if not res['grad_norm_rel'] <= gate['norm']:
         fail(f'step comparison: grad norm {norm_k} vs plain {norm_p}')
-    # cosine >= 0.99, or, where one ulp at the input already moves the
+    # cosine >= cos_min, or, where one ulp at the input already moves the
     # plain step's gradient further, no more than twice that far from it
     # and never below the fixed floor
     for n, c in cos.items():
-        if not (c >= COSINE_MIN or (c >= COSINE_FLOOR
-                                    and 1 - c <= 2 * (1 - cos_noise[n]))):
+        if not (c >= gate['cos_min'] or (
+                c >= gate['cos_floor'] and 1 - c <= 2 * (1 - cos_noise[n]))):
             fail(f'step comparison: {n} weight gradient cosine {c} < '
-                 f'{COSINE_MIN} and beyond twice the plain step\'s one-ulp '
-                 f'noise (cosine {cos_noise[n]}) or {COSINE_FLOOR}')
+                 f'{gate["cos_min"]} and beyond twice the plain step\'s '
+                 f'one-ulp noise (cosine {cos_noise[n]}) or '
+                 f'{gate["cos_floor"]}')
     return res
 
 
@@ -896,8 +963,8 @@ WF_MATCHING = 'configs/gga/gga_kitti_matching.py'
 WF_SPLITS = (8, 8)          # train, val scenes of the mini KITTI
 WF_POINTS = 120000          # raw lidar points a scene
 WF_STEPS = (4, 6)           # --max-steps of the first run, of the resume
-WF_DTYPE = 'bfloat16'
 WF_OPTIONS = ('log_interval=1',)
+WF_AUG_SCENES = 2           # val scenes of the --aug-test run
 # KITTI-like calibration (velodyne x forward -> camera z forward)
 VELO2CAM = np.array([[0., -1., 0., 0.], [0., 0., -1., -0.08],
                      [1., 0., 0., -0.27], [0., 0., 0., 1.]])
@@ -1034,18 +1101,23 @@ def write_mini_kitti(root, splits=WF_SPLITS, n_points=WF_POINTS, seed=0):
 
 
 def workflow_phase(torch, mods, card, tmp):
-    """Stages 1-3 through the port's CLIs (``main(argv)``, in-process) on
-    a KITTI-format mini dataset in ``tmp``, at the shipped configs' full
-    width in bf16. Main path: the counts are set to 0 just before each CLI
-    and read just after."""
+    """Stages 1-3 and the stage-4 export through the port's CLIs
+    (``main(argv)``, in-process) on a KITTI-format mini dataset in
+    ``tmp``, with the shipped configs as shipped (full width, f32). Main
+    path: the counts are set to 0 just before each CLI and read just
+    after."""
     import json as json_
     import os
     import pickle
 
     from gga_tpu_torch import apis
     from gga_tpu_torch.config import Config
-    from gga_tpu_torch.tools import create_data_gga, train
+    from gga_tpu_torch.core.merge_augs import tta_transforms
+    from gga_tpu_torch.tools import create_data_gga
+    from gga_tpu_torch.tools import create_data_gga_retrain_mono as mono_cli
     from gga_tpu_torch.tools import generate_pseudo_labels_gga as stage3
+    from gga_tpu_torch.tools import test as test_cli
+    from gga_tpu_torch.tools import train
     from gga_tpu_torch.train import checkpoints as ckpt
     from gga_tpu_torch.train.optim import cyclic_cos_schedule
 
@@ -1054,8 +1126,7 @@ def workflow_phase(torch, mods, card, tmp):
     n_scenes = sum(WF_SPLITS)
     print(f'workflow: mini KITTI of {n_scenes} scenes x {WF_POINTS} points, '
           f'{min(in_view)}-{max(in_view)} in the camera\'s view')
-    opts = ['--cfg-options', f'data_root={data}/',
-            f'model.compute_dtype={WF_DTYPE}', *WF_OPTIONS]
+    opts = ['--cfg-options', f'data_root={data}/', *WF_OPTIONS]
     res = dict(points_in_view=in_view)
 
     zero_counts(mods)
@@ -1186,7 +1257,210 @@ def workflow_phase(torch, mods, card, tmp):
     res.update(stage3={k: v for k, v in s3.items() if k != 'ap'},
                stage3_launches=got, first_batch_detections=n_det,
                pseudo_infos=len(pseudo), pseudo_labels=n_pseudo)
+    res.update(test_phase(torch, mods, card, tmp, data, ckpt_dir, opts,
+                          batch, test_cli, tta_transforms))
+    res['mono3d'] = mono_phase(mods, card, pkl, pseudo, mono_cli)
     return res
+
+
+def test_phase(torch, mods, card, tmp, data, ckpt_dir, opts, batch,
+               test_cli, tta_transforms):
+    """tools/test.py on the val split (--eval, submission files) and with
+    --aug-test on its first WF_AUG_SCENES scenes; the counts are set to 0
+    just before each run and read just after."""
+    import os
+    import pickle
+
+    config = str(ROOT / WF_CONFIG)
+    val_info = 'kitti_infos_val_GGA.pkl'
+    n_val = WF_SPLITS[1]
+    sub_dir = os.path.join(tmp, 'submission')
+    zero_counts(mods)
+    ev = test_cli.main([config, '--checkpoint', ckpt_dir, '--info', val_info,
+                        '--eval', '--format-only', '--submission-dir',
+                        sub_dir, '--device', DEVICE, *opts])
+    got = counts(mods)
+    want = dict(gather_gemm_conv=N_CONVS * -(-n_val // batch),
+                gather_gemm_dw=0, gather_rows=0, gather_rows_t=0,
+                render_heatmap=0)
+    if got != want:
+        fail(f'workflow: test CLI launches {got}, expected {want}')
+    ev_launches = got
+    files = sorted(os.listdir(sub_dir))
+    if ev['scenes'] != n_val or len(files) != n_val:
+        fail(f'workflow: test CLI wrote {len(files)} submission files for '
+             f'{ev["scenes"]} scenes, expected {n_val}')
+    if 'KITTI/Car_3D_AP11_moderate_strict' not in ev.get('ap', {}):
+        fail('workflow: test CLI --eval gave no KITTI AP')
+    print(f'{card}: workflow test CLI (--eval --format-only, {n_val} val '
+          f'scenes): {ev["scenes_per_s"]:.2f} scenes/s (inference through '
+          f'the annos), {ev["detections"]} detections, {len(files)} '
+          f'submission files; launches {got}')
+
+    with open(os.path.join(data, val_info), 'rb') as f:
+        val_infos = pickle.load(f)
+    aug_info = 'kitti_infos_val_aug_GGA.pkl'
+    with open(os.path.join(data, aug_info), 'wb') as f:
+        pickle.dump(val_infos[:WF_AUG_SCENES], f)
+    aug_dir = os.path.join(tmp, 'submission_aug')
+    zero_counts(mods)
+    aug = test_cli.main([config, '--checkpoint', ckpt_dir, '--info',
+                         aug_info, '--aug-test', '--format-only',
+                         '--submission-dir', aug_dir, '--device', DEVICE,
+                         *opts])
+    got = counts(mods)
+    # apis.aug_inference_detector's default variants: 3 scales x h-flip
+    variants = len(tta_transforms(scales=(0.95, 1.0, 1.05), flip=True))
+    want = dict(gather_gemm_conv=N_CONVS * variants * WF_AUG_SCENES,
+                gather_gemm_dw=0, gather_rows=0, gather_rows_t=0,
+                render_heatmap=0)
+    if got != want:
+        fail(f'workflow: test CLI --aug-test launches {got}, expected '
+             f'{want} ({variants} variants a scene)')
+    if aug['scenes'] != WF_AUG_SCENES or len(
+            os.listdir(aug_dir)) != WF_AUG_SCENES:
+        fail('workflow: test CLI --aug-test wrote the wrong submission files')
+    print(f'{card}: workflow test CLI --aug-test ({WF_AUG_SCENES} scenes x '
+          f'{variants} variants): {aug["scenes_per_s"]:.2f} scenes/s, '
+          f'{aug["detections"]} detections; launches {got}')
+    return dict(test_eval={k: v for k, v in ev.items() if k != 'ap'},
+                test_eval_launches=ev_launches, test_aug=aug,
+                test_aug_launches=got, tta_variants=variants)
+
+
+def mono_phase(mods, card, pkl, pseudo, mono_cli):
+    """The stage-4 mono3d COCO export of the stage-3 pseudo pkl; host only."""
+    import json as json_
+    import os
+
+    zero_counts(mods)
+    t0 = time.perf_counter()
+    out = mono_cli.main(['kitti', '--root-path', os.path.dirname(pkl)])
+    seconds = time.perf_counter() - t0
+    if any(counts(mods).values()):
+        fail('workflow: the mono3d export launched a kernel')
+    got = out['trainval_pseudo']
+    if got is None:
+        fail('workflow: the mono3d export found no pseudo pkl')
+    with open(got['json']) as f:
+        coco = json_.load(f)
+    classes = ('Pedestrian', 'Cyclist', 'Car')
+    n_obj = sum(sum(n in classes for n in i['annos']['name'])
+                for i in pseudo)
+    if not (got['images'] == len(coco['images']) == len(pseudo)
+            and got['annotations'] == len(coco['annotations']) == n_obj):
+        fail(f'workflow: the mono3d json holds {len(coco["images"])} images '
+             f'and {len(coco["annotations"])} annotations, the pseudo infos '
+             f'{len(pseudo)} and {n_obj}')
+    print(f'{card}: workflow mono3d export: {len(coco["images"])} images, '
+          f'{len(coco["annotations"])} annotations in {seconds:.2f} s')
+    return dict(got, seconds=seconds)
+
+
+def scene_points(torch, dev, seed):
+    """(points, valid) of one bench-point batch on ``dev``."""
+    b = make_batch(B, P, M_OBJ, PC, seed)
+    return (torch.from_numpy(b['points']).to(dev),
+            torch.from_numpy(b['points_valid']).to(dev))
+
+
+def train_batch(torch, dev, seed):
+    """One bench-point train batch on ``dev``."""
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in make_batch(B, P, M_OBJ, PC, seed).items()}
+
+
+def train_kernel_rows(torch, sparse_conv, rec, label):
+    """The recorded step's gather_gemm_conv calls (forward, then the
+    submanifold input gradients) and gather_gemm_dw calls, replayed
+    against their plain versions and timed."""
+    conv_calls = rec['gather_gemm_conv']
+    fwd_calls = [a for ph, a in conv_calls if ph == 'forward']
+    dgrad_calls = [a for ph, a in conv_calls if ph == 'backward']
+    if (len(fwd_calls), len(dgrad_calls)) != (N_CONVS, N_DGRAD):
+        fail(f'{label}: {len(fwd_calls)} forward and {len(dgrad_calls)} '
+             f'input-gradient convs, expected {N_CONVS} and {N_DGRAD}')
+    conv_rows = [conv_row(torch, sparse_conv, *a, f'{label} call {i}')
+                 for i, a in enumerate(fwd_calls + dgrad_calls)]
+    print_conv_rows(f'{label}: gather_gemm_conv vs plain at the step\'s '
+                    f'{N_CONVS} forward calls', conv_rows[:N_CONVS])
+    print_conv_rows(f'{label}: gather_gemm_conv vs plain at the step\'s '
+                    f'{N_DGRAD} submanifold input-gradient calls',
+                    conv_rows[N_CONVS:])
+    dwr = dw_rows(torch, sparse_conv, rec['gather_gemm_dw'], label)
+    return conv_rows, dwr, fwd_calls
+
+
+def print_step_comparison(label, cmp_step):
+    print(f'{label}: loss {cmp_step["loss_kernel"]:.8g} vs '
+          f'{cmp_step["loss_plain"]:.8g} (rel {cmp_step["loss_rel"]:.3g}),'
+          f' grad norm {cmp_step["grad_norm_kernel"]:.8g} vs '
+          f'{cmp_step["grad_norm_plain"]:.8g} (rel '
+          f'{cmp_step["grad_norm_rel"]:.3g}; plain step, one ulp of input '
+          f'noise: {cmp_step["grad_norm_rel_plain_ulp_noise"]:.3g}), min '
+          f'cosine of the {N_CONVS} sparse conv weight gradients '
+          f'{cmp_step["min_cosine"]:.8f} (plain step, one ulp of input '
+          f'noise: {cmp_step["min_cosine_plain_ulp_noise"]:.8f}); batch-norm '
+          f'updates of {cmp_step["bn_buffers"]} buffers within '
+          f'{cmp_step["bn_update_max_rel_err"]:.3g} of their largest entry')
+
+
+def f32_phase(torch, apis, sp, mods, card):
+    """The f32 sparse-conv kernels at the bench point: the bench's
+    configuration in f32 (the shipped configs' dtype), B=8, P=20 000,
+    M=500, Pc=256. One stage-3 forward's 21 gather_gemm_conv calls and one
+    train step's 37 gather_gemm_conv and 21 gather_gemm_dw calls are
+    replayed against their plain f32 versions (TF32 off) and timed; stage
+    3 and the train step run as the main path with exact launch counts
+    and their rates; the forward and one step with the kernels are held
+    against the same with the plain versions."""
+    sparse_conv = mods[0]
+    cfg, tcfg = configs('float32')
+    bundle = apis.init_detector(cfg, device=DEVICE, seed=0)
+    dev = bundle.device
+    rows = kernel_phase(torch, sparse_conv, bundle, *scene_points(torch, dev, 0),
+                        N_CONVS, label='f32 kernel phase')
+    batches = [scene_points(torch, dev, s) for s in range(1, 5)]
+    sl = slice_phase(torch, sparse_conv, apis, bundle, batches, N_CONVS,
+                     label='f32 slice phase')
+    print(f'{card}: f32 stage 3: {sl["forwards"]} x {B} scenes in '
+          f'{sl["ms"]:.2f} ms = {sl["scenes_per_s"]:.2f} scenes/s; '
+          f'{sl["launches"]} kernel launches; {sl["valid_detections"]} '
+          'valid detections')
+    stages = breakdown(torch, bundle, batches[1:])
+    print('f32 breakdown (device ms per batch of 8): ' + ', '.join(
+        f'{k} {v:.2f}' for k, v in stages.items()))
+    cmp = plain_comparison(torch, mods, bundle, *batches[1])
+    print('f32 kernel vs plain forward: ' + ', '.join(
+        f'{k} err {v["max_abs_err"]:.4g} (max {v["max_abs_plain"]:.4g})'
+        for k, v in cmp.items()))
+    del bundle, batches
+
+    trainer = apis.init_trainer(tcfg, total_steps=10000, device=DEVICE,
+                                seed=0)
+    tbatches = [train_batch(torch, dev, s) for s in range(10, 11 + TRAIN_STEPS)]
+    logs0, rec, _ = recorded_step(torch, apis, sp, mods, trainer, tbatches[0])
+    finite_logs(torch, logs0, 'f32 warm-up step')
+    n_rec = {k: len(v) for k, v in rec.items()}
+    if n_rec != PER_STEP:
+        fail(f'f32 warm-up step: kernel calls {n_rec}, expected {PER_STEP}')
+    tr = train_phase(torch, apis, mods, trainer, tbatches[1:],
+                     label='f32 train phase')
+    print(f'{card}: f32 train: {tr["steps"]} steps x {B} scenes in '
+          f'{tr["ms"]:.2f} ms = {tr["scenes_per_s"]:.2f} scenes/s; launches '
+          f'{tr["launches"]}; losses {[round(v, 2) for v in tr["losses"]]}')
+    print('f32 train breakdown (device ms per step of 8 scenes): ' + ', '.join(
+        f'{k} {v:.2f}' for k, v in tr['breakdown'].items()))
+    torch.set_grad_enabled(False)
+    conv_rows, dwr, _ = train_kernel_rows(torch, sparse_conv, rec,
+                                          'f32 train kernels')
+    del rec
+    torch.set_grad_enabled(True)
+    cmp_step = step_comparison(torch, mods, trainer, tbatches[1])
+    print_step_comparison('f32 whole step kernels vs plain', cmp_step)
+    return dict(infer_calls=rows, slice=sl, breakdown=stages,
+                plain_comparison=cmp, train=tr, train_conv_calls=conv_rows,
+                train_dw_calls=dwr, step_comparison=cmp_step)
 
 
 def main():
@@ -1222,14 +1496,9 @@ def main():
     bundle = apis.init_detector(cfg, device=DEVICE, seed=0)
     dev = bundle.device
 
-    def points(seed):
-        b = make_batch(B, P, M_OBJ, PC, seed)
-        return (torch.from_numpy(b['points']).to(dev),
-                torch.from_numpy(b['points_valid']).to(dev))
-
-    rows = kernel_phase(torch, sparse_conv, bundle, *points(0),
-                        n_convs=N_CONVS)
-    batches = [points(s) for s in range(1, 5)]
+    rows = kernel_phase(torch, sparse_conv, bundle,
+                        *scene_points(torch, dev, 0), n_convs=N_CONVS)
+    batches = [scene_points(torch, dev, s) for s in range(1, 5)]
     sl = slice_phase(torch, sparse_conv, apis, bundle, batches,
                      n_convs=N_CONVS)
     print(f'slice phase: {sl["forwards"]} x {B} scenes in {sl["ms"]:.2f} ms '
@@ -1249,12 +1518,7 @@ def main():
     # --- GGA weak training ---------------------------------------------------
     trainer = apis.init_trainer(tcfg, total_steps=10000, device=DEVICE,
                                 seed=0)
-
-    def train_batch(seed):
-        return {k: torch.from_numpy(v).to(dev)
-                for k, v in make_batch(B, P, M_OBJ, PC, seed).items()}
-
-    tbatches = [train_batch(s) for s in range(10, 11 + TRAIN_STEPS)]
+    tbatches = [train_batch(torch, dev, s) for s in range(10, 11 + TRAIN_STEPS)]
     logs0, rec, strided_maps = recorded_step(torch, apis, sp, mods, trainer,
                                              tbatches[0])
     finite_logs(torch, logs0, 'warm-up step')
@@ -1278,20 +1542,8 @@ def main():
 
     # --- the train path's kernels, replayed --------------------------------
     torch.set_grad_enabled(False)
-    conv_calls = rec['gather_gemm_conv']
-    fwd_calls = [a for ph, a in conv_calls if ph == 'forward']
-    dgrad_calls = [a for ph, a in conv_calls if ph == 'backward']
-    if (len(fwd_calls), len(dgrad_calls)) != (N_CONVS, N_DGRAD):
-        fail(f'warm-up step: {len(fwd_calls)} forward and {len(dgrad_calls)}'
-             f' input-gradient convs, expected {N_CONVS} and {N_DGRAD}')
-    conv_rows = [conv_row(torch, sparse_conv, *a, f'train call {i}')
-                 for i, a in enumerate(fwd_calls + dgrad_calls)]
-    print_conv_rows('train kernels: gather_gemm_conv vs plain at the step\'s '
-                    f'{N_CONVS} forward calls', conv_rows[:N_CONVS])
-    print_conv_rows('train kernels: gather_gemm_conv vs plain at the step\'s '
-                    f'{N_DGRAD} submanifold input-gradient calls',
-                    conv_rows[N_CONVS:])
-    dwr = dw_rows(torch, sparse_conv, rec['gather_gemm_dw'])
+    conv_rows, dwr, fwd_calls = train_kernel_rows(torch, sparse_conv, rec,
+                                                  'train kernels')
     gr_rows = rows_rows(torch, gr, [a for _, a in rec['gather_rows']], False)
     strided = [(f, nmap) for f, nmap, _ in fwd_calls
                if any(nmap is m for m in strided_maps)]
@@ -1300,30 +1552,23 @@ def main():
              f'expected {N_STRIDED}')
     grt_rows = rows_rows(torch, gr, strided, True)
     hm_rows = heatmap_rows(torch, heatmap, rec['render_heatmap'])
-    del rec, conv_calls, fwd_calls, dgrad_calls, strided
+    del rec, fwd_calls, strided
     torch.set_grad_enabled(True)
 
     cmp_step = step_comparison(torch, mods, trainer, tbatches[1])
-    print(f'whole step kernels vs plain: loss {cmp_step["loss_kernel"]:.6g} '
-          f'vs {cmp_step["loss_plain"]:.6g} (rel {cmp_step["loss_rel"]:.3g}),'
-          f' grad norm {cmp_step["grad_norm_kernel"]:.6g} vs '
-          f'{cmp_step["grad_norm_plain"]:.6g} (rel '
-          f'{cmp_step["grad_norm_rel"]:.3g}; plain step, one ulp of input '
-          f'noise: {cmp_step["grad_norm_rel_plain_ulp_noise"]:.3g}), min '
-          f'cosine of the '
-          f'{N_CONVS} sparse conv weight gradients '
-          f'{cmp_step["min_cosine"]:.6f} (plain step, one ulp of input '
-          f'noise: {cmp_step["min_cosine_plain_ulp_noise"]:.6f}); batch-norm '
-          f'updates of {cmp_step["bn_buffers"]} buffers within '
-          f'{cmp_step["bn_update_max_rel_err"]:.3g} of their largest entry')
-
-    # --- stages 1-3 through the command-line tools -------------------------
+    print_step_comparison('whole step kernels vs plain', cmp_step)
     del trainer, tbatches
     torch.cuda.empty_cache()
+
+    # --- the f32 kernels at the bench point --------------------------------
+    f32 = f32_phase(torch, apis, sp, mods, card)
+    torch.cuda.empty_cache()
+
+    # --- stages 1-3 and the stage-4 export through the command-line tools --
     with tempfile.TemporaryDirectory() as tmp:
         wf = workflow_phase(torch, mods, card, tmp)
 
-    launches = tr['launches']
+    launches, launches_f32 = tr['launches'], f32['train']['launches']
     kernels = [
         kernel_entry('gather_gemm_conv', 'gather_gemm.cu',
                      'gga_tpu/ops/pallas/window_gather.py:266',
@@ -1331,6 +1576,13 @@ def main():
         kernel_entry('gather_gemm_dw', 'gather_gemm_dw.cu',
                      'gga_tpu/ops/pallas/window_gather.py:312',
                      launches['gather_gemm_dw'], dwr),
+        kernel_entry('gather_gemm_conv_f32', 'gather_gemm.cu',
+                     'gga_tpu/ops/pallas/window_gather.py:266',
+                     launches_f32['gather_gemm_conv'],
+                     f32['train_conv_calls']),
+        kernel_entry('gather_gemm_dw_f32', 'gather_gemm_dw.cu',
+                     'gga_tpu/ops/pallas/window_gather.py:312',
+                     launches_f32['gather_gemm_dw'], f32['train_dw_calls']),
         kernel_entry('gather_rows', 'gather_rows.cu',
                      'gga_tpu/ops/pallas/gather_rows.py:52',
                      launches['gather_rows'], gr_rows,
@@ -1342,13 +1594,14 @@ def main():
                      'gga_tpu/ops/pallas/heatmap.py:57',
                      launches['render_heatmap'], hm_rows),
     ]
-    print('kernels, summed over the path\'s calls (ms by CUDA events, '
-          'device ms by the profiler, share of the bound):')
+    print('kernels, summed over the train path\'s calls (ms by CUDA '
+          'events, device ms by the profiler, share of the bound):')
     for k in kernels:
-        print(f'  {k["name"]:17s} {k["launches"]:4d} launches  ms '
+        print(f'  {k["name"]:20s} {k["launches"]:4d} launches  ms '
               f'{k["ms"]:.4f}  device {fmt_ms(k["device_ms"])}  bound '
               f'{k["bound_ms"]:.5f}  share {100 * k["bound_share"]:.1f}% / '
-              f'{share(k["bound_ms"], k["device_ms"])}')
+              f'{share(k["bound_ms"], k["device_ms"])}  plain '
+              f'{k["plain_ms"]:.4f}')
     print(f'chip_smoke: {time.perf_counter() - t_start:.1f} s after the '
           'card check')
 
@@ -1363,7 +1616,7 @@ def main():
                        train_conv_calls=conv_rows, train_dw_calls=dwr,
                        train_gather_rows=gr_rows, train_gather_rows_t=grt_rows,
                        train_heatmap=hm_rows, step_comparison=cmp_step,
-                       workflow=wf),
+                       f32=f32, workflow=wf),
                   fh, indent=1, default=str)
 
     print(card)

@@ -28,13 +28,13 @@ class DetectorBundle:
 
 def check_compute_dtype(cfg: GGAModelConfig, device):
     """Raise unless ``cfg`` can run on ``device``: on CUDA the sparse-conv
-    kernels take bf16 features only, and an f32 model never falls back to
-    the plain version."""
-    if torch.device(device).type == 'cuda' and cfg.compute_dtype != 'bfloat16':
+    kernels take f32 or bf16 features, and a model of any other dtype
+    never falls back to the plain version."""
+    if (torch.device(device).type == 'cuda'
+            and cfg.compute_dtype not in ('float32', 'bfloat16')):
         raise ValueError(
             f'compute_dtype {cfg.compute_dtype!r} on CUDA: the sparse-conv '
-            'kernels take bf16 only; set model.compute_dtype to bfloat16 '
-            '(the CLIs: --cfg-options model.compute_dtype=bfloat16)')
+            'kernels take float32 or bfloat16')
 
 
 def init_detector(cfg: GGAModelConfig, state_dict=None, device='cuda',
@@ -111,6 +111,42 @@ def inference_detector(bundle: DetectorBundle, points):
     return dict(boxes_3d=out['boxes'][0][v].cpu().numpy(),
                 scores_3d=out['scores'][0][v].cpu().numpy(),
                 labels_3d=out['labels'][0][v].cpu().numpy())
+
+
+def aug_inference_detector(bundle: DetectorBundle, points,
+                           scales=(0.95, 1.0, 1.05), flip=True, nms_thr=0.2,
+                           max_num=512):
+    """Test-time-augmented inference on one point cloud (gga_tpu
+    ``apis.aug_inference_detector``): the scene, padded to
+    ``cfg.data.max_points`` points, goes through one forward + decode per
+    (scale x flip) variant, and the variants' detections are mapped back
+    and merged by a per-class rotated-BEV NMS.
+
+    ``bundle`` is ``init_model``'s (DetectorBundle, Config). Returns
+    dict(boxes_3d [n, 7], scores_3d [n], labels_3d [n]) as numpy."""
+    from .core.merge_augs import (augment_points, merge_aug_detections,
+                                  tta_transforms)
+    det, cfg = bundle
+    transforms = tta_transforms(scales=scales, flip=flip)
+    max_points = cfg.data.max_points
+    pts = np.zeros((1, max_points, 4), np.float32)
+    val = np.zeros((1, max_points), bool)
+    n = min(len(points), max_points)
+    pts[0, :n] = np.asarray(points, np.float32)[:n, :4]
+    val[0, :n] = True
+    pts_t = torch.from_numpy(pts).to(det.device)
+    aug_dets = []
+    for t in transforms:
+        out = infer(det, augment_points(pts_t, t), val)
+        aug_dets.append({k: v[0] for k, v in out.items()})
+    with torch.no_grad():
+        merged = merge_aug_detections(aug_dets, transforms,
+                                      len(det.cfg.tasks), nms_thr=nms_thr,
+                                      max_num=max_num)
+    v = merged['valid']
+    return dict(boxes_3d=merged['boxes'][v].cpu().numpy(),
+                scores_3d=merged['scores'][v].cpu().numpy(),
+                labels_3d=merged['labels'][v].cpu().numpy())
 
 
 def init_trainer(cfg: GGAModelConfig, total_steps, state_dict=None,

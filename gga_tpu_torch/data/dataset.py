@@ -104,20 +104,22 @@ class EpochLoader:
     batch order of ``EpochBatchSampler`` and ``pipelines.collate``.
 
     ``epoch(e)`` sets the epoch on the dataset and the sampler before the
-    iterator is made, so forked workers see it. Workers are forked per
-    epoch and each advances its own copy of the database sampler's
-    stateful rng: what is pasted depends on ``num_workers``, as in
-    gga_tpu. ``num_workers=0`` (in-process) reproduces
-    ``PrefetchLoader(num_workers=1)`` batch for batch over any number of
-    epochs; one worker does so for one epoch."""
+    iterator is made, so forked workers see it. As gga_tpu's
+    ``PrefetchLoader.epoch``, ``num_workers <= 1`` loads in the calling
+    process, so the database sampler's stateful rng carries from epoch to
+    epoch: it reproduces ``PrefetchLoader(num_workers=1)`` batch for batch
+    over any number of epochs. Two or more workers are forked per epoch
+    and each advances its own copy of that rng, so what is pasted depends
+    on ``num_workers``, as in gga_tpu."""
 
     def __init__(self, dataset, batch_size, num_workers=0, seed=0):
         self.dataset = dataset
         self.sampler = EpochBatchSampler(len(dataset), batch_size, seed)
+        workers = num_workers if num_workers > 1 else 0
         self.loader = tud.DataLoader(
-            dataset, batch_sampler=self.sampler, num_workers=num_workers,
+            dataset, batch_sampler=self.sampler, num_workers=workers,
             collate_fn=pl.collate,
-            multiprocessing_context='fork' if num_workers else None)
+            multiprocessing_context='fork' if workers else None)
 
     def __len__(self):
         return len(self.sampler)

@@ -3,7 +3,7 @@
 
 Each class's ``BatchSampler`` keeps a stateful ``RandomState``: a loader
 worker advances its own copy, so what is pasted depends on the number of
-workers, as in gga_tpu (see ``data.dataset.make_loader``).
+workers, as in gga_tpu (see ``data.dataset.EpochLoader``).
 
 Rebuild of DataBaseSampler_GGA + its per-class BatchSampler
 (mmdet3d/datasets/pipelines/gga_processing.py:588-1020):

@@ -4,6 +4,8 @@
 //
 // features [R, C] bf16, nmap [K, Q] int32 (-1 = miss), weights [K, C, D]
 // bf16, out [Q, D] bf16. The sum runs in f32 and is rounded to bf16 once.
+// An f32 entry (gga_gather_gemm_conv_f32, the "f32 path" at the end) takes
+// f32 features and weights and writes f32, with FFMA products and sums.
 //
 // Replaces gga_tpu/ops/pallas/window_gather.py:_window_conv (the TPU
 // kernel _conv_kernel). It computes the forward of every submanifold conv
@@ -274,44 +276,16 @@ __device__ __forceinline__ void wait_ring(int stages) {
   else cp_async_wait<0>();
 }
 
-template <int BM, int BN>
-__global__ void __launch_bounds__(2 * BM)
-conv_tile(const bf16* __restrict__ feat, const int* __restrict__ nmap,
-          const bf16* __restrict__ w, bf16* __restrict__ out, int R, int C,
-          int K, int Q, int D, int stages) {
-  constexpr int WARPS = BM / 16;
-  constexpr int THREADS = 32 * WARPS;
-  constexpr int WN = BN >= 64 ? 2 : 1;   // warps along the columns
-  constexpr int WM = WARPS / WN;         // warps along the rows
-  constexpr int MT = BM / (16 * WM);     // 16-row MMA tiles per warp
-  constexpr int NT = BN / (8 * WN);      // 8-column MMA tiles per warp
-  constexpr int LDB = BN + 8;
-  static_assert(NT % 2 == 0, "B fragments come in pairs of 8 columns");
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int cp = round16(C);
-  const int ck = cp < CK ? cp : CK;
-  const int nck = ceil_div(cp, CK);      // pipeline items per offset
-  const int lda = ck + 8;
-  int* idx = reinterpret_cast<int*>(smem);  // [K][BM]
-  int* flag = idx + K * BM;                 // [K]
-  int* live = flag + K;                     // [K] live offsets, then count
-  bf16* ring = reinterpret_cast<bf16*>(smem + head_bytes(K, BM));
-  const int a_elems = BM * lda;
-  const int stage = stage_elems(BM, ck, BN);
-
-  const int tid = threadIdx.x;
+// The [K, BM] indices of output rows q0 .. q0 + BM - 1 into idx, by
+// cp.async in one round trip (rows past Q set to -1; an index >= R traps),
+// and the offsets with at least one hit listed in live[0, live[K]).
+template <int BM, int THREADS>
+__device__ __forceinline__ void load_tile_indices(
+    int* idx, int* flag, int* live, const int* __restrict__ nmap, int R,
+    int K, int Q, int q0, int tid) {
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int row0 = (warp / WN) * MT * 16;  // warp's first row in the tile
-  const int col0 = (warp % WN) * NT * 8;   // warp's first column
-  const int q0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-
-  // 1. the tile's indices of all offsets, by cp.async in one round trip
-  //    (rows past Q arrive as 0 and are set to -1 below); live offsets
+  // rows past Q arrive as 0 and are set to -1 after the copy
   for (int k = tid; k < K; k += THREADS) flag[k] = 0;
   if ((Q & 3) == 0 && (reinterpret_cast<uintptr_t>(nmap) & 15) == 0) {
     for (int e = tid; e < K * BM / 4; e += THREADS) {
@@ -350,6 +324,46 @@ conv_tile(const bf16* __restrict__ feat, const int* __restrict__ nmap,
     if (lane == 0) live[K] = n;
   }
   __syncthreads();
+}
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(2 * BM)
+conv_tile(const bf16* __restrict__ feat, const int* __restrict__ nmap,
+          const bf16* __restrict__ w, bf16* __restrict__ out, int R, int C,
+          int K, int Q, int D, int stages) {
+  constexpr int WARPS = BM / 16;
+  constexpr int THREADS = 32 * WARPS;
+  constexpr int WN = BN >= 64 ? 2 : 1;   // warps along the columns
+  constexpr int WM = WARPS / WN;         // warps along the rows
+  constexpr int MT = BM / (16 * WM);     // 16-row MMA tiles per warp
+  constexpr int NT = BN / (8 * WN);      // 8-column MMA tiles per warp
+  constexpr int LDB = BN + 8;
+  static_assert(NT % 2 == 0, "B fragments come in pairs of 8 columns");
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int cp = round16(C);
+  const int ck = cp < CK ? cp : CK;
+  const int nck = ceil_div(cp, CK);      // pipeline items per offset
+  const int lda = ck + 8;
+  int* idx = reinterpret_cast<int*>(smem);  // [K][BM]
+  int* flag = idx + K * BM;                 // [K]
+  int* live = flag + K;                     // [K] live offsets, then count
+  bf16* ring = reinterpret_cast<bf16*>(smem + head_bytes(K, BM));
+  const int a_elems = BM * lda;
+  const int stage = stage_elems(BM, ck, BN);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row0 = (warp / WN) * MT * 16;  // warp's first row in the tile
+  const int col0 = (warp % WN) * NT * 8;   // warp's first column
+  const int q0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+
+  // 1. the tile's indices of all offsets and its live offsets
+  load_tile_indices<BM, THREADS>(idx, flag, live, nmap, R, K, Q, q0, tid);
   const int items = live[K] * nck;
 
   // 2-3. the ring: item it = (live offset it / nck, C chunk it % nck), in
@@ -468,6 +482,169 @@ int launch_tile(const Plan& p, const void* feat, const void* nmap,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- f32 path ---------------------------------------------------------------
+// f32 features and weights, an f32 sum and an f32 output: every product
+// and sum an FFMA on the CUDA cores, so f32 means f32 (no TF32).
+//
+// What bounds it on an H100. In f32 the work, 2 * hits * C * D flops at
+// 67 TFLOP/s, takes longer than the bytes (the bf16 counts doubled) at
+// 3.35 TB/s: the kernel is bound by the FFMA rate. One design covers all
+// widths: a block of 256 threads owns BM output rows and BN <= 128 output
+// columns, loads its [K, BM] index tile and its live offsets once (as the
+// bf16 tile path), and walks the pipeline items (live offset, 32-column
+// chunk of C) through a two-stage cp.async ring: the gathered rows [BM,
+// 32] (16-byte copies, zeros for misses and past C; 4-byte copies where C
+// is not a multiple of 4) and the W[k] chunk [32, BN], both row-major,
+// while the previous item's products run. Each thread keeps a TM x TN
+// register tile of sums (rows ty + i * TY, columns 4 tx + j and, for
+// TN = 8, BN / 2 + 4 tx + j) and per 4 input columns reads TM float4 of A
+// and 4 * TN / 4 float4 of B from shared memory for 4 * TM * TN FFMAs. The
+// miss rows of a live offset are multiplied as zeros: the bound does not
+// count them.
+constexpr int F_CK = 32;  // input columns per pipeline item
+constexpr int F_THREADS = 256;
+
+template <int BN, int TM, int TN>
+struct F32Tile {
+  static constexpr int TX = BN / TN;         // threads along the columns
+  static constexpr int TY = F_THREADS / TX;  // threads along the rows
+  static constexpr int BM = TY * TM;         // output rows of a block
+  static constexpr int LDA = F_CK + 4;
+  static constexpr int LDB = BN + 4;
+  static constexpr int STAGE = BM * LDA + F_CK * LDB;  // floats
+  static_assert(TN == 4 || TN == 8, "B is read as one or two float4");
+};
+
+template <int BN, int TM, int TN>
+__host__ inline int f32_smem(int K) {
+  using T = F32Tile<BN, TM, TN>;
+  return head_bytes(K, T::BM) + 2 * T::STAGE * 4;
+}
+
+template <int BN, int TM, int TN>
+__global__ void __launch_bounds__(F_THREADS)
+conv_f32(const float* __restrict__ feat, const int* __restrict__ nmap,
+         const float* __restrict__ w, float* __restrict__ out, int R, int C,
+         int K, int Q, int D) {
+  using T = F32Tile<BN, TM, TN>;
+  constexpr int BM = T::BM;
+  extern __shared__ __align__(128) unsigned char smem[];
+  int* idx = reinterpret_cast<int*>(smem);  // [K][BM]
+  int* flag = idx + K * BM;                 // [K]
+  int* live = flag + K;                     // [K] live offsets, then count
+  float* ring = reinterpret_cast<float*>(smem + head_bytes(K, BM));
+
+  const int tid = threadIdx.x;
+  const int tx = tid % T::TX;
+  const int ty = tid / T::TX;
+  const int q0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int nck = ceil_div(C, F_CK);  // pipeline items per offset
+
+  load_tile_indices<BM, F_THREADS>(idx, flag, live, nmap, R, K, Q, q0, tid);
+  const int items = live[K] * nck;
+
+  // item it = (live offset it / nck, C chunk it % nck) in slot it % 2
+  auto issue = [&](int it) {
+    if (it < items) {
+      const int k = live[it / nck];
+      const int c0 = (it % nck) * F_CK;
+      float* a = ring + (it & 1) * T::STAGE;
+      const int* rows = idx + k * BM;
+      gather_rows_f32<F_THREADS, F_CK>(
+          a, T::LDA, BM, [rows](int r) { return rows[r]; }, feat, C, c0,
+          tid);
+      copy_tile_f32<F_THREADS, BN>(a + BM * T::LDA, T::LDB, F_CK,
+                                   w + static_cast<size_t>(k) * C * D, D, c0,
+                                   C, n0, tid);
+    }
+    cp_async_commit();
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int n = 0; n < TN; ++n) acc[i][n] = 0.f;
+
+  issue(0);
+  for (int it = 0; it < items; ++it) {
+    cp_async_wait<0>();  // item it has landed for this thread
+    __syncthreads();     // ... for every thread; item it - 1's sums are done
+    issue(it + 1);
+    const int c0 = (it % nck) * F_CK;
+    const int cw = min(F_CK, (C - c0 + 3) & ~3);  // zeros past C
+    const float* a = ring + (it & 1) * T::STAGE + ty * T::LDA;
+    const float* b = ring + (it & 1) * T::STAGE + BM * T::LDA + 4 * tx;
+    for (int kk = 0; kk < cw; kk += 4) {
+      float4 av[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        av[i] = *reinterpret_cast<const float4*>(a + i * T::TY * T::LDA + kk);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float* brow = b + (kk + j) * T::LDB;
+        float bv[TN];
+        const float4 b0 = *reinterpret_cast<const float4*>(brow);
+        bv[0] = b0.x, bv[1] = b0.y, bv[2] = b0.z, bv[3] = b0.w;
+        if constexpr (TN == 8) {
+          const float4 b1 = *reinterpret_cast<const float4*>(brow + BN / 2);
+          bv[4] = b1.x, bv[5] = b1.y, bv[6] = b1.z, bv[7] = b1.w;
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float x = lane_of(av[i], j);
+#pragma unroll
+          for (int n = 0; n < TN; ++n) acc[i][n] = fmaf(x, bv[n], acc[i][n]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // rows ty + i * TY, columns 4 tx (+ BN / 2) + 0..3
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int q = q0 + ty + i * T::TY;
+    if (q >= Q) continue;
+    float* orow = out + static_cast<size_t>(q) * D;
+#pragma unroll
+    for (int h = 0; h < TN / 4; ++h) {
+      const int n = n0 + 4 * tx + h * (BN / 2);
+      if ((D & 3) == 0 && n < D) {
+        *reinterpret_cast<float4*>(orow + n) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                        acc[i][4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (n + j < D) orow[n + j] = acc[i][4 * h + j];
+        }
+      }
+    }
+  }
+}
+
+template <int BN, int TM, int TN>
+int launch_f32(const void* feat, const void* nmap, const void* w, void* out,
+               int R, int C, int K, int Q, int D, cudaStream_t stream) {
+  using T = F32Tile<BN, TM, TN>;
+  const auto kern = conv_f32<BN, TM, TN>;
+  const int smem = f32_smem<BN, TM, TN>(K);
+  if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  int fit = 0;  // lifts the kernel's shared-memory limit on first use
+  const cudaError_t err = card_blocks(reinterpret_cast<const void*>(kern),
+                                      F_THREADS, smem, &fit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<dim3(ceil_div(Q, T::BM), ceil_div(D, BN)), F_THREADS, smem,
+         stream>>>(static_cast<const float*>(feat),
+                   static_cast<const int*>(nmap),
+                   static_cast<const float*>(w), static_cast<float*>(out), R,
+                   C, K, Q, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Shared memory a block needs for input width C at K = 27 and the widest
@@ -500,4 +677,26 @@ extern "C" int gga_gather_gemm_conv_bf16(const void* feat, const void* nmap,
     case 64: return launch_tile<128, 64>(p, feat, nmap, w, out, R, C, K, Q, D, s);
     default: return launch_tile<128, 128>(p, feat, nmap, w, out, R, C, K, Q, D, s);
   }
+}
+
+// Shared memory a block of the f32 kernel needs at K = 27 for input width
+// C: the f32 tiles are 32 input columns wide whatever C, so the most of
+// any output width (the 256-row tiles of D <= 16).
+extern "C" int gga_gather_gemm_smem_bytes_f32(int C) {
+  (void)C;
+  return f32_smem<16, 4, 4>(27);
+}
+
+// f32 features, weights and output. Returns the cudaError_t of the launch
+// (0 = launched).
+extern "C" int gga_gather_gemm_conv_f32(const void* feat, const void* nmap,
+                                        const void* w, void* out, int R,
+                                        int C, int K, int Q, int D,
+                                        void* stream) {
+  if (Q <= 0 || D <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D <= 16) return launch_f32<16, 4, 4>(feat, nmap, w, out, R, C, K, Q, D, s);
+  if (D <= 32) return launch_f32<32, 4, 4>(feat, nmap, w, out, R, C, K, Q, D, s);
+  if (D <= 64) return launch_f32<64, 8, 4>(feat, nmap, w, out, R, C, K, Q, D, s);
+  return launch_f32<128, 8, 8>(feat, nmap, w, out, R, C, K, Q, D, s);
 }

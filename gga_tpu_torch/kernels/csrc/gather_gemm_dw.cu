@@ -3,7 +3,9 @@
 //   dW[k, c, d] = sum_q  [nmap[k, q] >= 0] * features[nmap[k, q], c] * dout[q, d]
 //
 // features [R, C] bf16, nmap [K, Q] int32 (-1 = miss), dout [Q, D] bf16,
-// dW [K, C, D] f32. Products are summed in f32.
+// dW [K, C, D] f32. Products are summed in f32. An f32 entry
+// (gga_gather_gemm_dw_f32, the "f32 path" at the end) takes f32 features
+// and dout, with FFMA products and sums.
 //
 // Replaces gga_tpu/ops/pallas/window_gather.py:_window_dw (the TPU kernel
 // _dw_kernel). It computes the weight gradient of every submanifold conv
@@ -594,6 +596,244 @@ int plan_for(int K, int C, int D, int Q, Plan* out) {
   return 0;
 }
 
+// ---- f32 path ---------------------------------------------------------------
+// f32 features and dout, FFMA products and f32 sums (no TF32). Like the
+// conv's f32 path it is bound by the FFMA rate (2 * hits * C * D flops at
+// 67 TFLOP/s against the bf16 byte counts doubled). A block of 256 threads
+// owns kg offsets, a c slab of CS and a d slab of DS columns (16, 32, 64
+// or 128: C and D padded up, wider ones split over blockIdx.z) and a
+// contiguous range of 32-row q tiles, its split. Each thread keeps a
+// TM x TN register tile of the sums of one offset (8 x 8 where the slab
+// is 64 or 128 wide, else 4 x 4; rows 4 cb + i and, for TM = 8, CS / 2 +
+// 4 cb + i, columns likewise), so kg = 256 / ((CS / TM) (DS / TN))
+// offsets share each dout tile. A two-stage cp.async ring brings the next
+// tile's gathered rows [kg][32][CS] (zeros for misses, rows past Q and
+// columns past C) and its dout rows [32][DS] while the current tile's
+// products run, TM * TN FFMAs per (TM + TN) / 4 float4 reads from shared
+// memory. A thread copies the same rows of every tile, so it loads their
+// indices into registers a tile ahead (an index >= R traps); rows whose
+// width is not a multiple of 4 floats are copied a float at a time, each
+// copy reading its index. An offset with no hit in a tile skips it: a flag
+// per ring slot and offset holds the number of the last tile that hit it,
+// so flags need no clearing. Partials go to the scratch and reduce_splits
+// adds them in split order, as on the bf16 path: the same inputs give the
+// same bits.
+constexpr int F_BQ = 32;     // q rows per tile
+constexpr int F_SLAB = 128;  // widest c or d slab of a block
+
+__host__ __device__ constexpr int f32_tile(int slab) {
+  return slab >= 64 ? 8 : 4;
+}
+
+__host__ __device__ inline int f32_stage(int kg, int cs, int ds) {
+  return kg * F_BQ * (cs + 4) + F_BQ * (ds + 4);  // floats
+}
+
+// hit flags [2][kg], then the ring
+__host__ __device__ inline int f32_head(int kg) {
+  return (2 * kg * 4 + 15) & ~15;
+}
+
+template <int CS, int DS>
+__global__ void __launch_bounds__(THREADS)
+dw_f32(const float* __restrict__ feat, const int* __restrict__ nmap,
+       const float* __restrict__ dout, float* __restrict__ part, int R,
+       int C, int K, int Q, int D, int kg, int splits) {
+  constexpr int TM = f32_tile(CS);
+  constexpr int TN = f32_tile(DS);
+  constexpr int DQ = DS / TN;
+  constexpr int TPO = (CS / TM) * DQ;  // threads per offset
+  constexpr int LDG = CS + 4;
+  constexpr int LDD = DS + 4;
+  constexpr int CH = CS / 4;            // 16-byte chunks of a gathered row
+  constexpr int RSTEP = THREADS / CH;   // rows one pass of the copy covers
+  constexpr int RPT = (THREADS / TPO * F_BQ + RSTEP - 1) / RSTEP;  // passes
+  extern __shared__ __align__(128) unsigned char smem[];
+  int* hit = reinterpret_cast<int*>(smem);  // [2][kg]
+  float* ring = reinterpret_cast<float*>(smem + f32_head(kg));
+  const int g_elems = kg * F_BQ * LDG;
+  const int stage = g_elems + F_BQ * LDD;
+
+  const int tid = threadIdx.x;
+  const int split = blockIdx.x;
+  const int k0 = blockIdx.y * kg;
+  const int kn = min(kg, K - k0);
+  const int rows = kn * F_BQ;  // gathered rows of a tile
+  const int cslabs = ceil_div(C, F_SLAB);
+  const int c0 = (blockIdx.z % cslabs) * F_SLAB;
+  const int n0 = (blockIdx.z / cslabs) * F_SLAB;
+  const int kk = tid / TPO;  // this thread's offset in the group
+  const int cb = (tid % TPO) / DQ;
+  const int db = tid % DQ;
+  const int cc = (tid % CH) * 4;  // this thread's column of the copies
+  const bool vec = (C & 3) == 0;
+  const int nqt = ceil_div(Q, F_BQ);
+  const int t0 = static_cast<int>(static_cast<long long>(nqt) * split / splits);
+  const int t1 =
+      static_cast<int>(static_cast<long long>(nqt) * (split + 1) / splits);
+
+  for (int i = tid; i < 2 * kg; i += THREADS) hit[i] = 0;
+  __syncthreads();
+
+  // the indices of this thread's rows tid / CH + i * RSTEP of tile t
+  auto load_idx = [&](int t, int (&x)[RPT]) {
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int r = tid / CH + i * RSTEP;
+      const int j = r / F_BQ;
+      const int q = t * F_BQ + r - j * F_BQ;
+      x[i] = vec && t < t1 && r < rows && q < Q
+                 ? __ldg(nmap + static_cast<size_t>(k0 + j) * Q + q)
+                 : -1;
+    }
+  };
+  auto issue = [&](int t, const int (&x)[RPT]) {
+    if (t < t1) {
+      const int q0 = t * F_BQ;
+      int* flags = hit + ((t - t0) & 1) * kg;
+      float* gs = ring + ((t - t0) & 1) * stage;
+      if (vec) {
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          const int r = tid / CH + i * RSTEP;
+          if (r >= rows) break;
+          const int s = x[i];
+          if (s >= R) __trap();  // an index past the feature rows
+          if (s >= 0 && cc == 0) flags[r / F_BQ] = t + 1;
+          const bool ok = s >= 0 && c0 + cc < C;
+          cp_async<16>(gs + r * LDG + cc,
+                       ok ? feat + static_cast<size_t>(s) * C + c0 + cc
+                          : feat,
+                       ok);
+        }
+      } else {
+        gather_rows_f32<THREADS, CS>(
+            gs, LDG, rows,
+            [&](int r) {  // row m of offset j's tile
+              const int j = r / F_BQ;
+              const int q = q0 + r - j * F_BQ;
+              const int s = q < Q
+                  ? __ldg(nmap + static_cast<size_t>(k0 + j) * Q + q) : -1;
+              if (s >= R) __trap();
+              if (s >= 0) flags[j] = t + 1;
+              return s;
+            },
+            feat, C, c0, tid);
+      }
+      copy_tile_f32<THREADS, DS>(gs + g_elems, LDD, F_BQ, dout, D, q0, Q, n0,
+                                 tid);
+    }
+    cp_async_commit();
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  int cur[RPT], nxt[RPT];
+  load_idx(t0, cur);
+  issue(t0, cur);
+  load_idx(t0 + 1, cur);
+  for (int t = t0; t < t1; ++t) {
+    load_idx(t + 2, nxt);  // in flight during tile t's products
+    cp_async_wait<0>();    // tile t has landed for this thread
+    __syncthreads();       // ... for every thread; tile t - 1's sums are done
+    issue(t + 1, cur);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) cur[i] = nxt[i];
+    const int slot = (t - t0) & 1;
+    if (kk >= kn || hit[slot * kg + kk] != t + 1) continue;
+    const float* a = ring + slot * stage + kk * F_BQ * LDG + 4 * cb;
+    const float* b = ring + slot * stage + g_elems + 4 * db;
+#pragma unroll 4
+    for (int q = 0; q < F_BQ; ++q) {
+      float av[TM], bv[TN];
+#pragma unroll
+      for (int h = 0; h < TM / 4; ++h) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(a + q * LDG + h * (CS / 2));
+        av[4 * h] = v.x, av[4 * h + 1] = v.y, av[4 * h + 2] = v.z,
+        av[4 * h + 3] = v.w;
+      }
+#pragma unroll
+      for (int h = 0; h < TN / 4; ++h) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(b + q * LDD + h * (DS / 2));
+        bv[4 * h] = v.x, bv[4 * h + 1] = v.y, bv[4 * h + 2] = v.z,
+        bv[4 * h + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // every (offset, c, d) of the block is written, zeros where nothing
+  // hit, so the reduction can add all splits
+  if (kk >= kn) return;
+  float* base = part + (static_cast<size_t>(split) * K + k0 + kk) * C * D;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int c = c0 + (i / 4) * (CS / 2) + 4 * cb + i % 4;
+    if (c >= C) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int d = n0 + (j / 4) * (DS / 2) + 4 * db + j % 4;
+      if (d < D) base[static_cast<size_t>(c) * D + d] = acc[i][j];
+    }
+  }
+}
+
+using F32Kernel = void (*)(const float*, const int*, const float*, float*,
+                           int, int, int, int, int, int, int);
+
+template <int CS>
+F32Kernel f32_kernel_d(int ds) {
+  return ds == 16 ? dw_f32<CS, 16> : ds == 32 ? dw_f32<CS, 32>
+       : ds == 64 ? dw_f32<CS, 64> : dw_f32<CS, 128>;
+}
+
+struct F32Plan {
+  F32Kernel kern;
+  int kg;      // offsets per block
+  int groups;  // offset groups
+  int slabs;   // (c slab, d slab) pairs
+  int splits;
+  int smem;
+};
+
+inline int f32_slab(int n) {
+  return n <= 16 ? 16 : n <= 32 ? 32 : n <= 64 ? 64 : F_SLAB;
+}
+
+// The f32 block shape and split count for these sizes; sets the kernel's
+// shared-memory limit. Returns a cudaError_t.
+int f32_plan(int K, int C, int D, int Q, F32Plan* out) {
+  F32Plan p;
+  const int cs = f32_slab(C);
+  const int ds = f32_slab(D);
+  p.kern = cs == 16 ? f32_kernel_d<16>(ds) : cs == 32 ? f32_kernel_d<32>(ds)
+         : cs == 64 ? f32_kernel_d<64>(ds) : f32_kernel_d<128>(ds);
+  const int kg_max = THREADS / ((cs / f32_tile(cs)) * (ds / f32_tile(ds)));
+  p.groups = ceil_div(K, kg_max);
+  p.kg = ceil_div(K, p.groups);
+  p.slabs = ceil_div(C, F_SLAB) * ceil_div(D, F_SLAB);
+  p.smem = f32_head(p.kg) + 2 * f32_stage(p.kg, cs, ds) * 4;
+  if (p.smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  int blocks = 0;
+  const cudaError_t err = card_blocks(reinterpret_cast<const void*>(p.kern),
+                                      THREADS, p.smem, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  p.splits = splits_for(ceil_div(WAVES * blocks, p.groups * p.slabs),
+                        ceil_div(Q, F_BQ), K, C, D);
+  *out = p;
+  return 0;
+}
+
 }  // namespace
 
 // Number of Q splits for these sizes (< 1 if the sizes cannot be
@@ -629,6 +869,42 @@ extern "C" int gga_gather_gemm_dw_bf16(const void* feat, const void* nmap,
         static_cast<const bf16*>(feat), static_cast<const int*>(nmap),
         static_cast<const bf16*>(dout), part_f, R, C, K, Q, D, p);
   }
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n = K * C * D;
+  int blocks = ceil_div(n, 256);
+  if (blocks > 4096) blocks = 4096;
+  reduce_splits<<<blocks, 256, 0, s>>>(part_f, static_cast<float*>(out), n,
+                                       p.splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The f32 path's split count for these sizes (< 1 if they cannot be
+// launched): the caller allocates the scratch [splits, K, C, D] f32.
+extern "C" int gga_gather_gemm_dw_splits_f32(int K, int C, int D, int Q) {
+  if (K <= 0 || C <= 0 || D <= 0) return 1;
+  F32Plan p;
+  return f32_plan(K, C, D, Q, &p) == 0 ? p.splits : -1;
+}
+
+// f32 features and dout. Returns the cudaError_t of the launches (0 =
+// launched). part must hold splits * K * C * D floats, splits from
+// gga_gather_gemm_dw_splits_f32.
+extern "C" int gga_gather_gemm_dw_f32(const void* feat, const void* nmap,
+                                      const void* dout, void* part, void* out,
+                                      int R, int C, int K, int Q, int D,
+                                      int splits, void* stream) {
+  if (K <= 0 || C <= 0 || D <= 0) return 0;
+  F32Plan p;
+  int err = f32_plan(K, C, D, Q, &p);
+  if (err != 0) return err;
+  if (p.splits != splits) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* part_f = static_cast<float*>(part);
+  p.kern<<<dim3(p.splits, p.groups, p.slabs), THREADS, p.smem, s>>>(
+      static_cast<const float*>(feat), static_cast<const int*>(nmap),
+      static_cast<const float*>(dout), part_f, R, C, K, Q, D, p.kg,
+      p.splits);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n = K * C * D;

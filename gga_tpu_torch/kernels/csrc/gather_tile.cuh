@@ -10,10 +10,12 @@
 //   columns;
 // - ldmatrix (plain and transposed), movmatrix and mma.sync m16n8k16
 //   bf16 -> f32;
+// - the f32 kernels' tile loaders (gathered rows, dense windows) in
+//   16-byte chunks of 4 floats;
 // - on the host, a cached count of the blocks that fit on the card.
 //
-// Every tile lives in shared memory in its natural row-major layout with
-// a row pitch of (width + 8) bf16: consecutive rows then start 16 bytes
+// Every bf16 tile lives in shared memory in its natural row-major layout
+// with a row pitch of (width + 8) bf16: consecutive rows then start 16 bytes
 // apart modulo 128, so the eight row addresses of one ldmatrix phase hit
 // eight different 16-byte bank groups. An operand needed "transposed" by
 // the MMA is read with ldmatrix .trans; no element is ever stored
@@ -226,6 +228,79 @@ __device__ __forceinline__ void copy_tile_async(
               : zero;
     }
   }
+}
+
+// ---- f32 tiles (the f32 kernels multiply with FFMA, not the MMA) -----------
+// Row-major like the bf16 tiles, with a row pitch a multiple of 4 floats so
+// that each row starts 16-byte aligned. A thread copies one 16-byte chunk
+// (4 floats) of a row at a time, neighbouring threads the neighbouring
+// chunks of one row; rows whose width is not a multiple of 4 floats are
+// copied a float at a time.
+
+// dst[r][0, WIDTH) = src[row_of(r)][c0, c0 + WIDTH) for r < nrows, zeros
+// where row_of(r) < 0 (a miss) and past column C. WIDTH is a multiple of
+// 4, c0 a multiple of WIDTH; src rows are C wide.
+template <int THREADS, int WIDTH, typename RowOf>
+__device__ __forceinline__ void gather_rows_f32(
+    float* dst, int ld, int nrows, RowOf row_of,
+    const float* __restrict__ src, int C, int c0, int tid) {
+  static_assert(WIDTH % 4 == 0, "16-byte chunks");
+  if ((C & 3) == 0) {
+    constexpr int CH = WIDTH / 4;
+    for (int e = tid; e < nrows * CH; e += THREADS) {
+      const int r = e / CH;
+      const int c = (e - r * CH) * 4;
+      const int s = row_of(r);
+      const bool ok = s >= 0 && c0 + c < C;
+      cp_async<16>(dst + r * ld + c,
+                   ok ? src + static_cast<size_t>(s) * C + c0 + c : src, ok);
+    }
+  } else {
+    for (int e = tid; e < nrows * WIDTH; e += THREADS) {
+      const int r = e / WIDTH;
+      const int c = e - r * WIDTH;
+      const int s = row_of(r);
+      const bool ok = s >= 0 && c0 + c < C;
+      cp_async<4>(dst + r * ld + c,
+                  ok ? src + static_cast<size_t>(s) * C + c0 + c : src, ok);
+    }
+  }
+}
+
+// dst[r][0, WIDTH) = src[(r0 + r) * stride + n0 + c] for r < nrows, zeros
+// where r0 + r >= nr or n0 + c >= stride. n0 is a multiple of 4.
+template <int THREADS, int WIDTH>
+__device__ __forceinline__ void copy_tile_f32(
+    float* dst, int ld, int nrows, const float* __restrict__ src, int stride,
+    int r0, int nr, int n0, int tid) {
+  static_assert(WIDTH % 4 == 0, "16-byte chunks");
+  if ((stride & 3) == 0) {
+    constexpr int CH = WIDTH / 4;
+    for (int e = tid; e < nrows * CH; e += THREADS) {
+      const int r = e / CH;
+      const int c = (e - r * CH) * 4;
+      const bool ok = r0 + r < nr && n0 + c < stride;
+      cp_async<16>(dst + r * ld + c,
+                   ok ? src + static_cast<size_t>(r0 + r) * stride + n0 + c
+                      : src,
+                   ok);
+    }
+  } else {
+    for (int e = tid; e < nrows * WIDTH; e += THREADS) {
+      const int r = e / WIDTH;
+      const int c = e - r * WIDTH;
+      const bool ok = r0 + r < nr && n0 + c < stride;
+      cp_async<4>(dst + r * ld + c,
+                  ok ? src + static_cast<size_t>(r0 + r) * stride + n0 + c
+                     : src,
+                  ok);
+    }
+  }
+}
+
+// Element j (0-3, known at compile time after unrolling) of v.
+__device__ __forceinline__ float lane_of(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
 // Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of

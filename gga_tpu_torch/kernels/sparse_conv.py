@@ -17,7 +17,9 @@ features[nmap[k, q]]^T dout[q]`` as f32 ``[K, C, D]``: the port of
 
 On a CPU tensor each wrapper runs its plain version. On a CUDA tensor it
 launches its kernel (``csrc/gather_gemm.cu``, ``csrc/gather_gemm_dw.cu``)
-or raises.
+or raises. Both kernels take bf16 or f32 inputs, the two operands of one
+dtype: bf16 runs the tensor-core entries (``*_bf16``), f32 the FFMA
+entries (``*_f32``), so that f32 means f32 on the card as on the CPU.
 """
 from __future__ import annotations
 
@@ -32,9 +34,15 @@ dw_launches = 0  # gather_gemm_dw launches since the caller set this to 0
 _CONV = 'gather_gemm'
 _DW = 'gather_gemm_dw'
 _CONV_SIG = {'gga_gather_gemm_conv_bf16': ([P] * 4 + [I] * 5 + [P], I),
-             'gga_gather_gemm_smem_bytes': ([I], I)}
+             'gga_gather_gemm_conv_f32': ([P] * 4 + [I] * 5 + [P], I),
+             'gga_gather_gemm_smem_bytes': ([I], I),
+             'gga_gather_gemm_smem_bytes_f32': ([I], I)}
 _DW_SIG = {'gga_gather_gemm_dw_bf16': ([P] * 5 + [I] * 6 + [P], I),
-           'gga_gather_gemm_dw_splits': ([I] * 4, I)}
+           'gga_gather_gemm_dw_f32': ([P] * 5 + [I] * 6 + [P], I),
+           'gga_gather_gemm_dw_splits': ([I] * 4, I),
+           'gga_gather_gemm_dw_splits_f32': ([I] * 4, I)}
+# the C entries' suffix of each dtype the kernels take
+_SUFFIX = {torch.bfloat16: 'bf16', torch.float32: 'f32'}
 
 
 def gather_gemm_conv_plain(features, nmap, weights):
@@ -70,16 +78,19 @@ def build_dw():
 
 
 def _check(what, features, nmap, other, other_name, aligned):
+    """Raise on what the kernels do not take; returns the C entries'
+    dtype suffix."""
     _build.check_cuda(what, [('features', features), ('nmap', nmap),
                              (other_name, other)], aligned)
-    if features.dtype != torch.bfloat16 or other.dtype != torch.bfloat16:
-        raise TypeError(f'{what}: the CUDA kernel takes bf16 features and '
-                        f'{other_name}, got {features.dtype} and '
-                        f'{other.dtype}')
+    if features.dtype not in _SUFFIX or other.dtype != features.dtype:
+        raise TypeError(f'{what}: the CUDA kernel takes bf16 or f32 '
+                        f'features and {other_name} of one dtype, got '
+                        f'{features.dtype} and {other.dtype}')
     if nmap.dtype != torch.int32:
         raise TypeError(f'{what}: nmap must be int32, got {nmap.dtype}')
     if features.dim() != 2 or nmap.dim() != 2:
         raise ValueError(f'{what}: expected features [R, C] and nmap [K, Q]')
+    return _SUFFIX[features.dtype]
 
 
 def gather_gemm_conv(features, nmap, weights):
@@ -87,12 +98,13 @@ def gather_gemm_conv(features, nmap, weights):
     weights[k]``; f32 sum, output in ``features.dtype``.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel
-    (bf16 only) or raise; an index >= R stops the kernel with an error."""
+    (bf16 or f32, features and weights of one dtype) or raise; an index
+    >= R stops the kernel with an error."""
     global launches
     if features.device.type == 'cpu':
         return gather_gemm_conv_plain(features, nmap, weights)
-    _check('gather_gemm_conv', features, nmap, weights, 'weights',
-           ('features', 'weights'))
+    dt = _check('gather_gemm_conv', features, nmap, weights, 'weights',
+                ('features', 'weights'))
     if weights.dim() != 3:
         raise ValueError('gather_gemm_conv: expected weights [K, C, D]')
     K, C, D = weights.shape
@@ -102,14 +114,16 @@ def gather_gemm_conv(features, nmap, weights):
                          f', weights {tuple(weights.shape)}')
     lib = build()
     Q = nmap.shape[1]
-    if lib.gga_gather_gemm_smem_bytes(C) > _build.MAX_SMEM:
+    smem = (lib.gga_gather_gemm_smem_bytes_f32 if dt == 'f32'
+            else lib.gga_gather_gemm_smem_bytes)
+    if smem(C) > _build.MAX_SMEM:
         raise ValueError(f'gather_gemm_conv: input width C={C} needs more '
                          'shared memory than a block has')
     out = torch.empty((Q, D), dtype=features.dtype, device=features.device)
     if Q == 0 or D == 0:
         return out
     with torch.cuda.device(features.device):
-        err = lib.gga_gather_gemm_conv_bf16(
+        err = getattr(lib, f'gga_gather_gemm_conv_{dt}')(
             features.data_ptr(), nmap.data_ptr(), weights.data_ptr(),
             out.data_ptr(), features.shape[0], C, K, Q, D,
             _build.stream_of(features))
@@ -123,14 +137,15 @@ def gather_gemm_dw(features, nmap, dout):
     features[nmap[:, q]], 0)^T dout[q]``.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel
-    (bf16 features and dout) or raise. The kernel splits Q over blocks,
-    writes each split's partial sum to an f32 scratch and adds the
-    splits in a fixed order, so the result is the same from run to run."""
+    (bf16 or f32 features and dout of one dtype) or raise. The kernel
+    splits Q over blocks, writes each split's partial sum to an f32
+    scratch and adds the splits in a fixed order, so the result is the
+    same from run to run."""
     global dw_launches
     if features.device.type == 'cpu':
         return gather_gemm_dw_plain(features, nmap, dout)
-    _check('gather_gemm_dw', features, nmap, dout, 'dout',
-           ('features', 'dout'))
+    dt = _check('gather_gemm_dw', features, nmap, dout, 'dout',
+                ('features', 'dout'))
     if dout.dim() != 2 or dout.shape[0] != nmap.shape[1]:
         raise ValueError(f'gather_gemm_dw: shapes disagree: nmap '
                          f'{tuple(nmap.shape)}, dout {tuple(dout.shape)}')
@@ -142,7 +157,8 @@ def gather_gemm_dw(features, nmap, dout):
     if out.numel() == 0:
         return out
     with torch.cuda.device(features.device):
-        splits = lib.gga_gather_gemm_dw_splits(K, C, D, Q)
+        splits = (lib.gga_gather_gemm_dw_splits_f32 if dt == 'f32'
+                  else lib.gga_gather_gemm_dw_splits)(K, C, D, Q)
         if splits < 1:
             raise ValueError(f'gather_gemm_dw: (K, C, D) = {(K, C, D)} needs '
                              'more shared memory than a block has')
@@ -151,7 +167,7 @@ def gather_gemm_dw(features, nmap, dout):
         if scratch.numel() >= 2 ** 31:
             raise ValueError('gather_gemm_dw: the split scratch overflows '
                              'the kernel\'s int32 sizes')
-        err = lib.gga_gather_gemm_dw_bf16(
+        err = getattr(lib, f'gga_gather_gemm_dw_{dt}')(
             features.data_ptr(), nmap.data_ptr(), dout.data_ptr(),
             scratch.data_ptr(), out.data_ptr(), R, C, K, Q, D, splits,
             _build.stream_of(features))

@@ -8,9 +8,7 @@ batch padded to ``cfg.data.max_points`` points a scene), convert to KITTI
 annos, match against the 2D GT by image-plane IoU, dump the pseudo info
 pkl, and with ``--eval`` report KITTI AP against the (debug-only) 3D GT.
 
-On CUDA the model must be bf16: pass ``--cfg-options
-model.compute_dtype=bfloat16`` to the shipped f32 configs. Without a card
-the tool raises unless ``--device cpu``.
+Without a card the tool raises unless ``--device cpu``.
 
 Usage:
     python -m gga_tpu_torch.tools.generate_pseudo_labels_gga \\

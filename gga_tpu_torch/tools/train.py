@@ -18,9 +18,8 @@ and starts at step 0. The database sampler's rng is not checkpointed.
 
 Differences from gga_tpu: the seeded initial weights are drawn from a
 ``torch.Generator`` seeded with ``cfg.seed`` (``apis.init_detector``), not
-from ``PRNGKey(cfg.seed)``; one device, no mesh. On CUDA the model must be
-bf16: pass ``--cfg-options model.compute_dtype=bfloat16`` to the shipped
-f32 configs. Without a card the tool raises unless ``--device cpu``.
+from ``PRNGKey(cfg.seed)``; one device, no mesh. Without a card the tool
+raises unless ``--device cpu``.
 
 Usage:
     python -m gga_tpu_torch.tools.train configs/gga/gga_kitti.py \\

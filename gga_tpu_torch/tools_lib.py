@@ -4,6 +4,9 @@ port's copy of ``gga_tpu/tools_lib.py``; the single_gpu_test equivalent,
 mmdet3d/apis/test.py:12)."""
 from __future__ import annotations
 
+import os
+import pickle
+
 import numpy as np
 import torch
 
@@ -72,3 +75,9 @@ def run_inference(bundle, cfg, infos, batch_size, max_points=None):
         if (i // batch_size) % 20 == 0:
             print(f'  inference {i + len(chunk)}/{n}')
     return detections
+
+
+def load_infos(cfg, name):
+    """The info list of the pkl ``name`` under ``cfg.data_root``."""
+    with open(os.path.join(cfg.data_root, name), 'rb') as f:
+        return pickle.load(f)

@@ -12,10 +12,13 @@ plain version, on maps from the port's own builders where it takes maps:
 
 - gather_gemm_conv in bf16 at ``|kernel - plain| <= 1e-2 * max|plain| +
   one bf16 ulp``: both sum in f32, in another order, and round the output
-  to bf16 once;
-- gather_gemm_dw (f32 output of bf16 inputs) at ``|kernel - plain| <=
+  to bf16 once; in f32 at ``|kernel - plain| <= 1e-5 * max|plain|``: the
+  same f32 products (FFMA in the kernel, TF32 off for the plain einsum)
+  summed in another order;
+- gather_gemm_dw (f32 output) of bf16 inputs at ``|kernel - plain| <=
   1e-3 * max|plain|``: both sum the same bf16 products in f32, in another
-  order, and round nothing else; two calls give the same bits;
+  order, and round nothing else; of f32 inputs at ``2e-5 * max|plain|``;
+  two calls give the same bits;
 - gather_rows and gather_rows_t exactly: they copy bits;
 - render_heatmap at ``|kernel - plain| <= 1e-6`` (the two exps may differ
   by an ulp or two), with exactly the same pixels equal to 1.0.
@@ -24,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from gga_tpu_torch.device import resolve_device
 from gga_tpu_torch.kernels import gather_rows as gr
 from gga_tpu_torch.kernels import heatmap, sparse_conv
 from gga_tpu_torch.models.layers import flatten_nmap
@@ -54,9 +58,10 @@ def _scene_maps(seed=0, B=2, P=3000, V=2048):
 
 
 def _cuda():
+    """The card (TF32 off, so the plain f32 einsums are f32), or a skip."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
-    return torch.device('cuda')
+    return resolve_device('cuda')
 
 
 def _within_bf16_tolerance(out, ref):
@@ -144,32 +149,37 @@ def _case_map(which, k, q):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize('which,c,d,k,q', _CONV_CASES)
-def test_cuda_kernel_matches_plain(which, c, d, k, q):
+def test_cuda_kernel_matches_plain(which, c, d, k, q, dtype):
     dev = _cuda()
     nmap, rows = _case_map(which, k, q)
     nmap = nmap.to(dev)
     rng = np.random.RandomState(c + d)
     f = torch.from_numpy(rng.randn(rows, c).astype(np.float32)).to(dev)
     w = torch.from_numpy(rng.randn(k, c, d).astype(np.float32) * 0.2)
-    f, w = f.bfloat16(), w.to(dev).bfloat16()
+    f, w = f.to(dtype), w.to(dev, dtype)
     before = sparse_conv.launches
     out = sparse_conv.gather_gemm_conv(f, nmap, w)
     ref = sparse_conv.gather_gemm_conv_plain(f, nmap, w)
     torch.cuda.synchronize()
     assert sparse_conv.launches == before + 1
-    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
-    assert _within_bf16_tolerance(out, ref)
+    assert out.dtype == dtype and out.shape == ref.shape
+    if dtype == torch.bfloat16:
+        assert _within_bf16_tolerance(out, ref)
+    else:
+        assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize('c,d,q', [(16, 32, 70), (128, 128, 300)])
-def test_cuda_kernel_all_misses_give_zeros(c, d, q):
+def test_cuda_kernel_all_misses_give_zeros(c, d, q, dtype):
     dev = _cuda()
-    f = torch.randn(100, c, device=dev).bfloat16()
+    f = torch.randn(100, c, device=dev).to(dtype)
     nmap = torch.full((27, q), -1, dtype=torch.int32, device=dev)
-    w = torch.randn(27, c, d, device=dev).bfloat16()
-    dout = torch.randn(q, d, device=dev).bfloat16()
+    w = torch.randn(27, c, d, device=dev).to(dtype)
+    dout = torch.randn(q, d, device=dev).to(dtype)
     out = sparse_conv.gather_gemm_conv(f, nmap, w)
     dw = sparse_conv.gather_gemm_dw(f, nmap, dout)
     torch.cuda.synchronize()
@@ -183,7 +193,11 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     nmap = torch.zeros((27, 70), dtype=torch.int32, device=dev)
     w = torch.randn(27, 16, 32, device=dev)
     with pytest.raises(TypeError):
-        sparse_conv.gather_gemm_conv(f, nmap, w)            # f32
+        sparse_conv.gather_gemm_conv(f, nmap, w.bfloat16())  # mixed
+    with pytest.raises(TypeError):
+        sparse_conv.gather_gemm_conv(f.bfloat16(), nmap, w)  # mixed
+    with pytest.raises(TypeError):
+        sparse_conv.gather_gemm_conv(f.half(), nmap, w.half())
     with pytest.raises(TypeError):
         sparse_conv.gather_gemm_conv(f.bfloat16(), nmap.long(), w.bfloat16())
     with pytest.raises(ValueError):
@@ -305,15 +319,16 @@ _DW_CASES = [
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize('which,c,d,k,q', _DW_CASES)
-def test_cuda_dw_kernel_matches_plain(which, c, d, k, q):
+def test_cuda_dw_kernel_matches_plain(which, c, d, k, q, dtype):
     dev = _cuda()
     nmap, rows = _case_map(which, k, q)
     nmap = nmap.to(dev)
     rng = np.random.RandomState(c * 7 + d)
     f = torch.from_numpy(rng.randn(rows, c).astype(np.float32)).to(dev)
     dout = torch.from_numpy(rng.randn(nmap.shape[1], d).astype(np.float32))
-    f, dout = f.bfloat16(), dout.to(dev).bfloat16()
+    f, dout = f.to(dtype), dout.to(dev, dtype)
     before = sparse_conv.dw_launches
     out = sparse_conv.gather_gemm_dw(f, nmap, dout)
     again = sparse_conv.gather_gemm_dw(f, nmap, dout)
@@ -322,7 +337,8 @@ def test_cuda_dw_kernel_matches_plain(which, c, d, k, q):
     assert sparse_conv.dw_launches == before + 2
     assert out.dtype == torch.float32 and out.shape == ref.shape
     assert torch.equal(out, again)             # a fixed summation order
-    assert ((out - ref).abs() <= 1e-3 * ref.abs().max()).all()
+    rtol = 1e-3 if dtype == torch.bfloat16 else 2e-5
+    assert ((out - ref).abs() <= rtol * ref.abs().max()).all()
 
 
 def _rows_t_map(kind, k, q, rows, seed):
@@ -410,7 +426,9 @@ def test_cuda_train_kernel_wrappers_refuse_what_they_do_not_take():
     nmap = torch.zeros((27, 70), dtype=torch.int32, device=dev)
     dout = torch.randn(70, 32, device=dev)
     with pytest.raises(TypeError):
-        sparse_conv.gather_gemm_dw(f, nmap, dout.bfloat16())     # f32
+        sparse_conv.gather_gemm_dw(f, nmap, dout.bfloat16())     # mixed
+    with pytest.raises(TypeError):
+        sparse_conv.gather_gemm_dw(f.half(), nmap, dout.half())
     with pytest.raises(TypeError):
         gr.gather_rows(f.double(), nmap[0])
     with pytest.raises(TypeError):

@@ -6,8 +6,11 @@ Pallas kernels (interpret mode on the CPU) and its default XLA paths.
   ``_rb_gather`` (with -1 entries) exactly: they copy values.
 - ``gather_rows_t_plain`` equals ``window_gather_t`` exactly.
 - ``gather_gemm_dw_plain`` equals ``_window_dw`` (through
-  ``_window_dw_apply``) at rtol 1e-5 plus 1e-5 of the largest entry: f32
-  sums of the same products in another order.
+  ``_window_dw_apply``, and called directly in f32 at C = 8, 16, 32) at
+  rtol 1e-5 plus 1e-5 of the largest entry: f32 sums of the same products
+  in another order.
+- ``gather_gemm_conv_plain`` equals ``_window_conv`` in f32 at C = 8, 16,
+  32 at rtol 1e-5, atol 1e-5, for the same reason.
 - the plain heatmap equals ``render_heatmap_pallas`` and
   ``render_heatmap_dyn`` at atol 1e-6 (two exp implementations), with
   exactly the same pixels equal to 1.0.
@@ -96,6 +99,64 @@ def test_gather_gemm_dw_plain_matches_pallas_window_dw():
     ref = np.asarray(jax.jit(jsp._window_dw_apply)(
         jnp.asarray(f), jnp.asarray(jmap), jnp.asarray(jhit),
         jnp.asarray(dout)))
+    out = sparse_conv.gather_gemm_dw_plain(
+        torch.from_numpy(f), torch.from_numpy(nmap), torch.from_numpy(dout))
+    assert out.dtype == torch.float32 and np.abs(ref).max() > 1
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5,
+                               atol=1e-5 * np.abs(ref).max())
+
+
+def _window_operands(jmap, jhit, f, pad_to):
+    """(fwide, bb, cols) of gga_tpu's window kernels for features f [R, C]
+    on the map padded to a multiple of ``pad_to`` rows, as
+    ``_window_conv_apply`` / ``_window_dw_apply`` build them; asserts that
+    no block overflows its window (so the Pallas kernel is the path)."""
+    c = f.shape[1]
+    pack = wg.LANES // c
+    qp = (-jmap.shape[1]) % pad_to
+    fp = wg._pad_rows(jnp.asarray(f), 2 * wg._wg_for(c) * pack)
+    bb, cols, ovf = wg.window_prep(jnp.pad(jmap, ((0, 0), (0, qp))),
+                                   jnp.pad(jhit, ((0, 0), (0, qp))),
+                                   fp.shape[0], c)
+    assert not bool(ovf)
+    return fp.reshape(fp.shape[0] // pack, wg.LANES), bb, cols, qp
+
+
+@pytest.mark.parametrize('c', [8, 16, 32])
+def test_f32_conv_plain_matches_pallas_window_conv(c):
+    """The f32 gather-GEMM: gga_tpu's TPU kernel _window_conv in f32
+    (interpret mode) against the plain version the f32 CUDA kernel is
+    held to."""
+    jmap, jhit, nmap = _flat_map(seed=6)
+    rng = np.random.RandomState(c)
+    q, d = nmap.shape[1], 16
+    f = rng.randn(q, c).astype(np.float32)
+    w = (rng.randn(27, c, d) * 0.2).astype(np.float32)
+    fwide, bb, cols, _ = _window_operands(jmap, jhit, f, wg.TILE)
+    ref = np.asarray(wg._window_conv(fwide, c, d, bb, cols, jnp.asarray(w),
+                                     interpret=True))[:q]
+    out = sparse_conv.gather_gemm_conv_plain(
+        torch.from_numpy(f), torch.from_numpy(nmap), torch.from_numpy(w))
+    assert ref.dtype == np.float32 and out.dtype == torch.float32
+    assert np.abs(ref).max() > 1
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('c', [8, 16, 32])
+def test_f32_dw_plain_matches_pallas_window_dw(c):
+    """The f32 weight gradient: gga_tpu's TPU kernel _window_dw in f32
+    (interpret mode) against the plain version."""
+    jmap, jhit, nmap = _flat_map(seed=7)
+    rng = np.random.RandomState(c + 1)
+    q, d = nmap.shape[1], 32
+    f = rng.randn(q, c).astype(np.float32)
+    dout = rng.randn(q, d).astype(np.float32)
+    fwide, bb, cols, qp = _window_operands(jmap, jhit, f,
+                                           wg.GROUP * wg.TILE)
+    ref = np.asarray(wg._window_dw(fwide, c, d, bb, cols,
+                                   jnp.pad(jnp.asarray(dout), ((0, qp),
+                                                               (0, 0))),
+                                   interpret=True))
     out = sparse_conv.gather_gemm_dw_plain(
         torch.from_numpy(f), torch.from_numpy(nmap), torch.from_numpy(dout))
     assert out.dtype == torch.float32 and np.abs(ref).max() > 1

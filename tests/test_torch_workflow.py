@@ -138,14 +138,21 @@ def test_clis_need_a_card_or_the_cpu(workflow, tmp_path):
                                                'checkpoints')])
     with pytest.raises(RuntimeError, match='no CUDA device'):
         tools_lib.build_model_from_cfg(Config.fromfile(TINY), None, 'cuda')
-    # an f32 model on CUDA fails at model build, naming the override
+    # the shipped f32 configs and bf16 models run on CUDA as they are; a
+    # dtype the sparse-conv kernels do not take fails at model build
     mc = tools_lib.model_config_from_cfg(Config.fromfile(TINY))
-    with pytest.raises(ValueError, match='model.compute_dtype=bfloat16'):
-        apis.check_compute_dtype(mc, 'cuda')
+    assert mc.compute_dtype == 'float32'
+    apis.check_compute_dtype(mc, 'cuda')
     apis.check_compute_dtype(mc, 'cpu')
-    cfg = Config.fromfile(TINY).merge_from_options(
-        {'model.compute_dtype': 'bfloat16'})
-    apis.check_compute_dtype(tools_lib.model_config_from_cfg(cfg), 'cuda')
+    for dtype in ('bfloat16', 'float16'):
+        cfg = Config.fromfile(TINY).merge_from_options(
+            {'model.compute_dtype': dtype})
+        mc = tools_lib.model_config_from_cfg(cfg)
+        if dtype == 'bfloat16':
+            apis.check_compute_dtype(mc, 'cuda')
+        else:
+            with pytest.raises(ValueError, match='float32 or bfloat16'):
+                apis.check_compute_dtype(mc, 'cuda')
 
 
 @pytest.mark.parametrize('flag', ['--rank', '--world'])
