@@ -56,11 +56,14 @@ paths on one NVIDIA card.
    The plain step's one-ulp grad-norm change is printed beside.
 8. f32 phase: steps 3-7 for the sparse-conv kernels in f32 (the shipped
    configs' dtype; the f32 entries of gather_gemm_conv and gather_gemm_dw,
-   FFMA): one forward's 21 and one train step's 37 + 21 calls replayed
-   against their plain f32 versions (TF32 off; conv within 1e-5, dW
-   within 2e-5 of max|plain| per call, dW the same bits on a second
-   call) and timed beside the f32 bound (67 TFLOP/s, bytes of 4-byte
-   elements); f32 stage-3 and train scenes/s with exact launch counts;
+   3xTF32 on the tensor cores): one forward's 21 and one train step's 37
+   + 21 calls replayed against their plain f32 versions (TF32 off; conv
+   within 1e-5, dW within 2e-5 of max|plain| per call, both the same
+   bits on a second call) and timed beside the f32 bound (3xTF32,
+   164.9 TFLOP/s, bytes of 4-byte elements), with the share of the FFMA
+   bound (67 TFLOP/s) beside it and, per (K, C, D), the rows the kernel
+   multiplies over the hit rows (from the map and the kernel's row
+   groups); f32 stage-3 and train scenes/s with exact launch counts;
    the forward with kernels within 1e-4 of max|plain|; one whole step
    with kernels vs plain: loss within 1e-4 relative, grad norm within
    1e-3, each weight gradient at cosine >= 0.9999, or >= 0.999 within
@@ -95,7 +98,8 @@ paths on one NVIDIA card.
 10. Prints one JSON line describing the kernels (each with its time
     ms, device_ms, launches, bound and bound_share = bound_ms / ms,
     device_bound_share = bound_ms / device_ms, host_ms where measured;
-    the f32 entries as gather_gemm_conv_f32 and gather_gemm_dw_f32), the
+    the f32 entries as gather_gemm_conv_f32 and gather_gemm_dw_f32, with
+    ffma_bound_ms, their bound at the FFMA rate of 67 TFLOP/s), the
     card, then, as the last line, {"ok": true, "device": {...}}. Any
     failed phase exits non-zero.
 
@@ -117,13 +121,17 @@ M_OBJ, PC = 500, 256      # padded objects per scene, cluster points per object
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, H100 SXM
 F32_FLOPS = 67e12          # f32 outside the tensor cores, H100 SXM
+# f32-accurate products on the tensor cores: 3xTF32, three dense TF32
+# products (494.7 TFLOP/s, H100 SXM) for each; the f32 sparse-conv bound
+TF32X3_FLOPS = 494.7e12 / 3
+
 SOURCES = ('gather_gemm', 'gather_gemm_dw', 'gather_rows', 'heatmap')
 # device kernels each wrapper launches, by name, for the profiler's times
 # (the sparse-conv wrappers launch the *_f32 kernels on f32 tensors)
 KERNEL_NAMES = dict(gather_gemm_conv=('conv_narrow', 'conv_tile'),
                     gather_gemm_dw=('dw_kernel', 'dw_narrow', 'reduce_splits'),
-                    gather_gemm_conv_f32=('conv_f32',),
-                    gather_gemm_dw_f32=('dw_f32', 'reduce_splits'),
+                    gather_gemm_conv_f32=('conv_tf32', 'conv_ffma'),
+                    gather_gemm_dw_f32=('dw_tf32', 'dw_ffma', 'reduce_splits'),
                     gather_rows=('gather_rows_kernel',),
                     gather_rows_t=('gather_rows_t_kernel',),
                     render_heatmap=('heatmap_kernel',))
@@ -147,6 +155,18 @@ N_CONVS, N_DGRAD, N_STRIDED = 21, 16, 4
 PER_STEP = dict(gather_gemm_conv=N_CONVS + N_DGRAD, gather_gemm_dw=N_CONVS,
                 gather_rows=N_STRIDED, render_heatmap=1)
 DEVICE = 'cuda'
+
+
+def f32_row_group(kernel, C, D):
+    """Rows an f32 kernel multiplies together at a live offset, for every
+    group of them that the offset hits at least once (gather_gemm.cu,
+    gather_gemm_dw.cu "f32 path"): C and D <= 32 take the FFMA designs,
+    whose conv tiles are 256 rows (D <= 16) or 128 and whose dW tiles
+    32; the 3xTF32 designs skip 16-row MMA groups (conv) and 8-row
+    k-steps (dW)."""
+    if C <= 32 and D <= 32:
+        return (256 if D <= 16 else 128) if kernel == 'conv' else 32
+    return 16 if kernel == 'conv' else 8
 
 
 def configs(dtype='bfloat16'):
@@ -366,6 +386,9 @@ def conv_row(torch, sparse_conv, f, nmap, w, label):
         fail(f'{label}: gather_gemm_conv {f.dtype} (K, C, D) = '
              f'{tuple(w.shape)} disagrees with the plain version, max abs '
              f'err {err}')
+    if f.dtype == torch.float32 and not torch.equal(out, real(f, nmap, w)):
+        fail(f'{label}: gather_gemm_conv f32 (K, C, D) = {tuple(w.shape)} '
+             'gave other bits on a second call')
     R, C = f.shape
     K, Q = nmap.shape
     D = w.shape[2]
@@ -374,9 +397,12 @@ def conv_row(torch, sparse_conv, f, nmap, w, label):
     read = rows_read(torch, nmap)
     nbytes = read * C * es + K * Q * 4 + K * C * D * es + Q * D * es
     flops = 2 * hits * C * D
-    b_ms, f_ms = bound_ms(nbytes, flops, F32_FLOPS if es == 4 else BF16_FLOPS)
+    b_ms, f_ms = bound_ms(nbytes, flops,
+                          TF32X3_FLOPS if es == 4 else BF16_FLOPS)
     return dict(K=K, C=C, D=D, R=R, Q=Q, hits=hits, rows_read=read,
                 bytes=nbytes, flops=flops, max_abs_err=err,
+                **f32_extras(torch, nmap, flops, es,
+                             f32_row_group('conv', C, D)),
                 max_abs_plain=float(ref.float().abs().max()),
                 ms=event_ms(torch, lambda: real(f, nmap, w), 20),
                 device_ms=device_ms(
@@ -384,6 +410,30 @@ def conv_row(torch, sparse_conv, f, nmap, w, label):
                     KERNEL_NAMES[kernel_key(torch, 'gather_gemm_conv', f)]),
                 plain_ms=event_ms(torch, lambda: plain(f, nmap, w), 5),
                 bytes_ms=b_ms, flops_ms=f_ms)
+
+
+def multiplied_rows(torch, nmap, tile):
+    """Rows an f32 kernel multiplies: per offset, ``tile`` rows for every
+    ``tile``-row group of Q that the offset hits at least once."""
+    K, Q = nmap.shape
+    hit = torch.nn.functional.pad(nmap >= 0, (0, (-Q) % tile))
+    return int(hit.reshape(K, -1, tile).any(-1).sum()) * tile
+
+
+def f32_extras(torch, nmap, flops, es, tile):
+    """For an f32 call: the rows its kernel multiplies and the FFMA
+    bound (67 TFLOP/s, the f32 kernels' rate before 3xTF32), so that
+    shares stay comparable with the FFMA designs'."""
+    if es != 4:
+        return dict(mult_rows=None, ffma_ms=None)
+    return dict(mult_rows=multiplied_rows(torch, nmap, tile),
+                ffma_ms=flops / F32_FLOPS * 1e3)
+
+
+def ffma_bound(rows):
+    """The f32 rows' bound at the FFMA rate, each call's larger of its
+    bytes and FFMA times."""
+    return sum(max(r['bytes_ms'], r['ffma_ms']) for r in rows)
 
 
 def sum_device_ms(rows):
@@ -401,7 +451,9 @@ def print_conv_rows(title, rows):
           'profiler\'s device clock')
     print(f'{"K":>3} {"C":>4} {"D":>4} {"calls":>5} {"Q":>7} {"hits":>9} '
           f'{"MB":>8} {"GFLOP":>7} {"ms":>8} {"dev_ms":>8} {"plain_ms":>9} '
-          f'{"bound_ms":>9} {"share":>6} {"dev_share":>9} {"max_err":>8}')
+          f'{"bound_ms":>9} {"share":>6} {"dev_share":>9} {"max_err":>8}'
+          + (f' {"ffma_bound":>10} {"ffma_dev_share":>14} {"mult/hit":>8}'
+             if rows[0]['ffma_ms'] is not None else ''))
     shapes = {}
     for r in rows:
         shapes.setdefault((r['K'], r['C'], r['D']), []).append(r)
@@ -416,7 +468,10 @@ def print_conv_rows(title, rows):
               f'{s["flops"] / 1e9:>7.2f} {s["ms"]:>8.4f} '
               f'{dev_s:>8} {s["plain_ms"]:>9.4f} {bound:>9.5f} '
               f'{share(bound, s["ms"]):>6} {share(bound, dev):>9} '
-              f'{max(r["max_abs_err"] for r in rs):>8.4f}')
+              f'{max(r["max_abs_err"] for r in rs):>8.4f}'
+              + (f' {ffma_bound(rs):>10.5f} {share(ffma_bound(rs), dev):>14} '
+                 f'{sum(r["mult_rows"] for r in rs) / max(s["hits"], 1):>8.2f}'
+                 if rs[0]['ffma_ms'] is not None else ''))
 
 
 def kernel_phase(torch, sparse_conv, bundle, pts, val, n_convs,
@@ -698,9 +753,11 @@ def dw_rows(torch, sparse_conv, calls, label='train kernels'):
         nbytes = read * C * es + K * Q * 4 + Q * D * es + K * C * D * 4
         flops = 2 * hits * C * D
         b_ms, f_ms = bound_ms(nbytes, flops,
-                              F32_FLOPS if es == 4 else BF16_FLOPS)
+                              TF32X3_FLOPS if es == 4 else BF16_FLOPS)
         rows.append(dict(K=K, C=C, D=D, R=R, Q=Q, hits=hits, rows_read=read,
                          bytes=nbytes, flops=flops, max_abs_err=err,
+                         **f32_extras(torch, nmap, flops, es,
+                                      f32_row_group('dw', C, D)),
                          max_abs_plain=scale,
                          ms=event_ms(torch, lambda: real(f, nmap, dout), 20),
                          device_ms=device_ms(
@@ -954,7 +1011,9 @@ def kernel_entry(name, source, replaces, launches, rows, library_ms=None):
         bound_by='bytes' if bytes_ms >= flops_ms else 'operations',
         library_ms=library_ms, bound_share=bound / ms,
         device_bound_share=None if dev is None else bound / dev,
-        host_ms=None if None in host else sum(host))
+        host_ms=None if None in host else sum(host),
+        ffma_bound_ms=(None if rows[0].get('ffma_ms') is None
+                       else ffma_bound(rows)))
 
 
 # --- the GGA workflow through the port's command-line tools ---------------
@@ -1601,7 +1660,10 @@ def main():
               f'{k["ms"]:.4f}  device {fmt_ms(k["device_ms"])}  bound '
               f'{k["bound_ms"]:.5f}  share {100 * k["bound_share"]:.1f}% / '
               f'{share(k["bound_ms"], k["device_ms"])}  plain '
-              f'{k["plain_ms"]:.4f}')
+              f'{k["plain_ms"]:.4f}'
+              + ('' if k['ffma_bound_ms'] is None else
+                 f'  FFMA bound {k["ffma_bound_ms"]:.5f} (device share '
+                 f'{share(k["ffma_bound_ms"], k["device_ms"])})'))
     print(f'chip_smoke: {time.perf_counter() - t_start:.1f} s after the '
           'card check')
 

@@ -5,7 +5,9 @@
 // features [R, C] bf16, nmap [K, Q] int32 (-1 = miss), weights [K, C, D]
 // bf16, out [Q, D] bf16. The sum runs in f32 and is rounded to bf16 once.
 // An f32 entry (gga_gather_gemm_conv_f32, the "f32 path" at the end) takes
-// f32 features and weights and writes f32, with FFMA products and sums.
+// f32 features and weights and writes f32, with 3xTF32 products on the
+// tensor cores (FFMA at C and D <= 32, where that measured faster) and f32
+// sums.
 //
 // Replaces gga_tpu/ops/pallas/window_gather.py:_window_conv (the TPU
 // kernel _conv_kernel). It computes the forward of every submanifold conv
@@ -483,51 +485,287 @@ int launch_tile(const Plan& p, const void* feat, const void* nmap,
 }
 
 // ---- f32 path ---------------------------------------------------------------
-// f32 features and weights, an f32 sum and an f32 output: every product
-// and sum an FFMA on the CUDA cores, so f32 means f32 (no TF32).
+// f32 features and weights, an f32 sum and an f32 output. Two designs,
+// chosen by width (gga_gather_gemm_conv_f32).
 //
-// What bounds it on an H100. In f32 the work, 2 * hits * C * D flops at
-// 67 TFLOP/s, takes longer than the bytes (the bf16 counts doubled) at
-// 3.35 TB/s: the kernel is bound by the FFMA rate. One design covers all
-// widths: a block of 256 threads owns BM output rows and BN <= 128 output
-// columns, loads its [K, BM] index tile and its live offsets once (as the
-// bf16 tile path), and walks the pipeline items (live offset, 32-column
-// chunk of C) through a two-stage cp.async ring: the gathered rows [BM,
-// 32] (16-byte copies, zeros for misses and past C; 4-byte copies where C
-// is not a multiple of 4) and the W[k] chunk [32, BN], both row-major,
-// while the previous item's products run. Each thread keeps a TM x TN
-// register tile of sums (rows ty + i * TY, columns 4 tx + j and, for
-// TN = 8, BN / 2 + 4 tx + j) and per 4 input columns reads TM float4 of A
-// and 4 * TN / 4 float4 of B from shared memory for 4 * TM * TN FFMAs. The
-// miss rows of a live offset are multiplied as zeros: the bound does not
-// count them.
+// What bounds it on an H100. 2 * hits * C * D flops in f32-accurate
+// products: 3xTF32 on the tensor cores (494.7 / 3 = 164.9 TFLOP/s) is the
+// card's fastest way, above the bytes (the bf16 counts doubled, 3.35
+// TB/s) at every width, so the bound is operations. In practice each
+// product costs three mma.sync, the operands' splits (five FP32/integer
+// instructions an element, per warp that reads it) and an f32 add per
+// item: the wide stages are bound by issuing those instructions, not by
+// the gathers (f32_ablations.py on the card: a 128 -> 128 call takes 55 %
+// of its time without the MMAs, 56 % with one TF32 product instead of
+// three, 27 % without any products).
+//
+// C or D > 32: 3xTF32 (gather_tile.cuh: hi + lo TF32 parts, three mma.sync
+// m16n8k8 per product), never a plain TF32 product. A block of eight warps
+// owns BM = 128 output rows and BN <= 128 output columns, loads its
+// [K, BM] index tile and its live offsets once (as the bf16 tile path),
+// and walks the pipeline items (live offset, 32-column chunk of C)
+// through a ring of cp.async stages: the gathered rows [BM, 32] (16-byte
+// copies, zeros for misses and past C; 4-byte copies where C is not a
+// multiple of 4) and the W[k] chunk [32, BN], both row-major, with
+// pitches (36 and BN + 8 floats) that make the 32-bit fragment reads
+// conflict-free. Warps tile 32 x BN / 2 (BN >= 64) or 16 x BN. Each warp
+// skips the 16-row groups of an item in which the offset hits none of its
+// rows (one vote on the index tile). An item's products are summed on the
+// tensor core from zero and added to the running sums with f32 adds (the
+// tensor core's accumulation truncates: a chain over the whole sum
+// drifted past the 1e-5 gate at 64 -> 64). BN = 128 keeps 64 sums and 64 item
+// sums a thread, so it runs one block an SM with four stages; the others
+// two blocks with three stages, or two where only that fits. (256-row
+// blocks with 64 x 32 warp tiles at BN = 64 measured slower.)
 constexpr int F_CK = 32;  // input columns per pipeline item
 constexpr int F_THREADS = 256;
+constexpr int TWO_BLOCKS = 115712;  // smem that lets two blocks share an SM
 
-template <int BN, int TM, int TN>
+template <int BN>
 struct F32Tile {
+  static constexpr int BM = 128;               // output rows of a block
+  static constexpr int WN = BN >= 64 ? 2 : 1;  // warps along the columns
+  static constexpr int WM = 8 / WN;            // warps along the rows
+  static constexpr int MT = BM / (16 * WM);    // 16-row MMA tiles a warp
+  static constexpr int NT = BN / (8 * WN);     // 8-column MMA tiles a warp
+  static constexpr int LDA = F_CK + 4;
+  static constexpr int LDB = BN + 8;
+  static constexpr int STAGE = BM * LDA + F_CK * LDB;  // floats
+  // blocks an SM: the sums and an item's partial sums of BN = 128 take
+  // 128 registers a thread
+  static constexpr int MIN_BLOCKS = BN >= 128 ? 1 : 2;
+  static_assert(MT * 16 <= 32, "one vote covers a warp's rows");
+};
+
+template <int BN>
+__host__ inline int f32_smem(int K, int stages) {
+  return head_bytes(K, F32Tile<BN>::BM) + stages * F32Tile<BN>::STAGE * 4;
+}
+
+// four stages for a block alone on its SM; else three, or two where only
+// two let a second block share the SM
+template <int BN>
+__host__ inline int f32_stages(int K) {
+  if (F32Tile<BN>::MIN_BLOCKS == 1) {
+    return f32_smem<BN>(K, 4) <= MAX_SMEM ? 4 : 2;
+  }
+  const int three = f32_smem<BN>(K, 3);
+  return three > MAX_SMEM ||
+                 (three > TWO_BLOCKS && f32_smem<BN>(K, 2) <= TWO_BLOCKS)
+             ? 2 : 3;
+}
+
+// part = a_t[16 MT rows][cw] @ b_t[cw][8 NT] in 3xTF32 (cw a multiple of
+// 8, at most F_CK), from zero, skipping the 16-row groups without a bit
+// in hit.
+template <int MT, int NT, int LDA, int LDB>
+__device__ __forceinline__ void item_3xtf32(float (&part)[MT][NT][4],
+                                            const float* a_t,
+                                            const float* b_t, int cw,
+                                            unsigned hit, int lane) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      part[i][j][0] = part[i][j][1] = part[i][j][2] = part[i][j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < F_CK; kk += 8) {
+    if (kk >= cw) break;
+    Tf32x3 a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      if ((hit >> (16 * mt)) & 0xffffu) {
+        load_a_f32<false>(a[mt], a_t + mt * 16 * LDA + kk, LDA, lane);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      Tf32x3 b[2];
+      load_b_f32(b, b_t + kk * LDB + nt * 8, LDB, lane);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if ((hit >> (16 * mt)) & 0xffffu) mma_3xtf32(part[mt][nt], a[mt], b);
+      }
+    }
+  }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(F_THREADS, F32Tile<BN>::MIN_BLOCKS)
+conv_tf32(const float* __restrict__ feat, const int* __restrict__ nmap,
+          const float* __restrict__ w, float* __restrict__ out, int R, int C,
+          int K, int Q, int D, int stages) {
+  using T = F32Tile<BN>;
+  constexpr int BM = T::BM;
+  constexpr int MT = T::MT;
+  constexpr int NT = T::NT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  int* idx = reinterpret_cast<int*>(smem);  // [K][BM]
+  int* flag = idx + K * BM;                 // [K]
+  int* live = flag + K;                     // [K] live offsets, then count
+  float* ring = reinterpret_cast<float*>(smem + head_bytes(K, BM));
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row0 = (warp / T::WN) * MT * 16;  // warp's first row in the tile
+  const int col0 = (warp % T::WN) * NT * 8;   // warp's first column
+  const int q0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int nck = ceil_div(C, F_CK);  // pipeline items per offset
+
+  load_tile_indices<BM, F_THREADS>(idx, flag, live, nmap, R, K, Q, q0, tid);
+  const int items = live[K] * nck;
+
+  // item it = (live offset it / nck, C chunk it % nck) in ring slot
+  // it % stages; positions advance by counting, not dividing
+  int p_it = 0, p_li = 0, p_ci = 0, p_slot = 0;  // the next item to copy
+  auto issue = [&]() {
+    if (p_it < items) {
+      const int k = live[p_li];
+      const int c0 = p_ci * F_CK;
+      float* a = ring + p_slot * T::STAGE;
+      const int* rows = idx + k * BM;
+      gather_rows_f32<F_THREADS, F_CK>(
+          a, T::LDA, BM, [rows](int r) { return rows[r]; }, feat, C, c0,
+          tid);
+      copy_tile_f32<F_THREADS, BN>(a + BM * T::LDA, T::LDB, F_CK,
+                                   w + static_cast<size_t>(k) * C * D, D, c0,
+                                   C, n0, tid);
+    }
+    cp_async_commit();
+    ++p_it;
+    if (++p_ci == nck) {
+      p_ci = 0;
+      ++p_li;
+    }
+    if (++p_slot == stages) p_slot = 0;
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+
+  for (int s = 0; s < stages - 1; ++s) issue();
+  int li = 0, ci = 0, slot = 0;  // the item being multiplied
+  for (int it = 0; it < items; ++it) {
+    wait_ring(stages);  // item it has landed for this thread
+    __syncthreads();    // ... for every thread; item it - 1's MMAs are done
+    issue();
+    const float* a_s = ring + slot * T::STAGE;
+    const float* b_s = a_s + BM * T::LDA;
+    const int k = live[li];
+    const int cw = min(F_CK, (C - ci * F_CK + 7) & ~7);  // zeros past C
+    if (++ci == nck) {
+      ci = 0;
+      ++li;
+    }
+    if (++slot == stages) slot = 0;
+    // the warp's 16-row groups in which offset k hits a row
+    const unsigned hit = __ballot_sync(
+        0xffffffffu, lane < MT * 16 && idx[k * BM + row0 + lane] >= 0);
+    if (hit == 0) continue;
+    float part[MT][NT][4];  // the item's sums, from zero (gather_tile.cuh)
+    item_3xtf32<MT, NT, T::LDA, T::LDB>(part, a_s + row0 * T::LDA,
+                                        b_s + col0, cw, hit, lane);
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+  }
+  cp_async_wait<0>();
+
+  // rows row0 + 16 mt + g (+ 8), columns col0 + 8 nt + 2 t (+ 1)
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = q0 + row0 + mt * 16 + g + 8 * h;
+      if (q >= Q) continue;
+      float* orow = out + static_cast<size_t>(q) * D;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int n = n0 + col0 + nt * 8 + 2 * t;
+        const float x = acc[mt][nt][2 * h];
+        const float y = acc[mt][nt][2 * h + 1];
+        if ((D & 1) == 0 && n < D) {
+          *reinterpret_cast<float2*>(orow + n) = make_float2(x, y);
+        } else {
+          if (n < D) orow[n] = x;
+          if (n + 1 < D) orow[n + 1] = y;
+        }
+      }
+    }
+  }
+}
+
+template <int BN>
+int launch_f32(const void* feat, const void* nmap, const void* w, void* out,
+               int R, int C, int K, int Q, int D, cudaStream_t stream) {
+  const auto kern = conv_tf32<BN>;
+  const int stages = f32_stages<BN>(K);
+  const int smem = f32_smem<BN>(K, stages);
+  if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  int fit = 0;  // lifts the kernel's shared-memory limit on first use
+  const cudaError_t err = card_blocks(reinterpret_cast<const void*>(kern),
+                                      F_THREADS, smem, &fit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(ceil_div(Q, F32Tile<BN>::BM), ceil_div(D, BN));
+  kern<<<grid, F_THREADS, smem,
+         stream>>>(static_cast<const float*>(feat),
+                   static_cast<const int*>(nmap),
+                   static_cast<const float*>(w), static_cast<float*>(out), R,
+                   C, K, Q, D, stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Narrow widths (C and D <= 32: conv_input and stages 0-1) keep FFMA,
+// which measured faster there than the tensor cores (PERF.md): a block of
+// 256 threads owns BM output rows and BN (16 or 32) output columns, loads
+// its index tile and live offsets as above and walks the same items
+// through a two-stage ring; each thread keeps a 4 x 4 register tile of
+// sums (rows ty + i * TY, columns 4 tx + j) and per 4 input columns reads
+// 4 float4 of A and 4 of B from shared memory for 64 FFMAs; the miss rows
+// of a live offset are multiplied as zeros.
+// Element j (0-3, known at compile time after unrolling) of v.
+__device__ __forceinline__ float lane_of(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+template <int BN>
+struct FfmaTile {
+  static constexpr int TM = 4;               // register tile: TM x TN sums
+  static constexpr int TN = 4;
   static constexpr int TX = BN / TN;         // threads along the columns
   static constexpr int TY = F_THREADS / TX;  // threads along the rows
   static constexpr int BM = TY * TM;         // output rows of a block
   static constexpr int LDA = F_CK + 4;
   static constexpr int LDB = BN + 4;
   static constexpr int STAGE = BM * LDA + F_CK * LDB;  // floats
-  static_assert(TN == 4 || TN == 8, "B is read as one or two float4");
 };
 
-template <int BN, int TM, int TN>
-__host__ inline int f32_smem(int K) {
-  using T = F32Tile<BN, TM, TN>;
+template <int BN>
+__host__ inline int ffma_smem(int K) {
+  using T = FfmaTile<BN>;
   return head_bytes(K, T::BM) + 2 * T::STAGE * 4;
 }
 
-template <int BN, int TM, int TN>
+template <int BN>
 __global__ void __launch_bounds__(F_THREADS)
-conv_f32(const float* __restrict__ feat, const int* __restrict__ nmap,
-         const float* __restrict__ w, float* __restrict__ out, int R, int C,
-         int K, int Q, int D) {
-  using T = F32Tile<BN, TM, TN>;
+conv_ffma(const float* __restrict__ feat, const int* __restrict__ nmap,
+          const float* __restrict__ w, float* __restrict__ out, int R, int C,
+          int K, int Q, int D) {
+  using T = FfmaTile<BN>;
   constexpr int BM = T::BM;
+  constexpr int TM = T::TM;
+  constexpr int TN = T::TN;
   extern __shared__ __align__(128) unsigned char smem[];
   int* idx = reinterpret_cast<int*>(smem);  // [K][BM]
   int* flag = idx + K * BM;                 // [K]
@@ -585,13 +823,8 @@ conv_f32(const float* __restrict__ feat, const int* __restrict__ nmap,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float* brow = b + (kk + j) * T::LDB;
-        float bv[TN];
         const float4 b0 = *reinterpret_cast<const float4*>(brow);
-        bv[0] = b0.x, bv[1] = b0.y, bv[2] = b0.z, bv[3] = b0.w;
-        if constexpr (TN == 8) {
-          const float4 b1 = *reinterpret_cast<const float4*>(brow + BN / 2);
-          bv[4] = b1.x, bv[5] = b1.y, bv[6] = b1.z, bv[7] = b1.w;
-        }
+        const float bv[TN] = {b0.x, b0.y, b0.z, b0.w};
 #pragma unroll
         for (int i = 0; i < TM; ++i) {
           const float x = lane_of(av[i], j);
@@ -603,35 +836,31 @@ conv_f32(const float* __restrict__ feat, const int* __restrict__ nmap,
   }
   cp_async_wait<0>();
 
-  // rows ty + i * TY, columns 4 tx (+ BN / 2) + 0..3
+  // rows ty + i * TY, columns 4 tx + 0..3
+  const int n = n0 + 4 * tx;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int q = q0 + ty + i * T::TY;
     if (q >= Q) continue;
     float* orow = out + static_cast<size_t>(q) * D;
+    if ((D & 3) == 0 && n < D) {
+      *reinterpret_cast<float4*>(orow + n) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    } else {
 #pragma unroll
-    for (int h = 0; h < TN / 4; ++h) {
-      const int n = n0 + 4 * tx + h * (BN / 2);
-      if ((D & 3) == 0 && n < D) {
-        *reinterpret_cast<float4*>(orow + n) =
-            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
-                        acc[i][4 * h + 3]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (n + j < D) orow[n + j] = acc[i][4 * h + j];
-        }
+      for (int j = 0; j < 4; ++j) {
+        if (n + j < D) orow[n + j] = acc[i][j];
       }
     }
   }
 }
 
-template <int BN, int TM, int TN>
-int launch_f32(const void* feat, const void* nmap, const void* w, void* out,
-               int R, int C, int K, int Q, int D, cudaStream_t stream) {
-  using T = F32Tile<BN, TM, TN>;
-  const auto kern = conv_f32<BN, TM, TN>;
-  const int smem = f32_smem<BN, TM, TN>(K);
+template <int BN>
+int launch_ffma(const void* feat, const void* nmap, const void* w, void* out,
+                int R, int C, int K, int Q, int D, cudaStream_t stream) {
+  using T = FfmaTile<BN>;
+  const auto kern = conv_ffma<BN>;
+  const int smem = ffma_smem<BN>(K);
   if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   int fit = 0;  // lifts the kernel's shared-memory limit on first use
   const cudaError_t err = card_blocks(reinterpret_cast<const void*>(kern),
@@ -681,10 +910,17 @@ extern "C" int gga_gather_gemm_conv_bf16(const void* feat, const void* nmap,
 
 // Shared memory a block of the f32 kernel needs at K = 27 for input width
 // C: the f32 tiles are 32 input columns wide whatever C, so the most of
-// any output width (the 256-row tiles of D <= 16).
+// any output width.
 extern "C" int gga_gather_gemm_smem_bytes_f32(int C) {
   (void)C;
-  return f32_smem<16, 4, 4>(27);
+  const int s[6] = {f32_smem<16>(27, f32_stages<16>(27)),
+                    f32_smem<32>(27, f32_stages<32>(27)),
+                    f32_smem<64>(27, f32_stages<64>(27)),
+                    f32_smem<128>(27, f32_stages<128>(27)),
+                    ffma_smem<16>(27), ffma_smem<32>(27)};
+  int most = 0;
+  for (int x : s) most = x > most ? x : most;
+  return most;
 }
 
 // f32 features, weights and output. Returns the cudaError_t of the launch
@@ -695,8 +931,12 @@ extern "C" int gga_gather_gemm_conv_f32(const void* feat, const void* nmap,
                                         void* stream) {
   if (Q <= 0 || D <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 16) return launch_f32<16, 4, 4>(feat, nmap, w, out, R, C, K, Q, D, s);
-  if (D <= 32) return launch_f32<32, 4, 4>(feat, nmap, w, out, R, C, K, Q, D, s);
-  if (D <= 64) return launch_f32<64, 8, 4>(feat, nmap, w, out, R, C, K, Q, D, s);
-  return launch_f32<128, 8, 8>(feat, nmap, w, out, R, C, K, Q, D, s);
+  if (C <= 32 && D <= 32) {
+    return D <= 16 ? launch_ffma<16>(feat, nmap, w, out, R, C, K, Q, D, s)
+                   : launch_ffma<32>(feat, nmap, w, out, R, C, K, Q, D, s);
+  }
+  if (D <= 16) return launch_f32<16>(feat, nmap, w, out, R, C, K, Q, D, s);
+  if (D <= 32) return launch_f32<32>(feat, nmap, w, out, R, C, K, Q, D, s);
+  if (D <= 64) return launch_f32<64>(feat, nmap, w, out, R, C, K, Q, D, s);
+  return launch_f32<128>(feat, nmap, w, out, R, C, K, Q, D, s);
 }

@@ -5,7 +5,8 @@
 // features [R, C] bf16, nmap [K, Q] int32 (-1 = miss), dout [Q, D] bf16,
 // dW [K, C, D] f32. Products are summed in f32. An f32 entry
 // (gga_gather_gemm_dw_f32, the "f32 path" at the end) takes f32 features
-// and dout, with FFMA products and sums.
+// and dout, with 3xTF32 products on the tensor cores (FFMA at C and D <=
+// 32, where that measured faster) and f32 sums.
 //
 // Replaces gga_tpu/ops/pallas/window_gather.py:_window_dw (the TPU kernel
 // _dw_kernel). It computes the weight gradient of every submanifold conv
@@ -597,50 +598,303 @@ int plan_for(int K, int C, int D, int Q, Plan* out) {
 }
 
 // ---- f32 path ---------------------------------------------------------------
-// f32 features and dout, FFMA products and f32 sums (no TF32). Like the
-// conv's f32 path it is bound by the FFMA rate (2 * hits * C * D flops at
-// 67 TFLOP/s against the bf16 byte counts doubled). A block of 256 threads
-// owns kg offsets, a c slab of CS and a d slab of DS columns (16, 32, 64
-// or 128: C and D padded up, wider ones split over blockIdx.z) and a
-// contiguous range of 32-row q tiles, its split. Each thread keeps a
-// TM x TN register tile of the sums of one offset (8 x 8 where the slab
-// is 64 or 128 wide, else 4 x 4; rows 4 cb + i and, for TM = 8, CS / 2 +
-// 4 cb + i, columns likewise), so kg = 256 / ((CS / TM) (DS / TN))
-// offsets share each dout tile. A two-stage cp.async ring brings the next
-// tile's gathered rows [kg][32][CS] (zeros for misses, rows past Q and
-// columns past C) and its dout rows [32][DS] while the current tile's
-// products run, TM * TN FFMAs per (TM + TN) / 4 float4 reads from shared
-// memory. A thread copies the same rows of every tile, so it loads their
-// indices into registers a tile ahead (an index >= R traps); rows whose
-// width is not a multiple of 4 floats are copied a float at a time, each
-// copy reading its index. An offset with no hit in a tile skips it: a flag
-// per ring slot and offset holds the number of the last tile that hit it,
-// so flags need no clearing. Partials go to the scratch and reduce_splits
-// adds them in split order, as on the bf16 path: the same inputs give the
-// same bits.
-constexpr int F_BQ = 32;     // q rows per tile
-constexpr int F_SLAB = 128;  // widest c or d slab of a block
+// f32 features and dout, f32 sums. What bounds it is as for the conv's f32
+// path (gather_gemm.cu): operations at 3xTF32, in practice issuing the
+// MMAs and the operands' splits. Two designs, chosen by width
+// (f32_or_ffma_plan). C or D > 32: every product in 3xTF32 on the tensor
+// cores (gather_tile.cuh: hi + lo TF32 parts, three mma.sync m16n8k8 per
+// product), never a plain TF32 product. The block has the bf16 tile
+// path's shape, for 4-byte elements:
+//   - A block owns kg offsets, a c slab of CS and a d slab of DS columns
+//     (16, 32, 64 or 128: C and D padded up, wider ones split over
+//     blockIdx.z) and a contiguous range of 32-row q tiles, its split. Its
+//     warps own disjoint warp tiles (offset, 16 MT rows of c, 8 NT columns
+//     of d), dealt round-robin, at most 64 f32 sums a thread, plus a q
+//     tile's partial sums: one block an SM. kg is as large as the
+//     registers and a three-stage ring allow; NT is halved (8 -> 4) where
+//     that gives every warp a tile.
+//   - Indices once per chunk of q tiles (8 KB of them, one cp.async round
+//     trip; an index >= R traps), with a 32-bit mask per (offset, q tile)
+//     of the rows it hits and the list of tiles any offset hits.
+//   - The ring: tile j + 2's gathered rows [kg][32][CS] and dout rows
+//     [32][DS] (16-byte cp.async, 4-byte where C or D is not a multiple of
+//     4; zeros for misses, rows past Q and columns past C and D) are in
+//     flight while the warps multiply tile j. Pitches CS + 8 and DS + 8
+//     floats make the transposed 32-bit fragment reads conflict-free:
+//     A = features^T (c x q) and B = dout (q x d) are both read from their
+//     natural [q][...] layouts.
+//   - A warp skips each 8-row k-step in which its offset hits no row.
+//   - A q tile's products are summed on the tensor core from zero and
+//     added to the running sums with f32 adds (gather_tile.cuh).
+// Partials go to the scratch and reduce_splits adds them in split order,
+// as on the bf16 path: the same inputs give the same bits.
+constexpr int F_BQ = 32;               // q rows per tile
+constexpr int F_IDX_MAX = 8 * 1024;    // bytes of indices a block holds
 
-__host__ __device__ constexpr int f32_tile(int slab) {
-  return slab >= 64 ? 8 : 4;
+__host__ __device__ inline int f32_ring(int kg, int cs, int ds) {
+  return STAGES * (kg * F_BQ * (cs + 8) + F_BQ * (ds + 8));  // floats
 }
 
-__host__ __device__ inline int f32_stage(int kg, int cs, int ds) {
+__host__ __device__ constexpr int f32_mt(int cs) { return cs >= 32 ? 2 : 1; }
+
+// part = a_t^T @ b_t over one q tile in 3xTF32, from zero: a_t [32 q][16
+// MT c] (pitch LDG), b_t [32 q][8 NT d] (pitch LDD), skipping the 8-row
+// k-steps without a bit in hits.
+template <int MT, int NT, int LDG, int LDD>
+__device__ __forceinline__ void tile_3xtf32(float (&part)[MT][NT][4],
+                                            const float* a_t,
+                                            const float* b_t,
+                                            unsigned hits, int lane) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      part[i][j][0] = part[i][j][1] = part[i][j][2] = part[i][j][3] = 0.f;
+#pragma unroll
+  for (int s = 0; s < F_BQ; s += 8) {
+    if (((hits >> s) & 0xffu) == 0) continue;  // rows past Q miss too
+    Tf32x3 a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      load_a_f32<true>(a[mt], a_t + s * LDG + mt * 16, LDG, lane);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      Tf32x3 b[2];
+      load_b_f32(b, b_t + s * LDD + nt * 8, LDD, lane);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) mma_3xtf32(part[mt][nt], a[mt], b);
+    }
+  }
+}
+
+template <int CS, int DS, int NT>
+__global__ void __launch_bounds__(THREADS, 1)
+dw_tf32(const float* __restrict__ feat, const int* __restrict__ nmap,
+        const float* __restrict__ dout, float* __restrict__ part, int R,
+        int C, int K, int Q, int D, int kg, int chunk, int splits) {
+  constexpr int MT = f32_mt(CS);
+  constexpr int CWT = CS / (16 * MT);  // warp tiles along c
+  constexpr int DWT = DS / (8 * NT);   // warp tiles along d
+  constexpr int PER_K = CWT * DWT;
+  constexpr int WT = ACC_MAX / (MT * NT * 4);  // warp tiles a warp holds
+  constexpr int LDG = CS + 8;
+  constexpr int LDD = DS + 8;
+  static_assert(DWT >= 1 && WT >= 1, "tile");
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int pitch = chunk * F_BQ;  // indices of one offset in a chunk
+  int* idx = reinterpret_cast<int*>(smem);  // [kg][pitch]
+  int* flag = idx + kg * pitch;             // [chunk]
+  int* kflag = flag + chunk;                // [kg][chunk] tile hit by offset
+  int* live = kflag + kg * chunk;           // [chunk] live tiles, then count
+  float* ring = reinterpret_cast<float*>(smem + head_bytes(kg, F_BQ, chunk));
+  const int g_elems = kg * F_BQ * LDG;  // gathered rows [kg][F_BQ][LDG]
+  const int stage = g_elems + F_BQ * LDD;  // then dout rows [F_BQ][LDD]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int split = blockIdx.x;
+  const int k0 = blockIdx.y * kg;
+  const int kn = min(kg, K - k0);
+  const int cslabs = ceil_div(C, SLAB);
+  const int c0 = (blockIdx.z % cslabs) * SLAB;
+  const int n0 = (blockIdx.z / cslabs) * SLAB;
+  const int tiles = kn * PER_K;  // warp tiles of the block
+  const int nqt = ceil_div(Q, F_BQ);
+  const int t0 = static_cast<int>(static_cast<long long>(nqt) * split / splits);
+  const int n = static_cast<int>(static_cast<long long>(nqt) * (split + 1) /
+                                 splits) - t0;
+  const bool vec_idx =
+      (Q & 3) == 0 && (reinterpret_cast<uintptr_t>(nmap) & 15) == 0;
+
+  int wk[WT], wcb[WT], wdb[WT];  // the warp's tiles: offset, c and d block
+#pragma unroll
+  for (int w = 0; w < WT; ++w) {
+    const int jt = warp + WARPS * w;
+    wk[w] = jt < tiles ? jt / PER_K : -1;
+    wcb[w] = (jt / DWT) % CWT;
+    wdb[w] = jt % DWT;
+  }
+  float acc[WT][MT][NT][4];
+#pragma unroll
+  for (int w = 0; w < WT; ++w)
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        acc[w][i][j][0] = acc[w][i][j][1] = acc[w][i][j][2] =
+            acc[w][i][j][3] = 0.f;
+
+  for (int ch0 = 0; ch0 < n; ch0 += chunk) {
+    const int cn = min(chunk, n - ch0);  // q tiles of this chunk
+    const int cq0 = (t0 + ch0) * F_BQ;   // its first q row
+    // 1. the chunk's indices of the block's offsets, by cp.async in one
+    //    round trip (entries past Q arrive as 0 and are set to -1 below),
+    //    and the list of its q tiles that any of them hits
+    for (int i = tid; i < cn; i += THREADS) flag[i] = 0;
+    for (int i = tid; i < kn * chunk; i += THREADS) kflag[i] = 0;
+    if (vec_idx) {
+      const int row4 = cn * F_BQ / 4;
+      for (int e = tid; e < kn * row4; e += THREADS) {
+        const int kk = e / row4;
+        const int m = (e - kk * row4) * 4;
+        const bool ok = cq0 + m < Q;  // Q % 4 == 0: whole chunks in or out
+        cp_async<16>(idx + kk * pitch + m,
+                     ok ? nmap + static_cast<size_t>(k0 + kk) * Q + cq0 + m
+                        : nmap,
+                     ok);
+      }
+    } else {
+      for (int e = tid; e < kn * cn * F_BQ; e += THREADS) {
+        const int kk = e / (cn * F_BQ);
+        const int m = e - kk * cn * F_BQ;
+        const bool ok = cq0 + m < Q;
+        cp_async<4>(idx + kk * pitch + m,
+                    ok ? nmap + static_cast<size_t>(k0 + kk) * Q + cq0 + m
+                       : nmap,
+                    ok);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int e = tid; e < kn * cn * F_BQ; e += THREADS) {
+      const int kk = e / (cn * F_BQ);
+      const int m = e - kk * cn * F_BQ;
+      const int r = cq0 + m < Q ? idx[kk * pitch + m] : -1;
+      if (r >= R) __trap();  // an index past the feature rows is a caller bug
+      idx[kk * pitch + m] = r;
+      // a warp's 32 entries are one q tile of one offset (F_BQ = 32):
+      // kflag holds which of its rows the offset hits
+      const unsigned hits = __ballot_sync(0xffffffffu, r >= 0);
+      if (hits && lane == 0) {
+        flag[m / F_BQ] = 1;
+        kflag[kk * chunk + m / F_BQ] = static_cast<int>(hits);
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      int nl = 0;
+      for (int i0 = 0; i0 < cn; i0 += 32) {
+        const bool on = i0 + lane < cn && flag[i0 + lane];
+        const unsigned bits = __ballot_sync(0xffffffffu, on);
+        if (on) live[nl + __popc(bits & ((1u << lane) - 1u))] = i0 + lane;
+        nl += __popc(bits);
+      }
+      if (lane == 0) live[chunk] = nl;
+    }
+    __syncthreads();
+    const int items = live[chunk];
+
+    // 2. the ring over the live tiles: feature rows and dout rows of item
+    //    j + 2 are copied while the MMAs of item j run
+    auto issue = [&](int j) {
+      if (j < items) {
+        const int tl = live[j];  // tile within the chunk
+        const int q0 = cq0 + tl * F_BQ;
+        const int* rows = idx + tl * F_BQ;
+        float* gs = ring + (j % STAGES) * stage;
+        gather_rows_f32<THREADS, CS>(
+            gs, LDG, kn * F_BQ,
+            [&](int r) { return rows[(r / F_BQ) * pitch + r % F_BQ]; },
+            feat, C, c0, tid);
+        copy_tile_f32<THREADS, DS>(gs + g_elems, LDD, F_BQ, dout, D, q0, Q,
+                                   n0, tid);
+      }
+      cp_async_commit();
+    };
+    for (int j = 0; j < STAGES - 1; ++j) issue(j);
+    for (int j = 0; j < items; ++j) {
+      cp_async_wait<STAGES - 2>();  // item j has landed for this thread
+      __syncthreads();  // ... for every thread; item j - 1's MMAs are done
+      issue(j + STAGES - 1);
+      const float* gs = ring + (j % STAGES) * stage;
+      const float* ds = gs + g_elems;
+      const int tl = live[j];
+#pragma unroll
+      for (int w = 0; w < WT; ++w) {
+        const int kk = wk[w];
+        if (kk < 0) break;
+        // the 8-row k-steps in which offset kk hits a row
+        const unsigned hits = static_cast<unsigned>(kflag[kk * chunk + tl]);
+        if (hits == 0) continue;
+        const float* a_t = gs + kk * F_BQ * LDG + wcb[w] * MT * 16;
+        const float* b_t = ds + wdb[w] * NT * 8;
+        float part[MT][NT][4];  // the tile's sums, from zero
+        tile_3xtf32<MT, NT, LDG, LDD>(part, a_t, b_t, hits, lane);
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int jj = 0; jj < NT; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[w][i][jj][e] += part[i][jj][e];
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring, indices and list are free for the next chunk
+  }
+
+  // every warp tile is written (zeros where nothing hit), so the
+  // reduction can add all splits
+  float* base = part + static_cast<size_t>(split) * K * C * D;
+#pragma unroll
+  for (int w = 0; w < WT; ++w) {
+    if (wk[w] < 0) break;
+    const int k = k0 + wk[w];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int d = n0 + wdb[w] * NT * 8 + nt * 8 + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = c0 + wcb[w] * MT * 16 + mt * 16 + g + 8 * h;
+          if (c >= C) continue;
+          float* o = base + (static_cast<size_t>(k) * C + c) * D + d;
+          if (d + 1 < D && (D & 1) == 0) {
+            *reinterpret_cast<float2*>(o) =
+                make_float2(acc[w][mt][nt][2 * h], acc[w][mt][nt][2 * h + 1]);
+          } else {
+            if (d < D) o[0] = acc[w][mt][nt][2 * h];
+            if (d + 1 < D) o[1] = acc[w][mt][nt][2 * h + 1];
+          }
+        }
+      }
+    }
+  }
+}
+
+// Narrow widths (C and D <= 32: conv_input and stages 0-1) keep FFMA,
+// which measured faster there than the tensor cores (PERF.md). A block of
+// 256 threads owns kg offsets, a c slab of CS and a d slab of DS columns
+// (16 or 32) and a split's contiguous range of 32-row q tiles; each thread
+// keeps a 4 x 4 register tile of the sums of one offset (rows 4 cb + i,
+// columns 4 db + j), so kg = 256 / ((CS / 4) (DS / 4)) offsets share each
+// dout tile. A two-stage cp.async ring brings the next tile's gathered
+// rows [kg][32][CS] and dout rows [32][DS] while the current tile's
+// products run, 16 FFMAs per two float4 reads from shared memory; each
+// thread loads the indices of the rows it copies a tile ahead (an index
+// >= R traps). An offset with no hit in a tile skips it: a flag per ring
+// slot and offset holds the number of the last tile that hit it.
+__host__ __device__ inline int ffma_stage(int kg, int cs, int ds) {
   return kg * F_BQ * (cs + 4) + F_BQ * (ds + 4);  // floats
 }
 
 // hit flags [2][kg], then the ring
-__host__ __device__ inline int f32_head(int kg) {
+__host__ __device__ inline int ffma_head(int kg) {
   return (2 * kg * 4 + 15) & ~15;
 }
 
 template <int CS, int DS>
 __global__ void __launch_bounds__(THREADS)
-dw_f32(const float* __restrict__ feat, const int* __restrict__ nmap,
-       const float* __restrict__ dout, float* __restrict__ part, int R,
-       int C, int K, int Q, int D, int kg, int splits) {
-  constexpr int TM = f32_tile(CS);
-  constexpr int TN = f32_tile(DS);
+dw_ffma(const float* __restrict__ feat, const int* __restrict__ nmap,
+        const float* __restrict__ dout, float* __restrict__ part, int R,
+        int C, int K, int Q, int D, int kg, int /*chunk*/, int splits) {
+  constexpr int TM = 4;  // register tile: TM x TN sums of one offset
+  constexpr int TN = 4;
   constexpr int DQ = DS / TN;
   constexpr int TPO = (CS / TM) * DQ;  // threads per offset
   constexpr int LDG = CS + 4;
@@ -650,7 +904,7 @@ dw_f32(const float* __restrict__ feat, const int* __restrict__ nmap,
   constexpr int RPT = (THREADS / TPO * F_BQ + RSTEP - 1) / RSTEP;  // passes
   extern __shared__ __align__(128) unsigned char smem[];
   int* hit = reinterpret_cast<int*>(smem);  // [2][kg]
-  float* ring = reinterpret_cast<float*>(smem + f32_head(kg));
+  float* ring = reinterpret_cast<float*>(smem + ffma_head(kg));
   const int g_elems = kg * F_BQ * LDG;
   const int stage = g_elems + F_BQ * LDD;
 
@@ -659,9 +913,9 @@ dw_f32(const float* __restrict__ feat, const int* __restrict__ nmap,
   const int k0 = blockIdx.y * kg;
   const int kn = min(kg, K - k0);
   const int rows = kn * F_BQ;  // gathered rows of a tile
-  const int cslabs = ceil_div(C, F_SLAB);
-  const int c0 = (blockIdx.z % cslabs) * F_SLAB;
-  const int n0 = (blockIdx.z / cslabs) * F_SLAB;
+  const int cslabs = ceil_div(C, SLAB);
+  const int c0 = (blockIdx.z % cslabs) * SLAB;
+  const int n0 = (blockIdx.z / cslabs) * SLAB;
   const int kk = tid / TPO;  // this thread's offset in the group
   const int cb = (tid % TPO) / DQ;
   const int db = tid % DQ;
@@ -749,21 +1003,10 @@ dw_f32(const float* __restrict__ feat, const int* __restrict__ nmap,
     const float* b = ring + slot * stage + g_elems + 4 * db;
 #pragma unroll 4
     for (int q = 0; q < F_BQ; ++q) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int h = 0; h < TM / 4; ++h) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(a + q * LDG + h * (CS / 2));
-        av[4 * h] = v.x, av[4 * h + 1] = v.y, av[4 * h + 2] = v.z,
-        av[4 * h + 3] = v.w;
-      }
-#pragma unroll
-      for (int h = 0; h < TN / 4; ++h) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(b + q * LDD + h * (DS / 2));
-        bv[4 * h] = v.x, bv[4 * h + 1] = v.y, bv[4 * h + 2] = v.z,
-        bv[4 * h + 3] = v.w;
-      }
+      const float4 va = *reinterpret_cast<const float4*>(a + q * LDG);
+      const float4 vb = *reinterpret_cast<const float4*>(b + q * LDD);
+      const float av[TM] = {va.x, va.y, va.z, va.w};
+      const float bv[TN] = {vb.x, vb.y, vb.z, vb.w};
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -778,23 +1021,38 @@ dw_f32(const float* __restrict__ feat, const int* __restrict__ nmap,
   float* base = part + (static_cast<size_t>(split) * K + k0 + kk) * C * D;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int c = c0 + (i / 4) * (CS / 2) + 4 * cb + i % 4;
+    const int c = c0 + 4 * cb + i;
     if (c >= C) continue;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      const int d = n0 + (j / 4) * (DS / 2) + 4 * db + j % 4;
+      const int d = n0 + 4 * db + j;
       if (d < D) base[static_cast<size_t>(c) * D + d] = acc[i][j];
     }
   }
 }
 
 using F32Kernel = void (*)(const float*, const int*, const float*, float*,
-                           int, int, int, int, int, int, int);
+                           int, int, int, int, int, int, int, int);
+
+// the plan's NT: DS / 8 up to 8, or 4 where 8 leaves warps without a tile
+template <int CS, int DS>
+F32Kernel f32_kernel_nt(int nt) {
+  if constexpr (DS >= 64) {
+    return nt == 8 ? dw_tf32<CS, DS, 8> : dw_tf32<CS, DS, 4>;
+  } else {
+    return dw_tf32<CS, DS, DS / 8>;
+  }
+}
 
 template <int CS>
-F32Kernel f32_kernel_d(int ds) {
-  return ds == 16 ? dw_f32<CS, 16> : ds == 32 ? dw_f32<CS, 32>
-       : ds == 64 ? dw_f32<CS, 64> : dw_f32<CS, 128>;
+F32Kernel f32_kernel_d(int ds, int nt) {
+  if constexpr (CS <= 32) {  // C and D <= 32 take the FFMA path
+    return ds == 64 ? f32_kernel_nt<CS, 64>(nt) : f32_kernel_nt<CS, 128>(nt);
+  } else {
+    return ds == 16 ? f32_kernel_nt<CS, 16>(nt)
+         : ds == 32 ? f32_kernel_nt<CS, 32>(nt)
+         : ds == 64 ? f32_kernel_nt<CS, 64>(nt) : f32_kernel_nt<CS, 128>(nt);
+  }
 }
 
 struct F32Plan {
@@ -802,12 +1060,13 @@ struct F32Plan {
   int kg;      // offsets per block
   int groups;  // offset groups
   int slabs;   // (c slab, d slab) pairs
+  int chunk;   // q tiles whose indices a block holds at once
   int splits;
   int smem;
 };
 
 inline int f32_slab(int n) {
-  return n <= 16 ? 16 : n <= 32 ? 32 : n <= 64 ? 64 : F_SLAB;
+  return n <= 16 ? 16 : n <= 32 ? 32 : n <= 64 ? 64 : SLAB;
 }
 
 // The f32 block shape and split count for these sizes; sets the kernel's
@@ -816,13 +1075,30 @@ int f32_plan(int K, int C, int D, int Q, F32Plan* out) {
   F32Plan p;
   const int cs = f32_slab(C);
   const int ds = f32_slab(D);
-  p.kern = cs == 16 ? f32_kernel_d<16>(ds) : cs == 32 ? f32_kernel_d<32>(ds)
-         : cs == 64 ? f32_kernel_d<64>(ds) : f32_kernel_d<128>(ds);
-  const int kg_max = THREADS / ((cs / f32_tile(cs)) * (ds / f32_tile(ds)));
-  p.groups = ceil_div(K, kg_max);
-  p.kg = ceil_div(K, p.groups);
-  p.slabs = ceil_div(C, F_SLAB) * ceil_div(D, F_SLAB);
-  p.smem = f32_head(p.kg) + 2 * f32_stage(p.kg, cs, ds) * 4;
+  const int mt = f32_mt(cs);
+  int nt = ds >= 64 ? 8 : ds >= 32 ? 4 : 2;
+  // offsets per block: as many as the registers hold and as let the ring
+  // and the indices fit (one block an SM: the sums and a tile's partial
+  // sums take up to 128 registers a thread)
+  const int ring_max = MAX_SMEM - F_IDX_MAX - 1024;
+  auto offsets = [&](int ntile) {
+    const int per_k = (cs / (16 * mt)) * (ds / (8 * ntile));
+    const int wt = ACC_MAX / (mt * ntile * 4);
+    for (int kg_max = WARPS * wt / per_k; ; --kg_max) {
+      p.groups = ceil_div(K, kg_max > 1 ? kg_max : 1);
+      p.kg = ceil_div(K, p.groups);
+      if (kg_max <= 1 || f32_ring(p.kg, cs, ds) * 4 <= ring_max) break;
+    }
+    return p.kg * per_k;  // warp tiles of a block
+  };
+  if (offsets(nt) < WARPS && nt == 8) offsets(nt = 4);  // a tile every warp
+  p.kern = cs == 16 ? f32_kernel_d<16>(ds, nt)
+         : cs == 32 ? f32_kernel_d<32>(ds, nt)
+         : cs == 64 ? f32_kernel_d<64>(ds, nt) : f32_kernel_d<128>(ds, nt);
+  p.slabs = ceil_div(C, SLAB) * ceil_div(D, SLAB);
+  p.chunk = F_IDX_MAX / (p.kg * F_BQ * 4);
+  if (p.chunk < 1) p.chunk = 1;
+  p.smem = head_bytes(p.kg, F_BQ, p.chunk) + f32_ring(p.kg, cs, ds) * 4;
   if (p.smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   int blocks = 0;
   const cudaError_t err = card_blocks(reinterpret_cast<const void*>(p.kern),
@@ -832,6 +1108,36 @@ int f32_plan(int K, int C, int D, int Q, F32Plan* out) {
                         ceil_div(Q, F_BQ), K, C, D);
   *out = p;
   return 0;
+}
+
+// The narrow FFMA path's block shape and split count (C and D <= 32).
+int ffma_plan(int K, int C, int D, int Q, F32Plan* out) {
+  F32Plan p;
+  const int cs = f32_slab(C);
+  const int ds = f32_slab(D);
+  p.kern = cs == 16 ? (ds == 16 ? dw_ffma<16, 16> : dw_ffma<16, 32>)
+                    : (ds == 16 ? dw_ffma<32, 16> : dw_ffma<32, 32>);
+  const int kg_max = THREADS / ((cs / 4) * (ds / 4));
+  p.groups = ceil_div(K, kg_max);
+  p.kg = ceil_div(K, p.groups);
+  p.slabs = 1;
+  p.chunk = 0;
+  p.smem = ffma_head(p.kg) + 2 * ffma_stage(p.kg, cs, ds) * 4;
+  if (p.smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  int blocks = 0;
+  const cudaError_t err = card_blocks(reinterpret_cast<const void*>(p.kern),
+                                      THREADS, p.smem, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  p.splits = splits_for(ceil_div(WAVES * blocks, p.groups),
+                        ceil_div(Q, F_BQ), K, C, D);
+  *out = p;
+  return 0;
+}
+
+// the f32 plan of these sizes: FFMA where C and D <= 32, else 3xTF32
+int f32_or_ffma_plan(int K, int C, int D, int Q, F32Plan* out) {
+  return C <= 32 && D <= 32 ? ffma_plan(K, C, D, Q, out)
+                            : f32_plan(K, C, D, Q, out);
 }
 
 }  // namespace
@@ -884,7 +1190,7 @@ extern "C" int gga_gather_gemm_dw_bf16(const void* feat, const void* nmap,
 extern "C" int gga_gather_gemm_dw_splits_f32(int K, int C, int D, int Q) {
   if (K <= 0 || C <= 0 || D <= 0) return 1;
   F32Plan p;
-  return f32_plan(K, C, D, Q, &p) == 0 ? p.splits : -1;
+  return f32_or_ffma_plan(K, C, D, Q, &p) == 0 ? p.splits : -1;
 }
 
 // f32 features and dout. Returns the cudaError_t of the launches (0 =
@@ -896,14 +1202,14 @@ extern "C" int gga_gather_gemm_dw_f32(const void* feat, const void* nmap,
                                       int splits, void* stream) {
   if (K <= 0 || C <= 0 || D <= 0) return 0;
   F32Plan p;
-  int err = f32_plan(K, C, D, Q, &p);
+  int err = f32_or_ffma_plan(K, C, D, Q, &p);
   if (err != 0) return err;
   if (p.splits != splits) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* part_f = static_cast<float*>(part);
   p.kern<<<dim3(p.splits, p.groups, p.slabs), THREADS, p.smem, s>>>(
       static_cast<const float*>(feat), static_cast<const int*>(nmap),
-      static_cast<const float*>(dout), part_f, R, C, K, Q, D, p.kg,
+      static_cast<const float*>(dout), part_f, R, C, K, Q, D, p.kg, p.chunk,
       p.splits);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);

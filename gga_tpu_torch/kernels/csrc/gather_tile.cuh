@@ -11,7 +11,9 @@
 // - ldmatrix (plain and transposed), movmatrix and mma.sync m16n8k16
 //   bf16 -> f32;
 // - the f32 kernels' tile loaders (gathered rows, dense windows) in
-//   16-byte chunks of 4 floats;
+//   16-byte chunks of 4 floats, the split of an f32 operand into TF32
+//   parts and mma.sync m16n8k8 tf32 -> f32, from which the f32 kernels
+//   build 3xTF32 products;
 // - on the host, a cached count of the blocks that fit on the card.
 //
 // Every bf16 tile lives in shared memory in its natural row-major layout
@@ -230,7 +232,7 @@ __device__ __forceinline__ void copy_tile_async(
   }
 }
 
-// ---- f32 tiles (the f32 kernels multiply with FFMA, not the MMA) -----------
+// ---- f32 tiles (3xTF32 on the tensor cores; FFMA at C and D <= 32) -------
 // Row-major like the bf16 tiles, with a row pitch a multiple of 4 floats so
 // that each row starts 16-byte aligned. A thread copies one 16-byte chunk
 // (4 floats) of a row at a time, neighbouring threads the neighbouring
@@ -298,9 +300,92 @@ __device__ __forceinline__ void copy_tile_f32(
   }
 }
 
-// Element j (0-3, known at compile time after unrolling) of v.
-__device__ __forceinline__ float lane_of(const float4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+// ---- 3xTF32 -----------------------------------------------------------------
+// An f32 operand x is split into TF32 parts, x = hi + lo: hi is x
+// truncated to TF32 (its 13 low mantissa bits cleared: one instruction,
+// never rounded up to inf) and lo = x - hi (exact in f32), of which the
+// tensor core reads the top 19 bits, as it reads every TF32 operand. A
+// product is taken as lo_a hi_b + hi_a lo_b + hi_a hi_b with f32 sums.
+// What is lost, each of the sign of ab: lo_a lo_b (below 2^-20 |ab|) and
+// the bits of lo_a, lo_b below TF32 (below 2^-20 |ab| each), so a product
+// is within 3 * 2^-20 of ab and the sum keeps f32 accuracy. Rounding lo
+// to nearest (cvt.rna) instead measured 16 % slower at 128 -> 128
+// (f32_ablations.py): the conversion runs at a fraction of the FP32 rate.
+// Non-finite x (hi not finite): lo = 0, and the cross terms take hx = 0 in
+// place of hi (hx = hi for finite x), so that inf times an exact TF32
+// value (whose lo is 0) stays inf instead of becoming inf * 0 = NaN, and a
+// finite operand never gives a NaN. (A NaN whose payload lies only in the
+// 13 low bits reads as inf.) Those three instructions an element cost
+// 11 % at 128 -> 128 (f32_ablations.py); checking each pipeline item's
+// tiles for a non-finite value to skip them measured slower still.
+struct Tf32x3 {
+  uint32_t hi, lo, hx;
+};
+
+__device__ __forceinline__ Tf32x3 split_tf32(float x) {
+  const uint32_t h = __float_as_uint(x) & 0xffffe000u;
+  const float hf = __uint_as_float(h);
+  const bool finite = fabsf(hf) < __int_as_float(0x7f800000);
+  Tf32x3 s;
+  s.hi = h;
+  s.lo = finite ? __float_as_uint(x - hf) : 0u;
+  s.hx = finite ? h : 0u;
+  return s;
+}
+
+// d += a @ b for one m16n8k8 tile, tf32 in, f32 accumulate. Fragments
+// (PTX ISA; g = lane / 4, t = lane % 4): a[0] row g, column t; a[1] row
+// g + 8, column t; a[2] row g, column t + 4; a[3] row g + 8, column t + 4;
+// b0 row t, b1 row t + 4 of column g; d as for m16n8k16.
+__device__ __forceinline__ void mma_1688(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// d += a @ b in 3xTF32: the two cross terms, then hi_a hi_b. The tensor
+// core's f32 accumulation truncates, so a chain of MMAs over a whole sum
+// drifts toward zero (past the 1e-5 of max|plain| gate at 64 -> 64 on the
+// card, where FFMA stays near 1e-6): the callers keep d for a short chain (one
+// pipeline item, at most 4 k-steps) started from zero and add it to their
+// running sums with f32 adds, which round to nearest.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const Tf32x3 (&a)[4],
+                                           const Tf32x3 (&b)[2]) {
+  mma_1688(d, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b[0].hx, b[1].hx);
+  mma_1688(d, a[0].hx, a[1].hx, a[2].hx, a[3].hx, b[0].lo, b[1].lo);
+  mma_1688(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].hi, b[1].hi);
+}
+
+// The split A fragments of a 16 (m) x 8 (k) f32 tile at p. Row-major
+// ([m][k], pitch ld, ld % 32 == 4 for conflict-free reads) or, with
+// TRANS, stored [k][m] (ld % 32 == 8).
+template <bool TRANS>
+__device__ __forceinline__ void load_a_f32(Tf32x3 (&a)[4], const float* p,
+                                           int ld, int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = g + 8 * (i & 1);
+    const int k = t + 4 * (i >> 1);
+    a[i] = split_tf32(TRANS ? p[k * ld + m] : p[m * ld + k]);
+  }
+}
+
+// The split B fragments of an 8 (k) x 8 (n) f32 tile stored [k][n] at p
+// (pitch ld, ld % 32 == 8 for conflict-free reads).
+__device__ __forceinline__ void load_b_f32(Tf32x3 (&b)[2], const float* p,
+                                           int ld, int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  b[0] = split_tf32(p[t * ld + g]);
+  b[1] = split_tf32(p[(t + 4) * ld + g]);
 }
 
 // Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of

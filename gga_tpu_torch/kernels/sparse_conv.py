@@ -18,8 +18,12 @@ features[nmap[k, q]]^T dout[q]`` as f32 ``[K, C, D]``: the port of
 On a CPU tensor each wrapper runs its plain version. On a CUDA tensor it
 launches its kernel (``csrc/gather_gemm.cu``, ``csrc/gather_gemm_dw.cu``)
 or raises. Both kernels take bf16 or f32 inputs, the two operands of one
-dtype: bf16 runs the tensor-core entries (``*_bf16``), f32 the FFMA
-entries (``*_f32``), so that f32 means f32 on the card as on the CPU.
+dtype: bf16 runs the bf16 tensor-core entries (``*_bf16``), f32 the
+``*_f32`` entries, whose products are 3xTF32 on the tensor cores (each
+operand split into TF32 hi + lo parts, three TF32 products each; FFMA
+where C and D are at most 32): as accurate as f32 products, so that f32
+means f32 on the card as on the CPU. Which kernel runs depends on the
+dtype and the shapes only.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""The port stands alone: nothing under gga_tpu_torch/, nor chip_smoke.py,
-imports JAX, flax, optax, the JAX package or the repo's tools."""
+"""The port stands alone: nothing under gga_tpu_torch/, nor chip_smoke.py
+or f32_ablations.py, imports JAX, flax, optax, the JAX package or the
+repo's tools."""
 import ast
 from pathlib import Path
 
@@ -8,7 +9,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'gga_tpu', 'tools')
 FILES = sorted((ROOT / 'gga_tpu_torch').rglob('*.py')) + [
-    ROOT / 'chip_smoke.py']
+    ROOT / 'chip_smoke.py', ROOT / 'f32_ablations.py']
 
 
 def _imported_roots(path):

@@ -12,9 +12,10 @@ plain version, on maps from the port's own builders where it takes maps:
 
 - gather_gemm_conv in bf16 at ``|kernel - plain| <= 1e-2 * max|plain| +
   one bf16 ulp``: both sum in f32, in another order, and round the output
-  to bf16 once; in f32 at ``|kernel - plain| <= 1e-5 * max|plain|``: the
-  same f32 products (FFMA in the kernel, TF32 off for the plain einsum)
-  summed in another order;
+  to bf16 once; in f32 at ``|kernel - plain| <= 1e-5 * max|plain|``:
+  products as accurate as f32 ones (3xTF32 on the tensor cores, or FFMA
+  at C and D <= 32, in the kernel; f32 with TF32 off for the plain
+  einsum) summed in another order;
 - gather_gemm_dw (f32 output) of bf16 inputs at ``|kernel - plain| <=
   1e-3 * max|plain|``: both sum the same bf16 products in f32, in another
   order, and round nothing else; of f32 inputs at ``2e-5 * max|plain|``;
@@ -339,6 +340,82 @@ def test_cuda_dw_kernel_matches_plain(which, c, d, k, q, dtype):
     assert torch.equal(out, again)             # a fixed summation order
     rtol = 1e-3 if dtype == torch.bfloat16 else 2e-5
     assert ((out - ref).abs() <= rtol * ref.abs().max()).all()
+
+
+def _f32_map(kind, k=27, q=1001, rows=3000, seed=21):
+    """nmap [k, q] int32: 'sparse' (stage 0 of the encoder: the centre
+    offset hits every row, each other offset about one row in fifty),
+    'all' (every offset hits every row), 'none' (all misses); Q = 1001 is
+    a multiple of neither kernel's row tile."""
+    rng = np.random.RandomState(seed)
+    nmap = rng.randint(0, rows, (k, q))
+    if kind == 'sparse':
+        nmap = np.where(rng.rand(k, q) < 0.02, nmap, -1)
+        nmap[k // 2] = rng.randint(0, rows, q)
+    elif kind == 'none':
+        nmap[:] = -1
+    return torch.from_numpy(nmap.astype(np.int32))
+
+
+# the f32 kernels (3xTF32 on the tensor cores; FFMA at C and D <= 32) at
+# every width pair of the conv's and dW's tiles, C = 3 and 24 (rows that are not 16-byte or 8-column
+# multiples), on stage-0-like, all-hit and all-miss maps; both kernels give
+# the same bits on a second call
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['sparse', 'all', 'none'])
+@pytest.mark.parametrize('d', [16, 32, 64, 128])
+@pytest.mark.parametrize('c', [3, 16, 24, 32, 64, 128])
+def test_cuda_f32_kernels_match_plain_at_every_width(c, d, kind):
+    dev = _cuda()
+    nmap = _f32_map(kind).to(dev)
+    rng = np.random.RandomState(c * 5 + d)
+    f = torch.from_numpy(rng.randn(3000, c).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.randn(27, c, d) * 0.2).astype(np.float32)).to(dev)
+    dout = torch.from_numpy(rng.randn(nmap.shape[1], d).astype(np.float32))
+    dout = dout.to(dev)
+    out = sparse_conv.gather_gemm_conv(f, nmap, w)
+    again = sparse_conv.gather_gemm_conv(f, nmap, w)
+    dw = sparse_conv.gather_gemm_dw(f, nmap, dout)
+    dw_again = sparse_conv.gather_gemm_dw(f, nmap, dout)
+    ref = sparse_conv.gather_gemm_conv_plain(f, nmap, w)
+    dw_ref = sparse_conv.gather_gemm_dw_plain(f, nmap, dout)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(dw, dw_again)
+    if kind == 'none':
+        assert (out == 0).all() and (dw == 0).all()
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    assert (dw - dw_ref).abs().max() <= 2e-5 * dw_ref.abs().max()
+
+
+# inf, -inf, FLT_MAX and denormal features (weights small enough that
+# FLT_MAX times one stays finite, one weight row an exact TF32 value):
+# each f32 kernel is finite exactly where its plain version is, and the
+# conv NaN exactly where it is
+@pytest.mark.cuda
+@pytest.mark.parametrize('c,d', [(16, 16), (32, 64), (128, 128), (3, 32)])
+def test_cuda_f32_kernels_keep_the_plain_finiteness(c, d):
+    dev = _cuda()
+    rng = np.random.RandomState(c + d)
+    f = rng.randn(3000, c).astype(np.float32)
+    f[5, 0], f[17, c - 1], f[29, c // 2] = np.inf, -np.inf, 1e-41
+    f[41, 0] = f[53, c - 1] = np.finfo(np.float32).max
+    f[60:80] = 3e-39
+    w = (rng.randn(27, c, d) * 2 ** -12).astype(np.float32)
+    w[13, 0] = 0.5
+    nmap = _f32_map('sparse').to(dev)
+    nmap[13, :100] = torch.arange(100, device=dev, dtype=torch.int32)
+    f, w = torch.from_numpy(f).to(dev), torch.from_numpy(w).to(dev)
+    dout = torch.randn(nmap.shape[1], d, device=dev)
+    out = sparse_conv.gather_gemm_conv(f, nmap, w)
+    ref = sparse_conv.gather_gemm_conv_plain(f, nmap, w)
+    dw = sparse_conv.gather_gemm_dw(f, nmap, dout)
+    dw_ref = sparse_conv.gather_gemm_dw_plain(f, nmap, dout)
+    torch.cuda.synchronize()
+    for o, r in ((out, ref), (dw, dw_ref)):
+        assert (~torch.isfinite(r)).any() and torch.isfinite(r).any()
+        assert torch.equal(torch.isfinite(o), torch.isfinite(r))
+    # inf times the exact 0.5 stays inf in the conv (no inf * 0 = NaN)
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
 
 
 def _rows_t_map(kind, k, q, rows, seed):
