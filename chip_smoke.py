@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's stage-3 inference and GGA weak training
-paths on one NVIDIA card.
+paths, the GGA workflow's command-line tools and the stage-4 PGD retrain
+on one NVIDIA card.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -74,7 +75,8 @@ paths on one NVIDIA card.
    a KITTI-format mini dataset written to a temporary dir (16 scenes, 8
    train + 8 val, of 120 000 lidar points with about 20 000 in the
    camera's view, 8-16 Car / Pedestrian / Cyclist boxes ahead of the
-   camera, header-only PNGs), the shipped configs as shipped (f32):
+   camera, 375 x 1242 RGB PNGs rendered from the points with all five
+   PNG row filters), the shipped configs as shipped (f32):
    ``create_data_gga``; ``train`` on configs/gga/gga_kitti.py at B = 8
    for 4 steps (2 an epoch, a checkpoint each epoch), then ``--resume``
    to step 6; ``generate_pseudo_labels_gga`` on
@@ -95,7 +97,24 @@ paths on one NVIDIA card.
    included) with the loader's share, the checkpoints' size and save /
    load ms, and stage-3 scenes/s (load through matching), each beside the
    card's name and power limit.
-10. Prints one JSON line describing the kernels (each with its time
+10. Stage-4 phase, on the same mini KITTI: the port's PNG reader timed
+    on one frame (host; C++ unfilter and its numpy oracle, the same
+    bytes); ``train_pgd`` on configs/gga/gga_pdg.py as shipped (ResNet-101
+    + FPN + PGDHead, f32, B = 12) over a pseudo-format pkl of the 16 scenes
+    with their ground truth: 3 steps (one an epoch, a checkpoint at each
+    epoch's end), then ``--resume`` to step 4. None of the port's kernels
+    may launch (the counts are set to 0 before each run and read after).
+    Fails unless every logged loss is finite with num_pos > 0, each step
+    ran at the lr step_schedule gives for its count, the resume ran step
+    4, every parameter and BN statistic moved from the seeded weights, the
+    head outputs and decode of 4 images from step_4.pt equal the
+    in-memory weights', and
+    ``tools_lib.evaluate_mono`` returns its five AP keys. Prints, beside
+    the card's name and power limit, train images/s after the first step
+    with the loader (and its wait share) and by CUDA events around the
+    steps, the train runs' peak ``max_memory_allocated``, the checkpoint's
+    MiB and save / load ms, and inference images/s.
+11. Prints one JSON line describing the kernels (each with its time
     ms, device_ms, launches, bound and bound_share = bound_ms / ms,
     device_bound_share = bound_ms / device_ms, host_ms where measured;
     the f32 entries as gather_gemm_conv_f32 and gather_gemm_dw_f32, with
@@ -1036,20 +1055,63 @@ WF_CLASSES = dict(Car=((3.9, 1.6, 1.56), 0.5),
                   Cyclist=((1.76, 0.6, 1.73), 0.25))
 
 
-def png_bytes(height, width):
-    """A minimal valid 8-bit grayscale PNG of zeros (the tools read only
-    its header)."""
+def render_image(points, img_shape=IMG_SHAPE):
+    """Depth-coded point-splat rendering of a lidar scene, RGB uint8 (a
+    copy of tests/test_data/fixtures.py:63 render_scene_image): each
+    point in the camera's view paints a 2 x 2 splat, red for 8 m over its
+    depth, green for its height, blue 255, near points over far ones."""
+    pts = np.asarray(points, np.float64)[:, :3]
+    cam = (VELO2CAM @ np.concatenate([pts, np.ones((len(pts), 1))], 1).T
+           ).T[:, :3]
+    z = cam[:, 2]
+    uvw = (P2[:3, :3] @ cam.T).T + P2[:3, 3]
+    u = uvw[:, 0] / np.maximum(uvw[:, 2], 1e-6)
+    v = uvw[:, 1] / np.maximum(uvw[:, 2], 1e-6)
+    H, W = img_shape
+    ok = (z > 0.5) & (u >= 0) & (u < W - 1) & (v >= 0) & (v < H - 1)
+    order = np.argsort(-z[ok])
+    ui = u[ok].astype(np.intp)[order]
+    vi = v[ok].astype(np.intp)[order]
+    depth_c = np.clip(255.0 * 8.0 / z[ok], 0, 255).astype(np.uint8)[order]
+    height_c = np.clip((pts[ok, 2] + 3.0) / 6.0 * 255.0, 0,
+                       255).astype(np.uint8)[order]
+    img = np.zeros((H, W, 3), np.uint8)
+    for dv in (0, 1):
+        for du in (0, 1):
+            img[vi + dv, ui + du, 0] = depth_c
+            img[vi + dv, ui + du, 1] = height_c
+            img[vi + dv, ui + du, 2] = 255
+    return img
+
+
+def png_bytes(img):
+    """An 8-bit RGB PNG of ``img`` [H, W, 3] whose row y is filtered with
+    type y % 5 (None, Sub, Up, Average, Paeth; PNG spec section 9), so a
+    reader meets all five."""
     import struct
     import zlib
 
     def chunk(kind, data):
         return (struct.pack('>I', len(data)) + kind + data
                 + struct.pack('>I', zlib.crc32(kind + data) & 0xffffffff))
-    rows = bytes((width + 1) * height)       # filter byte 0 + pixels
+    h, w, c = img.shape
+    prev, rows = np.zeros(w * c, np.int64), []
+    for y in range(h):
+        cur = img[y].reshape(-1).astype(np.int64)
+        left = np.concatenate([np.zeros(c, np.int64), cur[:-c]])
+        up_left = np.concatenate([np.zeros(c, np.int64), prev[:-c]])
+        p = left + prev - up_left
+        pa, pb, pc = abs(p - left), abs(p - prev), abs(p - up_left)
+        pred = (0, left, prev, (left + prev) // 2,
+                np.where((pa <= pb) & (pa <= pc), left,
+                         np.where(pb <= pc, prev, up_left)))[y % 5]
+        rows.append(bytes([y % 5])
+                    + ((cur - pred) % 256).astype(np.uint8).tobytes())
+        prev = cur
     return (b'\x89PNG\r\n\x1a\n'
-            + chunk(b'IHDR', struct.pack('>IIBBBBB', width, height, 8, 0,
-                                         0, 0, 0))
-            + chunk(b'IDAT', zlib.compress(rows)) + chunk(b'IEND', b''))
+            + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0, 0))
+            + chunk(b'IDAT', zlib.compress(b''.join(rows)))
+            + chunk(b'IEND', b''))
 
 
 def mini_kitti_scene(rng, n_points):
@@ -1110,8 +1172,9 @@ def mini_kitti_scene(rng, n_points):
 
 def write_mini_kitti(root, splits=WF_SPLITS, n_points=WF_POINTS, seed=0):
     """A KITTI-format dataset under ``root``: training/{velodyne, calib,
-    label_2, image_2} and ImageSets/{train, val}.txt. Returns the points
-    each scene has in the camera's view."""
+    label_2, image_2} and ImageSets/{train, val}.txt, the images rendered
+    from each scene's points (``render_image``, ``png_bytes``). Returns
+    the points each scene has in the camera's view."""
     import os
 
     from gga_tpu_torch.core import np_geometry as ng
@@ -1120,7 +1183,6 @@ def write_mini_kitti(root, splits=WF_SPLITS, n_points=WF_POINTS, seed=0):
     for d in ('velodyne', 'calib', 'label_2', 'image_2'):
         os.makedirs(os.path.join(sub, d), exist_ok=True)
     os.makedirs(os.path.join(root, 'ImageSets'), exist_ok=True)
-    png = png_bytes(*IMG_SHAPE)
     in_view, idx = [], 0
     for split, n in zip(('train', 'val'), splits):
         with open(os.path.join(root, 'ImageSets', f'{split}.txt'), 'w') as f:
@@ -1154,7 +1216,7 @@ def write_mini_kitti(root, splits=WF_SPLITS, n_points=WF_POINTS, seed=0):
                             f'{cb[6]:.2f}\n')
             with open(os.path.join(sub, 'image_2', f'{idx:06d}.png'),
                       'wb') as f:
-                f.write(png)
+                f.write(png_bytes(render_image(pts)))
             idx += 1
     return in_view
 
@@ -1416,6 +1478,250 @@ def mono_phase(mods, card, pkl, pseudo, mono_cli):
     return dict(got, seconds=seconds)
 
 
+# --- stage 4: the PGD monocular retrain through the port's CLI ------------
+S4_CONFIG = 'configs/gga/gga_pdg.py'
+S4_STEPS = (3, 4)           # --max-steps of the first run, of the resume
+S4_OPTIONS = ('log_interval=1',)
+S4_EVAL_BATCH = 4           # images a batch of evaluate_mono
+
+
+def forward_flop(torch, model_cfg):
+    """FLOPs of the PGD detector's forward on one 384 x 1248 image, counted
+    by ``torch.utils.flop_counter`` on the meta device (shapes only)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from gga_tpu_torch.models.detectors.pgd import PGDDetector
+    with torch.device('meta'):
+        model = PGDDetector(model_cfg)
+        x = torch.empty(1, 3, 384, 1248)
+    with FlopCounterMode(display=False) as counter:
+        model(x)
+    return counter.get_total_flops()
+
+
+def png_timing(card, path):
+    """Host ms to read one of the mini KITTI's PNGs (375 x 1242 RGB, all
+    five row filters) through the port's reader (zlib + the C++ unfilter)
+    and with the numpy unfilter, its oracle; both give the same bytes."""
+    from gga_tpu_torch.data.kitti import png
+    data = Path(path).read_bytes()
+    png.decode_png(data)                            # builds the library
+    t0 = time.perf_counter()
+    img = png.decode_png(data)
+    cpp_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref = png.decode_png(data, png.unfilter_numpy)
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(img, ref):
+        fail('stage 4: the C++ PNG unfilter differs from the numpy one')
+    print(f'{card}: stage 4 PNG read of one {img.shape[0]} x {img.shape[1]} '
+          f'frame (host): {cpp_ms:.2f} ms with the C++ unfilter, '
+          f'{numpy_ms:.1f} ms with the numpy one')
+    return dict(cpp_ms=cpp_ms, numpy_ms=numpy_ms)
+
+
+def stage4_phase(torch, mods, card, tmp):
+    """Stage 4 on the workflow's mini KITTI: ``train_pgd`` with the shipped
+    configs/gga/gga_pdg.py (ResNet-101 + FPN + PGDHead, f32, B =
+    samples_per_gpu = 12) on a pseudo-format pkl of all 16 scenes with
+    their ground truth, S4_STEPS[0] steps (one an epoch, a checkpoint at
+    each epoch's end), then ``--resume`` to S4_STEPS[1]; a decode from
+    the reloaded checkpoint against the in-memory weights; then
+    ``tools_lib.evaluate_mono``. Main path: the counts are set to 0 just
+    before each CLI run and read just after; no kernel of the port runs
+    in stage 4."""
+    import json as json_
+    import os
+    import pickle
+
+    from gga_tpu_torch import apis, tools_lib
+    from gga_tpu_torch.config import Config
+    from gga_tpu_torch.data.kitti.mono_dataset import KittiMonoDataset
+    from gga_tpu_torch.tools import train_pgd
+    from gga_tpu_torch.train import checkpoints as ckpt
+    from gga_tpu_torch.train.optim import step_schedule
+
+    data = os.path.join(tmp, 'kitti')
+    with open(os.path.join(data, 'kitti_infos_trainval_GGA.pkl'), 'rb') as f:
+        infos = pickle.load(f)
+    for info in infos:          # pseudo-label format: a score per object
+        info['annos']['score'] = np.ones(len(info['annos']['name']))
+    pkl = os.path.join(tmp, 'stage4', 'kitti_infos_trainval_GGA_pseudo.pkl')
+    os.makedirs(os.path.dirname(pkl), exist_ok=True)
+    with open(pkl, 'wb') as f:
+        pickle.dump(infos, f)
+    res = dict(png=png_timing(card, os.path.join(
+        data, infos[0]['image']['image_path'])))
+
+    config = str(ROOT / S4_CONFIG)
+    cfg = Config.fromfile(config)
+    batch = cfg.data.samples_per_gpu
+    model_cfg = tools_lib.model_config_from_cfg(cfg)
+    res['forward_flop'] = forward_flop(torch, model_cfg)
+    arch = f'ResNet-{model_cfg.backbone_depth}'
+    print(f'stage 4: {arch} + FPN + PGDHead forward of one 384 x 1248 image: '
+          f'{res["forward_flop"] / 1e12:.4f} TFLOP (counted from shapes); a '
+          f'train step of {batch} about 3x that an image, '
+          f'{3 * batch * res["forward_flop"] / 1e12:.2f} TFLOP')
+    work = os.path.join(tmp, 'work_pgd')
+    argv = [config, '--info', pkl, '--data-root', data, '--work-dir', work,
+            '--device', DEVICE, '--cfg-options', *S4_OPTIONS]
+    trainers, step_ms = [], []
+    real_step = apis.pgd_train_step
+
+    def timed_step(trainer, b):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logs = real_step(trainer, b)
+        end.record()
+        trainers.append(trainer)
+        step_ms.append((start, end))
+        return logs
+
+    runs = []
+    apis.pgd_train_step = timed_step
+    try:
+        for i, max_steps in enumerate(S4_STEPS):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            n0 = len(step_ms)
+            zero_counts(mods)
+            summ = train_pgd.main(argv + ['--max-steps', str(max_steps)]
+                                  + (['--resume'] if i else []))
+            if any(counts(mods).values()):
+                fail(f'stage 4: train_pgd run {i + 1} launched a kernel: '
+                     f'{counts(mods)}')
+            torch.cuda.synchronize()
+            ms = [a.elapsed_time(b) for a, b in step_ms[n0:]]
+            summ.update(step_device_ms=ms,
+                        peak_bytes=torch.cuda.max_memory_allocated())
+            summ['images_per_s_events'] = (
+                batch * (len(ms) - 1) / (sum(ms[1:]) / 1e3)
+                if len(ms) > 1 else None)
+            # the rate the steps reached, at 3 forwards' FLOPs an image
+            summ['tflop_per_s_events'] = (
+                None if summ['images_per_s_events'] is None else
+                3 * res['forward_flop'] * summ['images_per_s_events'] / 1e12)
+            runs.append(summ)
+            print(f'{card}: stage 4 train_pgd run {i + 1}: steps '
+                  f'{summ["start_step"]}-{summ["end_step"]} at B={batch} '
+                  f'({arch}, f32): after the first step '
+                  f'{summ["images_per_s"]:.3f} images/s with the loader '
+                  f'(loader wait {100 * summ["loader_wait_share"]:.1f} % '
+                  f'of the wall time), '
+                  + ('' if summ['images_per_s_events'] is None else
+                     f'{summ["images_per_s_events"]:.3f} by CUDA events '
+                     f'around the steps '
+                     f'({summ["tflop_per_s_events"]:.2f} TFLOP/s), ')
+                  + f'step device ms {[round(v, 1) for v in ms]}; peak '
+                  f'memory {summ["peak_bytes"] / 2 ** 30:.2f} GiB')
+    finally:
+        apis.pgd_train_step = real_step
+    first, resumed = runs
+    if (first['start_step'], first['end_step']) != (0, S4_STEPS[0]):
+        fail(f'stage 4: the first run took steps {first["start_step"]}-'
+             f'{first["end_step"]}')
+    if (resumed['start_step'], resumed['end_step']) != S4_STEPS:
+        fail(f'stage 4: the resume ran steps {resumed["start_step"]}-'
+             f'{resumed["end_step"]}, expected {S4_STEPS[0]}-{S4_STEPS[1]}')
+    with open(os.path.join(work, 'train_log.jsonl')) as f:
+        lines = [json_.loads(ln) for ln in f]
+    if [ln['step'] for ln in lines] != list(range(1, S4_STEPS[1] + 1)):
+        fail(f'stage 4: logged steps {[ln["step"] for ln in lines]}')
+    o = cfg.optimizer
+    sched = step_schedule(o.lr, len(infos) // batch, o.warmup_iters,
+                          o.warmup_ratio, o.lr_steps, o.lr_gamma)
+    for ln in lines:
+        bad = [k for k, v in ln.items()
+               if k.startswith('loss') and not np.isfinite(v)]
+        if bad or not ln['num_pos'] > 0:
+            fail(f'stage 4: step {ln["step"]}: non-finite {bad}, num_pos '
+                 f'{ln["num_pos"]}')
+        want = sched(ln['step'] - 1)
+        if not abs(ln['lr'] - want) <= 1e-12 * want:
+            fail(f'stage 4: step {ln["step"]} ran at lr {ln["lr"]}, the '
+                 f'schedule gives {want}')
+    res.update(train=runs, losses=[ln['loss'] for ln in lines],
+               num_pos=[ln['num_pos'] for ln in lines],
+               grad_norms=[ln['grad_norm'] for ln in lines],
+               lrs=[ln['lr'] for ln in lines])
+    print(f'stage 4: losses {[f"{v:.5g}" for v in res["losses"]]}, num_pos '
+          f'{res["num_pos"]}, grad norms '
+          f'{[f"{v:.4g}" for v in res["grad_norms"]]}, lr '
+          f'{[f"{v:.4g}" for v in res["lrs"]]}')
+    print(f'{card}: stage 4 checkpoints: '
+          f'{first["ckpt_bytes"] / 2 ** 20:.1f} MiB each, save ms '
+          f'{[round(v, 1) for v in first["ckpt_save_ms"] + resumed["ckpt_save_ms"]]}'
+          f', load (resume) {resumed["ckpt_load_ms"]:.1f} ms')
+
+    # what training moved, from the seeded weights the CLI started from
+    trainer = trainers[-1]
+    init = apis.init_pgd_detector(model_cfg, device=DEVICE,
+                                  seed=cfg.get('seed', 0)).model.state_dict()
+    now = trainer.model.state_dict()
+    names = dict(trainer.model.named_parameters())
+    stuck = [k for k in names if torch.equal(now[k], init[k])]
+    bn = [k for k in now if k.endswith(('running_mean', 'running_var'))]
+    bn_stuck = [k for k in bn if torch.equal(now[k], init[k])]
+    if stuck or bn_stuck:
+        fail(f'stage 4: {len(stuck)} parameter tensors and {len(bn_stuck)} '
+             f'BN statistics did not move: {(stuck + bn_stuck)[:8]}')
+    del init
+    print(f'stage 4: all {len(names)} parameter tensors and {len(bn)} BN '
+          'statistics moved')
+
+    # decode from the newest checkpoint against the in-memory weights
+    ckpt_dir = resumed['ckpt_dir']
+    if ckpt.latest_step(ckpt_dir) != S4_STEPS[1]:
+        fail(f'stage 4: newest checkpoint {ckpt.latest_step(ckpt_dir)}')
+    dataset = KittiMonoDataset(data, pkl)
+    images = np.stack([dataset[j]['image'] for j in range(S4_EVAL_BATCH)])
+    cam2img = np.stack([dataset[j]['cam2img'] for j in range(S4_EVAL_BATCH)])
+    live = apis.infer_mono(apis.DetectorBundle(trainer.model, model_cfg,
+                                               torch.device(DEVICE)),
+                           images, cam2img)
+    bundle = apis.init_pgd_detector(model_cfg, ckpt.load_variables(ckpt_dir),
+                                    device=DEVICE)
+    loaded = apis.infer_mono(bundle, images, cam2img)
+    for key, v in live.items():
+        if not torch.equal(v, loaded[key]):
+            fail(f'stage 4: decode {key} from step_{S4_STEPS[1]}.pt differs '
+                 'from the in-memory weights')
+    # the head's outputs too: four steps from random weights may leave
+    # every score under the decode's threshold
+    with torch.no_grad():
+        x = torch.as_tensor(images, device=DEVICE).permute(0, 3, 1, 2)
+        heads = [m.eval()(x.contiguous())[0]
+                 for m in (trainer.model, bundle.model)]
+    for lvl, (a, b) in enumerate(zip(*heads)):
+        for key in a:
+            if not torch.equal(a[key], b[key]):
+                fail(f'stage 4: level {lvl} {key} from step_{S4_STEPS[1]}'
+                     '.pt differs from the in-memory weights')
+    print(f'stage 4: the head outputs and decode of {S4_EVAL_BATCH} images '
+          f'from step_{S4_STEPS[1]}.pt equal the in-memory weights\' '
+          f'({int(live["valid"].sum())} kept boxes, top kept score '
+          f'{float(live["scores"].max()):.4g})')
+    del trainer, trainers, live, loaded, heads, x
+
+    zero_counts(mods)
+    ev = tools_lib.evaluate_mono(bundle, dataset, batch_size=S4_EVAL_BATCH)
+    if any(counts(mods).values()):
+        fail(f'stage 4: evaluate_mono launched a kernel: {counts(mods)}')
+    missing = [k for k in tools_lib.MONO_AP_KEYS if k not in ev]
+    if missing:
+        fail(f'stage 4: evaluate_mono gave no {missing}')
+    ev['images_per_s'] = ev['images'] / ev['infer_s']
+    print(f'{card}: stage 4 evaluate_mono on {ev["images"]} images: '
+          f'inference {ev["images_per_s"]:.2f} images/s (batches of '
+          f'{S4_EVAL_BATCH}, host clock, the decode\'s copy to the host '
+          f'included), {ev["detections"]} detections; '
+          + ', '.join(f'{k} {ev[k]:.4g}' for k in tools_lib.MONO_AP_KEYS))
+    res['eval'] = ev
+    return res
+
+
 def scene_points(torch, dev, seed):
     """(points, valid) of one bench-point batch on ``dev``."""
     b = make_batch(B, P, M_OBJ, PC, seed)
@@ -1626,6 +1932,9 @@ def main():
     # --- stages 1-3 and the stage-4 export through the command-line tools --
     with tempfile.TemporaryDirectory() as tmp:
         wf = workflow_phase(torch, mods, card, tmp)
+        torch.cuda.empty_cache()
+        # --- stage 4: the PGD retrain through its CLI, then its eval ---
+        s4 = stage4_phase(torch, mods, card, tmp)
 
     launches, launches_f32 = tr['launches'], f32['train']['launches']
     kernels = [
@@ -1678,7 +1987,7 @@ def main():
                        train_conv_calls=conv_rows, train_dw_calls=dwr,
                        train_gather_rows=gr_rows, train_gather_rows_t=grt_rows,
                        train_heatmap=hm_rows, step_comparison=cmp_step,
-                       f32=f32, workflow=wf),
+                       f32=f32, workflow=wf, stage4=s4),
                   fh, indent=1, default=str)
 
     print(card)

@@ -2,7 +2,9 @@
 ``gga_tpu/train``): build the GGA detector (from a config object, or from
 a config file and a checkpoint dir) and run stage-3 pseudo-label
 inference on a batch of clouds or a list of scene infos, or build a
-trainer and take GGA weak train steps."""
+trainer and take GGA weak train steps; and for stage 4, build the PGD
+monocular detector or its trainer, take PGD train steps and run its
+inference on a batch of images."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,9 +16,12 @@ import torch
 from .device import resolve_device
 from .models.detectors.centerpoint_gga import (GGADetector, GGAModelConfig,
                                                decode_detections)
+from .models.dense_heads import pgd_head
+from .models.detectors.pgd import PGDDetector, PGDModelConfig
 from .models.layers import init_params
+from .train import loop
 from .train.loop import TrainState, gga_train_step
-from .train.optim import build_optimizer
+from .train.optim import build_optimizer, build_pgd_optimizer
 
 
 @dataclasses.dataclass
@@ -180,3 +185,81 @@ def train_step(trainer: TrainState, batch, mark=None):
     b = {k: torch.as_tensor(batch[k], dtype=dt, device=dev)
          for k, dt in _BATCH_DTYPES.items()}
     return gga_train_step(trainer, b, trainer.model.cfg.head, mark)
+
+
+def init_pgd_detector(cfg: PGDModelConfig, state_dict=None, device='cuda',
+                      seed=0) -> DetectorBundle:
+    """The PGD detector in eval mode on ``device`` (f32, as gga_tpu's).
+
+    With a ``state_dict`` (mmdet3d keys, e.g. from
+    ``convert.from_jax_variables``) the weights are loaded strictly;
+    without one the conv weights are drawn from
+    ``torch.Generator().manual_seed(seed)``, uniform in +-1/sqrt(fan_in)
+    as gga_tpu's ``conv_init``, with the class logits' prior bias. Raises
+    if ``device`` is CUDA and no card is present."""
+    dev = resolve_device(device)
+    model = PGDDetector(cfg)
+    if state_dict is None:
+        init_params(model, torch.Generator().manual_seed(seed), gain=1.0)
+        model.bbox_head.init_biases()
+    else:
+        model.load_state_dict(state_dict)
+    return DetectorBundle(model.to(dev).eval(), cfg, dev)
+
+
+def init_pgd_trainer(cfg: PGDModelConfig, steps_per_epoch, state_dict=None,
+                     device='cuda', seed=0, optimizer=None) -> TrainState:
+    """The PGD detector in train mode on ``device`` with the stage-4
+    optimizer (``build_pgd_optimizer(params, steps_per_epoch,
+    **optimizer)``, a config file's ``optimizer`` block). Weights as
+    ``init_pgd_detector``."""
+    model = init_pgd_detector(cfg, state_dict, device, seed).model.train()
+    return TrainState(model=model,
+                      optimizer=build_pgd_optimizer(model.parameters(),
+                                                    steps_per_epoch,
+                                                    **(optimizer or {})),
+                      step=0, generator=torch.Generator().manual_seed(seed))
+
+
+_MONO_DTYPES = dict(cam2img=torch.float32, gt_bboxes=torch.float32,
+                    gt_labels=torch.int32, gt_cam3d=torch.float32,
+                    centers2d=torch.float32, depths=torch.float32,
+                    obj_valid=torch.bool)
+
+
+def _images(images, device):
+    """[B, H, W, 3] normalized images (``KittiMonoDataset``'s layout) ->
+    [B, 3, H, W] f32 on ``device``."""
+    t = torch.as_tensor(images, dtype=torch.float32, device=device)
+    return t.permute(0, 3, 1, 2).contiguous()
+
+
+def pgd_train_step(trainer: TrainState, batch):
+    """One PGD train step on a batch of ``KittiMonoDataset`` items
+    (``image`` [B, H, W, 3] and the padded objects, as tensors or numpy).
+    Returns the step's logs as 0-d tensors on the trainer's device."""
+    dev = next(trainer.model.parameters()).device
+    b = {k: torch.as_tensor(batch[k], dtype=dt, device=dev)
+         for k, dt in _MONO_DTYPES.items()}
+    b['images'] = _images(batch['image'], dev)
+    return loop.pgd_train_step(trainer, b)
+
+
+@torch.no_grad()
+def infer_mono(bundle: DetectorBundle, images, cam2img):
+    """PGD inference on a batch: forward in eval mode + decode + NMS.
+
+    Args:
+        images: [B, H, W, 3] normalized (tensor or numpy); cam2img:
+            [B, 4, 4].
+    Returns:
+        ``pgd_head.decode``'s dict (camera boxes, scores, labels, valid,
+        bboxes2d) on the bundle's device.
+    """
+    model = bundle.model.eval()
+    x = _images(images, bundle.device)
+    c2i = torch.as_tensor(cam2img, dtype=torch.float32, device=bundle.device)
+    cfg = model.cfg.head
+    preds, fuse = model(x)
+    fsz = [(x.shape[2] // s, x.shape[3] // s) for s in cfg.strides]
+    return pgd_head.decode(cfg, preds, fuse, c2i, fsz)

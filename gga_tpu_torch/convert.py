@@ -3,8 +3,10 @@
 The port's modules carry mmdet3d's state_dict keys, so this is the
 port's own copy of the GGA rule table and layout transforms of
 ``tools/model_converters/torch2flax.py`` (``gga_rules``,
-``_gga_transform``), run from flax to torch. A released mmdet3d GGA
-checkpoint loads into the port directly, with no conversion.
+``_gga_transform``), run from flax to torch, and the same for the stage-4
+PGD detector (``pgd_rules``: flax's automatic names of ResNet, FPN and
+PGDHead to mmdet3d's keys). A released mmdet3d GGA checkpoint loads into
+the port directly, with no conversion.
 """
 from __future__ import annotations
 
@@ -12,6 +14,9 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+
+from .models.backbones.resnet import ARCH
+from .models.detectors.pgd import PGDModelConfig
 
 
 def _bn_moves(torch_prefix, flax_prefix):
@@ -120,6 +125,79 @@ def gga_rules(cfg):
     return rules
 
 
+def pgd_rules(cfg: PGDModelConfig):
+    """(torch_key, collection, flax_path, transform) for every tensor of
+    gga_tpu's ``PGDDetector`` (``gga_tpu/models/detectors/pgd.py``)."""
+    rules = []
+
+    def conv(torch_prefix, flax_prefix, bias=True):
+        rules.append((f'{torch_prefix}.weight', 'params',
+                      f'{flax_prefix}/kernel', 'conv2d'))
+        if bias:
+            rules.append((f'{torch_prefix}.bias', 'params',
+                          f'{flax_prefix}/bias', 'copy'))
+
+    def bn(torch_prefix, flax_prefix):
+        rules.extend(_bn_moves(torch_prefix, f'{flax_prefix}/BatchNorm_0'))
+
+    # ResNet: blocks are numbered across stages; in a block the convs and
+    # norms in order, the projection shortcut last
+    r = 'ResNet_0'
+    conv('backbone.conv1', f'{r}/Conv_0', bias=False)
+    bn('backbone.bn1', f'{r}/BatchNorm2d_0')
+    stage_blocks, kind = ARCH[cfg.backbone_depth]
+    n_convs, expansion = (3, 4) if kind == 'bottleneck' else (2, 1)
+    name = 'Bottleneck' if kind == 'bottleneck' else 'BasicBlock'
+    k, channels, planes = 0, 64, 64
+    for i, n_blocks in enumerate(stage_blocks):
+        for j in range(n_blocks):
+            t, f = f'backbone.layer{i + 1}.{j}', f'{r}/{name}_{k}'
+            for c in range(n_convs):
+                conv(f'{t}.conv{c + 1}', f'{f}/Conv_{c}', bias=False)
+                bn(f'{t}.bn{c + 1}', f'{f}/BatchNorm2d_{c}')
+            if channels != planes * expansion or (i and not j):
+                conv(f'{t}.downsample.0', f'{f}/Conv_{n_convs}', bias=False)
+                bn(f'{t}.downsample.1', f'{f}/BatchNorm2d_{n_convs}')
+            channels = planes * expansion
+            k += 1
+        planes *= 2
+
+    # FPN: extra levels continue the fpn_convs index
+    n_in = len(stage_blocks) - cfg.fpn_start_level
+    for i in range(n_in):
+        conv(f'neck.lateral_convs.{i}.conv', f'FPN_0/lateral{i}')
+        conv(f'neck.fpn_convs.{i}.conv', f'FPN_0/fpn{i}')
+    for i in range(n_in, cfg.fpn_num_outs):
+        conv(f'neck.fpn_convs.{i}.conv', f'FPN_0/fpn_extra{i}')
+
+    # PGDHead
+    h, t, hc = 'PGDHead_0', 'bbox_head', cfg.head
+    for i in range(hc.stacked_convs):
+        conv(f'{t}.cls_convs.{i}.conv', f'{h}/cls_tower/conv{i}')
+        conv(f'{t}.reg_convs.{i}.conv', f'{h}/reg_tower/conv{i}')
+
+    def branch(prev, out, flax_name, channels):
+        for j in range(len(channels)):
+            conv(f'{t}.{prev}.{j}.conv', f'{h}/{flax_name}/conv{j}')
+        conv(f'{t}.{out}', f'{h}/{flax_name}/out')
+
+    branch('conv_cls_prev', 'conv_cls', 'cls', hc.cls_branch)
+    for g, channels in enumerate(hc.reg_branch):
+        branch(f'conv_reg_prevs.{g}', f'conv_regs.{g}', f'reg{g}', channels)
+    branch('conv_dir_cls_prev', 'conv_dir_cls', 'dir', hc.dir_branch)
+    branch('conv_depth_cls_prev', 'conv_depth_cls', 'depth_cls',
+           hc.depth_branch)
+    branch('conv_weight_prevs.0', 'conv_weights.0', 'weight',
+           hc.weight_branch[0])
+    branch('conv_centerness_prev', 'conv_centerness', 'centerness',
+           hc.centerness_branch)
+    for lvl in range(len(hc.strides)):
+        rules.append((f'{t}.scales.{lvl}', 'params', f'{h}/scales_lvl{lvl}',
+                      'copy'))
+    rules.append((f'{t}.fuse_lambda', 'params', f'{h}/fuse_lambda', 'copy'))
+    return rules
+
+
 def _to_torch_layout(name, x):
     """One flax tensor -> its mmdet3d state_dict layout."""
     x = np.asarray(x)
@@ -150,13 +228,19 @@ def _flatten(tree, prefix=''):
 
 def from_jax_variables(variables_np, cfg):
     """gga_tpu ``{'params', 'batch_stats'}`` trees (nested dicts of numpy
-    arrays) -> the port's ``load_state_dict`` input (f32 tensors)."""
+    arrays) of the detector ``cfg`` describes (a ``GGAModelConfig`` or a
+    ``PGDModelConfig``) -> the port's ``load_state_dict`` input (f32
+    tensors)."""
     flat = {c: _flatten(variables_np.get(c, {}))
             for c in ('params', 'batch_stats')}
+    rules = (pgd_rules(cfg) if isinstance(cfg, PGDModelConfig)
+             else gga_rules(cfg))
     out = {}
-    for tk, coll, fp, tr in gga_rules(cfg):
+    for tk, coll, fp, tr in rules:
         if fp in flat[coll]:
             arr = _to_torch_layout(tr, flat[coll][fp])
-            out[tk] = torch.from_numpy(
-                np.ascontiguousarray(arr, dtype=np.float32))
+            # np.array keeps a 0-d array 0-d (fuse_lambda), as
+            # np.ascontiguousarray would not
+            out[tk] = torch.from_numpy(np.array(arr, dtype=np.float32,
+                                                order='C'))
     return out

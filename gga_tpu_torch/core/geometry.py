@@ -1,8 +1,10 @@
-"""3D box geometry the GGA losses need (port of the parts of
-``gga_tpu/core/geometry.py`` that ``_predict_geometry`` calls).
+"""3D box geometry the GGA and PGD losses need (port of the parts of
+``gga_tpu/core/geometry.py`` that ``_predict_geometry`` and the PGD head
+call).
 
-Boxes follow the LiDAR convention of the reference: yaw about +z, 0 at
-+x, counter-clockwise; box origins are bottom centres (0.5, 0.5, 0).
+LiDAR boxes follow the reference's convention: yaw about +z, 0 at +x,
+counter-clockwise; box origins are bottom centres (0.5, 0.5, 0). Camera
+boxes (the PGD head) turn about +y (``axis=1``).
 
 Everything stays in f32. gga_tpu contracts these with
 ``Precision.HIGHEST`` because the TPU's default matmul precision is bf16;
@@ -22,25 +24,38 @@ _CORNER_ORDER = np.stack(np.unravel_index(np.arange(8), [2] * 3), axis=1)[
 LIDAR_ORIGIN = (0.5, 0.5, 0.0)
 
 
-def rotation_matrix_z(angles):
-    """[..., 3, 3] right-multiplication matrices, ``p_rot = p @ M``:
-    x' = x cos - y sin, y' = x sin + y cos (counter-clockwise about +z)."""
+def rotation_matrix(angles, axis=2):
+    """[..., 3, 3] right-multiplication matrices, ``p_rot = p @ M``
+    (reference ``rotation_3d_in_axis``). About +z (axis 2): x' = x cos -
+    y sin, y' = x sin + y cos; about +y (axis 1): x' = x cos + z sin,
+    z' = -x sin + z cos."""
     c, s = torch.cos(angles), torch.sin(angles)
     one, zero = torch.ones_like(c), torch.zeros_like(c)
-    rows = [[c, s, zero], [-s, c, zero], [zero, zero, one]]
+    if axis == 2:
+        rows = [[c, s, zero], [-s, c, zero], [zero, zero, one]]
+    elif axis == 1:
+        rows = [[c, zero, -s], [zero, one, zero], [s, zero, c]]
+    else:
+        raise ValueError(f'axis must be 1 or 2, got {axis}')
     return torch.stack([torch.stack(r, -1) for r in rows], -2)
 
 
-def rotate_points(points, angles):
-    """Rotate [..., M, 3] points about z by per-box [...] angles."""
+def rotate_points(points, angles, axis=2):
+    """Rotate [..., M, 3] points about ``axis`` by per-box [...] angles."""
     return torch.einsum('...md,...de->...me', points,
-                        rotation_matrix_z(angles))
+                        rotation_matrix(angles, axis))
 
 
-def corners_3d(centers, dims, angles, origin=LIDAR_ORIGIN):
+def corners_3d(centers, dims, angles, origin=LIDAR_ORIGIN, axis=2):
     """[N, 3] box origins, [N, 3] sizes, [N] yaws -> [N, 8, 3] corners in
     the reference's corner order (``box_np_ops.center_to_corner_box3d``)."""
     norm = torch.as_tensor(_CORNER_ORDER, device=dims.device) - torch.tensor(
         origin, dtype=torch.float32, device=dims.device)
     corners = dims[..., None, :] * norm
-    return rotate_points(corners, angles) + centers[..., None, :]
+    return rotate_points(corners, angles, axis) + centers[..., None, :]
+
+
+def limit_period(val, offset=0.5, period=np.pi):
+    """``val`` limited to [-offset * period, (1 - offset) * period)
+    (reference ``structures/utils.py limit_period``)."""
+    return val - torch.floor(val / period + offset) * period

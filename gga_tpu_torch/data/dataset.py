@@ -1,5 +1,6 @@
-"""KITTI GGA train view over an info pkl, and its epoch loader (the port's
-copy of ``gga_tpu/data/dataset.py`` on ``torch.utils.data``).
+"""KITTI GGA train view over an info pkl, and the epoch loader of it and
+of the stage-4 mono dataset (the port's copy of ``gga_tpu/data/dataset.py``
+on ``torch.utils.data``).
 
 Items are numpy dicts of fixed shapes; a batch is their ``collate``, which
 ``apis.train_step`` moves to the device in one call. Nothing here touches
@@ -100,8 +101,10 @@ class EpochBatchSampler(tud.Sampler):
 
 
 class EpochLoader:
-    """``torch.utils.data.DataLoader`` over a ``KittiGGADataset`` with the
-    batch order of ``EpochBatchSampler`` and ``pipelines.collate``.
+    """``torch.utils.data.DataLoader`` over a ``KittiGGADataset`` (or the
+    stage-4 ``KittiMonoDataset``, whose ``epoch_batches`` order at seed 0
+    is the sampler's) with the batch order of ``EpochBatchSampler`` and
+    ``pipelines.collate``.
 
     ``epoch(e)`` sets the epoch on the dataset and the sampler before the
     iterator is made, so forked workers see it. As gga_tpu's

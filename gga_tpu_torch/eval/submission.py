@@ -1,6 +1,5 @@
 """KITTI-format result conversion and submission writing (the port's
-copy of ``gga_tpu/eval/submission.py``; the monocular conversion waits
-for the stage-4 slice).
+copy of ``gga_tpu/eval/submission.py``).
 
 Numpy rebuild of KittiDataset_GGA_train.bbox2result_kitti /
 convert_valid_bboxes
@@ -104,6 +103,53 @@ def detections_to_kitti_annos(detections, infos, class_names,
             anno = {k: v.copy() for k, v in EMPTY_ANNO.items()}
         anno['sample_idx'] = np.array(
             [bd['sample_idx']] * len(anno['score']), np.int64)
+        det_annos.append(anno)
+    return det_annos
+
+
+def mono_detections_to_kitti_annos(detections, infos, class_names):
+    """Per-sample camera-frame detections -> KITTI anno dicts (the mono
+    path of bbox2result_kitti: the boxes are already in the camera frame;
+    kitti_mono format_results).
+
+    Args:
+        detections: list of dicts with 'boxes_cam' [N, 7] (x, y, z gravity
+            centre, l, h, w, ry, camera frame), 'scores' [N], 'labels'
+            [N] and optionally 'bboxes2d' [N, 4].
+    """
+    det_annos = []
+    for det, info in zip(detections, infos):
+        image_shape = np.asarray(info['image']['image_shape'])[:2]
+        P2 = np.asarray(info['calib']['P2'], np.float64)
+        cam = np.asarray(det['boxes_cam'], np.float64)
+        n = len(cam)
+        if n == 0:
+            anno = {k: v.copy() for k, v in EMPTY_ANNO.items()}
+            anno['sample_idx'] = np.zeros(0, np.int64)
+            det_annos.append(anno)
+            continue
+        loc = cam[:, :3].copy()
+        loc[:, 1] += cam[:, 4] / 2.0  # gravity -> bottom centre
+        box_kitti = np.concatenate([loc, cam[:, 3:6], cam[:, 6:7]], axis=1)
+        if 'bboxes2d' in det and len(det['bboxes2d']):
+            bbox = np.asarray(det['bboxes2d'], np.float64)
+        else:
+            bbox = ng.boxes3d_to_image_bbox(box_kitti, P2, image_shape)
+        bbox[:, 2:] = np.minimum(bbox[:, 2:], image_shape[::-1])
+        bbox[:, :2] = np.maximum(bbox[:, :2], 0)
+        anno = dict(
+            name=np.array([class_names[int(lab)] for lab in det['labels']]),
+            truncated=np.zeros(n),
+            occluded=np.zeros(n, np.int64),
+            alpha=cam[:, 6] - np.arctan2(cam[:, 0], cam[:, 2]),
+            bbox=bbox,
+            dimensions=cam[:, 3:6],
+            location=loc,
+            rotation_y=cam[:, 6],
+            score=np.asarray(det['scores'], np.float64),
+        )
+        anno['sample_idx'] = np.array(
+            [info['image']['image_idx']] * n, np.int64)
         det_annos.append(anno)
     return det_annos
 

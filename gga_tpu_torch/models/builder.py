@@ -1,13 +1,13 @@
 """Config-dict -> detector construction through the MODELS registry (the
-port's copy of ``gga_tpu/models/builder.py``, GGA family only; the rest
-of the zoo waits for its own slices).
+port's copy of ``gga_tpu/models/builder.py``: the GGA detector and the
+stage-4 PGD detector; the rest of the zoo waits for its own slices).
 
 ``config_from_dict`` converts the python config-file dict into the typed
 frozen dataclass (recursively, lists -> tuples, nested dicts -> nested
 config dataclasses merged over the field default). ``MODELS.get(type)``
 takes the FULL file-level Config and returns ``(model, model_cfg)``: the
-port's ``GGADetector`` (weights not yet drawn or loaded, on the CPU) and
-its ``GGAModelConfig``.
+port's ``GGADetector`` or ``PGDDetector`` (weights not yet drawn or
+loaded, on the CPU) and its config.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import dataclasses
 from ..config import MODELS
 from .dense_heads.centerpoint_head_gga import GGAHeadConfig
 from .detectors.centerpoint_gga import GGADetector, GGAModelConfig
+from .detectors.pgd import PGDDetector, PGDModelConfig
 
 
 def _tuplify(v):
@@ -67,8 +68,16 @@ def _build_gga(cfg):
     return GGADetector(mc), mc
 
 
+@MODELS.register(name='PGDDetector')
+def _build_pgd(cfg):
+    """The PGD config files keep the whole model in ``model``
+    (``configs/_base_/models/pgd.py``)."""
+    mc = config_from_dict(PGDModelConfig, dict(cfg['model']))
+    return PGDDetector(mc), mc
+
+
 def build_detector(cfg):
-    """Full file-level Config -> (GGADetector, GGAModelConfig)."""
+    """Full file-level Config -> (detector, model config)."""
     typ = cfg['model'].get('type')
     if typ is None:
         raise KeyError('cfg.model has no "type" key')

@@ -233,12 +233,31 @@ class ConvModule2d(nn.Module):
         return F.relu(self.bn(self.conv(x)))
 
 
-def init_params(module, generator):
-    """Seeded init of every conv weight, He-uniform (+-sqrt(6/fan_in)),
-    conv biases zero. He scaling keeps a random-weight forward's
-    activations O(1) through the eval-mode BNs (identity statistics), so
-    every layer sees live values; torch's default (+-1/sqrt(fan_in))
-    shrinks them ~6x per layer."""
+class PlainConvModule(nn.Module):
+    """mmcv ConvModule without a norm (child ``conv``, with a bias), then
+    a ReLU where ``relu``; the FPN's and the PGD head's convs."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, relu=False):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride,
+                              padding)
+        self.relu = relu
+
+    def forward(self, x):
+        x = self.conv(x)
+        return F.relu(x) if self.relu else x
+
+
+def init_params(module, generator, gain=6.0):
+    """Seeded init of every conv weight, uniform in +-sqrt(gain / fan_in),
+    conv biases zero. The default, He-uniform, keeps the GGA detector's
+    random-weight activations O(1) through its eval-mode BNs (identity
+    statistics), so every layer sees live values; torch's default
+    (gain 1, flax's ``variance_scaling(1/3)``) shrinks them ~6x per
+    layer. The PGD detector takes gain 1, as gga_tpu's: its FPN and head
+    have no norm, and He scaling there grows them ~2x per conv until
+    exp(size) overflows."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, _SparseConv):
@@ -249,7 +268,7 @@ def init_params(module, generator):
                 fan_in = m.weight[0].numel()
             else:
                 continue
-            bound = (6.0 / fan_in) ** 0.5
+            bound = (gain / fan_in) ** 0.5
             m.weight.uniform_(-bound, bound, generator=generator)
             if getattr(m, 'bias', None) is not None:
                 m.bias.zero_()

@@ -1,17 +1,21 @@
 """Shared helpers for the command-line tools: config -> detector on a
 device, checkpoint restore, batched inference over scene infos (the
 port's copy of ``gga_tpu/tools_lib.py``; the single_gpu_test equivalent,
-mmdet3d/apis/test.py:12)."""
+mmdet3d/apis/test.py:12), and the stage-4 PGD evaluation
+(``tools/accuracy_bench_stage4.py:146-196 evaluate_pgd``)."""
 from __future__ import annotations
 
 import os
 import pickle
+import time
 
 import numpy as np
 import torch
 
 from . import apis
 from .data import pipelines as pl
+from .eval.kitti_eval import kitti_eval
+from .eval.submission import mono_detections_to_kitti_annos
 from .models.builder import build_detector
 from .models.detectors.centerpoint_gga import GGAModelConfig
 from .train import checkpoints as ckpt
@@ -81,3 +85,45 @@ def load_infos(cfg, name):
     """The info list of the pkl ``name`` under ``cfg.data_root``."""
     with open(os.path.join(cfg.data_root, name), 'rb') as f:
         return pickle.load(f)
+
+
+# evaluate_mono's metrics: name -> kitti_eval key
+MONO_AP_KEYS = dict(
+    AP11_3D_mod='KITTI/Car_3D_AP11_moderate_strict',
+    AP11_BEV_mod='KITTI/Car_BEV_AP11_moderate_strict',
+    AP11_3D_mod_loose='KITTI/Car_3D_AP11_moderate_loose',
+    AP11_BEV_mod_loose='KITTI/Car_BEV_AP11_moderate_loose',
+    AP11_2D_mod='KITTI/Car_2D_AP11_moderate_strict')
+
+
+def evaluate_mono(bundle, dataset, batch_size=4):
+    """PGD inference over every scene of a ``KittiMonoDataset`` -> KITTI
+    Car AP against the annos of its infos: ``apis.infer_mono`` on batches
+    of ``batch_size`` images, ``mono_detections_to_kitti_annos``, then
+    ``kitti_eval`` over bbox, BEV and 3D. Returns the five metrics of
+    ``MONO_AP_KEYS`` (0.0 where kitti_eval gives none), and ``images``,
+    ``detections`` and ``infer_s`` (wall seconds of the inference calls,
+    the copy of their results to the host included)."""
+    detections, infer_s = [], 0.0
+    n = len(dataset)
+    for i in range(0, n, batch_size):
+        batch = pl.collate([dataset[j]
+                            for j in range(i, min(i + batch_size, n))])
+        t0 = time.perf_counter()
+        out = apis.infer_mono(bundle, batch['image'], batch['cam2img'])
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        infer_s += time.perf_counter() - t0
+        for j in range(len(batch['image'])):
+            v = out['valid'][j]
+            detections.append(dict(
+                boxes_cam=out['boxes'][j][v], scores=out['scores'][j][v],
+                labels=out['labels'][j][v], bboxes2d=out['bboxes2d'][j][v]))
+    infos = dataset.infos
+    det_annos = mono_detections_to_kitti_annos(detections, infos,
+                                               class_names=dataset.CLASSES)
+    _, m = kitti_eval([info['annos'] for info in infos], det_annos, ['Car'],
+                      eval_types=('bbox', 'bev', '3d'))
+    res = {name: m.get(key, 0.0) for name, key in MONO_AP_KEYS.items()}
+    res.update(images=n, infer_s=infer_s,
+               detections=sum(len(d['scores']) for d in detections))
+    return res

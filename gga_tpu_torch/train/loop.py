@@ -1,6 +1,8 @@
-"""Training state and the GGA weak train step (port of
-``gga_tpu/train/loop.py``): forward in train mode, GGA targets, loss,
-backward through every sparse conv, global-norm clip and AdamW.
+"""Training state and the train steps: the GGA weak step (port of
+``gga_tpu/train/loop.py``: forward in train mode, GGA targets, loss,
+backward through every sparse conv, global-norm clip and AdamW) and the
+stage-4 PGD step (``tools/train_pgd.py:128-149``: FCOS-mono targets, the
+PGD loss, backward, clip and SGD).
 """
 from __future__ import annotations
 
@@ -9,17 +11,19 @@ import dataclasses
 import torch
 
 from ..models.dense_heads import centerpoint_head_gga as gga
+from ..models.dense_heads import pgd_head
 from ..models.detectors.centerpoint_gga import GGADetector
 from .optim import GGAOptimizer
 
 
 @dataclasses.dataclass
 class TrainState:
-    model: GGADetector
-    optimizer: GGAOptimizer
+    model: GGADetector          # or PGDDetector
+    optimizer: GGAOptimizer     # or PGDOptimizer
     step: int
     # draws the per-step SRL prior samples (gga_tpu folds its key with the
-    # step; the two streams differ, the distribution is the same)
+    # step; the two streams differ, the distribution is the same); the
+    # PGD step draws nothing
     generator: torch.Generator
 
 
@@ -66,5 +70,36 @@ def gga_train_step(state: TrainState, batch, head_cfg, mark=None,
     mark('optimizer')
     for name, value in diag.items():
         logs[f'diag.{name}'] = value
+    state.step += 1
+    return {k: v.detach() for k, v in logs.items()}
+
+
+def pgd_train_step(state: TrainState, batch):
+    """One PGD optimization step; updates ``state`` in place.
+
+    Args:
+        batch: dict of tensors on the model's device: images [B, 3, H, W]
+            (normalized), cam2img [B, 4, 4], gt_bboxes [B, M, 4],
+            gt_labels [B, M], gt_cam3d [B, M, 7], centers2d [B, M, 2],
+            depths [B, M], obj_valid [B, M].
+    Returns:
+        logs: 0-d tensors: the loss terms, 'loss', 'num_pos' and
+        'grad_norm' (of the unclipped gradients).
+    """
+    model = state.model
+    model.train()
+    cfg = model.cfg.head
+    state.optimizer.zero_grad()
+    images = batch['images']
+    fsz = [(images.shape[2] // s, images.shape[3] // s) for s in cfg.strides]
+    targets = pgd_head.build_targets(
+        cfg, *pgd_head.flat_points(cfg, fsz, images.device),
+        batch['gt_bboxes'], batch['gt_labels'], batch['gt_cam3d'],
+        batch['centers2d'], batch['depths'], batch['obj_valid'])
+    preds, fuse = model(images)
+    total, logs = pgd_head.loss(cfg, preds, fuse, targets, batch['cam2img'],
+                                fsz)
+    total.backward()
+    logs['grad_norm'] = state.optimizer.step()
     state.step += 1
     return {k: v.detach() for k, v in logs.items()}

@@ -17,6 +17,7 @@ from gga_tpu.models import builder as jbuilder
 from gga_tpu_torch import config as tconfig
 from gga_tpu_torch.models import builder as tbuilder
 from gga_tpu_torch.models.detectors import centerpoint_gga as tdet
+from gga_tpu_torch.models.detectors import pgd as tpgd
 
 torch.set_num_threads(1)
 
@@ -90,16 +91,21 @@ def test_merge_from_options_agrees(name):
     assert port.new.block.key == 'x'
 
 
-@pytest.mark.parametrize('name', DETECTOR_CONFIGS)
+@pytest.mark.parametrize('name', DETECTOR_CONFIGS + ('gga_pdg.py',))
 def test_build_detector_config_equals_gga_tpu(name):
     path = str(ROOT / 'configs' / 'gga' / name)
     model, mc = tbuilder.build_detector(tconfig.Config.fromfile(path))
     _, ref = jbuilder.build_detector(jconfig.Config.fromfile(path))
-    assert isinstance(model, tdet.GGADetector)
-    assert isinstance(mc, tdet.GGAModelConfig)
+    pgd = name == 'gga_pdg.py'
+    assert isinstance(model, tpgd.PGDDetector if pgd else tdet.GGADetector)
+    assert isinstance(mc, tpgd.PGDModelConfig if pgd
+                      else tdet.GGAModelConfig)
     assert _fields(mc) == _fields(ref)
     hash(mc)                                  # frozen and hashable
-    if name != 'gga_kitti_tiny.py':
+    if pgd:
+        assert mc.backbone_depth == 101 and mc.fpn_channels == 256
+        assert mc.head.feat_channels == 256 and mc.head.stacked_convs == 2
+    elif name != 'gga_kitti_tiny.py':
         assert mc.encoder_paddings[2] == (0, 0, (0, 1, 1))
         assert mc.head.max_objs == 128 and mc.max_per_task == 100
 

@@ -1,13 +1,14 @@
 """The port stands alone: nothing under gga_tpu_torch/, nor chip_smoke.py
-or f32_ablations.py, imports JAX, flax, optax, the JAX package or the
-repo's tools."""
+or f32_ablations.py, imports JAX, flax, optax, the JAX package, the
+repo's tools, or Pillow (the machine with the card has none; the port
+reads PNGs with its own ``data/kitti/png.py``)."""
 import ast
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'gga_tpu', 'tools')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'gga_tpu', 'tools', 'PIL')
 FILES = sorted((ROOT / 'gga_tpu_torch').rglob('*.py')) + [
     ROOT / 'chip_smoke.py', ROOT / 'f32_ablations.py']
 
