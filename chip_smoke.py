@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's stage-3 inference and GGA weak training
-paths, the GGA workflow's command-line tools and the stage-4 PGD retrain
-on one NVIDIA card.
+paths, the GGA workflow's command-line tools, the stage-4 PGD retrain and
+the indoor FCAF3D retrain on one NVIDIA card.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -114,12 +114,34 @@ on one NVIDIA card.
     with the loader (and its wait share) and by CUDA events around the
     steps, the train runs' peak ``max_memory_allocated``, the checkpoint's
     MiB and save / load ms, and inference images/s.
-11. Prints one JSON line describing the kernels (each with its time
+11. Indoor phase (``indoor_phase``), the indoor GGA retrain: a mini
+    SUN RGB-D written from seed 0 (16 scenes of 50 000 xyzrgb points: a
+    floor, two walls and 4-8 upright boxes of the 10 classes) and
+    configs/gga/gga_sunrgbd.py as shipped (FCAF3D: MinkResNet34 + head,
+    f32, B = 2 x 20 000 points, voxel 0.01 m). One recorded train step's
+    79 gather_gemm_conv and 40 gather_gemm_dw calls are replayed
+    against their plain versions within the f32 gates and timed per
+    (K, C, D); one eval-mode forward with the kernels against the plain
+    versions (each backbone level within 1e-4 of max|plain|, each head
+    level the same kept sites after its prune, then its outputs within
+    1e-4); then ``train_fcaf3d`` for 4 steps and ``--resume`` to 6 with
+    exact launch counts (79 / 40 a step, nothing else), CUDA events
+    around the steps, active sites against every budget, finite losses
+    with positives, each step's lr, every parameter and BN statistic
+    moved, the head outputs and decode from step_6.pt equal to the
+    in-memory weights' bit for bit (NaNs in the same places: six steps
+    from random weights overflow the eval-mode head's exp());
+    ``infer_indoor`` + ``indoor_eval`` on 8 scenes
+    (40 launches a forward) with the mAP keys. Prints scenes/s (events
+    and with the loader), peak memory, checkpoint MiB and ms, and
+    inference scenes/s, each beside the card's name and power limit.
+12. Prints one JSON line describing the kernels (each with its time
     ms, device_ms, launches, bound and bound_share = bound_ms / ms,
     device_bound_share = bound_ms / device_ms, host_ms where measured;
     the f32 entries as gather_gemm_conv_f32 and gather_gemm_dw_f32, with
-    ffma_bound_ms, their bound at the FFMA rate of 67 TFLOP/s), the
-    card, then, as the last line, {"ok": true, "device": {...}}. Any
+    ffma_bound_ms, their bound at the FFMA rate of 67 TFLOP/s, and an
+    ``indoor`` dict with the same numbers over FCAF3D's recorded step),
+    the card, then, as the last line, {"ok": true, "device": {...}}. Any
     failed phase exits non-zero.
 
 Everything it measures is also written to chiprun_out/chip_smoke.json.
@@ -1722,6 +1744,491 @@ def stage4_phase(torch, mods, card, tmp):
     return res
 
 
+# --- the indoor retrain: FCAF3D on SUN RGB-D through the port's CLI -------
+IN_CONFIG = 'configs/gga/gga_sunrgbd.py'
+IN_SCENES = 16              # scenes of the mini SUN RGB-D
+IN_POINTS = 50000           # xyzrgb points a scene
+IN_STEPS = (4, 6)           # --max-steps of the first run, of the resume
+IN_OPTIONS = ('log_interval=1',)
+IN_EVAL_SCENES = 8          # scenes of infer_indoor + indoor_eval
+# (dx, dy, dz) of each SUN RGB-D class, metres
+IN_CLASS_DIMS = ((2.0, 1.6, 0.6), (1.4, 0.8, 0.75), (2.0, 0.9, 0.85),
+                 (0.55, 0.55, 0.9), (0.45, 0.7, 0.75), (1.3, 0.65, 0.75),
+                 (1.0, 0.5, 1.1), (0.5, 0.45, 0.6), (1.0, 0.35, 1.8),
+                 (1.6, 0.8, 0.55))
+
+
+def mini_indoor_scene(rng, n_points, floor_z=-1.2):
+    """One SUN RGB-D-like room in the depth frame (z up): a floor, two
+    walls and 4-8 upright boxes of the 10 classes inside +-6 m x +-2.5 m,
+    points spread over the visible surfaces with a colour per surface.
+    Returns (points [n, 6] f32 xyzrgb, boxes [m, 7] gravity-centered
+    (x, y, z, dx, dy, dz, yaw), labels [m])."""
+    n_obj = rng.randint(4, 9)
+    labels = rng.randint(0, 10, n_obj)
+    dims = np.asarray(IN_CLASS_DIMS)[labels] * rng.uniform(0.85, 1.15,
+                                                           (n_obj, 3))
+    xy = np.stack([rng.uniform(-5.0, 5.0, n_obj),
+                   rng.uniform(-1.8, 1.8, n_obj)], -1)
+    yaw = rng.uniform(-np.pi, np.pi, n_obj)
+    boxes = np.concatenate([xy, floor_z + dims[:, 2:3] / 2, dims,
+                            yaw[:, None]], -1).astype(np.float32)
+    n_box = n_points * 2 // 5 // n_obj
+    n_bg = n_points - n_box * n_obj
+    parts = []
+    # the floor and two walls (y = 2.5 behind, x = -6 at the side)
+    n_f, n_w = n_bg // 2, n_bg - n_bg // 2
+    floor = np.stack([rng.uniform(-6, 6, n_f), rng.uniform(-2.5, 2.5, n_f),
+                      np.full(n_f, floor_z)], -1)
+    back = np.stack([rng.uniform(-6, 6, n_w // 2), np.full(n_w // 2, 2.5),
+                     rng.uniform(floor_z, 1.3, n_w // 2)], -1)
+    side = np.stack([np.full(n_w - n_w // 2, -6.0),
+                     rng.uniform(-2.5, 2.5, n_w - n_w // 2),
+                     rng.uniform(floor_z, 1.3, n_w - n_w // 2)], -1)
+    for pts, rgb in ((floor, (0.45, 0.35, 0.25)), (back, (0.85, 0.85, 0.8)),
+                     (side, (0.8, 0.8, 0.75))):
+        parts.append(np.concatenate([pts, np.broadcast_to(rgb, pts.shape)],
+                                    -1))
+    for box, label in zip(boxes, labels):
+        # the top and the four sides, by area
+        dx, dy, dz = box[3:6]
+        areas = np.array([dx * dy, dx * dz, dx * dz, dy * dz, dy * dz])
+        face = rng.choice(5, n_box, p=areas / areas.sum())
+        u, v = rng.uniform(-0.5, 0.5, (2, n_box))
+        local = np.zeros((n_box, 3))
+        local[:, 0] = np.select([face == 3, face == 4], [-0.5, 0.5], u) * dx
+        local[:, 1] = np.select([face == 1, face == 2, face >= 3],
+                                [-0.5, 0.5, u], v) * dy
+        local[:, 2] = np.where(face == 0, 0.5, v) * dz
+        c, s = np.cos(box[6]), np.sin(box[6])
+        world = np.stack([local[:, 0] * c - local[:, 1] * s + box[0],
+                          local[:, 0] * s + local[:, 1] * c + box[1],
+                          local[:, 2] + box[2]], -1)
+        rgb = 0.2 + 0.6 * np.asarray([label % 3, label % 5, label % 7]) / [
+            2, 4, 6]
+        parts.append(np.concatenate(
+            [world, np.clip(rgb + rng.randn(n_box, 3) * 0.05, 0, 1)], -1))
+    points = np.concatenate(parts)
+    points[:, :3] += rng.randn(len(points), 3) * 0.005
+    return points.astype(np.float32), boxes, labels
+
+
+def write_mini_sunrgbd(root, n_scenes=IN_SCENES, n_points=IN_POINTS,
+                       seed=0):
+    """A SUN RGB-D-format dataset under ``root``: points/{idx:06d}.bin
+    (xyzrgb f32) and sunrgbd_infos.pkl, mmdet3d's info layout (pts_path,
+    annos with gt_num, gt_boxes_upright_depth, class, name). Returns the
+    pkl's path."""
+    import os
+    import pickle
+    from gga_tpu_torch.data.sunrgbd import CLASSES
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, 'points'), exist_ok=True)
+    infos = []
+    for idx in range(n_scenes):
+        pts, boxes, labels = mini_indoor_scene(rng, n_points)
+        path = os.path.join('points', f'{idx:06d}.bin')
+        pts.tofile(os.path.join(root, path))
+        infos.append(dict(
+            point_cloud=dict(num_features=6, lidar_idx=idx), pts_path=path,
+            annos=dict(gt_num=len(boxes), gt_boxes_upright_depth=boxes,
+                       **{'class': labels.astype(np.int64)},
+                       name=np.asarray([CLASSES[i] for i in labels]))))
+    pkl = os.path.join(root, 'sunrgbd_infos.pkl')
+    with open(pkl, 'wb') as f:
+        pickle.dump(infos, f)
+    return pkl
+
+
+# gather_gemm_conv launches of one FCAF3D forward: conv1 and the four
+# strided blocks' convs (rulebooks), 28 SubM convs of MinkResNet34's 16
+# blocks, 4 out blocks and 3 up blocks of the head; a train step adds the
+# input gradient of all but conv1 (whose input, the colours, needs none)
+# and the weight gradient of all 40
+IN_CONVS, IN_DGRAD = 40, 39
+IN_PER_STEP = dict(gather_gemm_conv=IN_CONVS + IN_DGRAD,
+                   gather_gemm_dw=IN_CONVS, gather_rows=0, gather_rows_t=0,
+                   render_heatmap=0)
+
+
+def bits_equal(torch, a, b):
+    """The same bits: a NaN in the same place counts as equal (an f32 is
+    compared as its int32 bits)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def non_finite(torch, tensors):
+    """Entries of the float tensors that are not finite."""
+    return sum(int((~torch.isfinite(t)).sum()) for t in tensors
+               if t.is_floating_point())
+
+
+def indoor_batch(dataset, idx):
+    """The items ``idx`` of a SunRgbdDataset, stacked."""
+    items = [dataset[i] for i in idx]
+    return {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+
+def indoor_levels(torch, model, batch):
+    """One eval-mode forward's backbone outputs and head outputs."""
+    captured = []
+    real = model.backbone.forward
+
+    def keep(*a, **k):
+        captured.append(real(*a, **k))
+        return captured[-1]
+
+    model.backbone.forward = keep
+    try:
+        with torch.no_grad():
+            outs = model.eval()(*(torch.as_tensor(batch[k], device=DEVICE)
+                                  for k in ('points', 'colors',
+                                            'points_valid')))
+    finally:
+        del model.backbone.forward
+    return captured[0], outs
+
+
+def indoor_plain_comparison(torch, mods, model, batch):
+    """One eval-mode forward with the kernels vs the plain versions: each
+    backbone level's features within the f32 forward gate of max|plain|
+    (no prune before them); at each head level, after its prune, the same
+    kept sites, then center / bbox / cls within the gate."""
+    gate = GATES['float32']['forward']
+    bb_k, heads_k = indoor_levels(torch, model, batch)
+    with plain_versions(wrappers(mods)):
+        bb_p, heads_p = indoor_levels(torch, model, batch)
+    res = {}
+    for lvl, (a, b) in enumerate(zip(bb_k, bb_p)):
+        if not (torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])):
+            fail(f'indoor plain comparison: backbone level {lvl} sites '
+                 'differ')
+        ok, err = within_tolerance(torch, a[0], b[0], gate)
+        res[f'backbone{lvl}'] = dict(max_abs_err=err, max_abs_plain=float(
+            b[0].abs().max()))
+        if not ok:
+            fail(f'indoor plain comparison: backbone level {lvl} differs, '
+                 f'max abs err {err}')
+    for lvl, (a, b) in enumerate(zip(heads_k, heads_p)):
+        if not (torch.equal(a['valid'], b['valid'])
+                and torch.equal(a['points'], b['points'])):
+            fail(f'indoor plain comparison: head level {lvl} kept other '
+                 'sites after its prune')
+        for key in ('center', 'bbox', 'cls'):
+            v = a['valid']
+            ok, err = within_tolerance(torch, a[key][v], b[key][v], gate)
+            res[f'head{lvl}.{key}'] = dict(
+                max_abs_err=err, max_abs_plain=float(b[key][v].abs().max()))
+            if not ok:
+                fail(f'indoor plain comparison: head level {lvl} {key} '
+                     f'differs, max abs err {err}')
+    return res
+
+
+def indoor_phase(torch, mods, card, tmp):
+    """The indoor GGA retrain on a mini SUN RGB-D written to ``tmp``:
+    FCAF3D as shipped (configs/gga/gga_sunrgbd.py: MinkResNet34 + head,
+    f32, B = 2 x 20 000 points, voxel 0.01 m).
+
+    1. One recorded train step of a seeded trainer: every gather_gemm_conv
+       (40 forward, 39 input gradients) and gather_gemm_dw (40) call is
+       replayed against its plain version within the f32 gates and timed;
+       one eval-mode forward with the kernels against the plain versions
+       (``indoor_plain_comparison``).
+    2. Main path: ``train_fcaf3d`` for IN_STEPS[0] steps, then
+       ``--resume`` to IN_STEPS[1]; the counts are set to 0 just before
+       each run and read just after (79 / 40 launches a step, nothing
+       else); CUDA events around each step; active sites at each budget.
+    3. Gates: finite losses with positives at every step, each step's lr,
+       the resume, every parameter and BN statistic moved, the head
+       outputs and decode from the newest checkpoint equal to the
+       in-memory weights'.
+    4. ``infer_indoor`` + ``indoor_eval`` on IN_EVAL_SCENES scenes (40
+       launches a forward)."""
+    import json as json_
+    import os
+
+    from gga_tpu_torch import apis, tools_lib
+    from gga_tpu_torch.config import Config
+    from gga_tpu_torch.data.sunrgbd import CLASSES, SunRgbdDataset
+    from gga_tpu_torch.eval.indoor_eval import indoor_eval
+    from gga_tpu_torch.ops import sparse as sp
+    from gga_tpu_torch.tools import train_fcaf3d
+    from gga_tpu_torch.train import checkpoints as ckpt
+    from gga_tpu_torch.train.optim import piecewise_constant_schedule
+    sparse_conv = mods[0]
+
+    root = os.path.join(tmp, 'sunrgbd')
+    pkl = write_mini_sunrgbd(root, IN_SCENES, IN_POINTS)
+    config = str(ROOT / IN_CONFIG)
+    cfg = Config.fromfile(config)
+    batch = cfg.data.samples_per_gpu
+    model_cfg = tools_lib.model_config_from_cfg(cfg)
+    head = model_cfg.head
+    print(f'indoor: mini SUN RGB-D of {IN_SCENES} scenes x {IN_POINTS} '
+          f'points; FCAF3D MinkResNet{model_cfg.depth}, voxel '
+          f'{model_cfg.voxel_size} m, grid {model_cfg.grid_zyx}, B = '
+          f'{batch} x {cfg.data.num_points} points, f32')
+    res = {}
+
+    # --- 1. one recorded step: every kernel call against its plain version
+    dataset = SunRgbdDataset(root, pkl, num_points=cfg.data.num_points,
+                             max_objs=head.max_objs)
+    b0 = indoor_batch(dataset, range(batch))
+    trainer = apis.init_fcaf3d_trainer(model_cfg, 1, device=DEVICE,
+                                       seed=cfg.get('seed', 0))
+    with recording(sparse_conv, 'gather_gemm_conv') as conv_calls, \
+            recording(sparse_conv, 'gather_gemm_dw') as dw_calls:
+        logs0 = apis.fcaf3d_train_step(trainer, b0)
+    torch.cuda.synchronize()
+    finite_logs(torch, logs0, 'indoor recorded step')
+    if (len(conv_calls), len(dw_calls)) != (IN_CONVS + IN_DGRAD, IN_CONVS):
+        fail(f'indoor recorded step: {len(conv_calls)} gather_gemm_conv and '
+             f'{len(dw_calls)} gather_gemm_dw calls, expected '
+             f'{IN_CONVS + IN_DGRAD} and {IN_CONVS}')
+    torch.set_grad_enabled(False)
+    conv_rows = [conv_row(torch, sparse_conv, *a, f'indoor call {i}')
+                 for i, (_, a) in enumerate(conv_calls)]
+    del conv_calls
+    print_conv_rows(f'indoor kernels: gather_gemm_conv f32 vs plain at the '
+                    f'step\'s {IN_CONVS} forward calls', conv_rows[:IN_CONVS])
+    print_conv_rows(f'indoor kernels: gather_gemm_conv f32 vs plain at the '
+                    f'step\'s {IN_DGRAD} input-gradient calls',
+                    conv_rows[IN_CONVS:])
+    dwr = dw_rows(torch, sparse_conv, dw_calls, 'indoor kernels')
+    del dw_calls
+    res['plain_comparison'] = indoor_plain_comparison(
+        torch, mods, trainer.model, b0)
+    torch.set_grad_enabled(True)
+    worst = max(res['plain_comparison'].items(),
+                key=lambda kv: kv[1]['max_abs_err'] / max(
+                    kv[1]['max_abs_plain'], 1e-30))
+    print(f'indoor kernel vs plain forward: backbone levels and head '
+          f'levels\' outputs within {GATES["float32"]["forward"]} of '
+          f'max|plain|, the same kept sites; worst {worst[0]} err '
+          f'{worst[1]["max_abs_err"]:.4g} (max {worst[1]["max_abs_plain"]:.4g})')
+    # conv1's dilation: its output sites before the budget cuts them
+    feats, coords, valid = trainer.model.voxelize(*(
+        torch.as_tensor(b0[k], device=DEVICE)
+        for k in ('points', 'colors', 'points_valid')))
+    big = 8 * coords.shape[1]
+    cand = sp.downsample_coords(sp.SparseTensor(feats, coords, valid,
+                                                model_cfg.grid_zyx),
+                                3, 2, 1, big)[1].sum(-1)
+    res['conv1_sites_before_budget'] = cand.tolist()
+    del trainer, feats, coords, valid, cand
+    torch.cuda.empty_cache()
+
+    # --- 2. the main path: the CLI, then a resume --------------------------
+    work = os.path.join(tmp, 'work_fcaf3d')
+    argv = [config, '--info', pkl, '--data-root', root, '--work-dir', work,
+            '--device', DEVICE, '--cfg-options', *IN_OPTIONS]
+    trainers, step_ms, diags = [], [], []
+    real_step = apis.fcaf3d_train_step
+
+    def timed_step(trainer, b):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        diag = {}
+        start.record()
+        logs = real_step(trainer, b, diag)
+        end.record()
+        trainers.append(trainer)
+        step_ms.append((start, end))
+        diags.append(diag)
+        return logs
+
+    runs = []
+    apis.fcaf3d_train_step = timed_step
+    try:
+        for i, max_steps in enumerate(IN_STEPS):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            n0 = len(step_ms)
+            zero_counts(mods)
+            summ = train_fcaf3d.main(argv + ['--max-steps', str(max_steps)]
+                                     + (['--resume'] if i else []))
+            got = counts(mods)
+            n = summ['steps']
+            want = {k: v * n for k, v in IN_PER_STEP.items()}
+            if got != want:
+                fail(f'indoor: train_fcaf3d run {i + 1} launched {got} in '
+                     f'{n} steps, expected {want}')
+            torch.cuda.synchronize()
+            ms = [a.elapsed_time(b) for a, b in step_ms[n0:]]
+            summ.update(step_device_ms=ms, launches=got,
+                        peak_bytes=torch.cuda.max_memory_allocated())
+            summ['scenes_per_s_events'] = (
+                batch * (len(ms) - 1) / (sum(ms[1:]) / 1e3)
+                if len(ms) > 1 else None)
+            runs.append(summ)
+            print(f'{card}: indoor train_fcaf3d run {i + 1}: steps '
+                  f'{summ["start_step"]}-{summ["end_step"]} at B={batch} '
+                  f'(f32): after the first step {summ["scenes_per_s"]:.3f} '
+                  f'scenes/s with the loader (loader wait '
+                  f'{100 * summ["loader_wait_share"]:.1f} % of the wall '
+                  'time), '
+                  + ('' if summ['scenes_per_s_events'] is None else
+                     f'{summ["scenes_per_s_events"]:.3f} by CUDA events '
+                     'around the steps, ')
+                  + f'step device ms {[round(v, 1) for v in ms]}; peak '
+                  f'memory {summ["peak_bytes"] / 2 ** 30:.2f} GiB; launches '
+                  f'{got}')
+    finally:
+        apis.fcaf3d_train_step = real_step
+    first, resumed = runs
+    if (first['start_step'], first['end_step']) != (0, IN_STEPS[0]):
+        fail(f'indoor: the first run took steps {first["start_step"]}-'
+             f'{first["end_step"]}')
+    if (resumed['start_step'], resumed['end_step']) != IN_STEPS:
+        fail(f'indoor: the resume ran steps {resumed["start_step"]}-'
+             f'{resumed["end_step"]}, expected {IN_STEPS[0]}-{IN_STEPS[1]}')
+
+    # active sites a scene at every budget, mean over the CLI's steps
+    budgets = dict(voxels=model_cfg.max_voxels)
+    for name, bud in zip(('conv1', 'pool', 'layer1', 'layer2', 'layer3',
+                          'layer4'), model_cfg.backbone_budgets):
+        budgets[name] = bud
+    for i, bud in enumerate(head.level_budgets):
+        budgets[f'head{i}'] = bud
+    active = {k: float(np.mean([d[f'active.{k}'].float().mean().item()
+                                for d in diags])) for k in budgets}
+    res['active'] = {k: dict(active=active[k], budget=budgets[k])
+                     for k in budgets}
+    print(f'{card}: indoor active sites a scene / budget (mean over the '
+          f'{len(diags)} CLI steps): ' + ', '.join(
+              f'{k} {active[k]:.0f}/{budgets[k]}' for k in budgets)
+          + f'; conv1 before its budget '
+          f'{res["conv1_sites_before_budget"]} (recorded batch)')
+
+    # --- 3. gates on what the CLI did --------------------------------------
+    with open(os.path.join(work, 'train_log.jsonl')) as f:
+        lines = [json_.loads(ln) for ln in f]
+    if [ln['step'] for ln in lines] != list(range(1, IN_STEPS[1] + 1)):
+        fail(f'indoor: logged steps {[ln["step"] for ln in lines]}')
+    o = cfg.optimizer
+    sched = piecewise_constant_schedule(
+        o.lr, {first['steps_per_epoch'] * e: o.lr_gamma for e in o.lr_steps})
+    for ln in lines:
+        bad = [k for k, v in ln.items()
+               if k.endswith('loss') and not np.isfinite(v)]
+        if bad or not ln['num_pos'] > 0:
+            fail(f'indoor: step {ln["step"]}: non-finite {bad}, num_pos '
+                 f'{ln["num_pos"]}')
+        want = sched(ln['step'] - 1)
+        if not abs(ln['lr'] - want) <= 1e-12 * want:
+            fail(f'indoor: step {ln["step"]} ran at lr {ln["lr"]}, the '
+                 f'schedule gives {want}')
+    res.update(train=runs, losses=[ln['loss'] for ln in lines],
+               num_pos=[ln['num_pos'] for ln in lines],
+               grad_norms=[ln['grad_norm'] for ln in lines],
+               lrs=[ln['lr'] for ln in lines])
+    print(f'indoor: losses {[f"{v:.5g}" for v in res["losses"]]}, num_pos '
+          f'{res["num_pos"]}, grad norms '
+          f'{[f"{v:.4g}" for v in res["grad_norms"]]}, lr '
+          f'{[f"{v:.4g}" for v in res["lrs"]]}')
+    print(f'{card}: indoor checkpoints: '
+          f'{first["ckpt_bytes"] / 2 ** 20:.1f} MiB each, save ms '
+          f'{[round(v, 1) for v in first["ckpt_save_ms"] + resumed["ckpt_save_ms"]]}'
+          f', load (resume) {resumed["ckpt_load_ms"]:.1f} ms')
+
+    trainer = trainers[-1]
+    init = apis.init_fcaf3d_detector(model_cfg, device=DEVICE,
+                                     seed=cfg.get('seed', 0)).model
+    init = init.state_dict()
+    now = trainer.model.state_dict()
+    names = dict(trainer.model.named_parameters())
+    stuck = [k for k in names if torch.equal(now[k], init[k])]
+    bn = [k for k in now if k.endswith(('running_mean', 'running_var'))]
+    bn_stuck = [k for k in bn if torch.equal(now[k], init[k])]
+    if stuck or bn_stuck:
+        fail(f'indoor: {len(stuck)} parameter tensors and {len(bn_stuck)} '
+             f'BN statistics did not move: {(stuck + bn_stuck)[:8]}')
+    del init
+    print(f'indoor: all {len(names)} parameter tensors and {len(bn)} BN '
+          'statistics moved')
+
+    ckpt_dir = resumed['ckpt_dir']
+    if ckpt.latest_step(ckpt_dir) != IN_STEPS[1]:
+        fail(f'indoor: newest checkpoint {ckpt.latest_step(ckpt_dir)}')
+    test_set = SunRgbdDataset(root, pkl, num_points=cfg.data.num_points,
+                              max_objs=head.max_objs, test_mode=True)
+    b1 = indoor_batch(test_set, range(batch))
+    inputs = [b1[k] for k in ('points', 'colors', 'points_valid')]
+    live = apis.infer_indoor(apis.DetectorBundle(trainer.model, model_cfg,
+                                                 torch.device(DEVICE)),
+                             *inputs)
+    bundle = apis.init_fcaf3d_detector(model_cfg,
+                                       ckpt.load_variables(ckpt_dir),
+                                       device=DEVICE)
+    loaded = apis.infer_indoor(bundle, *inputs)
+    for key, v in live.items():
+        if not bits_equal(torch, v, loaded[key]):
+            fail(f'indoor: decode {key} from step_{IN_STEPS[1]}.pt differs '
+                 f'from the in-memory weights at {int((v != loaded[key]).sum())}'
+                 f' of {v.numel()} entries, max abs difference '
+                 f'{float((v.float() - loaded[key].float()).abs().max())}')
+    heads = [indoor_levels(torch, m, b1)[1] for m in (trainer.model,
+                                                      bundle.model)]
+    for lvl, (a, b) in enumerate(zip(*heads)):
+        for key in a:
+            if not bits_equal(torch, a[key], b[key]):
+                fail(f'indoor: level {lvl} {key} from step_{IN_STEPS[1]}'
+                     '.pt differs from the in-memory weights')
+    res['non_finite'] = dict(
+        head=non_finite(torch, [o[k] for o in heads[0] for k in o]),
+        decode=non_finite(torch, [live['boxes'][live['valid']],
+                                  live['scores'][live['valid']]]))
+    print(f'indoor: the head outputs and decode of {batch} scenes from '
+          f'step_{IN_STEPS[1]}.pt equal the in-memory weights\' bit for bit '
+          f'({int(live["valid"].sum())} kept boxes, top kept score '
+          f'{float(live["scores"].max()):.4g}; non-finite entries: '
+          f'{res["non_finite"]["head"]} in the head outputs, '
+          f'{res["non_finite"]["decode"]} in the kept boxes and scores)')
+    del trainer, trainers, live, loaded, heads
+
+    # --- 4. inference and the indoor eval ----------------------------------
+    gts, dts, infer_s = [], [], 0.0
+    zero_counts(mods)
+    for i in range(0, IN_EVAL_SCENES, batch):
+        bt = indoor_batch(test_set, range(i, i + batch))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = apis.infer_indoor(bundle, bt['points'], bt['colors'],
+                              bt['points_valid'])
+        d = {k: v.cpu().numpy() for k, v in d.items()}
+        infer_s += time.perf_counter() - t0
+        for j in range(batch):
+            v = d['valid'][j]
+            dts.append(dict(boxes=d['boxes'][j][v], labels=d['labels'][j][v],
+                            scores=d['scores'][j][v]))
+            ov = bt['obj_valid'][j]
+            gts.append(dict(gt_boxes=bt['gt_boxes'][j][ov],
+                            labels=bt['gt_labels'][j][ov]))
+    got = counts(mods)
+    want = dict(IN_PER_STEP, gather_gemm_conv=IN_CONVS * IN_EVAL_SCENES
+                // batch, gather_gemm_dw=0)
+    if got != want:
+        fail(f'indoor: infer_indoor launched {got}, expected {want}')
+    _, ap = indoor_eval(gts, dts, classes=CLASSES)
+    missing = [k for k in ('mAP_0.25', 'mAP_0.50') if k not in ap]
+    if missing:
+        fail(f'indoor: indoor_eval gave no {missing}')
+    res['eval'] = dict(scenes=IN_EVAL_SCENES, infer_s=infer_s,
+                       scenes_per_s=IN_EVAL_SCENES / infer_s,
+                       detections=sum(len(d['scores']) for d in dts),
+                       launches=got, ap=ap)
+    print(f'{card}: indoor infer_indoor + indoor_eval on {IN_EVAL_SCENES} '
+          f'scenes: inference {res["eval"]["scenes_per_s"]:.2f} scenes/s '
+          f'(batches of {batch}, host clock, decode, NMS and the copy to '
+          f'the host included), {res["eval"]["detections"]} detections; '
+          f'mAP_0.25 {ap["mAP_0.25"]:.4g}, mAP_0.50 {ap["mAP_0.50"]:.4g}')
+    res.update(conv_calls=conv_rows, dw_calls=dwr)
+    return res
+
+
 def scene_points(torch, dev, seed):
     """(points, valid) of one bench-point batch on ``dev``."""
     b = make_batch(B, P, M_OBJ, PC, seed)
@@ -1935,6 +2442,9 @@ def main():
         torch.cuda.empty_cache()
         # --- stage 4: the PGD retrain through its CLI, then its eval ---
         s4 = stage4_phase(torch, mods, card, tmp)
+        torch.cuda.empty_cache()
+        # --- the indoor retrain: FCAF3D through its CLI, then its eval ---
+        ind = indoor_phase(torch, mods, card, tmp)
 
     launches, launches_f32 = tr['launches'], f32['train']['launches']
     kernels = [
@@ -1962,6 +2472,19 @@ def main():
                      'gga_tpu/ops/pallas/heatmap.py:57',
                      launches['render_heatmap'], hm_rows),
     ]
+    # the f32 sparse-conv kernels on the indoor path: FCAF3D's step
+    ind_launches = {k: sum(r['launches'][k] for r in ind['train'])
+                    for k in ('gather_gemm_conv', 'gather_gemm_dw')}
+    for entry, key, rows in ((kernels[2], 'gather_gemm_conv',
+                              ind['conv_calls']),
+                             (kernels[3], 'gather_gemm_dw', ind['dw_calls'])):
+        e = kernel_entry(entry['name'], entry['source'].split('/')[-1],
+                         entry['replaces'],
+                         ind_launches[key], rows)
+        entry['indoor'] = {k: e[k] for k in (
+            'launches', 'max_abs_err', 'ms', 'device_ms', 'plain_ms',
+            'bound_ms', 'bound_by', 'bound_share', 'device_bound_share',
+            'ffma_bound_ms')}
     print('kernels, summed over the train path\'s calls (ms by CUDA '
           'events, device ms by the profiler, share of the bound):')
     for k in kernels:
@@ -1973,6 +2496,15 @@ def main():
               + ('' if k['ffma_bound_ms'] is None else
                  f'  FFMA bound {k["ffma_bound_ms"]:.5f} (device share '
                  f'{share(k["ffma_bound_ms"], k["device_ms"])})'))
+        if 'indoor' in k:
+            d = k['indoor']
+            print(f'  {"":20s} indoor: {d["launches"]:4d} launches in '
+                  f'{sum(r["steps"] for r in ind["train"])} FCAF3D steps; '
+                  f'one step: ms {d["ms"]:.4f}  device '
+                  f'{fmt_ms(d["device_ms"])}  bound {d["bound_ms"]:.5f}  '
+                  f'share {100 * d["bound_share"]:.1f}% / '
+                  f'{share(d["bound_ms"], d["device_ms"])}  plain '
+                  f'{d["plain_ms"]:.4f}')
     print(f'chip_smoke: {time.perf_counter() - t_start:.1f} s after the '
           'card check')
 
@@ -1987,7 +2519,7 @@ def main():
                        train_conv_calls=conv_rows, train_dw_calls=dwr,
                        train_gather_rows=gr_rows, train_gather_rows_t=grt_rows,
                        train_heatmap=hm_rows, step_comparison=cmp_step,
-                       f32=f32, workflow=wf, stage4=s4),
+                       f32=f32, workflow=wf, stage4=s4, indoor=ind),
                   fh, indent=1, default=str)
 
     print(card)

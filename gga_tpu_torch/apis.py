@@ -2,9 +2,10 @@
 ``gga_tpu/train``): build the GGA detector (from a config object, or from
 a config file and a checkpoint dir) and run stage-3 pseudo-label
 inference on a batch of clouds or a list of scene infos, or build a
-trainer and take GGA weak train steps; and for stage 4, build the PGD
+trainer and take GGA weak train steps; for stage 4, build the PGD
 monocular detector or its trainer, take PGD train steps and run its
-inference on a batch of images."""
+inference on a batch of images; and for the indoor retrain, the same for
+the FCAF3D detector on batches of coloured point clouds."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,12 +17,14 @@ import torch
 from .device import resolve_device
 from .models.detectors.centerpoint_gga import (GGADetector, GGAModelConfig,
                                                decode_detections)
-from .models.dense_heads import pgd_head
+from .models.dense_heads import fcaf3d_head, pgd_head
+from .models.detectors.fcaf3d import FCAF3DDetector, FCAF3DModelConfig
 from .models.detectors.pgd import PGDDetector, PGDModelConfig
 from .models.layers import init_params
 from .train import loop
 from .train.loop import TrainState, gga_train_step
-from .train.optim import build_optimizer, build_pgd_optimizer
+from .train.optim import (build_fcaf3d_optimizer, build_optimizer,
+                          build_pgd_optimizer)
 
 
 @dataclasses.dataclass
@@ -263,3 +266,72 @@ def infer_mono(bundle: DetectorBundle, images, cam2img):
     preds, fuse = model(x)
     fsz = [(x.shape[2] // s, x.shape[3] // s) for s in cfg.strides]
     return pgd_head.decode(cfg, preds, fuse, c2i, fsz)
+
+
+def init_fcaf3d_detector(cfg: FCAF3DModelConfig, state_dict=None,
+                         device='cuda', seed=0) -> DetectorBundle:
+    """The FCAF3D detector in eval mode on ``device`` (f32, as gga_tpu's).
+
+    With a ``state_dict`` (e.g. from ``convert.from_jax_variables``) the
+    weights are loaded strictly; without one they are drawn from
+    ``torch.Generator().manual_seed(seed)`` with gga_tpu's initializers
+    (``FCAF3DDetector.init_weights``). Raises if ``device`` is CUDA and no
+    card is present."""
+    dev = resolve_device(device)
+    model = FCAF3DDetector(cfg)
+    if state_dict is None:
+        model.init_weights(torch.Generator().manual_seed(seed))
+    else:
+        model.load_state_dict(state_dict)
+    return DetectorBundle(model.to(dev).eval(), cfg, dev)
+
+
+def init_fcaf3d_trainer(cfg: FCAF3DModelConfig, steps_per_epoch,
+                        state_dict=None, device='cuda', seed=0,
+                        optimizer=None) -> TrainState:
+    """The FCAF3D detector in train mode on ``device`` with its optimizer
+    (``build_fcaf3d_optimizer(params, steps_per_epoch, **optimizer)``, a
+    config file's ``optimizer`` block). Weights as
+    ``init_fcaf3d_detector``."""
+    model = init_fcaf3d_detector(cfg, state_dict, device,
+                                 seed).model.train()
+    return TrainState(model=model,
+                      optimizer=build_fcaf3d_optimizer(model.parameters(),
+                                                       steps_per_epoch,
+                                                       **(optimizer or {})),
+                      step=0, generator=torch.Generator().manual_seed(seed))
+
+
+_INDOOR_DTYPES = dict(points=torch.float32, colors=torch.float32,
+                      points_valid=torch.bool, gt_boxes=torch.float32,
+                      gt_labels=torch.int64, obj_valid=torch.bool)
+
+
+def fcaf3d_train_step(trainer: TrainState, batch, diag=None):
+    """One FCAF3D train step on a batch of ``SunRgbdDataset`` items (as
+    tensors or numpy). ``diag``: a dict for the forward's active-site
+    counts. Returns the step's logs as 0-d tensors on the trainer's
+    device."""
+    dev = next(trainer.model.parameters()).device
+    b = {k: torch.as_tensor(batch[k], dtype=dt, device=dev)
+         for k, dt in _INDOOR_DTYPES.items()}
+    return loop.fcaf3d_train_step(trainer, b, diag)
+
+
+@torch.no_grad()
+def infer_indoor(bundle: DetectorBundle, points, colors, points_valid):
+    """FCAF3D inference on a batch: forward in eval mode + decode + NMS.
+
+    Args:
+        points [B, P, 3], colors [B, P, 3] f32, points_valid [B, P] bool
+        (tensors or numpy).
+    Returns:
+        ``fcaf3d_head.decode``'s dict (boxes [B, K, 7] gravity-centered
+        depth boxes, scores, labels, valid) on the bundle's device.
+    """
+    model = bundle.model.eval()
+    dev = bundle.device
+    outs = model(torch.as_tensor(points, dtype=torch.float32, device=dev),
+                 torch.as_tensor(colors, dtype=torch.float32, device=dev),
+                 torch.as_tensor(points_valid, dtype=torch.bool, device=dev))
+    return fcaf3d_head.decode(model.cfg.head, outs)

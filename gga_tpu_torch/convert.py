@@ -5,8 +5,9 @@ port's own copy of the GGA rule table and layout transforms of
 ``tools/model_converters/torch2flax.py`` (``gga_rules``,
 ``_gga_transform``), run from flax to torch, and the same for the stage-4
 PGD detector (``pgd_rules``: flax's automatic names of ResNet, FPN and
-PGDHead to mmdet3d's keys). A released mmdet3d GGA checkpoint loads into
-the port directly, with no conversion.
+PGDHead to mmdet3d's keys) and the indoor FCAF3D detector
+(``fcaf3d_rules``). A released mmdet3d GGA checkpoint loads into the port
+directly, with no conversion.
 """
 from __future__ import annotations
 
@@ -15,7 +16,9 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from .models.backbones import mink_resnet
 from .models.backbones.resnet import ARCH
+from .models.detectors.fcaf3d import FCAF3DModelConfig
 from .models.detectors.pgd import PGDModelConfig
 
 
@@ -198,6 +201,56 @@ def pgd_rules(cfg: PGDModelConfig):
     return rules
 
 
+def fcaf3d_rules(cfg: FCAF3DModelConfig):
+    """(torch_key, collection, flax_path, transform) for every tensor of
+    gga_tpu's ``FCAF3DDetector`` (``gga_tpu/models/detectors/fcaf3d.py``).
+
+    The keys are mmdet3d's MinkResNet / FCAF3DHead names; every tensor
+    is copied as it is: the sparse kernels keep gga_tpu's ``[K, C, D]``
+    layout and (z, y, x) row-major offset order (MinkowskiEngine orders
+    its kernel offsets otherwise), the 1x1 projections ``[1, C, D]``, the
+    head's 1x1 convs ``[C, D]``, the instance norm's affine ``[C]``."""
+    rules = []
+
+    def copy(torch_key, flax_path):
+        rules.append((torch_key, 'params', flax_path, 'copy'))
+
+    def bn(torch_prefix, flax_prefix):
+        rules.extend(_bn_moves(torch_prefix, flax_prefix))
+
+    r = 'MinkResNet_0'
+    copy('backbone.conv1.kernel', f'{r}/conv1')
+    copy('backbone.norm1.weight', f'{r}/MaskedInstanceNorm_0/scale')
+    copy('backbone.norm1.bias', f'{r}/MaskedInstanceNorm_0/bias')
+    for i, n_blocks in enumerate(mink_resnet.ARCH[cfg.depth]):
+        for b in range(n_blocks):
+            t, f = f'backbone.layer{i + 1}.{b}', f'{r}/layer{i}_{b}'
+            copy(f'{t}.conv1.kernel', f'{f}/w1')
+            copy(f'{t}.conv2.kernel', f'{f}/w2')
+            bn(f'{t}.norm1.bn', f'{f}/bn1')
+            bn(f'{t}.norm2.bn', f'{f}/bn2')
+            if b == 0:
+                copy(f'{t}.downsample.0.kernel', f'{f}/wd')
+                bn(f'{t}.downsample.1.bn', f'{f}/bn_down')
+
+    h, t = 'FCAF3DHead_0', 'head'
+    for i in range(len(cfg.head.in_channels)):
+        copy(f'{t}.out_block_{i}.0.kernel', f'{h}/out_block{i}/w')
+        bn(f'{t}.out_block_{i}.1.bn', f'{h}/out_block{i}/MaskedBatchNorm_0')
+        copy(f'{t}.scales.{i}.scale', f'{h}/scale{i}')
+        if i:       # up_block_i takes level i to level i - 1
+            copy(f'{t}.up_block_{i}.0.kernel', f'{h}/w_up{i - 1}')
+            bn(f'{t}.up_block_{i}.1.bn', f'{h}/bn_up{i - 1}')
+            copy(f'{t}.up_block_{i}.3.kernel', f'{h}/up_conv{i - 1}/w')
+            bn(f'{t}.up_block_{i}.4.bn',
+               f'{h}/up_conv{i - 1}/MaskedBatchNorm_0')
+    copy(f'{t}.conv_center.kernel', f'{h}/w_center')
+    copy(f'{t}.conv_reg.kernel', f'{h}/w_reg')
+    copy(f'{t}.conv_cls.kernel', f'{h}/w_cls')
+    copy(f'{t}.conv_cls.bias', f'{h}/b_cls')
+    return rules
+
+
 def _to_torch_layout(name, x):
     """One flax tensor -> its mmdet3d state_dict layout."""
     x = np.asarray(x)
@@ -228,13 +281,17 @@ def _flatten(tree, prefix=''):
 
 def from_jax_variables(variables_np, cfg):
     """gga_tpu ``{'params', 'batch_stats'}`` trees (nested dicts of numpy
-    arrays) of the detector ``cfg`` describes (a ``GGAModelConfig`` or a
-    ``PGDModelConfig``) -> the port's ``load_state_dict`` input (f32
-    tensors)."""
+    arrays) of the detector ``cfg`` describes (a ``GGAModelConfig``, a
+    ``PGDModelConfig`` or an ``FCAF3DModelConfig``) -> the port's
+    ``load_state_dict`` input (f32 tensors)."""
     flat = {c: _flatten(variables_np.get(c, {}))
             for c in ('params', 'batch_stats')}
-    rules = (pgd_rules(cfg) if isinstance(cfg, PGDModelConfig)
-             else gga_rules(cfg))
+    if isinstance(cfg, PGDModelConfig):
+        rules = pgd_rules(cfg)
+    elif isinstance(cfg, FCAF3DModelConfig):
+        rules = fcaf3d_rules(cfg)
+    else:
+        rules = gga_rules(cfg)
     out = {}
     for tk, coll, fp, tr in rules:
         if fp in flat[coll]:

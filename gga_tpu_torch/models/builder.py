@@ -1,13 +1,14 @@
 """Config-dict -> detector construction through the MODELS registry (the
-port's copy of ``gga_tpu/models/builder.py``: the GGA detector and the
-stage-4 PGD detector; the rest of the zoo waits for its own slices).
+port's copy of ``gga_tpu/models/builder.py``: the GGA detector, the
+stage-4 PGD detector and the indoor FCAF3D detector; the rest of the zoo
+waits for its own slices).
 
 ``config_from_dict`` converts the python config-file dict into the typed
 frozen dataclass (recursively, lists -> tuples, nested dicts -> nested
 config dataclasses merged over the field default). ``MODELS.get(type)``
 takes the FULL file-level Config and returns ``(model, model_cfg)``: the
-port's ``GGADetector`` or ``PGDDetector`` (weights not yet drawn or
-loaded, on the CPU) and its config.
+port's ``GGADetector``, ``PGDDetector`` or ``FCAF3DDetector`` (weights not
+yet drawn or loaded, on the CPU) and its config.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import dataclasses
 from ..config import MODELS
 from .dense_heads.centerpoint_head_gga import GGAHeadConfig
 from .detectors.centerpoint_gga import GGADetector, GGAModelConfig
+from .detectors.fcaf3d import FCAF3DDetector, FCAF3DModelConfig
 from .detectors.pgd import PGDDetector, PGDModelConfig
 
 
@@ -74,6 +76,15 @@ def _build_pgd(cfg):
     (``configs/_base_/models/pgd.py``)."""
     mc = config_from_dict(PGDModelConfig, dict(cfg['model']))
     return PGDDetector(mc), mc
+
+
+@MODELS.register(name='FCAF3DDetector')
+def _build_fcaf3d(cfg):
+    """The FCAF3D config files keep the whole model in ``model``
+    (``configs/_base_/models/fcaf3d.py``, the head merged over
+    ``FCAF3DConfig``'s defaults)."""
+    mc = config_from_dict(FCAF3DModelConfig, dict(cfg['model']))
+    return FCAF3DDetector(mc), mc
 
 
 def build_detector(cfg):

@@ -22,12 +22,19 @@ from torch import nn
 from ..ops import sparse as sp
 
 
-def flatten_nmap(nmap):
-    """Per-scene submanifold neighbor map [B, K, M] -> batch-flat
-    [K, B*M] whose rows index the flat [B*M, C] features; misses stay -1."""
+def flatten_nmap(nmap, n_in=None):
+    """Per-scene neighbor map [B, K, M] -> batch-flat [K, B*M] whose rows
+    index the flat [B*n_in, C] features; misses stay -1.
+
+    ``n_in`` is the per-scene row count of the array the map indexes
+    into; it defaults to M, the submanifold case where the query and the
+    input sets coincide. Pass it wherever they differ (MinkResNet's 1x1
+    stride-2 identity queries M output sites in N input rows), or every
+    scene b > 0 gathers another scene's rows."""
     B, K, M = nmap.shape
+    rows = M if n_in is None else n_in
     offs = (torch.arange(B, device=nmap.device, dtype=nmap.dtype)
-            * M)[:, None, None]
+            * rows)[:, None, None]
     flat = torch.where(nmap >= 0, nmap + offs, -1)
     return flat.permute(1, 0, 2).reshape(K, B * M).contiguous()
 

@@ -97,3 +97,18 @@ def hard_voxelize(points, valid, *, voxel_size, pc_range, max_points=5,
         num_points=num_points.reshape(B, V + 1)[:, :V],
         num_voxels=newv.sum(-1).clamp(max=V).int(),
     )
+
+
+def dynamic_voxelize(points, valid, *, voxel_size, pc_range):
+    """Per-point voxel coords, no clustering (gga_tpu ``dynamic_voxelize``,
+    ``voxelize.py:138``; mmcv's dynamic Voxelization).
+
+    Args:
+        points: [..., P, C>=3] f32; valid: [..., P] bool.
+    Returns:
+        (coords [..., P, 3] int64 (z, y, x), -1 for a point outside the
+        range or invalid; ok [..., P] bool).
+    """
+    coords, in_range = point_voxel_coords(points, voxel_size, pc_range)
+    ok = in_range & valid
+    return torch.where(ok[..., None], coords.flip(-1), -1), ok

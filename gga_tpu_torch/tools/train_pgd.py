@@ -35,19 +35,14 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import json
-import math
 import os
-import time
 from pathlib import Path
 
 from .. import apis
-from ..data.dataset import EpochLoader
 from ..data.kitti.mono_dataset import KittiMonoDataset
 from ..device import resolve_device
 from ..models.detectors.pgd import PGDModelConfig
-from ..train import checkpoints as ckpt
-from ..tools_lib import model_config_from_cfg
+from ..tools_lib import model_config_from_cfg, train_passes
 from .train import load_config
 
 DEFAULT_CONFIG = str(Path(__file__).resolve().parents[2] / 'configs' / 'gga'
@@ -114,81 +109,13 @@ def main(argv=None):
     n_params = sum(p.numel() for p in trainer.model.parameters())
     print(f'params: {n_params / 1e6:.2f}M')
 
-    ckpt_dir = os.path.join(work_dir, 'checkpoints')
-    summary = dict(ckpt_save_ms=[], ckpt_bytes=None, ckpt_load_ms=None,
-                   ckpt_dir=ckpt_dir)
-    if args.resume:
-        t0 = time.perf_counter()
-        _, ok = ckpt.resume_from(ckpt_dir, trainer)
-        summary['ckpt_load_ms'] = (time.perf_counter() - t0) * 1e3
-        print(f'resume: {"ok, step " + str(trainer.step) if ok else "no checkpoint"}')
-
-    loader = EpochLoader(dataset, batch_size,
-                         num_workers=cfg.get('loader_workers', 0))
-    log_path = os.path.join(work_dir, 'train_log.jsonl')
-    log_interval = cfg.get('log_interval', 20)
-    start = step = trainer.step
-    first_epoch, skip = divmod(start, steps_per_epoch)
-    # the steps after the first (which holds the warm-up): their wall
-    # time, loader included and checkpoints not, and the part of it spent
-    # waiting on batches
-    wait_s = ckpt_s = 0.0
-    t_mark = None
-    t_last, n_last = time.perf_counter(), start
-    for epoch in range(first_epoch, epochs):
-        if step >= total_steps:
-            break
-        t_ask = time.perf_counter()
-        it = loader.epoch(epoch, skip if epoch == first_epoch else 0)
-        while step < total_steps:
-            batch = next(it, None)
-            if t_mark is not None:
-                wait_s += time.perf_counter() - t_ask
-            if batch is None:
-                break
-            lr = trainer.optimizer.lr_schedule(trainer.optimizer.count)
-            logs = apis.pgd_train_step(trainer, batch)
-            step = trainer.step
-            if t_mark is None:
-                float(logs['loss'])                 # the first step is done
-                t_mark = time.perf_counter()
-            if step % log_interval == 0:
-                logs = {k: float(v) for k, v in logs.items()}
-                now = time.perf_counter()
-                dt = (now - t_last) / max(step - n_last, 1)
-                t_last, n_last = now, step
-                line = dict(step=step, epoch=epoch, lr=lr,
-                            images_per_sec=batch_size / dt,
-                            loader_wait_share=wait_s / max(
-                                now - t_mark - ckpt_s, 1e-9),
-                            **logs)
-                print(f'step {step} loss {logs["loss"]:.3f} lr {lr:.3g} '
-                      f'({batch_size / dt:.1f} images/s)')
-                with open(log_path, 'a') as f:
-                    f.write(json.dumps(line) + '\n')
-            t_ask = time.perf_counter()
-        float(logs['loss'])                 # the epoch's steps are done
-        t = time.perf_counter()
-        ckpt.save_checkpoint(ckpt_dir, trainer, step=step)
-        ckpt_s += time.perf_counter() - t
-        summary['ckpt_save_ms'].append((time.perf_counter() - t) * 1e3)
-        summary['ckpt_bytes'] = os.path.getsize(
-            os.path.join(ckpt_dir, f'step_{step}.pt'))
-        print(f'saved checkpoint @ step {step}')
-    steady_s = (0.0 if t_mark is None
-                else time.perf_counter() - t_mark - ckpt_s)
-    steady = step - start - 1
-    summary.update(
-        start_step=start, steps=step - start, end_step=step,
-        steady_steps=steady, steady_s=steady_s,
-        images_per_s=steady * batch_size / steady_s if steady > 0
-        else math.nan,
-        loader_wait_share=wait_s / steady_s if steady > 0 else math.nan,
-        log=log_path)
-    print(f'training complete: {summary["steps"]} steps from step {start}; '
-          f'{summary["images_per_s"]:.2f} images/s after the first step '
-          f'(loader wait {100 * summary["loader_wait_share"]:.1f} % of it)')
-    return summary
+    return train_passes(trainer, dataset, apis.pgd_train_step,
+                        batch_size=batch_size, passes=epochs,
+                        total_steps=total_steps, work_dir=work_dir,
+                        resume=args.resume,
+                        loader_workers=cfg.get('loader_workers', 0),
+                        log_interval=cfg.get('log_interval', 20),
+                        unit='images')
 
 
 if __name__ == '__main__':

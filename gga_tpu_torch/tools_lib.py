@@ -1,10 +1,13 @@
 """Shared helpers for the command-line tools: config -> detector on a
 device, checkpoint restore, batched inference over scene infos (the
 port's copy of ``gga_tpu/tools_lib.py``; the single_gpu_test equivalent,
-mmdet3d/apis/test.py:12), and the stage-4 PGD evaluation
-(``tools/accuracy_bench_stage4.py:146-196 evaluate_pgd``)."""
+mmdet3d/apis/test.py:12), the stage-4 PGD evaluation
+(``tools/accuracy_bench_stage4.py:146-196 evaluate_pgd``), and the train
+loop of the stage-4 and indoor retrain tools (``train_passes``)."""
 from __future__ import annotations
 
+import json
+import math
 import os
 import pickle
 import time
@@ -14,6 +17,7 @@ import torch
 
 from . import apis
 from .data import pipelines as pl
+from .data.dataset import EpochLoader
 from .eval.kitti_eval import kitti_eval
 from .eval.submission import mono_detections_to_kitti_annos
 from .models.builder import build_detector
@@ -127,3 +131,96 @@ def evaluate_mono(bundle, dataset, batch_size=4):
     res.update(images=n, infer_s=infer_s,
                detections=sum(len(d['scores']) for d in detections))
     return res
+
+
+def train_passes(trainer, dataset, step_fn, *, batch_size, passes,
+                 total_steps, work_dir, resume=False, loader_workers=0,
+                 log_interval=20, unit='scenes'):
+    """The retrain tools' loop: ``step_fn(trainer, batch)`` over
+    ``passes`` passes of ``EpochLoader(dataset, batch_size)`` (pass p in
+    ``RandomState(p)`` order, the last partial batch dropped) until
+    ``total_steps``; one JSON line per ``log_interval`` steps in
+    ``<work_dir>/train_log.jsonl`` (the step, pass as ``epoch``, the lr
+    the step ran at, ``<unit>_per_sec``, the share of the wall time spent
+    waiting on the loader, and the step's logs); ``step_<n>.pt`` under
+    ``<work_dir>/checkpoints`` at the end of every pass. With ``resume``
+    it continues from the newest checkpoint (weights, optimizer, step) at
+    the batch after it.
+
+    Returns a summary: the steps taken and the step it started at, the
+    wall time of the steps after the first, ``<unit>_per_s`` over them
+    (loader included), the share of it spent waiting on the loader, and
+    the checkpoints' size and save / load ms."""
+    ckpt_dir = os.path.join(work_dir, 'checkpoints')
+    summary = dict(ckpt_save_ms=[], ckpt_bytes=None, ckpt_load_ms=None,
+                   ckpt_dir=ckpt_dir)
+    if resume:
+        t0 = time.perf_counter()
+        _, ok = ckpt.resume_from(ckpt_dir, trainer)
+        summary['ckpt_load_ms'] = (time.perf_counter() - t0) * 1e3
+        print(f'resume: {"ok, step " + str(trainer.step) if ok else "no checkpoint"}')
+
+    loader = EpochLoader(dataset, batch_size, num_workers=loader_workers)
+    per_pass = len(dataset) // batch_size
+    log_path = os.path.join(work_dir, 'train_log.jsonl')
+    start = step = trainer.step
+    first_pass, skip = divmod(start, per_pass)
+    # the steps after the first (which holds the warm-up): their wall
+    # time, loader included and checkpoints not, and the part of it spent
+    # waiting on batches
+    wait_s = ckpt_s = 0.0
+    t_mark = None
+    t_last, n_last = time.perf_counter(), start
+    for epoch in range(first_pass, passes):
+        if step >= total_steps:
+            break
+        t_ask = time.perf_counter()
+        it = loader.epoch(epoch, skip if epoch == first_pass else 0)
+        while step < total_steps:
+            batch = next(it, None)
+            if t_mark is not None:
+                wait_s += time.perf_counter() - t_ask
+            if batch is None:
+                break
+            lr = trainer.optimizer.lr_schedule(trainer.optimizer.count)
+            logs = step_fn(trainer, batch)
+            step = trainer.step
+            if t_mark is None:
+                float(logs['loss'])                 # the first step is done
+                t_mark = time.perf_counter()
+            if step % log_interval == 0:
+                logs = {k: float(v) for k, v in logs.items()}
+                now = time.perf_counter()
+                dt = (now - t_last) / max(step - n_last, 1)
+                t_last, n_last = now, step
+                line = {'step': step, 'epoch': epoch, 'lr': lr,
+                        f'{unit}_per_sec': batch_size / dt,
+                        'loader_wait_share': wait_s / max(
+                            now - t_mark - ckpt_s, 1e-9), **logs}
+                print(f'step {step} loss {logs["loss"]:.3f} lr {lr:.3g} '
+                      f'({batch_size / dt:.1f} {unit}/s)')
+                with open(log_path, 'a') as f:
+                    f.write(json.dumps(line) + '\n')
+            t_ask = time.perf_counter()
+        float(logs['loss'])                 # the pass's steps are done
+        t = time.perf_counter()
+        ckpt.save_checkpoint(ckpt_dir, trainer, step=step)
+        ckpt_s += time.perf_counter() - t
+        summary['ckpt_save_ms'].append((time.perf_counter() - t) * 1e3)
+        summary['ckpt_bytes'] = os.path.getsize(
+            os.path.join(ckpt_dir, f'step_{step}.pt'))
+        print(f'saved checkpoint @ step {step}')
+    steady_s = (0.0 if t_mark is None
+                else time.perf_counter() - t_mark - ckpt_s)
+    steady = step - start - 1
+    summary.update({
+        'start_step': start, 'steps': step - start, 'end_step': step,
+        'steady_steps': steady, 'steady_s': steady_s,
+        f'{unit}_per_s': (steady * batch_size / steady_s if steady > 0
+                          else math.nan),
+        'loader_wait_share': wait_s / steady_s if steady > 0 else math.nan,
+        'log': log_path})
+    print(f'training complete: {summary["steps"]} steps from step {start}; '
+          f'{summary[unit + "_per_s"]:.2f} {unit}/s after the first step '
+          f'(loader wait {100 * summary["loader_wait_share"]:.1f} % of it)')
+    return summary

@@ -2,7 +2,9 @@
 ``gga_tpu/train/loop.py``: forward in train mode, GGA targets, loss,
 backward through every sparse conv, global-norm clip and AdamW) and the
 stage-4 PGD step (``tools/train_pgd.py:128-149``: FCOS-mono targets, the
-PGD loss, backward, clip and SGD).
+PGD loss, backward, clip and SGD) and the indoor FCAF3D step
+(``tools/train_fcaf3d.py:126-139``: forward in train mode, targets and
+loss, backward through every sparse conv, clip and AdamW).
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import dataclasses
 import torch
 
 from ..models.dense_heads import centerpoint_head_gga as gga
+from ..models.dense_heads import fcaf3d_head
 from ..models.dense_heads import pgd_head
 from ..models.detectors.centerpoint_gga import GGADetector
 from .optim import GGAOptimizer
@@ -18,12 +21,12 @@ from .optim import GGAOptimizer
 
 @dataclasses.dataclass
 class TrainState:
-    model: GGADetector          # or PGDDetector
+    model: GGADetector          # or PGDDetector, FCAF3DDetector
     optimizer: GGAOptimizer     # or PGDOptimizer
     step: int
     # draws the per-step SRL prior samples (gga_tpu folds its key with the
     # step; the two streams differ, the distribution is the same); the
-    # PGD step draws nothing
+    # PGD and FCAF3D steps draw nothing
     generator: torch.Generator
 
 
@@ -99,6 +102,31 @@ def pgd_train_step(state: TrainState, batch):
     preds, fuse = model(images)
     total, logs = pgd_head.loss(cfg, preds, fuse, targets, batch['cam2img'],
                                 fsz)
+    total.backward()
+    logs['grad_norm'] = state.optimizer.step()
+    state.step += 1
+    return {k: v.detach() for k, v in logs.items()}
+
+
+def fcaf3d_train_step(state: TrainState, batch, diag=None):
+    """One FCAF3D optimization step; updates ``state`` in place.
+
+    Args:
+        batch: dict of tensors on the model's device: points [B, P, 3],
+            colors [B, P, 3], points_valid [B, P], gt_boxes [B, M, 7],
+            gt_labels [B, M], obj_valid [B, M].
+        diag: a dict for the forward's active-site counts, or None.
+    Returns:
+        logs: 0-d tensors: the three loss terms, 'loss', 'num_pos' and
+        'grad_norm' (of the unclipped gradients).
+    """
+    model = state.model
+    model.train()
+    state.optimizer.zero_grad()
+    outs = model(batch['points'], batch['colors'], batch['points_valid'],
+                 diag)
+    total, logs = fcaf3d_head.loss(model.cfg.head, outs, batch['gt_boxes'],
+                                   batch['gt_labels'], batch['obj_valid'])
     total.backward()
     logs['grad_norm'] = state.optimizer.step()
     state.step += 1

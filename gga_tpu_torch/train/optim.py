@@ -5,7 +5,9 @@ clip of 35, and a one-cycle cosine schedule of the lr (x10 up over 40 %,
 down to x1e-4) and of beta1; and of the stage-4 PGD retrain
 (``configs/gga/gga_pdg.py``, ``tools/train_pgd.py:86-101``): SGD with
 momentum 0.9 and weight decay 1e-4, the same clip, a linear warmup then
-step decay.
+step decay; and of the indoor FCAF3D retrain (``configs/fcaf3d``,
+``tools/train_fcaf3d.py:97-104``): a global-norm clip of 10, then AdamW
+(lr 1e-3, weight decay 1e-4) with the lr x0.1 at epochs 8 and 11.
 """
 from __future__ import annotations
 
@@ -56,6 +58,22 @@ def step_schedule(lr, steps_per_epoch, warmup_iters=500, warmup_ratio=1 / 3,
         if step < warmup_iters:
             return (start - lr) * (1 - max(step, 0) / warmup_iters) + lr
         return lr * lr_gamma ** sum(step - warmup_iters >= b for b in bounds)
+
+    return schedule
+
+
+def piecewise_constant_schedule(lr, boundaries_and_scales):
+    """``optax.piecewise_constant_schedule`` as a function of the step:
+    ``lr`` times the scale of every boundary the step has reached.
+    Computed in float64 (optax computes in float32)."""
+    bounds = sorted(boundaries_and_scales.items())
+
+    def schedule(step):
+        v = lr
+        for b, scale in bounds:
+            if step >= b:
+                v *= scale
+        return v
 
     return schedule
 
@@ -195,3 +213,21 @@ def build_pgd_optimizer(params, steps_per_epoch, lr=0.001, momentum=0.9,
         step_schedule(lr, steps_per_epoch, warmup_iters, warmup_ratio,
                       lr_steps, lr_gamma),
         momentum, weight_decay, grad_clip)
+
+
+def build_fcaf3d_optimizer(params, steps_per_epoch, lr=0.001,
+                           weight_decay=1e-4, grad_clip=10.0,
+                           lr_policy='step', lr_steps=(8, 11), lr_gamma=0.1):
+    """Global-norm clip, then AdamW (betas (0.9, 0.999), eps 1e-8,
+    decoupled weight decay on every parameter, as ``optax.adamw``) with
+    the lr times ``lr_gamma`` at each of the ``lr_steps`` epochs (the
+    ``optimizer`` block of ``configs/fcaf3d/fcaf3d_8x2_sunrgbd-3d-10class
+    .py``; gga_tpu's ``tools/train_fcaf3d.py:97-104`` chain). Boundaries
+    that coincide count once, as keys of gga_tpu's dict do."""
+    if lr_policy != 'step':
+        raise ValueError(f'lr_policy {lr_policy!r}: the FCAF3D recipe has '
+                         "the 'step' policy only")
+    sched = piecewise_constant_schedule(
+        lr, {steps_per_epoch * e: lr_gamma for e in lr_steps})
+    return GGAOptimizer(params, sched, lambda _: 0.9, 0.999, weight_decay,
+                        grad_clip)

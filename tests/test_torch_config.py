@@ -17,6 +17,7 @@ from gga_tpu.models import builder as jbuilder
 from gga_tpu_torch import config as tconfig
 from gga_tpu_torch.models import builder as tbuilder
 from gga_tpu_torch.models.detectors import centerpoint_gga as tdet
+from gga_tpu_torch.models.detectors import fcaf3d as tfcaf3d
 from gga_tpu_torch.models.detectors import pgd as tpgd
 
 torch.set_num_threads(1)
@@ -91,18 +92,25 @@ def test_merge_from_options_agrees(name):
     assert port.new.block.key == 'x'
 
 
-@pytest.mark.parametrize('name', DETECTOR_CONFIGS + ('gga_pdg.py',))
+@pytest.mark.parametrize('name', DETECTOR_CONFIGS + ('gga_pdg.py',
+                                                    'gga_sunrgbd.py'))
 def test_build_detector_config_equals_gga_tpu(name):
     path = str(ROOT / 'configs' / 'gga' / name)
     model, mc = tbuilder.build_detector(tconfig.Config.fromfile(path))
     _, ref = jbuilder.build_detector(jconfig.Config.fromfile(path))
     pgd = name == 'gga_pdg.py'
-    assert isinstance(model, tpgd.PGDDetector if pgd else tdet.GGADetector)
-    assert isinstance(mc, tpgd.PGDModelConfig if pgd
-                      else tdet.GGAModelConfig)
+    indoor = name == 'gga_sunrgbd.py'
+    det, cfg_cls = ((tpgd.PGDDetector, tpgd.PGDModelConfig) if pgd else
+                    (tfcaf3d.FCAF3DDetector, tfcaf3d.FCAF3DModelConfig)
+                    if indoor else (tdet.GGADetector, tdet.GGAModelConfig))
+    assert isinstance(model, det) and isinstance(mc, cfg_cls)
     assert _fields(mc) == _fields(ref)
     hash(mc)                                  # frozen and hashable
-    if pgd:
+    if indoor:
+        assert mc.depth == 34 and mc.voxel_size == mc.head.voxel_size == 0.01
+        assert mc.head.n_classes == 10 and mc.head.n_reg_outs == 8
+        assert mc.grid_zyx == (512, 1280, 1280)
+    elif pgd:
         assert mc.backbone_depth == 101 and mc.fpn_channels == 256
         assert mc.head.feat_channels == 256 and mc.head.stacked_convs == 2
     elif name != 'gga_kitti_tiny.py':

@@ -42,6 +42,24 @@ GRID = (41, 256, 224)
 
 def _scene_maps(seed=0, B=2, P=3000, V=2048):
     """Neighbor map and strided rulebook of voxelized clustered clouds."""
+    coords, valid = _voxels(seed, B, P, V)
+    subm = flatten_nmap(sp.build_neighbor_map(coords, valid, GRID))
+    *_, strided = sp.downsample_rulebook_compact(
+        coords, valid, GRID, (3, 3, 3), (2, 2, 2), 1, 1024)
+    return subm, strided, B * V
+
+
+def _strided_bwd_map(M=1024):
+    """The dense backward map [27, B*V] of a strided rulebook (MinkResNet's
+    strided convs' input gradient; mostly -1) and the rows it indexes,
+    B*M."""
+    coords, valid = _voxels()
+    *_, bwd = sp.downsample_rulebook_batched(coords, valid, GRID, 3, 2, 1, M)
+    return bwd, coords.shape[0] * M
+
+
+def _voxels(seed=0, B=2, P=3000, V=2048):
+    """Voxel coords [B, V, 3] and valid [B, V] of clustered clouds."""
     rng = np.random.RandomState(seed)
     pts = np.concatenate([
         rng.uniform(5, 30, (B, P, 1)), rng.uniform(-8, 8, (B, P, 1)),
@@ -51,11 +69,7 @@ def _scene_maps(seed=0, B=2, P=3000, V=2048):
                         voxel_size=(0.32, 0.3125, 0.1),
                         pc_range=(0., -40., -3., 71.68, 40., 1.),
                         max_voxels=V)
-    valid = torch.arange(V)[None] < vox['num_voxels'][:, None]
-    subm = flatten_nmap(sp.build_neighbor_map(vox['coords'], valid, GRID))
-    *_, strided = sp.downsample_rulebook_compact(
-        vox['coords'], valid, GRID, (3, 3, 3), (2, 2, 2), 1, 1024)
-    return subm, strided, B * V
+    return vox['coords'], torch.arange(V)[None] < vox['num_voxels'][:, None]
 
 
 def _cuda():
@@ -119,18 +133,30 @@ _CONV_CASES = [
     ('dense', 128, 128, 27, 3001), ('single', 16, 16, 27, None),
     ('single', 64, 128, 27, 3999), ('dup', 16, 32, 27, None),
     ('dup', 16, 16, 3, 1001), ('dup', 64, 64, 3, 1001),
+    # FCAF3D's MinkResNet34 and head: conv1 (C = 3), widths 256 and 512
+    # (four and eight column chunks, D split over blockIdx.y), a strided
+    # 64 -> 64 with ragged Q, and the strided input gradients through the
+    # dense backward map
+    ('strided', 3, 64, 27, None), ('subm', 256, 512, 27, None),
+    ('subm', 512, 512, 27, 2047), ('subm', 512, 128, 27, None),
+    ('strided', 64, 64, 27, 1999), ('strided_bwd', 128, 64, 27, None),
+    ('strided_bwd', 512, 256, 27, 3001),
 ]
 
 
 def _case_map(which, k, q):
-    """(nmap [k, Q] int32, source rows R): the port's neighbor map or
-    strided rulebook of a voxelized scene, or a synthetic map: 'dense'
+    """(nmap [k, Q] int32, source rows R): the port's neighbor map,
+    strided rulebook or dense strided backward map of a voxelized scene,
+    or a synthetic map: 'dense'
     (every offset hits every row), 'single' (one hit per 128-row tile),
     'dup' (each source row hit by dozens of outputs); first k offsets,
     first q rows."""
     if which in ('subm', 'strided'):
         subm, strided, rows = _scene_maps()
         nmap = (subm if which == 'subm' else strided).numpy()
+    elif which == 'strided_bwd':
+        nmap, rows = _strided_bwd_map()
+        nmap = nmap.numpy()
     else:
         rng = np.random.RandomState(11)
         rows, n = 3000, 4096
@@ -316,6 +342,11 @@ _DW_CASES = [
     ('subm', 160, 200, 27, None), ('dense', 32, 32, 27, None),
     ('dense', 128, 128, 27, 3001), ('single', 16, 16, 27, None),
     ('dup', 64, 64, 27, None), ('dup', 16, 16, 3, 1001),
+    # FCAF3D's widths, as in _CONV_CASES (the dW split scratch at
+    # (27, 512, 512))
+    ('strided', 3, 64, 27, None), ('subm', 256, 512, 27, None),
+    ('subm', 512, 512, 27, 2047), ('subm', 512, 128, 27, None),
+    ('strided', 64, 64, 27, 1999),
 ]
 
 
