@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's stage-3 inference and GGA weak training
-paths, the GGA workflow's command-line tools, the stage-4 PGD retrain and
-the indoor FCAF3D retrain on one NVIDIA card.
+paths, the GGA workflow's command-line tools, the stage-4 PGD retrain,
+the indoor FCAF3D retrain and the fully supervised SECOND and
+PointPillars on one NVIDIA card.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -135,12 +136,36 @@ the indoor FCAF3D retrain on one NVIDIA card.
     (40 launches a forward) with the mAP keys. Prints scenes/s (events
     and with the loader), peak memory, checkpoint MiB and ms, and
     inference scenes/s, each beside the card's name and power limit.
-12. Prints one JSON line describing the kernels (each with its time
+12. Supervised phase (``supervised_phase``), the fully supervised KITTI
+    path on the workflow's mini KITTI (its 16 trainval scenes and 8 val
+    scenes, the reduced clouds): SECOND as shipped
+    (configs/second/hv_second_secfpn_6x8_80e_kitti-3d-3class.py, f32,
+    B = 6 x 24 000 points, 16 000 voxels of a 41 x 1600 x 1408 grid).
+    One recorded train step's 19 gather_gemm_conv (12 forward, 7 SubM
+    input gradients), 12 gather_gemm_dw and 4 gather_rows calls are
+    replayed against their plain versions within the f32 gates and timed
+    per (K, C, D); the eval-mode BEV and head maps with the kernels
+    against the plain versions (1e-4 of max|plain|); one whole step with
+    kernels against plain (the f32 gates of 8.); then
+    ``train_supervised`` for 4 steps (2 an epoch) with exact launches
+    (19 / 12 / 4 a step, nothing else), CUDA events around each step and
+    at its stage marks (forward, assign + loss, backward, clip + AdamW),
+    finite losses with positives, each step's lr, every parameter and BN
+    statistic moved, the head maps and decode from the newest checkpoint
+    equal to the in-memory weights' bit for bit, and a profile of one
+    more step; ``infer_anchor`` on the 8 val scenes (12 launches a
+    forward) and ``kitti_eval``; PointPillars as shipped through the same
+    CLI for 2 steps with no kernel launch. Prints scenes/s (events and
+    with the loader), device ms by stage, peak memory, checkpoint MiB
+    and ms, budget occupancy and inference scenes/s, each beside the
+    card's name and power limit.
+13. Prints one JSON line describing the kernels (each with its time
     ms, device_ms, launches, bound and bound_share = bound_ms / ms,
     device_bound_share = bound_ms / device_ms, host_ms where measured;
     the f32 entries as gather_gemm_conv_f32 and gather_gemm_dw_f32, with
-    ffma_bound_ms, their bound at the FFMA rate of 67 TFLOP/s, and an
-    ``indoor`` dict with the same numbers over FCAF3D's recorded step),
+    ffma_bound_ms, their bound at the FFMA rate of 67 TFLOP/s, an
+    ``indoor`` dict with the same numbers over FCAF3D's recorded step and
+    a ``second`` dict over SECOND's, which gather_rows carries too),
     the card, then, as the last line, {"ok": true, "device": {...}}. Any
     failed phase exits non-zero.
 
@@ -160,6 +185,7 @@ ROOT = Path(__file__).resolve().parent
 B, P = 8, 20000           # bench operating point: scenes x points per scene
 M_OBJ, PC = 500, 256      # padded objects per scene, cluster points per object
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+L2_FLUSH_BYTES = 4 * 50 * 2 ** 20  # four times the H100's 50 MB L2
 BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, H100 SXM
 F32_FLOPS = 67e12          # f32 outside the tensor cores, H100 SXM
 # f32-accurate products on the tensor cores: 3xTF32, three dense TF32
@@ -293,6 +319,23 @@ def event_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cold_event_ms(torch, fn, reps, flush):
+    """Mean device time of ``fn`` over ``reps`` runs, each on a cold L2:
+    ``flush``, a buffer larger than the L2, is written before every run,
+    outside the events around it; after one warm-up."""
+    fn()
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        pair[0].record()
+        fn()
+        pair[1].record()
+        pairs.append(pair)
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 def device_ms(torch, fn, reps, names):
@@ -674,8 +717,9 @@ def zero_counts(mods):
     heatmap.launches = 0
 
 
-def recorded_step(torch, apis, sp, mods, trainer, batch):
-    """One train step that records the arguments of every kernel call,
+def recorded_step(torch, apis, sp, mods, trainer, batch, step_fn=None):
+    """One train step (``step_fn(trainer, batch, mark)``, by default
+    ``apis.train_step``) that records the arguments of every kernel call,
     with the stage each came in, and the strided convs' forward maps."""
     sparse_conv, gr, heatmap = mods
     order = ('forward', 'loss', 'backward', 'optimizer')
@@ -701,7 +745,7 @@ def recorded_step(torch, apis, sp, mods, trainer, batch):
                                  (heatmap, 'render_heatmap'))}
         sp.downsample_rulebook_compact = keep_maps
         stack.callback(setattr, sp, 'downsample_rulebook_compact', rulebook)
-        logs = apis.train_step(trainer, batch, mark)
+        logs = (step_fn or apis.train_step)(trainer, batch, mark)
     torch.cuda.synchronize()
     return logs, rec, maps
 
@@ -814,18 +858,28 @@ def dw_rows(torch, sparse_conv, calls, label='train kernels'):
     return rows
 
 
-def rows_rows(torch, gr, calls, transposed):
+def rows_rows(torch, gr, calls, transposed, label='train kernels',
+              flush=None):
     """gather_rows (or gather_rows_t on (features, map) pairs) vs plain,
-    exact; gather_rows also against index_select on a zero-padded source."""
+    exact; gather_rows also against index_select on a zero-padded source.
+    With ``flush`` (a buffer larger than the L2) every timed call runs on
+    a cold L2: the buffer is written before it, outside its time."""
     name = 'gather_rows_t' if transposed else 'gather_rows'
     real, plain = getattr(gr, name), getattr(gr, name + '_plain')
+
+    def timed(fn):
+        return (event_ms(torch, fn, 20) if flush is None
+                else cold_event_ms(torch, fn, 20, flush))
+
+    def cold(fn):
+        return fn if flush is None else lambda: (flush.zero_(), fn())
     rows = []
     for i, (src, idx) in enumerate(calls):
         out = real(src, idx)
         ref = plain(src, idx)
         torch.cuda.synchronize()
         if not torch.equal(out, ref):
-            fail(f'train kernels: {real.__name__} call {i} differs from the '
+            fail(f'{label}: {real.__name__} call {i} differs from the '
                  'plain version')
         esize = src.element_size()
         read = rows_read(torch, idx)
@@ -834,10 +888,10 @@ def rows_rows(torch, gr, calls, transposed):
         row = dict(N=src.shape[0], C=src.shape[1], idx=tuple(idx.shape),
                    misses=int((idx < 0).sum()), rows_read=read, bytes=nbytes,
                    max_abs_err=0.0,
-                   ms=event_ms(torch, lambda: real(src, idx), 20),
-                   device_ms=device_ms(torch, lambda: real(src, idx), 20,
-                                       KERNEL_NAMES[name]),
-                   plain_ms=event_ms(torch, lambda: plain(src, idx), 20),
+                   ms=timed(lambda: real(src, idx)),
+                   device_ms=device_ms(torch, cold(lambda: real(src, idx)),
+                                       20, KERNEL_NAMES[name]),
+                   plain_ms=timed(lambda: plain(src, idx)),
                    bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, flops_ms=0.0,
                    library_ms=None, host_ms=None)
         if transposed:
@@ -846,13 +900,16 @@ def rows_rows(torch, gr, calls, transposed):
             src0 = torch.cat([src.new_zeros(1, src.shape[1]), src])
             idx1 = (idx + 1).long()
             if not torch.equal(torch.index_select(src0, 0, idx1), out):
-                fail('train kernels: index_select yardstick disagrees')
-            row['library_ms'] = event_ms(
-                torch, lambda: torch.index_select(src0, 0, idx1), 20)
+                fail(f'{label}: index_select yardstick disagrees')
+            row['library_ms'] = timed(
+                lambda: torch.index_select(src0, 0, idx1))
         rows.append(row)
-    print(f'train kernels: {name} vs plain (exact) at {len(rows)} calls '
+    print(f'{label}: {name} vs plain (exact) at {len(rows)} calls '
           '(bytes = source rows hit + indices + output, each once; ms by '
-          'CUDA events, device by the profiler)')
+          'CUDA events, device by the profiler'
+          + ('' if flush is None else
+             f'; each call on a cold L2, {flush.nbytes >> 20} MiB written '
+             'before it') + ')')
     for r in rows:
         lib = ('' if r['library_ms'] is None
                else f', index_select {r["library_ms"]:.4f} ms')
@@ -917,25 +974,31 @@ def heatmap_rows(torch, heatmap, calls):
     return rows
 
 
-def loss_and_grads(torch, trainer, batch, srl):
-    """One step's loss, gradient norm, sparse conv weight gradients and
-    batch-norm statistics updates, without the optimizer; the running
-    statistics are restored afterwards."""
+def gga_loss(model, batch, srl):
+    """The GGA weak loss of one train-mode forward (``srl``: the SRL
+    prior's normal draw)."""
     from gga_tpu_torch.models.dense_heads import centerpoint_head_gga as gga
-    from gga_tpu_torch.models.layers import SubMConv3d, SparseConv3d
-    model = trainer.model
     head = model.cfg.head
-    model.train()
-    model.zero_grad(set_to_none=True)
-    stats0 = {n: b.clone() for n, b in model.named_buffers()}
-    diag = {}
-    preds = model(batch['points'], batch['points_valid'], diag)
+    preds = model(batch['points'], batch['points_valid'], {})
     targets = gga.build_targets(head, srl, batch['labels'],
                                 batch['obj_valid'], batch['init_pseudo'],
                                 batch['boxes_img'], batch['bdry_masks'],
                                 batch['lidar2img'])
-    total, _ = gga.loss(head, preds, targets, batch['ibp_xy'],
-                        batch['ibp_valid'])
+    return gga.loss(head, preds, targets, batch['ibp_xy'],
+                    batch['ibp_valid'])[0]
+
+
+def loss_and_grads(torch, trainer, batch, loss_fn):
+    """One step's loss (``loss_fn(model, batch)`` of a train-mode
+    forward), gradient norm, sparse conv weight gradients and batch-norm
+    statistics updates, without the optimizer; the running statistics are
+    restored afterwards."""
+    from gga_tpu_torch.models.layers import SubMConv3d, SparseConv3d
+    model = trainer.model
+    model.train()
+    model.zero_grad(set_to_none=True)
+    stats0 = {n: b.clone() for n, b in model.named_buffers()}
+    total = loss_fn(model, batch)
     total.backward()
     grads = [p.grad for p in model.parameters() if p.grad is not None]
     norm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
@@ -956,7 +1019,7 @@ def input_ulp_noise(torch, model):
     its dtype in a seeded half of its nonzero entries: a perturbation as
     small as one rounding step, to measure how far the step's gradients
     move under rounding alone."""
-    enc = model.pts_middle_encoder
+    enc = getattr(model, 'pts_middle_encoder', None) or model.middle_encoder
     real = enc.forward
 
     def noisy(feats, *args, **kwargs):
@@ -975,21 +1038,30 @@ def input_ulp_noise(torch, model):
         enc.forward = real
 
 
-def step_comparison(torch, mods, trainer, batch):
+def step_comparison(torch, mods, trainer, batch, loss_fn=None,
+                    n_convs=None):
     """Loss and gradients of one step with the kernels vs the plain
-    versions, same weights, batch and SRL draw, within the gates of the
-    model's dtype. The step's rounding noise is read without the kernels:
-    the plain step against the plain step with a one-ulp perturbation (of
-    the model's dtype) of the encoder input."""
+    versions, same weights and batch (and SRL draw: ``loss_fn`` defaults
+    to the GGA loss with a seeded one), within the gates of the model's
+    dtype. The step's rounding noise is read without the kernels: the
+    plain step against the plain step with a one-ulp perturbation (of the
+    model's dtype) of the encoder input."""
     gate = GATES[trainer.model.cfg.compute_dtype]
-    srl = torch.randn((3, B), generator=torch.Generator().manual_seed(5)).to(
-        batch['labels'].device)
-    loss_k, norm_k, g_k, bn_k = loss_and_grads(torch, trainer, batch, srl)
+    n_convs = N_CONVS if n_convs is None else n_convs
+    if loss_fn is None:
+        srl = torch.randn((3, B), generator=torch.Generator().manual_seed(
+            5)).to(batch['labels'].device)
+
+        def loss_fn(model, b):
+            return gga_loss(model, b, srl)
+    loss_k, norm_k, g_k, bn_k = loss_and_grads(torch, trainer, batch,
+                                               loss_fn)
     with plain_versions(wrappers(mods)):
         loss_p, norm_p, g_p, bn_p = loss_and_grads(torch, trainer, batch,
-                                                   srl)
+                                                   loss_fn)
         with input_ulp_noise(torch, trainer.model):
-            _, norm_n, g_n, _ = loss_and_grads(torch, trainer, batch, srl)
+            _, norm_n, g_n, _ = loss_and_grads(torch, trainer, batch,
+                                               loss_fn)
 
     def cosines(a, b):
         return {n: float(torch.nn.functional.cosine_similarity(
@@ -1016,9 +1088,9 @@ def step_comparison(torch, mods, trainer, batch):
                min_cosine_plain_ulp_noise=min(cos_noise.values()),
                bn_update_max_rel_err=bn_err[worst_bn], bn_buffers=len(bn_err),
                cosines=cos, cosines_plain_ulp_noise=cos_noise)
-    if len(cos) != N_CONVS:
+    if len(cos) != n_convs:
         fail(f'step comparison: {len(cos)} sparse conv weight gradients, '
-             f'expected {N_CONVS}')
+             f'expected {n_convs}')
     if not res['loss_rel'] <= gate['loss']:
         fail(f'step comparison: loss {loss_k} vs plain {loss_p}')
     if not res['grad_norm_rel'] <= gate['norm']:
@@ -2229,6 +2301,383 @@ def indoor_phase(torch, mods, card, tmp):
     return res
 
 
+# --- the fully supervised KITTI path: SECOND and PointPillars -------------
+
+SUP_SECOND = 'configs/second/hv_second_secfpn_6x8_80e_kitti-3d-3class.py'
+SUP_PILLARS = ('configs/pointpillars/'
+               'hv_pointpillars_secfpn_6x8_160e_kitti-3d-3class.py')
+SUP_INFO = 'kitti_infos_trainval_GGA.pkl'   # the workflow's 16 scenes
+SUP_VAL_INFO = 'kitti_infos_val_GGA.pkl'    # its 8 val scenes
+SUP_STEPS = 4               # SECOND's --max-steps: 2 an epoch at B = 6
+SUP_PP_STEPS = 2            # PointPillars' --max-steps
+SUP_OPTIONS = ('log_interval=1',)
+SUP_EVAL_BATCH = 4          # scenes a forward of infer_anchor
+# SECOND's conv_module encoder: conv_input + stage 0's SubM + 2 SubM in
+# each of stages 1-3 (8 SubM), the 3 strided convs opening stages 1-3 and
+# conv_out (4 strided); every SubM but conv_input (whose input, the VFE's
+# mean, needs none) takes an input gradient through gather_gemm_conv, the
+# strided convs through gather_rows
+SUP_CONVS, SUP_DGRAD, SUP_STRIDED = 12, 7, 4
+SUP_PER_STEP = dict(gather_gemm_conv=SUP_CONVS + SUP_DGRAD,
+                    gather_gemm_dw=SUP_CONVS, gather_rows=SUP_STRIDED,
+                    gather_rows_t=0, render_heatmap=0)
+SUP_STAGES = ('forward', 'assign+loss', 'backward', 'clip+optimizer')
+
+
+def anchor_loss(model, batch):
+    """The anchor loss of one train-mode forward (the train step's body
+    without the optimizer)."""
+    from gga_tpu_torch.models.dense_heads import anchor3d_head as ah
+    head = model.cfg.head
+    preds = model(batch['points'], batch['points_valid'])
+    anchors = ah.make_anchors(head, tuple(preds['cls'].shape[1:3]),
+                              preds['cls'].device)
+    targets = ah.assign_targets(head, anchors, batch['gt_boxes'],
+                                batch['gt_labels'], batch['gt_valid'])
+    return ah.loss(head, preds, anchors, targets)[0]
+
+
+def anchor_plain_comparison(torch, mods, model, pts, val):
+    """The eval-mode BEV map and head maps with the kernels vs the plain
+    versions, within the f32 forward gate of max|plain|."""
+    gate = GATES['float32']['forward']
+
+    def run():
+        with torch.no_grad():
+            bev = model.eval().extract_bev(pts, val)
+            return dict(bev=bev, **model.head(bev))
+
+    out_k = run()
+    with plain_versions(wrappers(mods)):
+        out_p = run()
+    torch.cuda.synchronize()
+    res = {}
+    for key, a in out_k.items():
+        ok, err = within_tolerance(torch, a, out_p[key], gate)
+        res[key] = dict(max_abs_err=err,
+                        max_abs_plain=float(out_p[key].abs().max()))
+        if not ok:
+            fail(f'supervised plain comparison: {key} differs, max abs err '
+                 f'{err}')
+    return res
+
+
+def supervised_run(torch, mods, card, argv, per_step, batch, label):
+    """``train_supervised.main(argv)`` with CUDA events around each step
+    and at each stage mark, the counts set to 0 just before and read just
+    after, exact launches a step. Returns (summary, trainer, logs)."""
+    import json as json_
+
+    from gga_tpu_torch import apis
+    from gga_tpu_torch.tools import train_supervised
+    trainers, events, diags = [], [], []
+    real_step = apis.anchor_train_step
+
+    def timed_step(trainer, b):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        marks = iter(ev[1:])
+        diag = {}
+        ev[0].record()
+        logs = real_step(trainer, b, lambda _: next(marks).record(), diag)
+        trainers.append(trainer)
+        events.append(ev)
+        diags.append(diag)
+        return logs
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    apis.anchor_train_step = timed_step
+    try:
+        zero_counts(mods)
+        summ = train_supervised.main(argv)
+        got = counts(mods)
+    finally:
+        apis.anchor_train_step = real_step
+    n = summ['steps']
+    want = {k: v * n for k, v in per_step.items()}
+    if got != want:
+        fail(f'{label}: train_supervised launched {got} in {n} steps, '
+             f'expected {want}')
+    torch.cuda.synchronize()
+    step_ms = [ev[0].elapsed_time(ev[4]) for ev in events]
+    stage_ms = {name: float(np.mean([ev[i].elapsed_time(ev[i + 1])
+                                     for ev in events[1:]]))
+                for i, name in enumerate(SUP_STAGES)}
+    with open(summ['log']) as f:
+        lines = [json_.loads(ln) for ln in f]
+    if [ln['step'] for ln in lines] != list(range(1, n + 1)):
+        fail(f'{label}: logged steps {[ln["step"] for ln in lines]}')
+    for ln in lines:
+        bad = [k for k, v in ln.items() if k.startswith('loss')
+               and not np.isfinite(v)]
+        if bad or not ln['num_pos'] > 0:
+            fail(f'{label}: step {ln["step"]}: non-finite {bad}, num_pos '
+                 f'{ln["num_pos"]}')
+    summ.update(launches=got, step_device_ms=step_ms, stage_ms=stage_ms,
+                peak_bytes=torch.cuda.max_memory_allocated(), lines=lines,
+                occupancy_out=[float(d['occupancy_out']) for d in diags
+                               if 'occupancy_out' in d],
+                scenes_per_s_events=batch * (len(step_ms) - 1)
+                / (sum(step_ms[1:]) / 1e3))
+    print(f'{card}: {label}: train_supervised {n} steps at B={batch} '
+          f'(f32): after the first step {summ["scenes_per_s"]:.3f} scenes/s '
+          f'with the loader, {summ["scenes_per_s_events"]:.3f} by CUDA '
+          f'events around the steps; step device ms '
+          f'{[round(v, 1) for v in step_ms]}; by stage (mean after the '
+          'first) ' + ', '.join(f'{k} {v:.2f}' for k, v in stage_ms.items())
+          + f'; peak memory {summ["peak_bytes"] / 2 ** 30:.2f} GiB; losses '
+          f'{[round(ln["loss"], 3) for ln in lines]}, num_pos '
+          f'{[ln["num_pos"] for ln in lines]}; launches {got}')
+    return summ, trainers[-1]
+
+
+def moved_from_init(torch, apis, model_cfg, trainer, label, seed):
+    """Fail unless every parameter and BN statistic moved from the weights
+    seeded with ``seed`` (the config's, as the CLI seeds its trainer)."""
+    init = apis.init_anchor_detector(model_cfg, device=DEVICE,
+                                     seed=seed).model
+    init = init.state_dict()
+    now = trainer.model.state_dict()
+    names = dict(trainer.model.named_parameters())
+    stuck = [k for k in names if torch.equal(now[k], init[k])]
+    bn = [k for k in now if k.endswith(('running_mean', 'running_var'))]
+    bn_stuck = [k for k in bn if torch.equal(now[k], init[k])]
+    if stuck or bn_stuck:
+        fail(f'{label}: {len(stuck)} parameter tensors and {len(bn_stuck)} '
+             f'BN statistics did not move: {(stuck + bn_stuck)[:8]}')
+    return len(names), len(bn)
+
+
+def supervised_phase(torch, mods, card, tmp):
+    """The fully supervised KITTI path on the workflow's mini KITTI (its
+    16 trainval scenes, the reduced clouds of stage 1, their Car /
+    Pedestrian / Cyclist GT): SECOND and PointPillars as shipped (f32,
+    B = 6, up to 24 000 points a scene).
+
+    1. SECOND: one recorded train step of a seeded trainer; every call of
+       gather_gemm_conv (12 forward, 7 SubM input gradients),
+       gather_gemm_dw (12) and gather_rows (4) replayed against its plain
+       version within the f32 gates (the same bits on a second call) and
+       timed per (K, C, D); the eval-mode BEV and head maps with the
+       kernels against the plain versions; one whole step with kernels
+       against plain.
+    2. Main path: ``train_supervised`` for SUP_STEPS steps (2 an epoch, a
+       checkpoint at each epoch's end), exact launches a step (19 / 12 /
+       4, nothing else), CUDA events around each step and at its stage
+       marks; gates: finite losses with positives, each step's lr, every
+       parameter and BN statistic moved, the head and decode from the
+       newest checkpoint equal to the in-memory weights' bit for bit.
+    3. ``infer_anchor`` on the 8 val scenes (12 launches a forward) and
+       ``kitti_eval`` on its detections.
+    4. PointPillars: ``train_supervised`` for SUP_PP_STEPS steps, no
+       kernel launch, finite losses with positives, moved weights."""
+    import os
+    import pickle
+
+    from gga_tpu_torch import apis, tools_lib
+    from gga_tpu_torch.config import Config
+    from gga_tpu_torch.data.kitti_det import KittiDetDataset
+    from gga_tpu_torch.eval.kitti_eval import kitti_eval
+    from gga_tpu_torch.eval.submission import detections_to_kitti_annos
+    from gga_tpu_torch.ops import sparse as sp
+    from gga_tpu_torch.train import checkpoints as ckpt
+    from gga_tpu_torch.train.optim import cyclic_cos_schedule
+    sparse_conv, gr, _ = mods
+
+    data = os.path.join(tmp, 'kitti')
+    opts = ['--cfg-options', f'data_root={data}/',
+            f'data.train_info={SUP_INFO}', *SUP_OPTIONS]
+    config = str(ROOT / SUP_SECOND)
+    cfg = Config.fromfile(config).merge_from_options(
+        dict(kv.split('=', 1) for kv in opts[1:]))
+    model_cfg = tools_lib.model_config_from_cfg(cfg)
+    batch = cfg.data.samples_per_gpu
+    d = cfg.data
+    dataset = KittiDetDataset(data, os.path.join(data, SUP_INFO),
+                              pc_range=cfg.point_cloud_range,
+                              pts_prefix=d.pts_prefix,
+                              max_points=d.max_points, seed=cfg.seed)
+    print(f'supervised: SECOND (grid {model_cfg.sparse_shape}, '
+          f'{model_cfg.max_voxels} voxels, encoder '
+          f'{model_cfg.encoder_channels}) on the mini KITTI\'s '
+          f'{len(dataset)} trainval scenes, B = {batch} x {d.max_points} '
+          'points, f32')
+    res = {}
+
+    # --- 1. one recorded step: every kernel call against its plain version
+    b0 = {k: torch.as_tensor(v, device=DEVICE) for k, v in
+          next(dataset.epoch_batches(batch, seed=0)).items()}
+    trainer = apis.init_anchor_trainer(model_cfg, 10, device=DEVICE,
+                                       seed=cfg.seed)
+    logs0, rec, _ = recorded_step(torch, apis, sp, mods, trainer, b0,
+                                  step_fn=apis.anchor_train_step)
+    finite_logs(torch, logs0, 'supervised recorded step')
+    n_rec = {k: len(v) for k, v in rec.items()}
+    want = {k: SUP_PER_STEP[k] for k in n_rec}
+    if n_rec != want:
+        fail(f'supervised recorded step: kernel calls {n_rec}, expected '
+             f'{want}')
+    torch.set_grad_enabled(False)
+    conv_rows, dwr, _ = train_kernel_rows(
+        torch, sparse_conv, rec, 'supervised kernels', SUP_CONVS, SUP_DGRAD)
+    # SECOND's gather sources (at most 16 000 x 64 f32) fit in the L2, so
+    # a warm replay reads them from there, faster than the HBM bound: its
+    # replays run on a cold L2
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=DEVICE)
+    gr_rows = rows_rows(torch, gr, [a for _, a in rec['gather_rows']], False,
+                        'supervised kernels', flush)
+    del flush, rec
+    res['plain_comparison'] = anchor_plain_comparison(
+        torch, mods, trainer.model, b0['points'], b0['points_valid'])
+    torch.set_grad_enabled(True)
+    print('supervised kernel vs plain forward (eval mode): ' + ', '.join(
+        f'{k} err {v["max_abs_err"]:.4g} (max {v["max_abs_plain"]:.4g})'
+        for k, v in res['plain_comparison'].items()))
+    cmp_step = step_comparison(torch, mods, trainer, b0, anchor_loss,
+                               SUP_CONVS)
+    print_step_comparison('supervised whole step kernels vs plain', cmp_step)
+    res.update(step_comparison=cmp_step, recorded_logs={
+        k: float(v) for k, v in logs0.items()})
+    del trainer, b0
+    torch.cuda.empty_cache()
+
+    # --- 2. the main path: the CLI --------------------------------------
+    work = os.path.join(tmp, 'work_second')
+    summ, trainer = supervised_run(
+        torch, mods, card, [config, '--work-dir', work, '--max-steps',
+                            str(SUP_STEPS), '--device', DEVICE, *opts],
+        SUP_PER_STEP, batch, 'supervised SECOND')
+    sched = cyclic_cos_schedule(cfg.optimizer.lr, total_steps=SUP_STEPS)
+    for ln in summ['lines']:
+        want = sched(ln['step'] - 1)
+        if not abs(ln['lr'] - want) <= 1e-12 * want:
+            fail(f'supervised: step {ln["step"]} ran at lr {ln["lr"]}, the '
+                 f'schedule gives {want}')
+    n_par, n_bn = moved_from_init(torch, apis, model_cfg, trainer,
+                                  'supervised SECOND', cfg.seed)
+    print(f'supervised: all {n_par} parameter tensors and {n_bn} BN '
+          'statistics moved; occupancy_out a step '
+          f'{[round(v, 4) for v in summ["occupancy_out"]]}')
+    ckpt_dir = summ['ckpt_dir']
+    steps = sorted(int(f[5:-3]) for f in os.listdir(ckpt_dir))
+    per = summ['steps_per_epoch']
+    if steps != sorted({min(e, SUP_STEPS) for e in range(
+            per, SUP_STEPS + per, per)}) or len(steps) < 2:
+        fail(f'supervised: checkpoints at steps {steps}, {per} steps an '
+             'epoch')
+    t0 = time.perf_counter()
+    state = ckpt.load_variables(ckpt_dir)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    with open(os.path.join(data, SUP_VAL_INFO), 'rb') as f:
+        val_infos = pickle.load(f)
+    val = KittiDetDataset(data, os.path.join(data, SUP_VAL_INFO),
+                          pc_range=cfg.point_cloud_range,
+                          pts_prefix=d.pts_prefix, max_points=d.max_points,
+                          test_mode=True)
+    vb = next(val.epoch_batches(SUP_EVAL_BATCH, shuffle=False))
+    live_b = apis.DetectorBundle(trainer.model, model_cfg,
+                                 torch.device(DEVICE))
+    bundle = apis.init_anchor_detector(model_cfg, state, device=DEVICE)
+    outs = []
+    for b_ in (live_b, bundle):
+        with torch.no_grad():
+            maps = b_.model.eval()(
+                torch.as_tensor(vb['points'], device=DEVICE),
+                torch.as_tensor(vb['points_valid'], device=DEVICE))
+        outs.append(dict(maps, **{
+            f'decode.{k}': v for k, v in apis.infer_anchor(
+                b_, vb['points'], vb['points_valid']).items()}))
+    for key, v in outs[0].items():
+        if not bits_equal(torch, v, outs[1][key]):
+            fail(f'supervised: {key} from step_{SUP_STEPS}.pt differs from '
+                 'the in-memory weights')
+    print(f'supervised: the head maps and decode of {SUP_EVAL_BATCH} val '
+          f'scenes from step_{SUP_STEPS}.pt equal the in-memory weights\' '
+          f'bit for bit ({int(outs[0]["decode.valid"].sum())} kept boxes)')
+    print(f'{card}: supervised checkpoints: '
+          f'{summ["ckpt_bytes"] / 2 ** 20:.1f} MiB each, save ms '
+          f'{[round(v, 1) for v in summ["ckpt_save_ms"]]}, load '
+          f'{load_ms:.1f} ms')
+    # one more step of the CLI's trainer under the profiler: busy share
+    # and the kernels with the most device time
+    b1 = next(dataset.epoch_batches(batch, seed=1))
+    prof = device_profile(torch, lambda: apis.anchor_train_step(trainer, b1))
+    print_profile('supervised SECOND train step', prof)
+    res.update(train={k: v for k, v in summ.items() if k != 'lines'},
+               losses=[ln['loss'] for ln in summ['lines']],
+               lrs=[ln['lr'] for ln in summ['lines']],
+               num_pos=[ln['num_pos'] for ln in summ['lines']],
+               ckpt_load_ms=load_ms, profile=prof)
+    del trainer, live_b, outs
+    torch.cuda.empty_cache()
+
+    # --- 3. inference on the val scenes and the KITTI eval ---------------
+    detections, ms = [], []
+    zero_counts(mods)
+    for vb in val.epoch_batches(SUP_EVAL_BATCH, shuffle=False):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = apis.infer_anchor(bundle, vb['points'], vb['points_valid'])
+        end.record()
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        ms.append(start.elapsed_time(end))
+        for j in range(SUP_EVAL_BATCH):
+            v = out['valid'][j]
+            detections.append(dict(boxes_3d=out['boxes'][j][v],
+                                   scores_3d=out['scores'][j][v],
+                                   labels_3d=out['labels'][j][v]))
+    got = counts(mods)
+    n_fwd = len(ms)
+    want = dict(SUP_PER_STEP, gather_gemm_conv=SUP_CONVS * n_fwd,
+                gather_gemm_dw=0, gather_rows=0)
+    if got != want or len(detections) != len(val_infos):
+        fail(f'supervised: infer_anchor launched {got} in {n_fwd} forwards '
+             f'over {len(detections)} scenes, expected {want} over '
+             f'{len(val_infos)}')
+    det_annos = detections_to_kitti_annos(detections, val_infos,
+                                          KittiDetDataset.CLASSES)
+    _, ap = kitti_eval([i['annos'] for i in val_infos], det_annos,
+                       list(KittiDetDataset.CLASSES))
+    if 'KITTI/Car_3D_AP11_moderate_strict' not in ap:
+        fail('supervised: kitti_eval gave no Car 3D AP')
+    res['eval'] = dict(scenes=len(detections), forward_ms=ms,
+                       scenes_per_s=len(detections) / (sum(ms) / 1e3),
+                       detections=sum(len(x['scores_3d'])
+                                      for x in detections), launches=got,
+                       car_3d_ap11_mod=ap['KITTI/Car_3D_AP11_moderate_strict'])
+    print(f'{card}: supervised infer_anchor on {len(detections)} val scenes '
+          f'(batches of {SUP_EVAL_BATCH}): {res["eval"]["scenes_per_s"]:.2f} '
+          f'scenes/s by CUDA events around each call (forward, decode, NMS), '
+          f'{res["eval"]["detections"]} detections; KITTI Car 3D AP11 '
+          f'moderate {res["eval"]["car_3d_ap11_mod"]:.4g}; launches {got}')
+    del bundle
+    torch.cuda.empty_cache()
+
+    # --- 4. PointPillars as shipped through the same CLI -----------------
+    pp_config = str(ROOT / SUP_PILLARS)
+    pp_cfg = Config.fromfile(pp_config)
+    pp_summ, pp_trainer = supervised_run(
+        torch, mods, card, [pp_config, '--work-dir',
+                            os.path.join(tmp, 'work_pointpillars'),
+                            '--max-steps', str(SUP_PP_STEPS), '--device',
+                            DEVICE, *opts],
+        dict.fromkeys(SUP_PER_STEP, 0), pp_cfg.data.samples_per_gpu,
+        'supervised PointPillars')
+    n_par, n_bn = moved_from_init(
+        torch, apis, tools_lib.model_config_from_cfg(pp_cfg), pp_trainer,
+        'supervised PointPillars', pp_cfg.seed)
+    print(f'supervised PointPillars: all {n_par} parameter tensors and '
+          f'{n_bn} BN statistics moved; no kernel launched')
+    res['pointpillars'] = {k: v for k, v in pp_summ.items() if k != 'lines'}
+    res['pointpillars'].update(
+        losses=[ln['loss'] for ln in pp_summ['lines']],
+        num_pos=[ln['num_pos'] for ln in pp_summ['lines']])
+    res.update(conv_calls=conv_rows, dw_calls=dwr, gather_rows=gr_rows)
+    return res
+
+
 def scene_points(torch, dev, seed):
     """(points, valid) of one bench-point batch on ``dev``."""
     b = make_batch(B, P, M_OBJ, PC, seed)
@@ -2242,23 +2691,27 @@ def train_batch(torch, dev, seed):
             for k, v in make_batch(B, P, M_OBJ, PC, seed).items()}
 
 
-def train_kernel_rows(torch, sparse_conv, rec, label):
+def train_kernel_rows(torch, sparse_conv, rec, label, n_convs=None,
+                      n_dgrad=None):
     """The recorded step's gather_gemm_conv calls (forward, then the
     submanifold input gradients) and gather_gemm_dw calls, replayed
-    against their plain versions and timed."""
+    against their plain versions and timed; ``n_convs`` and ``n_dgrad``
+    (by default the GGA step's) are their expected counts."""
+    n_convs = N_CONVS if n_convs is None else n_convs
+    n_dgrad = N_DGRAD if n_dgrad is None else n_dgrad
     conv_calls = rec['gather_gemm_conv']
     fwd_calls = [a for ph, a in conv_calls if ph == 'forward']
     dgrad_calls = [a for ph, a in conv_calls if ph == 'backward']
-    if (len(fwd_calls), len(dgrad_calls)) != (N_CONVS, N_DGRAD):
+    if (len(fwd_calls), len(dgrad_calls)) != (n_convs, n_dgrad):
         fail(f'{label}: {len(fwd_calls)} forward and {len(dgrad_calls)} '
-             f'input-gradient convs, expected {N_CONVS} and {N_DGRAD}')
+             f'input-gradient convs, expected {n_convs} and {n_dgrad}')
     conv_rows = [conv_row(torch, sparse_conv, *a, f'{label} call {i}')
                  for i, a in enumerate(fwd_calls + dgrad_calls)]
     print_conv_rows(f'{label}: gather_gemm_conv vs plain at the step\'s '
-                    f'{N_CONVS} forward calls', conv_rows[:N_CONVS])
+                    f'{n_convs} forward calls', conv_rows[:n_convs])
     print_conv_rows(f'{label}: gather_gemm_conv vs plain at the step\'s '
-                    f'{N_DGRAD} submanifold input-gradient calls',
-                    conv_rows[N_CONVS:])
+                    f'{n_dgrad} submanifold input-gradient calls',
+                    conv_rows[n_convs:])
     dwr = dw_rows(torch, sparse_conv, rec['gather_gemm_dw'], label)
     return conv_rows, dwr, fwd_calls
 
@@ -2270,7 +2723,8 @@ def print_step_comparison(label, cmp_step):
           f'{cmp_step["grad_norm_plain"]:.8g} (rel '
           f'{cmp_step["grad_norm_rel"]:.3g}; plain step, one ulp of input '
           f'noise: {cmp_step["grad_norm_rel_plain_ulp_noise"]:.3g}), min '
-          f'cosine of the {N_CONVS} sparse conv weight gradients '
+          f'cosine of the {cmp_step["conv_weight_grads"]} sparse conv weight '
+          'gradients '
           f'{cmp_step["min_cosine"]:.8f} (plain step, one ulp of input '
           f'noise: {cmp_step["min_cosine_plain_ulp_noise"]:.8f}); batch-norm '
           f'updates of {cmp_step["bn_buffers"]} buffers within '
@@ -2445,6 +2899,9 @@ def main():
         torch.cuda.empty_cache()
         # --- the indoor retrain: FCAF3D through its CLI, then its eval ---
         ind = indoor_phase(torch, mods, card, tmp)
+        torch.cuda.empty_cache()
+        # --- the supervised KITTI path: SECOND and PointPillars ---
+        sup = supervised_phase(torch, mods, card, tmp)
 
     launches, launches_f32 = tr['launches'], f32['train']['launches']
     kernels = [
@@ -2485,6 +2942,19 @@ def main():
             'launches', 'max_abs_err', 'ms', 'device_ms', 'plain_ms',
             'bound_ms', 'bound_by', 'bound_share', 'device_bound_share',
             'ffma_bound_ms')}
+    # SECOND's step (f32): both sparse-conv kernels and gather_rows
+    for entry, key, rows, lib in (
+            (kernels[2], 'gather_gemm_conv', sup['conv_calls'], None),
+            (kernels[3], 'gather_gemm_dw', sup['dw_calls'], None),
+            (kernels[4], 'gather_rows', sup['gather_rows'],
+             sum(r['library_ms'] for r in sup['gather_rows']))):
+        e = kernel_entry(entry['name'], entry['source'].split('/')[-1],
+                         entry['replaces'], sup['train']['launches'][key],
+                         rows, library_ms=lib)
+        entry['second'] = {k: e[k] for k in (
+            'launches', 'max_abs_err', 'ms', 'device_ms', 'plain_ms',
+            'bound_ms', 'bound_by', 'bound_share', 'device_bound_share',
+            'ffma_bound_ms', 'library_ms')}
     print('kernels, summed over the train path\'s calls (ms by CUDA '
           'events, device ms by the profiler, share of the bound):')
     for k in kernels:
@@ -2496,11 +2966,14 @@ def main():
               + ('' if k['ffma_bound_ms'] is None else
                  f'  FFMA bound {k["ffma_bound_ms"]:.5f} (device share '
                  f'{share(k["ffma_bound_ms"], k["device_ms"])})'))
-        if 'indoor' in k:
-            d = k['indoor']
-            print(f'  {"":20s} indoor: {d["launches"]:4d} launches in '
-                  f'{sum(r["steps"] for r in ind["train"])} FCAF3D steps; '
-                  f'one step: ms {d["ms"]:.4f}  device '
+        for path, steps in (('indoor', sum(r['steps']
+                                           for r in ind['train'])),
+                            ('second', sup['train']['steps'])):
+            if path not in k:
+                continue
+            d = k[path]
+            print(f'  {"":20s} {path}: {d["launches"]:4d} launches in '
+                  f'{steps} steps; one step: ms {d["ms"]:.4f}  device '
                   f'{fmt_ms(d["device_ms"])}  bound {d["bound_ms"]:.5f}  '
                   f'share {100 * d["bound_share"]:.1f}% / '
                   f'{share(d["bound_ms"], d["device_ms"])}  plain '
@@ -2519,7 +2992,8 @@ def main():
                        train_conv_calls=conv_rows, train_dw_calls=dwr,
                        train_gather_rows=gr_rows, train_gather_rows_t=grt_rows,
                        train_heatmap=hm_rows, step_comparison=cmp_step,
-                       f32=f32, workflow=wf, stage4=s4, indoor=ind),
+                       f32=f32, workflow=wf, stage4=s4, indoor=ind,
+                       supervised=sup),
                   fh, indent=1, default=str)
 
     print(card)

@@ -4,8 +4,9 @@ a config file and a checkpoint dir) and run stage-3 pseudo-label
 inference on a batch of clouds or a list of scene infos, or build a
 trainer and take GGA weak train steps; for stage 4, build the PGD
 monocular detector or its trainer, take PGD train steps and run its
-inference on a batch of images; and for the indoor retrain, the same for
-the FCAF3D detector on batches of coloured point clouds."""
+inference on a batch of images; for the indoor retrain, the same for
+the FCAF3D detector on batches of coloured point clouds; and for the
+fully supervised KITTI path, the same for SECOND and PointPillars."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,9 +18,11 @@ import torch
 from .device import resolve_device
 from .models.detectors.centerpoint_gga import (GGADetector, GGAModelConfig,
                                                decode_detections)
-from .models.dense_heads import fcaf3d_head, pgd_head
+from .models.dense_heads import anchor3d_head, fcaf3d_head, pgd_head
 from .models.detectors.fcaf3d import FCAF3DDetector, FCAF3DModelConfig
 from .models.detectors.pgd import PGDDetector, PGDModelConfig
+from .models.detectors.voxelnet import (PointPillars, PointPillarsConfig,
+                                        SECONDDetector, SECONDNetConfig)
 from .models.layers import init_params
 from .train import loop
 from .train.loop import TrainState, gga_train_step
@@ -335,3 +338,80 @@ def infer_indoor(bundle: DetectorBundle, points, colors, points_valid):
                  torch.as_tensor(colors, dtype=torch.float32, device=dev),
                  torch.as_tensor(points_valid, dtype=torch.bool, device=dev))
     return fcaf3d_head.decode(model.cfg.head, outs)
+
+
+_ANCHOR_DETECTORS = {SECONDNetConfig: SECONDDetector,
+                     PointPillarsConfig: PointPillars}
+
+
+def init_anchor_detector(cfg, state_dict=None, device='cuda',
+                         seed=0) -> DetectorBundle:
+    """SECOND (``SECONDNetConfig``) or PointPillars (``PointPillarsConfig``)
+    in eval mode on ``device``.
+
+    With a ``state_dict`` (e.g. from ``convert.from_jax_variables``) the
+    weights are loaded strictly; without one they are drawn from
+    ``torch.Generator().manual_seed(seed)`` (``init_weights``). Raises if
+    ``device`` is CUDA and no card is present, or if ``cfg`` cannot run
+    there (``check_compute_dtype``)."""
+    dev = resolve_device(device)
+    check_compute_dtype(cfg, dev)
+    model = _ANCHOR_DETECTORS[type(cfg)](cfg)
+    if state_dict is None:
+        model.init_weights(torch.Generator().manual_seed(seed))
+    else:
+        model.load_state_dict(state_dict)
+    return DetectorBundle(model.to(dev).eval(), cfg, dev)
+
+
+def init_anchor_trainer(cfg, total_steps, state_dict=None, device='cuda',
+                        seed=0, optimizer=None) -> TrainState:
+    """SECOND or PointPillars in train mode on ``device`` with the KITTI
+    recipe's optimizer (``build_optimizer(params, total_steps,
+    **optimizer)``: clip, AdamW, the cyclic lr and beta1; gga_tpu's
+    ``tools/train_supervised.py:76-79`` passes lr, weight_decay,
+    grad_clip and betas). Weights as ``init_anchor_detector``."""
+    model = init_anchor_detector(cfg, state_dict, device, seed).model.train()
+    return TrainState(model=model,
+                      optimizer=build_optimizer(model.parameters(),
+                                                total_steps,
+                                                **(optimizer or {})),
+                      step=0, generator=torch.Generator().manual_seed(seed))
+
+
+_DET_DTYPES = dict(points=torch.float32, points_valid=torch.bool,
+                   gt_boxes=torch.float32, gt_labels=torch.int64,
+                   gt_valid=torch.bool)
+
+
+def anchor_train_step(trainer: TrainState, batch, mark=None, diag=None):
+    """One supervised train step on a batch of ``KittiDetDataset``
+    samples (as tensors or numpy). ``mark`` is the step's stage hook and
+    ``diag`` a dict for the encoder's occupancy (``loop.anchor_train_step``).
+    Returns the step's logs as 0-d tensors on the trainer's device."""
+    dev = next(trainer.model.parameters()).device
+    b = {k: torch.as_tensor(batch[k], dtype=dt, device=dev)
+         for k, dt in _DET_DTYPES.items()}
+    return loop.anchor_train_step(trainer, b, mark, diag)
+
+
+@torch.no_grad()
+def infer_anchor(bundle: DetectorBundle, points, points_valid):
+    """SECOND or PointPillars inference on a batch: forward in eval mode,
+    anchors at the map's size, decode + rotated NMS a class.
+
+    Args:
+        points: [B, P, 4] f32 (tensor or numpy); points_valid: [B, P] bool.
+    Returns:
+        ``anchor3d_head.decode``'s dict (boxes [B, C*max_num, 7]
+        bottom-centre lidar, scores, labels, valid) on the bundle's device.
+    """
+    model = bundle.model.eval()
+    preds = model(torch.as_tensor(points, dtype=torch.float32,
+                                  device=bundle.device),
+                  torch.as_tensor(points_valid, dtype=torch.bool,
+                                  device=bundle.device))
+    cfg = bundle.cfg.head
+    anchors = anchor3d_head.make_anchors(cfg, tuple(preds['cls'].shape[1:3]),
+                                         preds['cls'].device)
+    return anchor3d_head.decode(cfg, preds, anchors)

@@ -5,9 +5,11 @@ port's own copy of the GGA rule table and layout transforms of
 ``tools/model_converters/torch2flax.py`` (``gga_rules``,
 ``_gga_transform``), run from flax to torch, and the same for the stage-4
 PGD detector (``pgd_rules``: flax's automatic names of ResNet, FPN and
-PGDHead to mmdet3d's keys) and the indoor FCAF3D detector
-(``fcaf3d_rules``). A released mmdet3d GGA checkpoint loads into the port
-directly, with no conversion.
+PGDHead to mmdet3d's keys), the indoor FCAF3D detector
+(``fcaf3d_rules``) and the supervised SECOND and PointPillars
+(``second_rules``, ``pointpillars_rules``; gga_tpu has no converter
+rules for these two, so theirs stand alone). A released mmdet3d GGA
+checkpoint loads into the port directly, with no conversion.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from .models.backbones import mink_resnet
 from .models.backbones.resnet import ARCH
 from .models.detectors.fcaf3d import FCAF3DModelConfig
 from .models.detectors.pgd import PGDModelConfig
+from .models.detectors.voxelnet import PointPillarsConfig, SECONDNetConfig
 
 
 def _bn_moves(torch_prefix, flax_prefix):
@@ -30,6 +33,36 @@ def _bn_moves(torch_prefix, flax_prefix):
              f'{flax_prefix}/mean', 'copy'),
             (f'{torch_prefix}.running_var', 'batch_stats',
              f'{flax_prefix}/var', 'copy')]
+
+
+def _second_fpn_rules(cfg, backbone, neck):
+    """SECOND (``backbone``) + SECONDFPN (``neck``) of any of gga_tpu's
+    detectors that build them under ``SECOND_0`` / ``SECONDFPN_0``."""
+    rules = []
+    cm = 0
+    for s, num in enumerate(cfg.backbone_layers):
+        for j in range(num + 1):
+            f = f'SECOND_0/ConvModule2d_{cm}'
+            rules.append((f'{backbone}.blocks.{s}.{3 * j}.weight', 'params',
+                          f'{f}/Conv_0/kernel', 'conv2d'))
+            rules.extend(_bn_moves(f'{backbone}.blocks.{s}.{3 * j + 1}',
+                                   f'{f}/BatchNorm2d_0/BatchNorm_0'))
+            cm += 1
+    n_conv = n_dec = 0
+    for i, stride in enumerate(cfg.neck_strides):
+        t = f'{neck}.deblocks.{i}'
+        if stride > 1:
+            rules.append((f'{t}.0.weight', 'params',
+                          f'SECONDFPN_0/ConvTranspose_{n_dec}/kernel',
+                          'deconv2d'))
+            n_dec += 1
+        else:
+            rules.append((f'{t}.0.weight', 'params',
+                          f'SECONDFPN_0/Conv_{n_conv}/kernel', 'conv2d'))
+            n_conv += 1
+        rules.extend(_bn_moves(f'{t}.1',
+                               f'SECONDFPN_0/BatchNorm2d_{i}/BatchNorm_0'))
+    return rules
 
 
 def gga_rules(cfg):
@@ -76,32 +109,7 @@ def gga_rules(cfg):
                   f'sparse3d:{ch}:{cfg.encoder_out_channels}'))
     bn(f'{me}.conv_out.1', f'{enc}/SparseConvBlock_{n_sc}/MaskedBatchNorm_0')
 
-    # SECOND
-    cm = 0
-    for s, num in enumerate(cfg.backbone_layers):
-        for j in range(num + 1):
-            t = f'pts_backbone.blocks.{s}.{3 * j}'
-            f = f'SECOND_0/ConvModule2d_{cm}'
-            rules.append((f'{t}.weight', 'params', f'{f}/Conv_0/kernel',
-                          'conv2d'))
-            bn(f'pts_backbone.blocks.{s}.{3 * j + 1}',
-               f'{f}/BatchNorm2d_0/BatchNorm_0')
-            cm += 1
-
-    # SECONDFPN
-    n_conv = n_dec = 0
-    for i, stride in enumerate(cfg.neck_strides):
-        t = f'pts_neck.deblocks.{i}'
-        if stride > 1:
-            rules.append((f'{t}.0.weight', 'params',
-                          f'SECONDFPN_0/ConvTranspose_{n_dec}/kernel',
-                          'deconv2d'))
-            n_dec += 1
-        else:
-            rules.append((f'{t}.0.weight', 'params',
-                          f'SECONDFPN_0/Conv_{n_conv}/kernel', 'conv2d'))
-            n_conv += 1
-        bn(f'{t}.1', f'SECONDFPN_0/BatchNorm2d_{i}/BatchNorm_0')
+    rules.extend(_second_fpn_rules(cfg, 'pts_backbone', 'pts_neck'))
 
     # CenterHead
     hd = 'CenterHead_0'
@@ -251,6 +259,60 @@ def fcaf3d_rules(cfg: FCAF3DModelConfig):
     return rules
 
 
+def _anchor_rules(cfg):
+    """SECOND + SECONDFPN + Anchor3DHead under mmdet3d's VoxelNet names.
+    The head's channels keep gga_tpu's order (anchor class, rotation,
+    value); a released mmdet3d checkpoint may need them reordered."""
+    rules = _second_fpn_rules(cfg, 'backbone', 'neck')
+    for t, f in (('conv_cls', 'conv_cls'), ('conv_reg', 'conv_reg'),
+                 ('conv_dir_cls', 'conv_dir')):
+        rules.append((f'bbox_head.{t}.weight', 'params',
+                      f'Anchor3DHead_0/{f}/kernel', 'conv2d'))
+        rules.append((f'bbox_head.{t}.bias', 'params',
+                      f'Anchor3DHead_0/{f}/bias', 'copy'))
+    return rules
+
+
+def second_rules(cfg: SECONDNetConfig):
+    """(torch_key, collection, flax_path, transform) for every tensor of
+    gga_tpu's ``SECONDDetector``: its conv_module SparseEncoder numbers
+    every block ``SparseConvBlock_<n>`` in build order (SubM and strided
+    alike, conv_out last); conv_input is 4 -> 16 whatever the first
+    stage's width, as gga_tpu builds it."""
+    enc, me = 'SparseEncoder_0', 'middle_encoder'
+    rules = [(f'{me}.conv_input.0.weight', 'params',
+              f'{enc}/SubMConv3dMapped_0/kernel', 'sparse3d:4:16')]
+    rules.extend(_bn_moves(f'{me}.conv_input.1', f'{enc}/MaskedBatchNorm_0'))
+    n, ch = 0, 16
+    for i, blocks in enumerate(cfg.encoder_channels):
+        for j, out_ch in enumerate(blocks):
+            f = f'{enc}/SparseConvBlock_{n}'
+            t = f'{me}.encoder_layers.encoder_layer{i + 1}.{j}'
+            conv = 'SparseConv3d_0' if i and not j else 'SubMConv3d_0'
+            rules.append((f'{t}.0.weight', 'params', f'{f}/{conv}/kernel',
+                          f'sparse3d:{ch}:{out_ch}'))
+            rules.extend(_bn_moves(f'{t}.1', f'{f}/MaskedBatchNorm_0'))
+            n, ch = n + 1, out_ch
+    f = f'{enc}/SparseConvBlock_{n}'
+    rules.append((f'{me}.conv_out.0.weight', 'params',
+                  f'{f}/SparseConv3d_0/kernel', f'sparse3d:{ch}:128'))
+    rules.extend(_bn_moves(f'{me}.conv_out.1', f'{f}/MaskedBatchNorm_0'))
+    return rules + _anchor_rules(cfg)
+
+
+def pointpillars_rules(cfg: PointPillarsConfig):
+    """(torch_key, collection, flax_path, transform) for every tensor of
+    gga_tpu's ``PointPillars`` (its scatter has no parameters)."""
+    rules = []
+    for i in range(len(cfg.pfn_channels)):
+        t = f'voxel_encoder.pfn_layers.{i}'
+        rules.append((f'{t}.linear.weight', 'params',
+                      f'PillarFeatureNet_0/Dense_{i}/kernel', 'linear'))
+        rules.extend(_bn_moves(f'{t}.norm',
+                               f'PillarFeatureNet_0/MaskedBatchNorm_{i}'))
+    return rules + _anchor_rules(cfg)
+
+
 def _to_torch_layout(name, x):
     """One flax tensor -> its mmdet3d state_dict layout."""
     x = np.asarray(x)
@@ -259,6 +321,8 @@ def _to_torch_layout(name, x):
         _, i_ch, o_ch = name.split(':')
         dhw = (3, 1, 1) if x.shape[0] == 3 else (3, 3, 3)
         return x.reshape(*dhw, int(i_ch), int(o_ch)).transpose(4, 0, 1, 2, 3)
+    if name == 'linear':            # [I, O] -> [O, I]
+        return x.T
     if name == 'conv2d':            # [kh, kw, I, O] -> [O, I, kh, kw]
         return x.transpose(3, 2, 0, 1)
     if name == 'deconv2d':
@@ -279,19 +343,26 @@ def _flatten(tree, prefix=''):
     return out
 
 
+def rules_of(cfg):
+    """The rule table of the detector ``cfg`` describes."""
+    for cls, rules in ((PGDModelConfig, pgd_rules),
+                       (FCAF3DModelConfig, fcaf3d_rules),
+                       (SECONDNetConfig, second_rules),
+                       (PointPillarsConfig, pointpillars_rules)):
+        if isinstance(cfg, cls):
+            return rules(cfg)
+    return gga_rules(cfg)
+
+
 def from_jax_variables(variables_np, cfg):
     """gga_tpu ``{'params', 'batch_stats'}`` trees (nested dicts of numpy
-    arrays) of the detector ``cfg`` describes (a ``GGAModelConfig``, a
-    ``PGDModelConfig`` or an ``FCAF3DModelConfig``) -> the port's
-    ``load_state_dict`` input (f32 tensors)."""
+    arrays) of the detector ``cfg`` describes (a ``GGAModelConfig``,
+    ``PGDModelConfig``, ``FCAF3DModelConfig``, ``SECONDNetConfig`` or
+    ``PointPillarsConfig``) -> the port's ``load_state_dict`` input (f32
+    tensors)."""
     flat = {c: _flatten(variables_np.get(c, {}))
             for c in ('params', 'batch_stats')}
-    if isinstance(cfg, PGDModelConfig):
-        rules = pgd_rules(cfg)
-    elif isinstance(cfg, FCAF3DModelConfig):
-        rules = fcaf3d_rules(cfg)
-    else:
-        rules = gga_rules(cfg)
+    rules = rules_of(cfg)
     out = {}
     for tk, coll, fp, tr in rules:
         if fp in flat[coll]:

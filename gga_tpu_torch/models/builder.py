@@ -1,14 +1,14 @@
 """Config-dict -> detector construction through the MODELS registry (the
 port's copy of ``gga_tpu/models/builder.py``: the GGA detector, the
-stage-4 PGD detector and the indoor FCAF3D detector; the rest of the zoo
-waits for its own slices).
+stage-4 PGD detector, the indoor FCAF3D detector and the fully supervised
+SECOND and PointPillars; the rest of the zoo waits for its own slices).
 
 ``config_from_dict`` converts the python config-file dict into the typed
 frozen dataclass (recursively, lists -> tuples, nested dicts -> nested
 config dataclasses merged over the field default). ``MODELS.get(type)``
 takes the FULL file-level Config and returns ``(model, model_cfg)``: the
-port's ``GGADetector``, ``PGDDetector`` or ``FCAF3DDetector`` (weights not
-yet drawn or loaded, on the CPU) and its config.
+port's detector of that type (weights not yet drawn or loaded, on the
+CPU) and its config.
 """
 from __future__ import annotations
 
@@ -19,6 +19,8 @@ from .dense_heads.centerpoint_head_gga import GGAHeadConfig
 from .detectors.centerpoint_gga import GGADetector, GGAModelConfig
 from .detectors.fcaf3d import FCAF3DDetector, FCAF3DModelConfig
 from .detectors.pgd import PGDDetector, PGDModelConfig
+from .detectors.voxelnet import (PointPillars, PointPillarsConfig,
+                                 SECONDDetector, SECONDNetConfig)
 
 
 def _tuplify(v):
@@ -70,21 +72,21 @@ def _build_gga(cfg):
     return GGADetector(mc), mc
 
 
-@MODELS.register(name='PGDDetector')
-def _build_pgd(cfg):
-    """The PGD config files keep the whole model in ``model``
-    (``configs/_base_/models/pgd.py``)."""
-    mc = config_from_dict(PGDModelConfig, dict(cfg['model']))
-    return PGDDetector(mc), mc
+def _register_family(name, cfg_cls, model_cls):
+    """A type whose config files keep the whole model in ``model`` (the
+    head merged over its config's defaults), as gga_tpu's families."""
+    @MODELS.register(name=name)
+    def _build(cfg):
+        mc = config_from_dict(cfg_cls, dict(cfg['model']))
+        return model_cls(mc), mc
+    _build.__name__ = f'build_{name}'
+    return _build
 
 
-@MODELS.register(name='FCAF3DDetector')
-def _build_fcaf3d(cfg):
-    """The FCAF3D config files keep the whole model in ``model``
-    (``configs/_base_/models/fcaf3d.py``, the head merged over
-    ``FCAF3DConfig``'s defaults)."""
-    mc = config_from_dict(FCAF3DModelConfig, dict(cfg['model']))
-    return FCAF3DDetector(mc), mc
+_register_family('PGDDetector', PGDModelConfig, PGDDetector)
+_register_family('FCAF3DDetector', FCAF3DModelConfig, FCAF3DDetector)
+_register_family('PointPillars', PointPillarsConfig, PointPillars)
+_register_family('SECONDDetector', SECONDNetConfig, SECONDDetector)
 
 
 def build_detector(cfg):

@@ -207,6 +207,19 @@ class SparseConvBlock(nn.Sequential):
         return st
 
 
+class SubMConvBlock(nn.Sequential):
+    """SubM conv + masked BN + ReLU on a shared neighbor map (mmdet3d's
+    submanifold ConvModule; state_dict children ``0`` conv, ``1`` norm)."""
+
+    def __init__(self, in_channels, out_channels):
+        super().__init__(SubMConv3d(in_channels, out_channels),
+                         MaskedBatchNorm(out_channels))
+
+    def forward(self, x, valid, nmap):
+        conv, bn = self[0], self[1]
+        return F.relu(bn(conv(x, valid, nmap), valid))
+
+
 class SparseBasicBlock(nn.Module):
     """ResNet BasicBlock on sparse rows: two SubM convs with BN, residual
     add, ReLU after each (the second after the add)."""

@@ -1,23 +1,31 @@
-"""Sparse middle encoder (port of ``gga_tpu/models/middle_encoders.py``
-``SparseEncoder``, row engine, basicblock variant)."""
+"""Middle encoders (port of ``gga_tpu/models/middle_encoders.py``): the
+sparse ``SparseEncoder`` on the row engine, in its basicblock (GGA) and
+conv_module (SECOND) variants, and PointPillars' ``PointPillarsScatter``."""
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops import sparse as sp
-from .layers import (MaskedBatchNorm, SparseBasicBlock, SparseConvBlock,
-                     SubMConv3d, flatten_nmap)
+from ..ops.scatter import pillar_scatter
+from .layers import (SparseBasicBlock, SparseConvBlock, SubMConvBlock,
+                     flatten_nmap)
 
 
 class SparseEncoder(nn.Module):
-    """SECOND's sparse encoder (gga_kitti_config.py:11-19): SubM(in->base),
-    four stages of SparseBasicBlocks, stages 0-2 closed by a stride-2
-    SparseConv3d, then conv_out with kernel (3, 1, 1) stride (2, 1, 1).
-    One neighbor map per active set is shared by all SubM convs on it.
+    """SECOND's sparse encoder: SubM(in->base) + BN + ReLU, four stages,
+    then conv_out with kernel (3, 1, 1) stride (2, 1, 1). One neighbor map
+    per active set is shared by all SubM convs on it.
+
+    ``block_type='basicblock'`` (gga_kitti_config.py:11-19): stages of
+    SparseBasicBlocks, stages 0-2 closed by a stride-2 SparseConv3d whose
+    budget is ``stage_budgets[i]``. ``block_type='conv_module'`` (SECOND,
+    mmdet3d's ``make_encoder_layers``): every block a SubM conv + BN +
+    ReLU, stages 1-3 opened by the stride-2 SparseConv3d (+ BN + ReLU)
+    with budget ``stage_budgets[i - 1]``; the encoder paddings of a SubM
+    block are not read (a SubM conv pads 1).
 
     Returns the dense BEV map NCHW [B, C*D, H, W], channels flattened
     channel-major over (C, D) like the reference's ``view(N, C*D, H, W)``.
@@ -32,6 +40,7 @@ class SparseEncoder(nn.Module):
                      (0, 0, 1), (0, 0, 1), (0, 0, (0, 1, 1)), (0, 0)),
                  stage_budgets: Sequence[int] = (16000, 16000, 16000),
                  out_budget: int = 16000,
+                 block_type: str = 'basicblock',
                  tile_stages: Tuple[int, ...] = (),
                  remat_blocks: bool = False,
                  tile_shape: Tuple[int, int, int] = (2, 4, 4),
@@ -42,27 +51,33 @@ class SparseEncoder(nn.Module):
             raise NotImplementedError(
                 'tile_stages, remat_blocks, tile_shape and tile_budgets are '
                 'TPU options of gga_tpu; the port runs the row engine only')
+        if block_type not in ('basicblock', 'conv_module'):
+            raise ValueError(f'block_type {block_type!r}')
         self.sparse_shape = tuple(sparse_shape)
         self.stage_budgets = tuple(stage_budgets)
         self.out_budget = out_budget
-        self.conv_input = nn.Sequential(
-            SubMConv3d(in_channels, base_channels),
-            MaskedBatchNorm(base_channels))
+        self.block_type = block_type
+        self.conv_input = SubMConvBlock(in_channels, base_channels)
         layers = {}
         ch = base_channels
         grid = self.sparse_shape
         n_stages = len(encoder_channels)
+        basic = block_type == 'basicblock'
         for i, blocks in enumerate(encoder_channels):
             layer = []
             for j, out_ch in enumerate(blocks):
-                if j == len(blocks) - 1 and i != n_stages - 1:
+                down = (j == len(blocks) - 1 and i != n_stages - 1 if basic
+                        else i != 0 and j == 0)
+                if down:
                     pad = encoder_paddings[i][j]
                     layer.append(SparseConvBlock(
                         ch, out_ch, (3, 3, 3), (2, 2, 2), pad,
-                        stage_budgets[i]))
+                        stage_budgets[i if basic else i - 1]))
                     grid = sp._ds_prep(grid, 3, 2, pad)[3]
-                else:
+                elif basic:
                     layer.append(SparseBasicBlock(out_ch))
+                else:
+                    layer.append(SubMConvBlock(ch, out_ch))
                 ch = out_ch
             layers[f'encoder_layer{i + 1}'] = nn.ModuleList(layer)
         self.encoder_layers = nn.ModuleDict(layers)
@@ -80,19 +95,19 @@ class SparseEncoder(nn.Module):
     def forward(self, feats, coords, valid, diag=None):
         """feats [B, V, C]; coords [B, V, 3] (z, y, x) sorted; valid [B, V].
 
-        With a dict ``diag``, records the budget occupancy after each
-        strided conv (``occupancy_stage{i}``, ``occupancy_out``: mean
-        active sites per scene over the budget; 1.0 means the budget
-        saturated), as gga_tpu sows them."""
+        With a dict ``diag``, records the budget occupancy (mean active
+        sites per scene over the budget; 1.0 means the budget saturated)
+        as gga_tpu sows it: ``occupancy_out`` after conv_out, and in the
+        basicblock variant ``occupancy_stage{i}`` after each strided
+        conv."""
         st = sp.SparseTensor(feats, coords, valid, self.sparse_shape)
         nmap = self._subm_map(st)
-        conv, bn = self.conv_input
-        st.features = F.relu(bn(conv(feats, valid, nmap), valid))
+        st.features = self.conv_input(feats, valid, nmap)
         for i, layer in enumerate(self.encoder_layers.values()):
             for block in layer:
                 if isinstance(block, SparseConvBlock):
                     st = block(st)
-                    if diag is not None:
+                    if diag is not None and self.block_type == 'basicblock':
                         diag[f'occupancy_stage{i}'] = _occupancy(
                             st.valid, self.stage_budgets[i])
                     nmap = self._subm_map(st)
@@ -123,3 +138,18 @@ def _densify(st):
     dense = dense.reshape(B, nz * ny * nx + 1, C)[:, :-1]
     return dense.reshape(B, nz, ny, nx, C).permute(0, 4, 1, 2, 3).reshape(
         B, C * nz, ny, nx)
+
+
+class PointPillarsScatter(nn.Module):
+    """Pillar features onto the dense BEV canvas (gga_tpu
+    ``PointPillarsScatter``, mmdet3d's pillar_scatter.py:10). No
+    parameters."""
+
+    def __init__(self, output_shape):
+        super().__init__()
+        self.output_shape = tuple(output_shape)     # (ny, nx)
+
+    def forward(self, feats, coords, valid):
+        """feats [B, V, C]; coords [B, V, 3] (z, y, x); valid [B, V] ->
+        NCHW [B, C, ny, nx]."""
+        return pillar_scatter(feats, coords, valid, self.output_shape)

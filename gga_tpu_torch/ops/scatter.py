@@ -1,9 +1,38 @@
-"""Point-to-voxel scatter (port of ``gga_tpu/ops/scatter.py``
-``dynamic_scatter_mean`` and ``assign_point_voxel_ids``, batched over
-scenes): the mean colour of each voxel of the FCAF3D detector."""
+"""Scatters (port of ``gga_tpu/ops/scatter.py``, batched over scenes):
+the pillars' features onto PointPillars' BEV canvas (``pillar_scatter``),
+and the point-to-voxel mean colour of the FCAF3D detector
+(``dynamic_scatter_mean``, ``assign_point_voxel_ids``)."""
 from __future__ import annotations
 
 import torch
+
+
+def pillar_scatter(voxel_features, coords, valid, grid_hw):
+    """Scatter pillar features onto a dense BEV canvas.
+
+    A scene's valid pillars have distinct (y, x), so every write of a
+    canvas cell is its only one; padding pillars write zeros to an
+    overflow cell that is cut away.
+
+    Args:
+        voxel_features: [B, V, C].
+        coords: [B, V, 3] int (z, y, x) voxel coords (z ignored).
+        valid: [B, V] bool (real pillars).
+        grid_hw: (H, W) = (ny, nx).
+    Returns:
+        [B, C, H, W] canvas in the features' dtype.
+    """
+    B, V, C = voxel_features.shape
+    H, W = grid_hw
+    c = coords.long()
+    lin = torch.where(valid, c[..., 1] * W + c[..., 2], H * W)
+    rows = (torch.arange(B, device=lin.device)[:, None] * (H * W + 1)
+            + lin).reshape(-1)
+    canvas = voxel_features.new_zeros(B * (H * W + 1), C)
+    canvas[rows] = torch.where(valid[..., None], voxel_features,
+                               0).reshape(-1, C)
+    canvas = canvas.reshape(B, H * W + 1, C)[:, :H * W]
+    return canvas.permute(0, 2, 1).reshape(B, C, H, W)
 
 
 def dynamic_scatter_mean(point_features, point_voxel_ids, valid, num_voxels):

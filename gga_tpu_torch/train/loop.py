@@ -2,9 +2,13 @@
 ``gga_tpu/train/loop.py``: forward in train mode, GGA targets, loss,
 backward through every sparse conv, global-norm clip and AdamW) and the
 stage-4 PGD step (``tools/train_pgd.py:128-149``: FCOS-mono targets, the
-PGD loss, backward, clip and SGD) and the indoor FCAF3D step
+PGD loss, backward, clip and SGD), the indoor FCAF3D step
 (``tools/train_fcaf3d.py:126-139``: forward in train mode, targets and
-loss, backward through every sparse conv, clip and AdamW).
+loss, backward through every sparse conv, clip and AdamW) and the fully
+supervised anchor step of SECOND and PointPillars
+(``tools/train_supervised.py:86-108``: forward in train mode, anchors at
+the map's size, max-IoU assignment, the anchor loss, backward, clip and
+AdamW).
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ import dataclasses
 
 import torch
 
+from ..models.dense_heads import anchor3d_head as ah
 from ..models.dense_heads import centerpoint_head_gga as gga
 from ..models.dense_heads import fcaf3d_head
 from ..models.dense_heads import pgd_head
@@ -21,12 +26,13 @@ from .optim import GGAOptimizer
 
 @dataclasses.dataclass
 class TrainState:
-    model: GGADetector          # or PGDDetector, FCAF3DDetector
+    # or PGDDetector, FCAF3DDetector, SECONDDetector, PointPillars
+    model: GGADetector
     optimizer: GGAOptimizer     # or PGDOptimizer
     step: int
     # draws the per-step SRL prior samples (gga_tpu folds its key with the
     # step; the two streams differ, the distribution is the same); the
-    # PGD and FCAF3D steps draw nothing
+    # other steps draw nothing
     generator: torch.Generator
 
 
@@ -129,5 +135,41 @@ def fcaf3d_train_step(state: TrainState, batch, diag=None):
                                    batch['gt_labels'], batch['obj_valid'])
     total.backward()
     logs['grad_norm'] = state.optimizer.step()
+    state.step += 1
+    return {k: v.detach() for k, v in logs.items()}
+
+
+def anchor_train_step(state: TrainState, batch, mark=None, diag=None):
+    """One SECOND or PointPillars optimization step; updates ``state`` in
+    place.
+
+    Args:
+        batch: dict of tensors on the model's device: points [B, P, 4],
+            points_valid [B, P], gt_boxes [B, M, 7] (bottom-centre lidar),
+            gt_labels [B, M], gt_valid [B, M].
+        mark: called with the name of each stage as it is enqueued
+            ('forward', 'loss', 'backward', 'optimizer'); a timer hook.
+        diag: a dict for the encoder's budget occupancy, or None.
+    Returns:
+        logs: 0-d tensors: 'loss', 'loss_cls', 'loss_bbox', 'loss_dir',
+        'num_pos' and 'grad_norm' (of the unclipped gradients).
+    """
+    mark = mark or (lambda _: None)
+    model = state.model
+    model.train()
+    cfg = model.cfg.head
+    state.optimizer.zero_grad()
+    preds = model(batch['points'], batch['points_valid'], diag)
+    mark('forward')
+    anchors = ah.make_anchors(cfg, tuple(preds['cls'].shape[1:3]),
+                              preds['cls'].device)
+    targets = ah.assign_targets(cfg, anchors, batch['gt_boxes'],
+                                batch['gt_labels'], batch['gt_valid'])
+    total, logs = ah.loss(cfg, preds, anchors, targets)
+    mark('loss')
+    total.backward()
+    mark('backward')
+    logs['grad_norm'] = state.optimizer.step()
+    mark('optimizer')
     state.step += 1
     return {k: v.detach() for k, v in logs.items()}

@@ -150,8 +150,9 @@ def test_loss_and_its_gradients_match_gga_tpu(variant):
     def jloss(preds):
         return jgga.loss(jcfg, preds, jt, *ibp)
 
-    (jtotal, jlogs), jgrad = jax.value_and_grad(jloss, has_aux=True)(
-        [{k: jnp.asarray(v) for k, v in m.items()} for m in maps])
+    (jtotal, jlogs), jgrad = jax.jit(jax.value_and_grad(
+        jloss, has_aux=True))([{k: jnp.asarray(v) for k, v in m.items()}
+                               for m in maps])
     preds = [{k: torch.from_numpy(v).requires_grad_() for k, v in m.items()}
              for m in maps]
     total, logs = tgga.loss(tcfg, preds, tt, torch.from_numpy(b['ibp_xy']),

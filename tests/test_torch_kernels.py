@@ -24,6 +24,8 @@ plain version, on maps from the port's own builders where it takes maps:
 - render_heatmap at ``|kernel - plain| <= 1e-6`` (the two exps may differ
   by an ulp or two), with exactly the same pixels equal to 1.0.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -47,6 +49,37 @@ def _scene_maps(seed=0, B=2, P=3000, V=2048):
     *_, strided = sp.downsample_rulebook_compact(
         coords, valid, GRID, (3, 3, 3), (2, 2, 2), 1, 1024)
     return subm, strided, B * V
+
+
+@functools.lru_cache(maxsize=1)
+def _second_maps():
+    """SECOND's maps (``hv_second_secfpn_kitti``: 0.05 m voxels of a
+    41 x 1600 x 1408 grid): the input SubM map of one scene of 16 000
+    voxels, the stage-3 strided rulebook (padding (0, 1, 1)) and conv_out's
+    (3, 1, 1) stride (2, 1, 1) rulebook, the two on the scene voxels of
+    ``_scene_maps``; each with the rows it indexes."""
+    rng = np.random.RandomState(5)
+    pts = np.concatenate([rng.uniform(2, 60, (1, 20000, 1)),
+                          rng.uniform(-30, 30, (1, 20000, 1)),
+                          rng.uniform(-2.9, 0.9, (1, 20000, 1)),
+                          rng.rand(1, 20000, 1)], -1).astype(np.float32)
+    V = 16000
+    vox = hard_voxelize(torch.from_numpy(pts), torch.ones(1, 20000,
+                                                          dtype=bool),
+                        voxel_size=(0.05, 0.05, 0.1),
+                        pc_range=(0, -40, -3, 70.4, 40, 1), max_voxels=V)
+    valid = torch.arange(V)[None] < vox['num_voxels'][:, None]
+    assert int(valid.sum()) == V
+    subm = flatten_nmap(sp.build_neighbor_map(vox['coords'], valid,
+                                              (41, 1600, 1408)))
+    coords, valid = _voxels()
+    rows = coords.shape[0] * coords.shape[1]
+    *_, strided = sp.downsample_rulebook_compact(
+        coords, valid, GRID, (3, 3, 3), (2, 2, 2), (0, 1, 1), 1024)
+    *_, out = sp.downsample_rulebook_compact(
+        coords, valid, GRID, (3, 1, 1), (2, 1, 1), 0, 2048)
+    return dict(second_in=(subm, V), strided_z0=(strided, rows),
+                conv_out=(out, rows))
 
 
 def _strided_bwd_map(M=1024):
@@ -141,6 +174,12 @@ _CONV_CASES = [
     ('subm', 512, 512, 27, 2047), ('subm', 512, 128, 27, None),
     ('strided', 64, 64, 27, 1999), ('strided_bwd', 128, 64, 27, None),
     ('strided_bwd', 512, 256, 27, 3001),
+    # SECOND's encoder (conv_module): the input SubM on 16 000 rows, its
+    # strided convs 16 -> 32 and 32 -> 64, stage 3's with padding
+    # (0, 1, 1), and conv_out's (3, 1, 1) map
+    ('second_in', 4, 16, 27, None), ('strided', 16, 32, 27, None),
+    ('strided', 32, 64, 27, 2047), ('strided_z0', 64, 64, 27, None),
+    ('conv_out', 64, 128, 3, None),
 ]
 
 
@@ -156,6 +195,9 @@ def _case_map(which, k, q):
         nmap = (subm if which == 'subm' else strided).numpy()
     elif which == 'strided_bwd':
         nmap, rows = _strided_bwd_map()
+        nmap = nmap.numpy()
+    elif which in ('second_in', 'strided_z0', 'conv_out'):
+        nmap, rows = _second_maps()[which]
         nmap = nmap.numpy()
     else:
         rng = np.random.RandomState(11)
@@ -347,6 +389,10 @@ _DW_CASES = [
     ('strided', 3, 64, 27, None), ('subm', 256, 512, 27, None),
     ('subm', 512, 512, 27, 2047), ('subm', 512, 128, 27, None),
     ('strided', 64, 64, 27, 1999),
+    # SECOND's encoder, as in _CONV_CASES
+    ('second_in', 4, 16, 27, None), ('strided', 16, 32, 27, None),
+    ('strided', 32, 64, 27, None), ('strided_z0', 64, 64, 27, None),
+    ('conv_out', 64, 128, 3, None),
 ]
 
 

@@ -24,8 +24,8 @@ torch.set_num_threads(1)
 # gga_tpu's functions jitted: eager dispatch of the bitonic sort network
 # costs seconds per call on the CPU
 _jiou = jax.jit(jiou.rotated_iou_bev)
-_jnms = jax.jit(jnms.nms_bev, static_argnums=(2,),
-                static_argnames=('post_max_size',))
+# the threshold traced, so one compile serves every case
+_jnms = jax.jit(jnms.nms_bev, static_argnames=('post_max_size',))
 _jdets = jax.jit(jcp.get_task_detections,
                  static_argnames=('nms_thr', 'post_max_size'))
 

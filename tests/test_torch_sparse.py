@@ -7,6 +7,8 @@ Pallas ``_window_conv`` (interpret mode on the CPU) and the strided
 rulebook conv at rtol/atol 1e-5: both sum in f32, only the order of the
 sum differs.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -46,11 +48,17 @@ _jax_rulebook = jax.jit(jsp.downsample_rulebook_compact,
                         static_argnums=(2, 3, 4, 5, 6))
 
 
-def _jax_nmap(coords, valid, grid=GRID):
+@functools.lru_cache(maxsize=None)
+def _jax_nmap_fn(grid):
     def one(c, v):
         st = jsp.SparseTensor(jnp.zeros((c.shape[0], 1)), c, v, grid)
         return jsp.build_neighbor_map(st)
-    return jax.vmap(one)(jnp.asarray(coords), jnp.asarray(valid))
+    return jax.jit(jax.vmap(one))
+
+
+def _jax_nmap(coords, valid, grid=GRID):
+    """gga_tpu's neighbor maps of a batch, jitted once a grid."""
+    return _jax_nmap_fn(tuple(grid))(jnp.asarray(coords), jnp.asarray(valid))
 
 
 def _port_nmap(coords, valid, grid=GRID):

@@ -69,8 +69,8 @@ def _close(out, ref):
 
 
 def _jax_grads(f, w, ct, run):
-    return jax.grad(lambda a, b: (run(a, b) * ct).sum(), argnums=(0, 1))(
-        jnp.asarray(f), jnp.asarray(w))
+    return jax.jit(jax.grad(lambda a, b: (run(a, b) * ct).sum(),
+                            argnums=(0, 1)))(jnp.asarray(f), jnp.asarray(w))
 
 
 def _subm_case(c, d, seed):

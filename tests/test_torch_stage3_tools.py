@@ -30,6 +30,7 @@ import torch
 from gga_tpu import apis as japis
 from gga_tpu import tools_lib as jtools
 from gga_tpu.config import Config as JConfig
+from gga_tpu.core import merge_augs as jmerge
 from gga_tpu.data import pipelines as jpl
 from gga_tpu.data.kitti import mono_export as jmono
 from gga_tpu.eval import submission as jsub
@@ -166,14 +167,24 @@ def _assert_same_detections(got, want, what):
 
 @pytest.fixture(scope='module')
 def jax_aug(stage3):
-    """gga_tpu's aug_inference_detector on the first scene (its jit and
-    its eager merge take about half a minute a scene on the CPU)."""
+    """gga_tpu's aug_inference_detector on the first scene, its merge of
+    the variants under one jit: run eagerly, each op of its rotated NMS
+    would compile on its own, half a minute on the CPU."""
     _, _, _, jcfg = stage3['jax']
+    merge = jmerge.merge_aug_detections
+
+    def merge_jit(aug_dets, transforms, num_classes, **kw):
+        return jax.jit(lambda d: merge(d, transforms, num_classes, **kw))(
+            aug_dets)
+
     out = []
-    for info in stage3['infos'][:1]:
-        s = jpl.load_sample(info, jcfg.data_root,
-                            pts_prefix=jcfg.data.pts_prefix)
-        out.append(japis.aug_inference_detector(stage3['jax'], s['points']))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jmerge, 'merge_aug_detections', merge_jit)
+        for info in stage3['infos'][:1]:
+            s = jpl.load_sample(info, jcfg.data_root,
+                                pts_prefix=jcfg.data.pts_prefix)
+            out.append(japis.aug_inference_detector(stage3['jax'],
+                                                    s['points']))
     return out
 
 

@@ -80,13 +80,19 @@ def step():
 
     (_, (logs, new_bs)), grads = jax.jit(
         jax.value_and_grad(loss_fn, has_aux=True))(variables['params'])
-    # the rest of gga_train_step: clip + AdamW on those gradients
+    # the rest of gga_train_step: clip + AdamW on those gradients, in one
+    # jit (eager, each leaf's ops would compile one by one)
     tx = jopt.build_optimizer(total_steps=TOTAL_STEPS)
-    params = variables['params']
-    updates, _ = tx.update(grads, tx.init(params), params)
-    new_params = optax.apply_updates(params, updates)
-    clipped, _ = optax.clip_by_global_norm(35.0).update(grads, None)
-    logs['grad_norm'] = optax.global_norm(grads)
+
+    @jax.jit
+    def update(grads, params):
+        updates, _ = tx.update(grads, tx.init(params), params)
+        clipped, _ = optax.clip_by_global_norm(35.0).update(grads, None)
+        return (optax.apply_updates(params, updates), clipped,
+                optax.global_norm(grads))
+
+    new_params, clipped, logs['grad_norm'] = update(grads,
+                                                    variables['params'])
     keys = jax.random.split(key, len(head.task_num_classes))
     draw = np.stack([np.asarray(jax.random.normal(k, (pts.shape[0],)))
                      for k in keys])
