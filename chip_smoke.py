@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's stage-3 inference and GGA weak training
 paths, the GGA workflow's command-line tools, the stage-4 PGD retrain,
-the indoor FCAF3D retrain and the fully supervised SECOND and
-PointPillars on one NVIDIA card.
+the indoor FCAF3D retrain, the fully supervised SECOND and PointPillars
+and the accuracy benches on one NVIDIA card.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -159,13 +159,34 @@ PointPillars on one NVIDIA card.
     with the loader), device ms by stage, peak memory, checkpoint MiB
     and ms, budget occupancy and inference scenes/s, each beside the
     card's name and power limit.
-13. Prints one JSON line describing the kernels (each with its time
+13. Accuracy phase (``accuracy_phase``), the accuracy benches of
+    gga_tpu_torch/tools/: 16 synthetic scenes from seed 0 with their
+    stage-1 weak labels, whose AP must equal the value the CPU test pins
+    against gga_tpu (ACC_STAGE1_AP); the weak-train step of the round-5
+    recipe (GGAModelConfig.small(), f32, B = 8: --flat-lr --pal
+    --dim-prior 3.0 --yaw-prior 1.0 --containment 1.0) recorded on the
+    CLI's first batch, its 21 gather_gemm_conv, 13 gather_gemm_dw, 4
+    gather_rows (cold L2) and 1 render_heatmap calls replayed against
+    their plain versions within the f32 gates and timed; then
+    ``accuracy_bench`` for ACC_STEPS steps with an eval every
+    ACC_EVAL_EVERY (exact launches 21 / 13 / 4 / 1 at every step and 13
+    at every eval forward, finite losses, the four AP keys untrained and
+    trained, the saved state reloaded evaluating twice to the CLI's
+    trained AP) and ``accuracy_bench_stage4`` on its pseudo-label dump
+    (no kernel launch, finite losses with positives at every step, the
+    five AP keys, repeated final evals equal). Prints, beside the card's
+    name and power limit, weak-train scenes/s by CUDA events around each
+    step and with the loader, eval scenes/s, stage-4 images/s, the AP
+    values and the phase's seconds. No AP value is a gate.
+14. Prints one JSON line describing the kernels (each with its time
     ms, device_ms, launches, bound and bound_share = bound_ms / ms,
     device_bound_share = bound_ms / device_ms, host_ms where measured;
     the f32 entries as gather_gemm_conv_f32 and gather_gemm_dw_f32, with
     ffma_bound_ms, their bound at the FFMA rate of 67 TFLOP/s, an
-    ``indoor`` dict with the same numbers over FCAF3D's recorded step and
-    a ``second`` dict over SECOND's, which gather_rows carries too),
+    ``indoor`` dict with the same numbers over FCAF3D's recorded step, a
+    ``second`` dict over SECOND's, which gather_rows carries too, and an
+    ``accuracy`` dict over the accuracy bench's step on the two f32
+    sparse-conv entries, gather_rows and render_heatmap),
     the card, then, as the last line, {"ok": true, "device": {...}}. Any
     failed phase exits non-zero.
 
@@ -924,7 +945,7 @@ def rows_rows(torch, gr, calls, transposed, label='train kernels',
     return rows
 
 
-def heatmap_rows(torch, heatmap, calls):
+def heatmap_rows(torch, heatmap, calls, label='train kernels'):
     rows = []
     real, plain = heatmap.render_heatmap, heatmap.render_heatmap_plain
     for centers, radii, valid, hw in (args for _, args in calls):
@@ -935,7 +956,7 @@ def heatmap_rows(torch, heatmap, calls):
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         if not err <= 1e-6 or not torch.equal(out == 1.0, ref == 1.0):
-            fail(f'train kernels: render_heatmap differs from plain, max abs '
+            fail(f'{label}: render_heatmap differs from plain, max abs '
                  f'err {err}')
         H, W = hw
         G, M = radii.shape
@@ -963,7 +984,7 @@ def heatmap_rows(torch, heatmap, calls):
                          bytes_ms=b_ms, flops_ms=f_ms))
     for r in rows:
         bound = max(r['bytes_ms'], r['flops_ms'])
-        print(f'train kernels: render_heatmap vs plain: {r["G"]} maps of '
+        print(f'{label}: render_heatmap vs plain: {r["G"]} maps of '
               f'{r["H"]}x{r["W"]}, {r["live"]} live of {r["G"] * r["M"]} '
               f'objects, {r["ones"]} centre pixels; max err '
               f'{r["max_abs_err"]:.3g}; {r["ms"]:.4f} ms by CUDA events, '
@@ -1137,75 +1158,10 @@ WF_POINTS = 120000          # raw lidar points a scene
 WF_STEPS = (4, 6)           # --max-steps of the first run, of the resume
 WF_OPTIONS = ('log_interval=1',)
 WF_AUG_SCENES = 2           # val scenes of the --aug-test run
-# KITTI-like calibration (velodyne x forward -> camera z forward)
-VELO2CAM = np.array([[0., -1., 0., 0.], [0., 0., -1., -0.08],
-                     [1., 0., 0., -0.27], [0., 0., 0., 1.]])
-P2 = np.array([[721.54, 0., 609.56, 44.86], [0., 721.54, 172.85, 0.216],
-               [0., 0., 1., 0.0027], [0., 0., 0., 1.]])
-IMG_SHAPE = (375, 1242)
 # class: (dims l, w, h in m, share of the objects)
 WF_CLASSES = dict(Car=((3.9, 1.6, 1.56), 0.5),
                   Pedestrian=((0.8, 0.6, 1.73), 0.25),
                   Cyclist=((1.76, 0.6, 1.73), 0.25))
-
-
-def render_image(points, img_shape=IMG_SHAPE):
-    """Depth-coded point-splat rendering of a lidar scene, RGB uint8 (a
-    copy of tests/test_data/fixtures.py:63 render_scene_image): each
-    point in the camera's view paints a 2 x 2 splat, red for 8 m over its
-    depth, green for its height, blue 255, near points over far ones."""
-    pts = np.asarray(points, np.float64)[:, :3]
-    cam = (VELO2CAM @ np.concatenate([pts, np.ones((len(pts), 1))], 1).T
-           ).T[:, :3]
-    z = cam[:, 2]
-    uvw = (P2[:3, :3] @ cam.T).T + P2[:3, 3]
-    u = uvw[:, 0] / np.maximum(uvw[:, 2], 1e-6)
-    v = uvw[:, 1] / np.maximum(uvw[:, 2], 1e-6)
-    H, W = img_shape
-    ok = (z > 0.5) & (u >= 0) & (u < W - 1) & (v >= 0) & (v < H - 1)
-    order = np.argsort(-z[ok])
-    ui = u[ok].astype(np.intp)[order]
-    vi = v[ok].astype(np.intp)[order]
-    depth_c = np.clip(255.0 * 8.0 / z[ok], 0, 255).astype(np.uint8)[order]
-    height_c = np.clip((pts[ok, 2] + 3.0) / 6.0 * 255.0, 0,
-                       255).astype(np.uint8)[order]
-    img = np.zeros((H, W, 3), np.uint8)
-    for dv in (0, 1):
-        for du in (0, 1):
-            img[vi + dv, ui + du, 0] = depth_c
-            img[vi + dv, ui + du, 1] = height_c
-            img[vi + dv, ui + du, 2] = 255
-    return img
-
-
-def png_bytes(img):
-    """An 8-bit RGB PNG of ``img`` [H, W, 3] whose row y is filtered with
-    type y % 5 (None, Sub, Up, Average, Paeth; PNG spec section 9), so a
-    reader meets all five."""
-    import struct
-    import zlib
-
-    def chunk(kind, data):
-        return (struct.pack('>I', len(data)) + kind + data
-                + struct.pack('>I', zlib.crc32(kind + data) & 0xffffffff))
-    h, w, c = img.shape
-    prev, rows = np.zeros(w * c, np.int64), []
-    for y in range(h):
-        cur = img[y].reshape(-1).astype(np.int64)
-        left = np.concatenate([np.zeros(c, np.int64), cur[:-c]])
-        up_left = np.concatenate([np.zeros(c, np.int64), prev[:-c]])
-        p = left + prev - up_left
-        pa, pb, pc = abs(p - left), abs(p - prev), abs(p - up_left)
-        pred = (0, left, prev, (left + prev) // 2,
-                np.where((pa <= pb) & (pa <= pc), left,
-                         np.where(pb <= pc, prev, up_left)))[y % 5]
-        rows.append(bytes([y % 5])
-                    + ((cur - pred) % 256).astype(np.uint8).tobytes())
-        prev = cur
-    return (b'\x89PNG\r\n\x1a\n'
-            + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0, 0))
-            + chunk(b'IDAT', zlib.compress(b''.join(rows)))
-            + chunk(b'IEND', b''))
 
 
 def mini_kitti_scene(rng, n_points):
@@ -1267,11 +1223,15 @@ def mini_kitti_scene(rng, n_points):
 def write_mini_kitti(root, splits=WF_SPLITS, n_points=WF_POINTS, seed=0):
     """A KITTI-format dataset under ``root``: training/{velodyne, calib,
     label_2, image_2} and ImageSets/{train, val}.txt, the images rendered
-    from each scene's points (``render_image``, ``png_bytes``). Returns
-    the points each scene has in the camera's view."""
+    from each scene's points (``synth.render_scene_image``, written with
+    all five PNG row filters by ``png.write_png``). Returns the points
+    each scene has in the camera's view."""
     import os
 
     from gga_tpu_torch.core import np_geometry as ng
+    from gga_tpu_torch.data.kitti.png import write_png
+    from gga_tpu_torch.data.kitti.synth import (IMG_SHAPE, P2, VELO2CAM,
+                                                render_scene_image)
     rng = np.random.RandomState(seed)
     sub = os.path.join(root, 'training')
     for d in ('velodyne', 'calib', 'label_2', 'image_2'):
@@ -1308,9 +1268,8 @@ def write_mini_kitti(root, splits=WF_SPLITS, n_points=WF_POINTS, seed=0):
                             f'{cb[4]:.2f} {cb[5]:.2f} {cb[3]:.2f} '
                             f'{cb[0]:.2f} {cb[1]:.2f} {cb[2]:.2f} '
                             f'{cb[6]:.2f}\n')
-            with open(os.path.join(sub, 'image_2', f'{idx:06d}.png'),
-                      'wb') as f:
-                f.write(png_bytes(render_image(pts)))
+            write_png(os.path.join(sub, 'image_2', f'{idx:06d}.png'),
+                      render_scene_image(pts))
             idx += 1
     return in_view
 
@@ -2678,6 +2637,265 @@ def supervised_phase(torch, mods, card, tmp):
     return res
 
 
+# --- the accuracy benches: weak GGA training to pseudo-label AP, then the
+#     PGD retrain on those pseudo labels ----------------------------------
+ACC_SCENES = 16             # synthetic scenes (make_synth_kitti, seed 0)
+ACC_BATCH = 8               # 2 steps an epoch
+ACC_STEPS = 400             # weak-train steps of the CLI
+ACC_EVAL_EVERY = 200
+# the round-5 recipe of gga_tpu's ACCURACY.md on the small model, f32:
+# flat lr, PAL backprop and the three loss weights
+ACC_LR = 2e-4
+ACC_WEIGHTS = dict(dim_prior=3.0, yaw_prior=1.0, containment=1.0)
+ACC_FLAGS = ('--cfg', 'small', '--lr', str(ACC_LR), '--flat-lr', '--pal',
+             *(x for k, v in ACC_WEIGHTS.items()
+               for x in (f'--{k.replace("_", "-")}', str(v))))
+ACC_S4_STEPS = 6            # PGD steps on the dump
+ACC_S4_REPS = 2             # final stage-4 evals on the same weights
+# the stage-1 labels' AP on the ACC_SCENES scenes of seed 0: numpy only,
+# equal to gga_tpu's on the CPU (tests/test_torch_accuracy.py)
+ACC_STAGE1_AP = dict(AP11_3D_mod=87.19851576994436,
+                     AP11_BEV_mod=87.19851576994436,
+                     AP11_3D_mod_loose=87.19851576994436,
+                     AP11_BEV_mod_loose=87.19851576994436)
+# sparse convs of one small-config forward: conv_input + 4 basic blocks
+# x 2 + 3 strided + conv_out; the 8 SubM convs after conv_input take an
+# input gradient by gather_gemm_conv, the 4 strided ones by gather_rows
+ACC_CONVS, ACC_DGRAD, ACC_STRIDED = 13, 8, 4
+ACC_PER_STEP = dict(gather_gemm_conv=ACC_CONVS + ACC_DGRAD,
+                    gather_gemm_dw=ACC_CONVS, gather_rows=ACC_STRIDED,
+                    gather_rows_t=0, render_heatmap=1)
+
+
+@contextlib.contextmanager
+def per_call(module, name, torch, mods):
+    """Replace ``module.name`` by a wrapper that records, for each call,
+    the kernel launches it made (the counts read before and after, never
+    reset), CUDA events around it and its result."""
+    real = getattr(module, name)
+    calls = []
+
+    def wrapper(*args, **kwargs):
+        before = counts(mods)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real(*args, **kwargs)
+        ev[1].record()
+        after = counts(mods)
+        calls.append(dict(launches={k: after[k] - before[k] for k in after},
+                          events=ev, out=out))
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def events_ms(torch, calls):
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in (c['events'] for c in calls)]
+
+
+def accuracy_phase(torch, mods, card, tmp):
+    """The accuracy benches on the card (``gga_tpu_torch/tools/
+    accuracy_bench.py`` and ``accuracy_bench_stage4.py``):
+
+    1. ACC_SCENES synthetic scenes from seed 0 with their stage-1 labels;
+       the labels' AP must equal ACC_STAGE1_AP.
+    2. The weak-train step of ACC_FLAGS (GGAModelConfig.small(), f32)
+       recorded on the CLI's first batch: every call of gather_gemm_conv
+       (13 forward, 8 SubM input gradients), gather_gemm_dw (13),
+       gather_rows (4) and render_heatmap (1) replayed against its plain
+       version within the f32 gates and timed.
+    3. Main path: the CLI for ACC_STEPS steps with an eval every
+       ACC_EVAL_EVERY and the pseudo labels dumped; exact launches at
+       every step (21 / 13 / 4 / 1) and every forward (13), finite
+       losses, the four AP keys untrained and trained; the saved state
+       reloaded and evaluated twice gives the CLI's trained AP both times.
+    4. The stage-4 CLI on the dump for ACC_S4_STEPS steps: no kernel
+       launch, finite losses with positives at each step, the five AP
+       keys, ACC_S4_REPS final evals equal.
+    Prints the rates (CUDA events around each train step and forward;
+    the tools' wall seconds) and the AP values beside the card."""
+    import os
+
+    from gga_tpu_torch import apis
+    from gga_tpu_torch.models.detectors.centerpoint_gga import GGAModelConfig
+    from gga_tpu_torch.ops import sparse as sp
+    from gga_tpu_torch.tools import accuracy_bench as ab
+    from gga_tpu_torch.tools import accuracy_bench_stage4 as s4
+    sparse_conv, gr, heatmap = mods
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, 'accuracy')
+    res = {}
+
+    # --- 1. the scenes and their stage-1 labels --------------------------
+    t0 = time.perf_counter()
+    infos, info_path = ab.make_synth_kitti(root, ACC_SCENES)
+    res['scenes_s'] = time.perf_counter() - t0
+    stage1 = ab.score_stage1_labels(infos)
+    if stage1 != ACC_STAGE1_AP:
+        fail(f'accuracy: stage-1 AP {stage1} on {ACC_SCENES} scenes, the CPU '
+             f'pins {ACC_STAGE1_AP}')
+    print(f'accuracy: {ACC_SCENES} synthetic scenes and their stage-1 labels '
+          f'in {res["scenes_s"]:.1f} s (host); stage-1 AP equals the CPU '
+          f'pin: {stage1}')
+
+    # --- 2. the CLI's first step, recorded and replayed --------------------
+    cfg = ab.bench_config(GGAModelConfig.small(), pal=True, **ACC_WEIGHTS)
+    ds, _ = ab.datasets(root, info_path, cfg)
+    _, b0 = next(ab.weak_batches(ds, ACC_BATCH))
+    trainer = apis.init_trainer(cfg, ACC_STEPS, device=DEVICE, seed=0,
+                                optimizer=dict(lr=ACC_LR, cyclic=False))
+    logs0, rec, _ = recorded_step(torch, apis, sp, mods, trainer, b0)
+    finite_logs(torch, {'loss': logs0['loss']}, 'accuracy recorded step')
+    n_rec = {k: len(v) for k, v in rec.items()}
+    want = {k: ACC_PER_STEP[k] for k in n_rec}
+    if n_rec != want:
+        fail(f'accuracy recorded step: kernel calls {n_rec}, expected {want}')
+    torch.set_grad_enabled(False)
+    conv_rows, dwr, _ = train_kernel_rows(
+        torch, sparse_conv, rec, 'accuracy kernels', ACC_CONVS, ACC_DGRAD)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=DEVICE)
+    gr_rows = rows_rows(torch, gr, [a for _, a in rec['gather_rows']], False,
+                        'accuracy kernels', flush)
+    hm_rows = heatmap_rows(torch, heatmap, rec['render_heatmap'],
+                           'accuracy kernels')
+    torch.set_grad_enabled(True)
+    del flush, rec, trainer
+    torch.cuda.empty_cache()
+
+    # --- 3. the main path: the weak-train CLI -----------------------------
+    dump = os.path.join(root, 'pseudo.pkl')
+    state = os.path.join(root, 'state.pt')
+    argv = ['--root', root, '--scenes', str(ACC_SCENES), '--steps',
+            str(ACC_STEPS), '--batch', str(ACC_BATCH), '--eval-every',
+            str(ACC_EVAL_EVERY), '--dump-pseudo', dump, '--save-state', state,
+            '--device', DEVICE, *ACC_FLAGS]
+    t0 = time.perf_counter()
+    with per_call(apis, 'train_step', torch, mods) as steps, \
+            per_call(apis, 'infer', torch, mods) as fwds:
+        zero_counts(mods)
+        out = ab.main(argv)
+        got = counts(mods)
+    cli_s = time.perf_counter() - t0
+    if len(steps) != ACC_STEPS:
+        fail(f'accuracy: the CLI took {len(steps)} steps, expected '
+             f'{ACC_STEPS}')
+    for i, c in enumerate(steps):
+        if c['launches'] != ACC_PER_STEP:
+            fail(f'accuracy: step {i + 1} launched {c["launches"]}, expected '
+                 f'{ACC_PER_STEP}')
+    fwd_want = dict.fromkeys(ACC_PER_STEP, 0)
+    fwd_want['gather_gemm_conv'] = ACC_CONVS
+    for i, c in enumerate(fwds):
+        if c['launches'] != fwd_want:
+            fail(f'accuracy: eval forward {i} launched {c["launches"]}, '
+                 f'expected {fwd_want}')
+    total = {k: ACC_STEPS * v + len(fwds) * fwd_want[k]
+             for k, v in ACC_PER_STEP.items()}
+    if got != total:
+        fail(f'accuracy: the CLI launched {got}, expected {total}')
+    losses = torch.stack([c['out']['loss'] for c in steps]).cpu()
+    if not torch.isfinite(losses).all():
+        bad = int((~torch.isfinite(losses)).nonzero()[0, 0]) + 1
+        fail(f'accuracy: loss {float(losses[bad - 1])} at step {bad}')
+    for key in ('untrained', 'trained'):
+        if set(out[key]) != set(ab.AP_KEYS):
+            fail(f'accuracy: {key} AP keys {sorted(out[key])}')
+    step_ms = events_ms(torch, steps)
+    fwd_ms = events_ms(torch, fwds)
+    n_evals = len(out['eval_s'])
+    scenes_evaluated = n_evals * ACC_SCENES
+    res.update(
+        stage1=stage1, untrained=out['untrained'], trained=out['trained'],
+        curve=out['curve'], launches=got, steps=ACC_STEPS,
+        losses=[float(v) for v in losses[::max(ACC_STEPS // 20, 1)]],
+        last_loss=float(losses[-1]), step_ms=step_ms,
+        scenes_per_s=ACC_STEPS * ACC_BATCH / (sum(step_ms) / 1e3),
+        scenes_per_s_loader=ACC_STEPS * ACC_BATCH / out['train_s'],
+        train_s=out['train_s'], forwards=len(fwds), forward_ms=fwd_ms,
+        eval_scenes_per_s=scenes_evaluated / (sum(fwd_ms) / 1e3),
+        eval_scenes_per_s_host=scenes_evaluated / sum(out['eval_s']),
+        cli_s=cli_s, conv_calls=conv_rows, dw_calls=dwr,
+        gather_rows=gr_rows, heatmap=hm_rows)
+    print(f'{card}: accuracy weak training ({ACC_STEPS} steps x '
+          f'{ACC_BATCH} scenes, small, f32): '
+          f'{res["scenes_per_s"]:.2f} scenes/s by CUDA events around each '
+          f'step (median {sorted(step_ms)[len(step_ms) // 2]:.2f} ms), '
+          f'{res["scenes_per_s_loader"]:.2f} with the in-process loader; '
+          f'launches {ACC_PER_STEP} at every step; loss '
+          f'{res["losses"][0]:.4g} -> {res["last_loss"]:.4g}')
+    print(f'{card}: accuracy evals: {len(fwds)} forwards of {ab.EVAL_BATCH} '
+          f'scenes, {res["eval_scenes_per_s"]:.2f} scenes/s by CUDA events '
+          'around apis.infer, '
+          f'{res["eval_scenes_per_s_host"]:.2f} with loading, matching and '
+          'kitti_eval (host)')
+    print('accuracy AP: untrained ' + json.dumps(out['untrained'])
+          + '; curve ' + json.dumps(out['curve']))
+
+    # the saved weights, reloaded, evaluated twice
+    bundle = apis.init_detector(cfg, torch.load(state, map_location=DEVICE),
+                                device=DEVICE)
+    _, ds_test = ab.datasets(root, info_path, cfg)
+    again = [ab.evaluate_pseudo(bundle, ds_test, infos) for _ in range(2)]
+    if again[0] != out['trained'] or again[1] != out['trained']:
+        fail(f'accuracy: the reloaded state evaluates to {again}, the CLI '
+             f'to {out["trained"]}')
+    print('accuracy: the saved state, reloaded, evaluates twice to the '
+          'CLI\'s trained AP')
+    del bundle
+    torch.cuda.empty_cache()
+
+    # --- 4. stage 4 on the dump -------------------------------------------
+    argv = ['--root', root, '--pseudo', dump, '--steps', str(ACC_S4_STEPS),
+            '--batch', str(ACC_BATCH), '--eval-reps', str(ACC_S4_REPS),
+            '--device', DEVICE]
+    t0 = time.perf_counter()
+    with per_call(apis, 'pgd_train_step', torch, mods) as s4_steps:
+        zero_counts(mods)
+        out4 = s4.main(argv)
+        got = counts(mods)
+    s4_s = time.perf_counter() - t0
+    if any(got.values()):
+        fail(f'accuracy stage 4: kernels launched {got}')
+    if len(s4_steps) != ACC_S4_STEPS:
+        fail(f'accuracy stage 4: {len(s4_steps)} steps, expected '
+             f'{ACC_S4_STEPS}')
+    s4_logs = [{k: float(c['out'][k]) for k in ('loss', 'num_pos')}
+               for c in s4_steps]
+    for i, lg in enumerate(s4_logs):
+        if not (np.isfinite(lg['loss']) and lg['num_pos'] > 0):
+            fail(f'accuracy stage 4: step {i + 1} logs {lg}')
+    keys = set(s4.MONO_AP_KEYS)
+    for r in (out4['untrained'], out4['trained'], *out4['eval_reps']):
+        if set(r) != keys:
+            fail(f'accuracy stage 4: AP keys {sorted(r)}')
+    if any(r != out4['trained'] for r in out4['eval_reps']):
+        fail(f'accuracy stage 4: the final evals differ: '
+             f'{out4["eval_reps"]} vs {out4["trained"]}')
+    s4_ms = events_ms(torch, s4_steps)
+    res['stage4'] = dict(
+        data_quality=out4['pseudo_data_quality'],
+        untrained=out4['untrained'], trained=out4['trained'], logs=s4_logs,
+        step_ms=s4_ms,
+        images_per_s=(len(s4_ms) - 1) * ACC_BATCH / (sum(s4_ms[1:]) / 1e3),
+        train_s=out4['train_s'], cli_s=s4_s)
+    print(f'{card}: accuracy stage 4 (PGD tiny, B = {ACC_BATCH}, '
+          f'{ACC_S4_STEPS} steps): {res["stage4"]["images_per_s"]:.2f} '
+          'images/s by CUDA events after the first step; positives '
+          f'{[int(lg["num_pos"]) for lg in s4_logs]}; pseudo-label quality '
+          f'{json.dumps(out4["pseudo_data_quality"])}; AP trained '
+          f'{json.dumps(out4["trained"])} ({ACC_S4_REPS} evals equal)')
+    res['phase_s'] = time.perf_counter() - t_phase
+    print(f'{card}: accuracy phase {res["phase_s"]:.1f} s (weak-train CLI '
+          f'{cli_s:.1f} s, stage-4 CLI {s4_s:.1f} s)')
+    return res
+
+
 def scene_points(torch, dev, seed):
     """(points, valid) of one bench-point batch on ``dev``."""
     b = make_batch(B, P, M_OBJ, PC, seed)
@@ -2902,6 +3120,9 @@ def main():
         torch.cuda.empty_cache()
         # --- the supervised KITTI path: SECOND and PointPillars ---
         sup = supervised_phase(torch, mods, card, tmp)
+        torch.cuda.empty_cache()
+        # --- the accuracy benches: weak training to AP, then stage 4 ---
+        acc = accuracy_phase(torch, mods, card, tmp)
 
     launches, launches_f32 = tr['launches'], f32['train']['launches']
     kernels = [
@@ -2955,6 +3176,21 @@ def main():
             'launches', 'max_abs_err', 'ms', 'device_ms', 'plain_ms',
             'bound_ms', 'bound_by', 'bound_share', 'device_bound_share',
             'ffma_bound_ms', 'library_ms')}
+    # the accuracy bench's weak-train step (f32, small): conv, dW,
+    # gather_rows and render_heatmap
+    for entry, key, rows, lib in (
+            (kernels[2], 'gather_gemm_conv', acc['conv_calls'], None),
+            (kernels[3], 'gather_gemm_dw', acc['dw_calls'], None),
+            (kernels[4], 'gather_rows', acc['gather_rows'],
+             sum(r['library_ms'] for r in acc['gather_rows'])),
+            (kernels[6], 'render_heatmap', acc['heatmap'], None)):
+        e = kernel_entry(entry['name'], entry['source'].split('/')[-1],
+                         entry['replaces'], acc['launches'][key], rows,
+                         library_ms=lib)
+        entry['accuracy'] = {k: e[k] for k in (
+            'launches', 'max_abs_err', 'ms', 'device_ms', 'plain_ms',
+            'bound_ms', 'bound_by', 'bound_share', 'device_bound_share',
+            'ffma_bound_ms', 'library_ms', 'host_ms')}
     print('kernels, summed over the train path\'s calls (ms by CUDA '
           'events, device ms by the profiler, share of the bound):')
     for k in kernels:
@@ -2968,7 +3204,8 @@ def main():
                  f'{share(k["ffma_bound_ms"], k["device_ms"])})'))
         for path, steps in (('indoor', sum(r['steps']
                                            for r in ind['train'])),
-                            ('second', sup['train']['steps'])):
+                            ('second', sup['train']['steps']),
+                            ('accuracy', acc['steps'])):
             if path not in k:
                 continue
             d = k[path]
@@ -2993,7 +3230,7 @@ def main():
                        train_gather_rows=gr_rows, train_gather_rows_t=grt_rows,
                        train_heatmap=hm_rows, step_comparison=cmp_step,
                        f32=f32, workflow=wf, stage4=s4, indoor=ind,
-                       supervised=sup),
+                       supervised=sup, accuracy=acc),
                   fh, indent=1, default=str)
 
     print(card)

@@ -85,13 +85,16 @@ def infer(bundle: DetectorBundle, points, points_valid):
         points: [B, P, 4] f32 (tensor or numpy); points_valid: [B, P] bool.
     Returns:
         dict(boxes [B, n, 7] bottom-center, scores [B, n], labels [B, n],
-        valid [B, n]) on the bundle's device, n = tasks * max_per_task.
+        valid [B, n], logits [B, n]) on the bundle's device, n = tasks *
+        max_per_task. The heatmap logits rank as the scores do where the
+        sigmoid saturates at 1.0 (-inf in the empty slots).
     """
     pts = torch.as_tensor(points, dtype=torch.float32, device=bundle.device)
     val = torch.as_tensor(points_valid, dtype=torch.bool,
                           device=bundle.device)
     dets = decode_detections(bundle.cfg, bundle.model(pts, val))
-    return {k: dets[k] for k in ('boxes', 'scores', 'labels', 'valid')}
+    return {k: dets[k] for k in ('boxes', 'scores', 'labels', 'valid',
+                                 'logits')}
 
 
 def init_model(config, checkpoint=None, device='cuda'):
@@ -164,8 +167,9 @@ def init_trainer(cfg: GGAModelConfig, total_steps, state_dict=None,
                  device='cuda', seed=0, optimizer=None) -> TrainState:
     """The detector in train mode on ``device`` with the GGA optimizer
     (``build_optimizer(params, total_steps, **optimizer)``, a config
-    file's ``optimizer`` block) and a generator for the per-step SRL
-    draws, seeded with ``seed``. Weights as ``init_detector``."""
+    file's ``optimizer`` block; ``cyclic=False`` there keeps the lr and
+    beta1 flat) and a generator for the per-step SRL draws, seeded with
+    ``seed``. Weights as ``init_detector``."""
     model = init_detector(cfg, state_dict, device, seed).model.train()
     return TrainState(model=model,
                       optimizer=build_optimizer(model.parameters(),

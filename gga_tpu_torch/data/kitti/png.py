@@ -1,6 +1,8 @@
-"""The port's own PNG reader for KITTI's camera images (the machine with
-the card has no Pillow; gga_tpu decodes with ``PIL.Image.open(path)
-.convert('RGB')``, ``gga_tpu/data/kitti/mono_dataset.py:42-45``).
+"""The port's own PNG reader and writer for KITTI's camera images (the
+machine with the card has no Pillow; gga_tpu decodes with
+``PIL.Image.open(path).convert('RGB')``,
+``gga_tpu/data/kitti/mono_dataset.py:42-45``, and writes its synthetic
+frames with ``PIL.Image.save``).
 
 ``read_png(path)`` returns the image as RGB ``uint8 [H, W, 3]``, the same
 bytes as Pillow's: 8-bit samples, colour types 0 (grey, repeated into
@@ -16,6 +18,11 @@ kept as the C++'s oracle: Sub is a cumsum mod 256 and Up a row add, but
 Average and Paeth read the byte just reconstructed to their left, so they
 loop along the row in Python (``chip_smoke.py`` times both readers on a
 KITTI-sized frame).
+
+``write_png(path, img)`` writes an RGB ``uint8 [H, W, 3]`` image as an
+8-bit RGB PNG, not interlaced, whose row y is filtered with type y % 5
+(None, Sub, Up, Average, Paeth; PNG spec section 9), so that a reader of
+its files meets all five.
 """
 from __future__ import annotations
 
@@ -171,3 +178,37 @@ def read_png(path):
     """The PNG file at ``path`` as RGB uint8 [H, W, 3]."""
     with open(path, 'rb') as f:
         return decode_png(f.read())
+
+
+def _chunk(kind, data):
+    return (struct.pack('>I', len(data)) + kind + data
+            + struct.pack('>I', zlib.crc32(kind + data) & 0xffffffff))
+
+
+def write_png(path, img):
+    """Write ``img`` (RGB uint8 [H, W, 3]) to ``path`` as a PNG (see the
+    module docstring)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f'write_png takes RGB uint8 [H, W, 3], not '
+                         f'{img.dtype} {img.shape}')
+    h, w, c = img.shape
+    prev, rows = np.zeros(w * c, np.int64), []
+    for y in range(h):
+        cur = img[y].reshape(-1).astype(np.int64)
+        left = np.concatenate([np.zeros(c, np.int64), cur[:-c]])
+        up_left = np.concatenate([np.zeros(c, np.int64), prev[:-c]])
+        p = left + prev - up_left
+        pa, pb, pc = abs(p - left), abs(p - prev), abs(p - up_left)
+        pred = (0, left, prev, (left + prev) // 2,
+                np.where((pa <= pb) & (pa <= pc), left,
+                         np.where(pb <= pc, prev, up_left)))[y % 5]
+        rows.append(bytes([y % 5])
+                    + ((cur - pred) % 256).astype(np.uint8).tobytes())
+        prev = cur
+    with open(path, 'wb') as f:
+        f.write(SIGNATURE
+                + _chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0,
+                                              0))
+                + _chunk(b'IDAT', zlib.compress(b''.join(rows)))
+                + _chunk(b'IEND', b''))

@@ -144,8 +144,13 @@ def build_optimizer(params, total_steps, lr=1.5e-3, betas=(0.95, 0.99),
                     weight_decay=0.01, grad_clip=35.0,
                     lr_target_ratio=(10, 1e-4),
                     momentum_target_ratio=(0.8947368421052632, 1.0),
-                    step_ratio_up=0.4):
-    """AdamW + cyclic schedules + global-norm clip (config :233-247)."""
+                    step_ratio_up=0.4, cyclic=True):
+    """AdamW + cyclic schedules + global-norm clip (config :233-247).
+    ``cyclic=False`` keeps the lr at ``lr`` and beta1 at ``betas[0]``
+    (gga_tpu's flat branch, the accuracy bench's ``--flat-lr``)."""
+    if not cyclic:
+        return GGAOptimizer(params, lambda _: lr, lambda _: betas[0],
+                            betas[1], weight_decay, grad_clip)
     return GGAOptimizer(
         params,
         cyclic_cos_schedule(lr, lr_target_ratio, step_ratio_up, total_steps),

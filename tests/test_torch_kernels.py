@@ -82,6 +82,50 @@ def _second_maps():
                 conv_out=(out, rows))
 
 
+@functools.lru_cache(maxsize=1)
+def _small_maps():
+    """The accuracy bench's model (``GGAModelConfig.small()``: 0.1 m
+    voxels of a 41 x 800 x 704 grid, 8 192 voxels a scene, stage budgets
+    8 192 / 8 192 / 6 144) on two of the bench's synthetic scenes (ground,
+    clutter and 350 points on each of 3-5 boxes, cropped to the camera's
+    view as the bench's reduced clouds are): the input SubM map, the
+    stage-0 -> 1 strided rulebook, and conv_out's (3, 1, 1) stride
+    (2, 1, 1) rulebook on the sites the three strided convs leave; each
+    with the rows it indexes."""
+    from gga_tpu_torch.core import np_geometry as ng
+    from gga_tpu_torch.data.kitti import synth
+    rng = np.random.RandomState(9)
+    B, P, V, grid = 2, 8192, 8192, (41, 800, 704)
+    pts = np.zeros((B, P, 4), np.float32)
+    valid = np.zeros((B, P), bool)
+    for b in range(B):
+        n = rng.randint(3, 6)
+        boxes = np.stack([rng.uniform(8, 50, n), rng.uniform(-12, 12, n),
+                          np.full(n, -1.73), rng.uniform(3.4, 4.6, n),
+                          rng.uniform(1.5, 1.85, n), rng.uniform(1.4, 1.7, n),
+                          rng.uniform(-np.pi, np.pi, n)], 1)
+        cloud = ng.remove_outside_points(
+            synth.make_scene(rng, boxes, ['Car'] * n, 6000, 400, 350),
+            synth.RECT, synth.VELO2CAM, synth.P2, synth.IMG_SHAPE)[:P]
+        pts[b, :len(cloud)], valid[b, :len(cloud)] = cloud, True
+    vox = hard_voxelize(torch.from_numpy(pts), torch.from_numpy(valid),
+                        voxel_size=(0.1, 0.1, 0.1),
+                        pc_range=(0, -40, -3, 70.4, 40, 1), max_voxels=V)
+    coords = vox['coords']
+    vvalid = torch.arange(V)[None] < vox['num_voxels'][:, None]
+    subm = flatten_nmap(sp.build_neighbor_map(coords, vvalid, grid))
+    st = (coords, vvalid, grid)
+    maps = []
+    for pad, budget in ((1, 8192), (1, 8192), ((0, 1, 1), 6144)):
+        *st, fwd = sp.downsample_rulebook_compact(*st, (3, 3, 3), (2, 2, 2),
+                                                  pad, budget)
+        maps.append((fwd, B * V))
+    *_, out = sp.downsample_rulebook_compact(*st, (3, 1, 1), (2, 1, 1), 0,
+                                             6144)
+    return dict(small_in=(subm, B * V), small_s1=maps[0],
+                small_out=(out, B * 6144))
+
+
 def _strided_bwd_map(M=1024):
     """The dense backward map [27, B*V] of a strided rulebook (MinkResNet's
     strided convs' input gradient; mostly -1) and the rows it indexes,
@@ -180,6 +224,11 @@ _CONV_CASES = [
     ('second_in', 4, 16, 27, None), ('strided', 16, 32, 27, None),
     ('strided', 32, 64, 27, 2047), ('strided_z0', 64, 64, 27, None),
     ('conv_out', 64, 128, 3, None),
+    # the accuracy bench's small model on its synthetic scenes: the input
+    # SubM 4 -> 16 and the stage-0 SubM 16 -> 16 on the 41 x 800 x 704
+    # grid, the strided 16 -> 32 and conv_out's (3, 64, 64)
+    ('small_in', 4, 16, 27, None), ('small_in', 16, 16, 27, None),
+    ('small_s1', 16, 32, 27, None), ('small_out', 64, 64, 3, None),
 ]
 
 
@@ -198,6 +247,9 @@ def _case_map(which, k, q):
         nmap = nmap.numpy()
     elif which in ('second_in', 'strided_z0', 'conv_out'):
         nmap, rows = _second_maps()[which]
+        nmap = nmap.numpy()
+    elif which in ('small_in', 'small_s1', 'small_out'):
+        nmap, rows = _small_maps()[which]
         nmap = nmap.numpy()
     else:
         rng = np.random.RandomState(11)
@@ -393,6 +445,9 @@ _DW_CASES = [
     ('second_in', 4, 16, 27, None), ('strided', 16, 32, 27, None),
     ('strided', 32, 64, 27, None), ('strided_z0', 64, 64, 27, None),
     ('conv_out', 64, 128, 3, None),
+    # the accuracy bench's small model, as in _CONV_CASES
+    ('small_in', 4, 16, 27, None), ('small_in', 16, 16, 27, None),
+    ('small_s1', 16, 32, 27, None), ('small_out', 64, 64, 3, None),
 ]
 
 

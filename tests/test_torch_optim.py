@@ -8,6 +8,7 @@ rtol 1e-6 plus two float32 ulps of the schedule's peak: gga_tpu computes
 them in float32, the port in float64, and where the cosine nears -1 the
 annealed term is small beside its float32 rounding.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
@@ -68,4 +69,52 @@ def test_clip_and_adamw_match_optax(grad_scale):
         for k, p in tp.items():
             np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[k]),
                                        rtol=1e-6, atol=1e-7, err_msg=k)
+    assert opt.count == 3
+
+
+def test_flat_clip_and_adamw_match_optax():
+    """``cyclic=False`` (the accuracy bench's ``--flat-lr``): the lr and
+    beta1 stay at their base values, and three clipped AdamW steps equal
+    gga_tpu's ``build_optimizer(cyclic=False)`` at rtol 1e-6. The clip is
+    active at the first step and not at the last."""
+    rng = np.random.RandomState(1)
+    shapes = {'a': (4, 3), 'b': (5,), 'c': (2, 3, 2)}
+    params = {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: (rng.randn(*s) * scale).astype(np.float32)
+              for k, s in shapes.items()} for scale in (300.0, 30.0, 1.0)]
+    lr = 2e-4
+
+    tx = jopt.build_optimizer(total_steps=20, lr=lr, cyclic=False)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    state = tx.init(jp)
+
+    @jax.jit
+    def update(g, state, p):
+        updates, state = tx.update(g, state, p)
+        return optax.apply_updates(p, updates), state, optax.global_norm(g)
+
+    tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+          for k, v in params.items()}
+    opt = topt.build_optimizer(tp.values(), total_steps=20, lr=lr,
+                               cyclic=False)
+    norms = []
+    for g in grads:
+        jp, state, jnorm = update({k: jnp.asarray(v) for k, v in g.items()},
+                                  state, jp)
+        for k, p in tp.items():
+            p.grad = torch.from_numpy(g[k].copy())
+        norm = opt.step()
+        norms.append(float(norm))
+        np.testing.assert_allclose(float(norm), float(jnorm), rtol=1e-6)
+        hp = state[1].hyperparams
+        group = opt.adamw.param_groups[0]
+        assert group['lr'] == lr and group['betas'] == (0.95, 0.99)
+        np.testing.assert_allclose(float(hp['learning_rate']), lr,
+                                   rtol=1e-6)
+        np.testing.assert_allclose(float(hp['b1']), 0.95, rtol=1e-6)
+        for k, p in tp.items():
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[k]),
+                                       rtol=1e-6, atol=1e-7, err_msg=k)
+    assert norms[0] >= 35.0 > norms[-1]
+    assert [opt.lr_schedule(s) for s in (0, 7, 10 ** 6)] == [lr] * 3
     assert opt.count == 3
