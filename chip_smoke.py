@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's stage-3 inference and GGA weak training
 paths, the GGA workflow's command-line tools, the stage-4 PGD retrain,
-the indoor FCAF3D retrain, the fully supervised SECOND and PointPillars
-and the accuracy benches on one NVIDIA card.
+the indoor FCAF3D retrain, the fully supervised SECOND and PointPillars,
+the accuracy benches and the rest of the KITTI voxel detectors
+(DVSECOND, SASSD, DynamicVoxelNet) on one NVIDIA card.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -178,15 +179,34 @@ and the accuracy benches on one NVIDIA card.
     name and power limit, weak-train scenes/s by CUDA events around each
     step and with the loader, eval scenes/s, stage-4 images/s, the AP
     values and the phase's seconds. No AP value is a gate.
-14. Prints one JSON line describing the kernels (each with its time
+14. Voxel family phase (``voxel_family_phase``), the rest of the KITTI
+    voxel detectors through the same CLI and ``anchor_path`` as SECOND's
+    (12.), each config as shipped on the same mini KITTI (B = 6, up to
+    24 000 points a scene), f32: DVSECOND (the dv_second 2x8 cosine
+    config, which the CLI trains on the cyclic schedule, as gga_tpu's)
+    and SASSD, its two auxiliary losses finite and logged. Each: the
+    recorded step's 19 / 12 / 4 kernel calls replayed against plain, the
+    eval forward and a whole step against plain, ``train_supervised`` for
+    3 steps across an epoch boundary with exact launches 19 / 12 / 4 a
+    step, each step's lr, moved weights, the newest checkpoint's maps and
+    decode bit for bit, a profile of one more step, ``infer_anchor`` +
+    ``kitti_eval`` on the val scenes (SASSD without its branch). Then
+    SASSD's peak memory over one
+    step with and without the branch (SECOND on the same config), and
+    DynamicVoxelNet (dv_pointpillars car) through the CLI for 2 steps and
+    ``infer_anchor`` with no kernel launch; the passes
+    ``dynamic_scatter_mean`` takes a forward (its largest voxel's point
+    count) printed for it and DVSECOND.
+15. Prints one JSON line describing the kernels (each with its time
     ms, device_ms, launches, bound and bound_share = bound_ms / ms,
     device_bound_share = bound_ms / device_ms, host_ms where measured;
     the f32 entries as gather_gemm_conv_f32 and gather_gemm_dw_f32, with
     ffma_bound_ms, their bound at the FFMA rate of 67 TFLOP/s, an
-    ``indoor`` dict with the same numbers over FCAF3D's recorded step, a
-    ``second`` dict over SECOND's, which gather_rows carries too, and an
-    ``accuracy`` dict over the accuracy bench's step on the two f32
-    sparse-conv entries, gather_rows and render_heatmap),
+    ``indoor`` dict with the same numbers over FCAF3D's recorded step,
+    ``second``, ``dvsecond`` and ``sassd`` dicts over those detectors'
+    steps, which gather_rows carries too, and an ``accuracy`` dict over
+    the accuracy bench's step on the two f32 sparse-conv entries,
+    gather_rows and render_heatmap),
     the card, then, as the last line, {"ok": true, "device": {...}}. Any
     failed phase exits non-zero.
 
@@ -2285,15 +2305,9 @@ SUP_STAGES = ('forward', 'assign+loss', 'backward', 'clip+optimizer')
 
 def anchor_loss(model, batch):
     """The anchor loss of one train-mode forward (the train step's body
-    without the optimizer)."""
-    from gga_tpu_torch.models.dense_heads import anchor3d_head as ah
-    head = model.cfg.head
-    preds = model(batch['points'], batch['points_valid'])
-    anchors = ah.make_anchors(head, tuple(preds['cls'].shape[1:3]),
-                              preds['cls'].device)
-    targets = ah.assign_targets(head, anchors, batch['gt_boxes'],
-                                batch['gt_labels'], batch['gt_valid'])
-    return ah.loss(head, preds, anchors, targets)[0]
+    without the optimizer; SASSD's auxiliary losses included)."""
+    from gga_tpu_torch.train import loop
+    return loop.anchor_loss(model, batch)[0]
 
 
 def anchor_plain_comparison(torch, mods, model, pts, val):
@@ -2321,10 +2335,12 @@ def anchor_plain_comparison(torch, mods, model, pts, val):
     return res
 
 
-def supervised_run(torch, mods, card, argv, per_step, batch, label):
+def supervised_run(torch, mods, card, argv, per_step, batch, label,
+                   positives=True):
     """``train_supervised.main(argv)`` with CUDA events around each step
     and at each stage mark, the counts set to 0 just before and read just
-    after, exact launches a step. Returns (summary, trainer, logs)."""
+    after, exact launches a step, finite losses, and (``positives``)
+    positive anchors at every step. Returns (summary, trainer)."""
     import json as json_
 
     from gga_tpu_torch import apis
@@ -2367,9 +2383,9 @@ def supervised_run(torch, mods, card, argv, per_step, batch, label):
     if [ln['step'] for ln in lines] != list(range(1, n + 1)):
         fail(f'{label}: logged steps {[ln["step"] for ln in lines]}')
     for ln in lines:
-        bad = [k for k, v in ln.items() if k.startswith('loss')
+        bad = [k for k, v in ln.items() if 'loss' in k
                and not np.isfinite(v)]
-        if bad or not ln['num_pos'] > 0:
+        if bad or (positives and not ln['num_pos'] > 0):
             fail(f'{label}: step {ln["step"]}: non-finite {bad}, num_pos '
                  f'{ln["num_pos"]}')
     summ.update(launches=got, step_device_ms=step_ms, stage_ms=stage_ms,
@@ -2390,15 +2406,19 @@ def supervised_run(torch, mods, card, argv, per_step, batch, label):
     return summ, trainers[-1]
 
 
-def moved_from_init(torch, apis, model_cfg, trainer, label, seed):
+def moved_from_init(torch, apis, model_cfg, trainer, label, seed,
+                    unreached=()):
     """Fail unless every parameter and BN statistic moved from the weights
-    seeded with ``seed`` (the config's, as the CLI seeds its trainer)."""
+    seeded with ``seed`` (the config's, as the CLI seeds its trainer), but
+    the ``unreached`` ones: parameters that no gradient reaches and that
+    weight decay leaves (zero biases)."""
     init = apis.init_anchor_detector(model_cfg, device=DEVICE,
                                      seed=seed).model
     init = init.state_dict()
     now = trainer.model.state_dict()
     names = dict(trainer.model.named_parameters())
-    stuck = [k for k in names if torch.equal(now[k], init[k])]
+    stuck = [k for k in names if torch.equal(now[k], init[k])
+             and k not in unreached]
     bn = [k for k in now if k.endswith(('running_mean', 'running_var'))]
     bn_stuck = [k for k in bn if torch.equal(now[k], init[k])]
     if stuck or bn_stuck:
@@ -2407,34 +2427,64 @@ def moved_from_init(torch, apis, model_cfg, trainer, label, seed):
     return len(names), len(bn)
 
 
-def supervised_phase(torch, mods, card, tmp):
-    """The fully supervised KITTI path on the workflow's mini KITTI (its
-    16 trainval scenes, the reduced clouds of stage 1, their Car /
-    Pedestrian / Cyclist GT): SECOND and PointPillars as shipped (f32,
-    B = 6, up to 24 000 points a scene).
+def supervised_options(data):
+    """The CLI's --cfg-options on the workflow's mini KITTI."""
+    return ['--cfg-options', f'data_root={data}/',
+            f'data.train_info={SUP_INFO}', *SUP_OPTIONS]
 
-    1. SECOND: one recorded train step of a seeded trainer; every call of
+
+def supervised_data(torch, data, config):
+    """(file-level config with the mini KITTI's options, model config,
+    batch size, train dataset, first batch on the card)."""
+    import os
+
+    from gga_tpu_torch import tools_lib
+    from gga_tpu_torch.config import Config
+    from gga_tpu_torch.data.kitti_det import KittiDetDataset
+    opts = supervised_options(data)
+    cfg = Config.fromfile(config).merge_from_options(
+        dict(kv.split('=', 1) for kv in opts[1:]))
+    d = cfg.data
+    dataset = KittiDetDataset(data, os.path.join(data, SUP_INFO),
+                              pc_range=cfg.point_cloud_range,
+                              pts_prefix=d.pts_prefix,
+                              max_points=d.max_points, seed=cfg.seed)
+    b0 = {k: torch.as_tensor(v, device=DEVICE) for k, v in
+          next(dataset.epoch_batches(d.samples_per_gpu, seed=0)).items()}
+    return (cfg, tools_lib.model_config_from_cfg(cfg), d.samples_per_gpu,
+            dataset, b0)
+
+
+def anchor_path(torch, mods, card, tmp, config, label, steps, profile=False,
+                log_keys=()):
+    """An anchor detector with the sparse encoder (SECOND, DVSECOND,
+    SASSD), ``config`` as shipped, on the workflow's mini KITTI
+    (its 16 trainval scenes, the reduced clouds of stage 1, their Car /
+    Pedestrian / Cyclist GT, B = ``data.samples_per_gpu``):
+
+    1. one recorded train step of a seeded trainer; every call of
        gather_gemm_conv (12 forward, 7 SubM input gradients),
        gather_gemm_dw (12) and gather_rows (4) replayed against its plain
-       version within the f32 gates (the same bits on a second call) and
-       timed per (K, C, D); the eval-mode BEV and head maps with the
-       kernels against the plain versions; one whole step with kernels
-       against plain.
-    2. Main path: ``train_supervised`` for SUP_STEPS steps (2 an epoch, a
+       version within the gates of its dtype (f32: the same bits on a
+       second call) and timed per (K, C, D), gather_rows on a cold L2;
+       the eval-mode BEV and head maps with the kernels against the plain
+       versions; one whole step with kernels against plain;
+    2. main path: ``train_supervised`` for ``steps`` steps (2 an epoch, a
        checkpoint at each epoch's end), exact launches a step (19 / 12 /
        4, nothing else), CUDA events around each step and at its stage
-       marks; gates: finite losses with positives, each step's lr, every
-       parameter and BN statistic moved, the head and decode from the
-       newest checkpoint equal to the in-memory weights' bit for bit.
-    3. ``infer_anchor`` on the 8 val scenes (12 launches a forward) and
-       ``kitti_eval`` on its detections.
-    4. PointPillars: ``train_supervised`` for SUP_PP_STEPS steps, no
-       kernel launch, finite losses with positives, moved weights."""
+       marks; gates: finite losses (``log_keys`` logged too) with
+       positives, each step's lr (the cyclic schedule: the CLI reads only
+       lr, weight decay, clip and betas), every parameter and BN statistic
+       moved, the head maps and decode from the newest checkpoint equal
+       to the in-memory weights' bit for bit; with ``profile`` a profile
+       of one more step;
+    3. ``infer_anchor`` on the 8 val scenes (12 launches a forward, no
+       auxiliary branch) and ``kitti_eval`` on its detections.
+    Returns the path's numbers and its replayed kernel rows."""
     import os
     import pickle
 
-    from gga_tpu_torch import apis, tools_lib
-    from gga_tpu_torch.config import Config
+    from gga_tpu_torch import apis
     from gga_tpu_torch.data.kitti_det import KittiDetDataset
     from gga_tpu_torch.eval.kitti_eval import kitti_eval
     from gga_tpu_torch.eval.submission import detections_to_kitti_annos
@@ -2444,87 +2494,77 @@ def supervised_phase(torch, mods, card, tmp):
     sparse_conv, gr, _ = mods
 
     data = os.path.join(tmp, 'kitti')
-    opts = ['--cfg-options', f'data_root={data}/',
-            f'data.train_info={SUP_INFO}', *SUP_OPTIONS]
-    config = str(ROOT / SUP_SECOND)
-    cfg = Config.fromfile(config).merge_from_options(
-        dict(kv.split('=', 1) for kv in opts[1:]))
-    model_cfg = tools_lib.model_config_from_cfg(cfg)
-    batch = cfg.data.samples_per_gpu
+    cfg, model_cfg, batch, dataset, b0 = supervised_data(torch, data, config)
     d = cfg.data
-    dataset = KittiDetDataset(data, os.path.join(data, SUP_INFO),
-                              pc_range=cfg.point_cloud_range,
-                              pts_prefix=d.pts_prefix,
-                              max_points=d.max_points, seed=cfg.seed)
-    print(f'supervised: SECOND (grid {model_cfg.sparse_shape}, '
-          f'{model_cfg.max_voxels} voxels, encoder '
-          f'{model_cfg.encoder_channels}) on the mini KITTI\'s '
+    print(f'{label}: {type(model_cfg).__name__} of {Path(config).name} '
+          f'(grid {model_cfg.sparse_shape}, {model_cfg.max_voxels} voxels, '
+          f'encoder {model_cfg.encoder_channels}) on the mini KITTI\'s '
           f'{len(dataset)} trainval scenes, B = {batch} x {d.max_points} '
           'points, f32')
     res = {}
 
     # --- 1. one recorded step: every kernel call against its plain version
-    b0 = {k: torch.as_tensor(v, device=DEVICE) for k, v in
-          next(dataset.epoch_batches(batch, seed=0)).items()}
     trainer = apis.init_anchor_trainer(model_cfg, 10, device=DEVICE,
                                        seed=cfg.seed)
     logs0, rec, _ = recorded_step(torch, apis, sp, mods, trainer, b0,
                                   step_fn=apis.anchor_train_step)
-    finite_logs(torch, logs0, 'supervised recorded step')
+    finite_logs(torch, logs0, f'{label} recorded step')
     n_rec = {k: len(v) for k, v in rec.items()}
     want = {k: SUP_PER_STEP[k] for k in n_rec}
     if n_rec != want:
-        fail(f'supervised recorded step: kernel calls {n_rec}, expected '
-             f'{want}')
+        fail(f'{label} recorded step: kernel calls {n_rec}, expected {want}')
     torch.set_grad_enabled(False)
     conv_rows, dwr, _ = train_kernel_rows(
-        torch, sparse_conv, rec, 'supervised kernels', SUP_CONVS, SUP_DGRAD)
+        torch, sparse_conv, rec, f'{label} kernels', SUP_CONVS, SUP_DGRAD)
     # SECOND's gather sources (at most 16 000 x 64 f32) fit in the L2, so
     # a warm replay reads them from there, faster than the HBM bound: its
     # replays run on a cold L2
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=DEVICE)
     gr_rows = rows_rows(torch, gr, [a for _, a in rec['gather_rows']], False,
-                        'supervised kernels', flush)
+                        f'{label} kernels', flush)
     del flush, rec
     res['plain_comparison'] = anchor_plain_comparison(
         torch, mods, trainer.model, b0['points'], b0['points_valid'])
     torch.set_grad_enabled(True)
-    print('supervised kernel vs plain forward (eval mode): ' + ', '.join(
+    print(f'{label} kernel vs plain forward (eval mode): ' + ', '.join(
         f'{k} err {v["max_abs_err"]:.4g} (max {v["max_abs_plain"]:.4g})'
         for k, v in res['plain_comparison'].items()))
     cmp_step = step_comparison(torch, mods, trainer, b0, anchor_loss,
                                SUP_CONVS)
-    print_step_comparison('supervised whole step kernels vs plain', cmp_step)
+    print_step_comparison(f'{label} whole step kernels vs plain', cmp_step)
     res.update(step_comparison=cmp_step, recorded_logs={
         k: float(v) for k, v in logs0.items()})
     del trainer, b0
     torch.cuda.empty_cache()
 
     # --- 2. the main path: the CLI --------------------------------------
-    work = os.path.join(tmp, 'work_second')
+    work = os.path.join(tmp, f'work_{label.replace(" ", "_")}')
     summ, trainer = supervised_run(
         torch, mods, card, [config, '--work-dir', work, '--max-steps',
-                            str(SUP_STEPS), '--device', DEVICE, *opts],
-        SUP_PER_STEP, batch, 'supervised SECOND')
-    sched = cyclic_cos_schedule(cfg.optimizer.lr, total_steps=SUP_STEPS)
+                            str(steps), '--device', DEVICE,
+                            *supervised_options(data)],
+        SUP_PER_STEP, batch, label)
+    missing = [k for k in log_keys if k not in summ['lines'][0]]
+    if missing:
+        fail(f'{label}: the train log has no {missing}')
+    sched = cyclic_cos_schedule(cfg.optimizer.lr, total_steps=steps)
     for ln in summ['lines']:
         want = sched(ln['step'] - 1)
         if not abs(ln['lr'] - want) <= 1e-12 * want:
-            fail(f'supervised: step {ln["step"]} ran at lr {ln["lr"]}, the '
+            fail(f'{label}: step {ln["step"]} ran at lr {ln["lr"]}, the '
                  f'schedule gives {want}')
-    n_par, n_bn = moved_from_init(torch, apis, model_cfg, trainer,
-                                  'supervised SECOND', cfg.seed)
-    print(f'supervised: all {n_par} parameter tensors and {n_bn} BN '
+    n_par, n_bn = moved_from_init(torch, apis, model_cfg, trainer, label,
+                                  cfg.seed)
+    print(f'{label}: all {n_par} parameter tensors and {n_bn} BN '
           'statistics moved; occupancy_out a step '
           f'{[round(v, 4) for v in summ["occupancy_out"]]}')
     ckpt_dir = summ['ckpt_dir']
-    steps = sorted(int(f[5:-3]) for f in os.listdir(ckpt_dir))
+    saved = sorted(int(f[5:-3]) for f in os.listdir(ckpt_dir))
     per = summ['steps_per_epoch']
-    if steps != sorted({min(e, SUP_STEPS) for e in range(
-            per, SUP_STEPS + per, per)}) or len(steps) < 2:
-        fail(f'supervised: checkpoints at steps {steps}, {per} steps an '
-             'epoch')
+    if saved != sorted({min(e, steps) for e in range(
+            per, steps + per, per)}) or len(saved) < 2:
+        fail(f'{label}: checkpoints at steps {saved}, {per} steps an epoch')
     t0 = time.perf_counter()
     state = ckpt.load_variables(ckpt_dir)
     load_ms = (time.perf_counter() - t0) * 1e3
@@ -2549,25 +2589,27 @@ def supervised_phase(torch, mods, card, tmp):
                 b_, vb['points'], vb['points_valid']).items()}))
     for key, v in outs[0].items():
         if not bits_equal(torch, v, outs[1][key]):
-            fail(f'supervised: {key} from step_{SUP_STEPS}.pt differs from '
-                 'the in-memory weights')
-    print(f'supervised: the head maps and decode of {SUP_EVAL_BATCH} val '
-          f'scenes from step_{SUP_STEPS}.pt equal the in-memory weights\' '
+            fail(f'{label}: {key} from step_{steps}.pt differs from the '
+                 'in-memory weights')
+    print(f'{label}: the head maps and decode of {SUP_EVAL_BATCH} val '
+          f'scenes from step_{steps}.pt equal the in-memory weights\' '
           f'bit for bit ({int(outs[0]["decode.valid"].sum())} kept boxes)')
-    print(f'{card}: supervised checkpoints: '
+    print(f'{card}: {label} checkpoints: '
           f'{summ["ckpt_bytes"] / 2 ** 20:.1f} MiB each, save ms '
           f'{[round(v, 1) for v in summ["ckpt_save_ms"]]}, load '
           f'{load_ms:.1f} ms')
-    # one more step of the CLI's trainer under the profiler: busy share
-    # and the kernels with the most device time
-    b1 = next(dataset.epoch_batches(batch, seed=1))
-    prof = device_profile(torch, lambda: apis.anchor_train_step(trainer, b1))
-    print_profile('supervised SECOND train step', prof)
     res.update(train={k: v for k, v in summ.items() if k != 'lines'},
                losses=[ln['loss'] for ln in summ['lines']],
                lrs=[ln['lr'] for ln in summ['lines']],
                num_pos=[ln['num_pos'] for ln in summ['lines']],
-               ckpt_load_ms=load_ms, profile=prof)
+               logs=summ['lines'], ckpt_load_ms=load_ms)
+    if profile:
+        # one more step of the CLI's trainer under the profiler: busy
+        # share and the kernels with the most device time
+        b1 = next(dataset.epoch_batches(batch, seed=1))
+        res['profile'] = device_profile(
+            torch, lambda: apis.anchor_train_step(trainer, b1))
+        print_profile(f'{label} train step', res['profile'])
     del trainer, live_b, outs
     torch.cuda.empty_cache()
 
@@ -2592,7 +2634,7 @@ def supervised_phase(torch, mods, card, tmp):
     want = dict(SUP_PER_STEP, gather_gemm_conv=SUP_CONVS * n_fwd,
                 gather_gemm_dw=0, gather_rows=0)
     if got != want or len(detections) != len(val_infos):
-        fail(f'supervised: infer_anchor launched {got} in {n_fwd} forwards '
+        fail(f'{label}: infer_anchor launched {got} in {n_fwd} forwards '
              f'over {len(detections)} scenes, expected {want} over '
              f'{len(val_infos)}')
     det_annos = detections_to_kitti_annos(detections, val_infos,
@@ -2600,28 +2642,45 @@ def supervised_phase(torch, mods, card, tmp):
     _, ap = kitti_eval([i['annos'] for i in val_infos], det_annos,
                        list(KittiDetDataset.CLASSES))
     if 'KITTI/Car_3D_AP11_moderate_strict' not in ap:
-        fail('supervised: kitti_eval gave no Car 3D AP')
+        fail(f'{label}: kitti_eval gave no Car 3D AP')
     res['eval'] = dict(scenes=len(detections), forward_ms=ms,
                        scenes_per_s=len(detections) / (sum(ms) / 1e3),
                        detections=sum(len(x['scores_3d'])
                                       for x in detections), launches=got,
                        car_3d_ap11_mod=ap['KITTI/Car_3D_AP11_moderate_strict'])
-    print(f'{card}: supervised infer_anchor on {len(detections)} val scenes '
+    print(f'{card}: {label} infer_anchor on {len(detections)} val scenes '
           f'(batches of {SUP_EVAL_BATCH}): {res["eval"]["scenes_per_s"]:.2f} '
           f'scenes/s by CUDA events around each call (forward, decode, NMS), '
           f'{res["eval"]["detections"]} detections; KITTI Car 3D AP11 '
           f'moderate {res["eval"]["car_3d_ap11_mod"]:.4g}; launches {got}')
     del bundle
     torch.cuda.empty_cache()
+    res.update(conv_calls=conv_rows, dw_calls=dwr, gather_rows=gr_rows)
+    return res
 
-    # --- 4. PointPillars as shipped through the same CLI -----------------
+
+def supervised_phase(torch, mods, card, tmp):
+    """The fully supervised KITTI path on the workflow's mini KITTI:
+    SECOND as shipped (f32, B = 6, up to 24 000 points a scene) through
+    ``anchor_path`` (SUP_STEPS steps, a profile of one more), then
+    PointPillars: ``train_supervised`` for SUP_PP_STEPS steps, no kernel
+    launch, finite losses with positives, moved weights."""
+    import os
+
+    from gga_tpu_torch import apis, tools_lib
+    from gga_tpu_torch.config import Config
+    res = anchor_path(torch, mods, card, tmp, str(ROOT / SUP_SECOND),
+                      'supervised', SUP_STEPS, profile=True)
+
+    # --- PointPillars as shipped through the same CLI --------------------
+    data = os.path.join(tmp, 'kitti')
     pp_config = str(ROOT / SUP_PILLARS)
     pp_cfg = Config.fromfile(pp_config)
     pp_summ, pp_trainer = supervised_run(
         torch, mods, card, [pp_config, '--work-dir',
                             os.path.join(tmp, 'work_pointpillars'),
                             '--max-steps', str(SUP_PP_STEPS), '--device',
-                            DEVICE, *opts],
+                            DEVICE, *supervised_options(data)],
         dict.fromkeys(SUP_PER_STEP, 0), pp_cfg.data.samples_per_gpu,
         'supervised PointPillars')
     n_par, n_bn = moved_from_init(
@@ -2633,7 +2692,171 @@ def supervised_phase(torch, mods, card, tmp):
     res['pointpillars'].update(
         losses=[ln['loss'] for ln in pp_summ['lines']],
         num_pos=[ln['num_pos'] for ln in pp_summ['lines']])
-    res.update(conv_calls=conv_rows, dw_calls=dwr, gather_rows=gr_rows)
+    return res
+
+
+# --- the rest of the KITTI voxel detectors: DVSECOND, SASSD and
+#     DynamicVoxelNet through the same CLI -------------------------------
+VF_PATHS = (
+    ('dvsecond', 'configs/dynamic_voxelization/'
+     'dv_second_secfpn_2x8_cosine_80e_kitti-3d-3class.py'),
+    ('sassd', 'configs/sassd/sassd_6x8_80e_kitti-3d-3class.py'))
+VF_DV_PILLARS = ('configs/dynamic_voxelization/'
+                 'dv_pointpillars_secfpn_6x8_160e_kitti-3d-car.py')
+VF_STEPS = 3                # --max-steps: 2 an epoch at B = 6, so across one
+VF_PP_STEPS = 2             # DynamicVoxelNet's --max-steps
+SASSD_AUX = ('aux_loss_cls', 'aux_loss_reg')
+
+
+def step_peak(torch, apis, model_cfg, batch, seed):
+    """Peak ``max_memory_allocated`` of one anchor train step of a fresh
+    seeded trainer (weights and optimizer state included)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = apis.init_anchor_trainer(model_cfg, 10, device=DEVICE,
+                                       seed=seed)
+    finite_logs(torch, apis.anchor_train_step(trainer, batch), 'peak step')
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del trainer
+    torch.cuda.empty_cache()
+    return peak
+
+
+@contextlib.contextmanager
+def scatter_passes(passes):
+    """Record the passes of every ``dynamic_scatter_mean`` call of the
+    dynamic detectors (the most points a voxel holds, ``ops/scatter.py``)
+    into the list ``passes``."""
+    from gga_tpu_torch.models.detectors import dynamic_voxelnet as dv
+    real = dv.dynamic_scatter_mean
+
+    def counted(*args):
+        means, cnt = real(*args)
+        passes.append(int(cnt.max()))
+        return means, cnt
+
+    dv.dynamic_scatter_mean = counted
+    try:
+        yield passes
+    finally:
+        dv.dynamic_scatter_mean = real
+
+
+def voxel_family_phase(torch, mods, card, tmp):
+    """The rest of the KITTI voxel detectors, each config as shipped, on
+    the workflow's mini KITTI (B = ``data.samples_per_gpu`` = 6, up to
+    24 000 points a scene, random seeded weights):
+
+    1. DVSECOND (the dv_second 2x8 cosine config: the CLI reads only lr,
+       weight decay, clip and betas, so it trains on the cyclic schedule
+       at B = 6, as gga_tpu's) and SASSD, its two auxiliary losses finite
+       and logged, f32, each through ``anchor_path`` (replays, the
+       forward and the whole step against plain, VF_STEPS CLI steps with
+       exact launches 19 / 12 / 4, each step's lr, the checkpoint bit for
+       bit, a profile of one more step, ``infer_anchor`` +
+       ``kitti_eval``);
+    2. SASSD's peak memory over one train step with its auxiliary branch
+       and without it (SECOND on the same config);
+    3. DynamicVoxelNet (dv_pointpillars car config), f32: the CLI for
+       VF_PP_STEPS steps with no kernel launch, moved weights,
+       ``infer_anchor`` on the val scenes (no launch); the passes of
+       ``dynamic_scatter_mean`` (its largest pillar's point count) a
+       forward, and DVSECOND's, printed."""
+    import dataclasses
+    import os
+
+    from gga_tpu_torch import apis
+    from gga_tpu_torch.config import Config
+    from gga_tpu_torch.data.kitti_det import KittiDetDataset
+    from gga_tpu_torch.models.detectors.voxelnet import SECONDNetConfig
+    data = os.path.join(tmp, 'kitti')
+    res = {}
+    t0 = time.perf_counter()
+    passes = []
+    for tag, config in VF_PATHS:
+        with scatter_passes(passes):
+            res[tag] = anchor_path(
+                torch, mods, card, tmp, str(ROOT / config), tag, VF_STEPS,
+                profile=True, log_keys=SASSD_AUX if tag == 'sassd' else ())
+        if tag == 'dvsecond':
+            res[tag]['scatter_passes'] = passes[:]
+            print(f'dvsecond: dynamic_scatter_mean took {max(passes)} passes '
+                  f'at most over {len(passes)} forwards (the most points a '
+                  '0.05 x 0.05 x 0.1 m voxel holds)')
+        torch.cuda.empty_cache()
+
+    # --- SASSD's peak memory with and without its auxiliary branch -------
+    cfg, model_cfg, _, _, b0 = supervised_data(
+        torch, data, str(ROOT / dict(VF_PATHS)['sassd']))
+    second_cfg = SECONDNetConfig(**{
+        f.name: getattr(model_cfg, f.name)
+        for f in dataclasses.fields(SECONDNetConfig)})
+    peaks = dict(with_aux=step_peak(torch, apis, model_cfg, b0, cfg.seed),
+                 without_aux=step_peak(torch, apis, second_cfg, b0,
+                                       cfg.seed))
+    res['sassd']['peak_bytes'] = peaks
+    print(f'{card}: sassd: peak memory of one train step at B = '
+          f'{b0["points"].shape[0]}: {peaks["with_aux"] / 2 ** 30:.2f} GiB '
+          f'with the auxiliary branch, {peaks["without_aux"] / 2 ** 30:.2f} '
+          'GiB without it (SECOND on the same config)')
+    del b0
+
+    # --- DynamicVoxelNet: no kernel on its path ---------------------------
+    # its config is a car one: KittiDetDataset labels Car 2 whatever the
+    # config's class_names (as gga_tpu's), so the one-class head's class 0
+    # matches the Pedestrian GT, which no car anchor overlaps enough to
+    # turn positive: every step has no positive, and no gradient reaches
+    # the box and direction convs' zero biases
+    pp_config = str(ROOT / VF_DV_PILLARS)
+    pp_cfg, pp_model_cfg, pp_batch, _, _ = supervised_data(torch, data,
+                                                           pp_config)
+    passes = []
+    with scatter_passes(passes):
+        summ, trainer = supervised_run(
+            torch, mods, card, [pp_config, '--work-dir',
+                                os.path.join(tmp, 'work_dv_pointpillars'),
+                                '--max-steps', str(VF_PP_STEPS), '--device',
+                                DEVICE, *supervised_options(data)],
+            dict.fromkeys(SUP_PER_STEP, 0), pp_batch, 'dynamic_voxelnet',
+            positives=False)
+        n_par, n_bn = moved_from_init(
+            torch, apis, pp_model_cfg, trainer, 'dynamic_voxelnet',
+            pp_cfg.seed, unreached=('bbox_head.conv_reg.bias',
+                                    'bbox_head.conv_dir_cls.bias'))
+        bundle = apis.DetectorBundle(trainer.model, pp_model_cfg,
+                                     torch.device(DEVICE))
+        val = KittiDetDataset(data, os.path.join(data, SUP_VAL_INFO),
+                              pc_range=pp_cfg.point_cloud_range,
+                              pts_prefix=pp_cfg.data.pts_prefix,
+                              max_points=pp_cfg.data.max_points,
+                              test_mode=True)
+        zero_counts(mods)
+        kept = 0
+        for vb in val.epoch_batches(SUP_EVAL_BATCH, shuffle=False):
+            out = apis.infer_anchor(bundle, vb['points'], vb['points_valid'])
+            if not torch.isfinite(out['boxes']).all():
+                fail('dynamic_voxelnet: infer_anchor gave non-finite boxes')
+            kept += int(out['valid'].sum())
+        got = counts(mods)
+    if any(got.values()):
+        fail(f'dynamic_voxelnet: infer_anchor launched {got}')
+    res['dynamic_voxelnet'] = {k: v for k, v in summ.items() if k != 'lines'}
+    res['dynamic_voxelnet'].update(
+        losses=[ln['loss'] for ln in summ['lines']],
+        num_pos=[ln['num_pos'] for ln in summ['lines']],
+        scatter_passes=passes, eval_kept=kept)
+    print(f'dynamic_voxelnet: the {n_par} parameter tensors (the box and '
+          f'direction biases, which no gradient reaches, aside) and {n_bn} '
+          f'BN statistics moved, num_pos {res["dynamic_voxelnet"]["num_pos"]}'
+          f' (the car config\'s head against label 0), no kernel launched; '
+          f'infer_anchor kept {kept} boxes on the val scenes; '
+          f'dynamic_scatter_mean took {passes} passes a forward (the most '
+          'points a 0.16 m pillar holds)')
+    del trainer, bundle
+    torch.cuda.empty_cache()
+    res['seconds'] = time.perf_counter() - t0
+    print(f'voxel family phase: {res["seconds"]:.1f} s')
     return res
 
 
@@ -3123,6 +3346,9 @@ def main():
         torch.cuda.empty_cache()
         # --- the accuracy benches: weak training to AP, then stage 4 ---
         acc = accuracy_phase(torch, mods, card, tmp)
+        torch.cuda.empty_cache()
+        # --- DVSECOND, bf16 SECOND, SASSD and DynamicVoxelNet ---
+        vf = voxel_family_phase(torch, mods, card, tmp)
 
     launches, launches_f32 = tr['launches'], f32['train']['launches']
     kernels = [
@@ -3163,19 +3389,23 @@ def main():
             'launches', 'max_abs_err', 'ms', 'device_ms', 'plain_ms',
             'bound_ms', 'bound_by', 'bound_share', 'device_bound_share',
             'ffma_bound_ms')}
-    # SECOND's step (f32): both sparse-conv kernels and gather_rows
-    for entry, key, rows, lib in (
-            (kernels[2], 'gather_gemm_conv', sup['conv_calls'], None),
-            (kernels[3], 'gather_gemm_dw', sup['dw_calls'], None),
-            (kernels[4], 'gather_rows', sup['gather_rows'],
-             sum(r['library_ms'] for r in sup['gather_rows']))):
-        e = kernel_entry(entry['name'], entry['source'].split('/')[-1],
-                         entry['replaces'], sup['train']['launches'][key],
-                         rows, library_ms=lib)
-        entry['second'] = {k: e[k] for k in (
-            'launches', 'max_abs_err', 'ms', 'device_ms', 'plain_ms',
-            'bound_ms', 'bound_by', 'bound_share', 'device_bound_share',
-            'ffma_bound_ms', 'library_ms')}
+    # the anchor detectors' steps (f32): both sparse-conv kernels and
+    # gather_rows
+    for path, res in (('second', sup), ('dvsecond', vf['dvsecond']),
+                      ('sassd', vf['sassd'])):
+        for entry, key, rows, lib in (
+                (kernels[2], 'gather_gemm_conv', res['conv_calls'], None),
+                (kernels[3], 'gather_gemm_dw', res['dw_calls'], None),
+                (kernels[4], 'gather_rows', res['gather_rows'],
+                 sum(r['library_ms'] for r in res['gather_rows']))):
+            e = kernel_entry(entry['name'], entry['source'].split('/')[-1],
+                             entry['replaces'],
+                             res['train']['launches'][key], rows,
+                             library_ms=lib)
+            entry[path] = {k: e[k] for k in (
+                'launches', 'max_abs_err', 'ms', 'device_ms', 'plain_ms',
+                'bound_ms', 'bound_by', 'bound_share', 'device_bound_share',
+                'ffma_bound_ms', 'library_ms')}
     # the accuracy bench's weak-train step (f32, small): conv, dW,
     # gather_rows and render_heatmap
     for entry, key, rows, lib in (
@@ -3205,7 +3435,9 @@ def main():
         for path, steps in (('indoor', sum(r['steps']
                                            for r in ind['train'])),
                             ('second', sup['train']['steps']),
-                            ('accuracy', acc['steps'])):
+                            ('accuracy', acc['steps']),
+                            *((t, vf[t]['train']['steps'])
+                              for t, _ in VF_PATHS)):
             if path not in k:
                 continue
             d = k[path]
@@ -3230,7 +3462,7 @@ def main():
                        train_gather_rows=gr_rows, train_gather_rows_t=grt_rows,
                        train_heatmap=hm_rows, step_comparison=cmp_step,
                        f32=f32, workflow=wf, stage4=s4, indoor=ind,
-                       supervised=sup, accuracy=acc),
+                       supervised=sup, accuracy=acc, voxel_family=vf),
                   fh, indent=1, default=str)
 
     print(card)

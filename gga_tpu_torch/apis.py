@@ -6,7 +6,8 @@ trainer and take GGA weak train steps; for stage 4, build the PGD
 monocular detector or its trainer, take PGD train steps and run its
 inference on a batch of images; for the indoor retrain, the same for
 the FCAF3D detector on batches of coloured point clouds; and for the
-fully supervised KITTI path, the same for SECOND and PointPillars."""
+fully supervised KITTI path, the same for the anchor detectors: SECOND,
+PointPillars, DynamicVoxelNet, DVSECOND and SASSD."""
 from __future__ import annotations
 
 import dataclasses
@@ -19,8 +20,13 @@ from .device import resolve_device
 from .models.detectors.centerpoint_gga import (GGADetector, GGAModelConfig,
                                                decode_detections)
 from .models.dense_heads import anchor3d_head, fcaf3d_head, pgd_head
+from .models.detectors.dynamic_voxelnet import (DVSECONDConfig,
+                                                DVSECONDDetector,
+                                                DynamicVoxelNet,
+                                                DynamicVoxelNetConfig)
 from .models.detectors.fcaf3d import FCAF3DDetector, FCAF3DModelConfig
 from .models.detectors.pgd import PGDDetector, PGDModelConfig
+from .models.detectors.sassd import SASSD, SASSDConfig
 from .models.detectors.voxelnet import (PointPillars, PointPillarsConfig,
                                         SECONDDetector, SECONDNetConfig)
 from .models.layers import init_params
@@ -344,14 +350,20 @@ def infer_indoor(bundle: DetectorBundle, points, colors, points_valid):
     return fcaf3d_head.decode(model.cfg.head, outs)
 
 
+# the anchor detectors by the exact type of their config
 _ANCHOR_DETECTORS = {SECONDNetConfig: SECONDDetector,
-                     PointPillarsConfig: PointPillars}
+                     PointPillarsConfig: PointPillars,
+                     DynamicVoxelNetConfig: DynamicVoxelNet,
+                     DVSECONDConfig: DVSECONDDetector,
+                     SASSDConfig: SASSD}
 
 
 def init_anchor_detector(cfg, state_dict=None, device='cuda',
                          seed=0) -> DetectorBundle:
-    """SECOND (``SECONDNetConfig``) or PointPillars (``PointPillarsConfig``)
-    in eval mode on ``device``.
+    """An anchor detector in eval mode on ``device``: SECOND
+    (``SECONDNetConfig``), PointPillars (``PointPillarsConfig``),
+    DynamicVoxelNet (``DynamicVoxelNetConfig``), DVSECOND
+    (``DVSECONDConfig``) or SASSD (``SASSDConfig``).
 
     With a ``state_dict`` (e.g. from ``convert.from_jax_variables``) the
     weights are loaded strictly; without one they are drawn from
@@ -370,11 +382,12 @@ def init_anchor_detector(cfg, state_dict=None, device='cuda',
 
 def init_anchor_trainer(cfg, total_steps, state_dict=None, device='cuda',
                         seed=0, optimizer=None) -> TrainState:
-    """SECOND or PointPillars in train mode on ``device`` with the KITTI
-    recipe's optimizer (``build_optimizer(params, total_steps,
-    **optimizer)``: clip, AdamW, the cyclic lr and beta1; gga_tpu's
-    ``tools/train_supervised.py:76-79`` passes lr, weight_decay,
-    grad_clip and betas). Weights as ``init_anchor_detector``."""
+    """An anchor detector (``init_anchor_detector``'s) in train mode on
+    ``device`` with the KITTI recipe's optimizer (``build_optimizer(
+    params, total_steps, **optimizer)``: clip, AdamW, the cyclic lr and
+    beta1; gga_tpu's ``tools/train_supervised.py:76-79`` passes lr,
+    weight_decay, grad_clip and betas). Weights as
+    ``init_anchor_detector``."""
     model = init_anchor_detector(cfg, state_dict, device, seed).model.train()
     return TrainState(model=model,
                       optimizer=build_optimizer(model.parameters(),
@@ -392,7 +405,8 @@ def anchor_train_step(trainer: TrainState, batch, mark=None, diag=None):
     """One supervised train step on a batch of ``KittiDetDataset``
     samples (as tensors or numpy). ``mark`` is the step's stage hook and
     ``diag`` a dict for the encoder's occupancy (``loop.anchor_train_step``).
-    Returns the step's logs as 0-d tensors on the trainer's device."""
+    Returns the step's logs as 0-d tensors on the trainer's device (for
+    SASSD with its two auxiliary losses, which the total includes)."""
     dev = next(trainer.model.parameters()).device
     b = {k: torch.as_tensor(batch[k], dtype=dt, device=dev)
          for k, dt in _DET_DTYPES.items()}
@@ -401,8 +415,9 @@ def anchor_train_step(trainer: TrainState, batch, mark=None, diag=None):
 
 @torch.no_grad()
 def infer_anchor(bundle: DetectorBundle, points, points_valid):
-    """SECOND or PointPillars inference on a batch: forward in eval mode,
-    anchors at the map's size, decode + rotated NMS a class.
+    """Anchor-detector inference on a batch: forward in eval mode (SASSD
+    without its auxiliary branch), anchors at the map's size, decode +
+    rotated NMS a class.
 
     Args:
         points: [B, P, 4] f32 (tensor or numpy); points_valid: [B, P] bool.

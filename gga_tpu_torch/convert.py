@@ -6,9 +6,11 @@ port's own copy of the GGA rule table and layout transforms of
 ``_gga_transform``), run from flax to torch, and the same for the stage-4
 PGD detector (``pgd_rules``: flax's automatic names of ResNet, FPN and
 PGDHead to mmdet3d's keys), the indoor FCAF3D detector
-(``fcaf3d_rules``) and the supervised SECOND and PointPillars
-(``second_rules``, ``pointpillars_rules``; gga_tpu has no converter
-rules for these two, so theirs stand alone). A released mmdet3d GGA
+(``fcaf3d_rules``) and the supervised KITTI voxel detectors
+(``second_rules`` for SECOND and DVSECOND, ``pointpillars_rules``,
+``sassd_rules``, and DynamicVoxelNet's dense half alone, whose voxel
+features and scatter have no parameters; gga_tpu has no converter
+rules for these, so theirs stand alone). A released mmdet3d GGA
 checkpoint loads into the port directly, with no conversion.
 """
 from __future__ import annotations
@@ -20,8 +22,10 @@ import torch
 
 from .models.backbones import mink_resnet
 from .models.backbones.resnet import ARCH
+from .models.detectors.dynamic_voxelnet import DynamicVoxelNetConfig
 from .models.detectors.fcaf3d import FCAF3DModelConfig
 from .models.detectors.pgd import PGDModelConfig
+from .models.detectors.sassd import SASSDConfig
 from .models.detectors.voxelnet import PointPillarsConfig, SECONDNetConfig
 
 
@@ -313,6 +317,15 @@ def pointpillars_rules(cfg: PointPillarsConfig):
     return rules + _anchor_rules(cfg)
 
 
+def sassd_rules(cfg: SASSDConfig):
+    """gga_tpu's ``SASSD``: SECOND's tensors plus the auxiliary branch's
+    linears (no bias; gga_tpu's top-level ``point_fc``, ``point_cls`` and
+    ``point_reg``), which mmdet3d's SparseEncoderSASSD holds."""
+    return second_rules(cfg) + [
+        (f'middle_encoder.{n}.weight', 'params', f'{n}/kernel', 'linear')
+        for n in ('point_fc', 'point_cls', 'point_reg')]
+
+
 def _to_torch_layout(name, x):
     """One flax tensor -> its mmdet3d state_dict layout."""
     x = np.asarray(x)
@@ -344,9 +357,14 @@ def _flatten(tree, prefix=''):
 
 
 def rules_of(cfg):
-    """The rule table of the detector ``cfg`` describes."""
+    """The rule table of the detector ``cfg`` describes. The subclasses
+    (``SASSDConfig``, ``DVSECONDConfig`` of ``SECONDNetConfig``,
+    ``DynamicVoxelNetConfig`` of ``PointPillarsConfig``) are tested before
+    their bases; DVSECOND has SECOND's tensors."""
     for cls, rules in ((PGDModelConfig, pgd_rules),
                        (FCAF3DModelConfig, fcaf3d_rules),
+                       (SASSDConfig, sassd_rules),
+                       (DynamicVoxelNetConfig, _anchor_rules),
                        (SECONDNetConfig, second_rules),
                        (PointPillarsConfig, pointpillars_rules)):
         if isinstance(cfg, cls):
@@ -357,9 +375,10 @@ def rules_of(cfg):
 def from_jax_variables(variables_np, cfg):
     """gga_tpu ``{'params', 'batch_stats'}`` trees (nested dicts of numpy
     arrays) of the detector ``cfg`` describes (a ``GGAModelConfig``,
-    ``PGDModelConfig``, ``FCAF3DModelConfig``, ``SECONDNetConfig`` or
-    ``PointPillarsConfig``) -> the port's ``load_state_dict`` input (f32
-    tensors)."""
+    ``PGDModelConfig``, ``FCAF3DModelConfig``, or the config of an anchor
+    detector: ``SECONDNetConfig``, ``PointPillarsConfig``,
+    ``DynamicVoxelNetConfig``, ``DVSECONDConfig`` or ``SASSDConfig``) ->
+    the port's ``load_state_dict`` input (f32 tensors)."""
     flat = {c: _flatten(variables_np.get(c, {}))
             for c in ('params', 'batch_stats')}
     rules = rules_of(cfg)

@@ -1,6 +1,6 @@
-"""3D box geometry the GGA and PGD losses need (port of the parts of
-``gga_tpu/core/geometry.py`` that ``_predict_geometry`` and the PGD head
-call).
+"""3D box geometry the GGA, PGD and SASSD losses need (port of the parts
+of ``gga_tpu/core/geometry.py`` that ``_predict_geometry``, the PGD head
+and SASSD's auxiliary targets call).
 
 LiDAR boxes follow the reference's convention: yaw about +z, 0 at +x,
 counter-clockwise; box origins are bottom centres (0.5, 0.5, 0). Camera
@@ -59,3 +59,26 @@ def limit_period(val, offset=0.5, period=np.pi):
     """``val`` limited to [-offset * period, (1 - offset) * period)
     (reference ``structures/utils.py limit_period``)."""
     return val - torch.floor(val / period + offset) * period
+
+
+def points_in_rbbox(points, boxes, origin=LIDAR_ORIGIN):
+    """Mask of points inside rotated 3D boxes (gga_tpu ``points_in_rbbox``):
+    each point moved into each box's frame about its gravity centre, then
+    compared with the half sizes (faces included).
+
+    Args:
+        points: [..., P, 3+]; boxes: [..., N, 7] (x, y, z, dx, dy, dz,
+            yaw) with ``origin`` semantics.
+    Returns:
+        [..., P, N] bool.
+    """
+    o = torch.tensor(origin, dtype=torch.float32, device=boxes.device)
+    centers = boxes[..., :3] + boxes[..., 3:6] * (0.5 - o)
+    rel = points[..., :, None, :3] - centers[..., None, :, :]
+    c = torch.cos(boxes[..., 6])[..., None, :]
+    s = torch.sin(boxes[..., 6])[..., None, :]
+    local_x = rel[..., 0] * c + rel[..., 1] * s
+    local_y = -rel[..., 0] * s + rel[..., 1] * c
+    half = (boxes[..., 3:6] / 2.0)[..., None, :, :]
+    return ((local_x.abs() <= half[..., 0]) & (local_y.abs() <= half[..., 1])
+            & (rel[..., 2].abs() <= half[..., 2]))

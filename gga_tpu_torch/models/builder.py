@@ -1,7 +1,8 @@
 """Config-dict -> detector construction through the MODELS registry (the
 port's copy of ``gga_tpu/models/builder.py``: the GGA detector, the
 stage-4 PGD detector, the indoor FCAF3D detector and the fully supervised
-SECOND and PointPillars; the rest of the zoo waits for its own slices).
+KITTI voxel detectors: SECOND, PointPillars, DynamicVoxelNet, DVSECOND and
+SASSD; the rest of the zoo waits for its own slices).
 
 ``config_from_dict`` converts the python config-file dict into the typed
 frozen dataclass (recursively, lists -> tuples, nested dicts -> nested
@@ -17,8 +18,12 @@ import dataclasses
 from ..config import MODELS
 from .dense_heads.centerpoint_head_gga import GGAHeadConfig
 from .detectors.centerpoint_gga import GGADetector, GGAModelConfig
+from .detectors.dynamic_voxelnet import (DVSECONDConfig, DVSECONDDetector,
+                                         DynamicVoxelNet,
+                                         DynamicVoxelNetConfig)
 from .detectors.fcaf3d import FCAF3DDetector, FCAF3DModelConfig
 from .detectors.pgd import PGDDetector, PGDModelConfig
+from .detectors.sassd import SASSD, SASSDConfig
 from .detectors.voxelnet import (PointPillars, PointPillarsConfig,
                                  SECONDDetector, SECONDNetConfig)
 
@@ -87,6 +92,9 @@ _register_family('PGDDetector', PGDModelConfig, PGDDetector)
 _register_family('FCAF3DDetector', FCAF3DModelConfig, FCAF3DDetector)
 _register_family('PointPillars', PointPillarsConfig, PointPillars)
 _register_family('SECONDDetector', SECONDNetConfig, SECONDDetector)
+_register_family('DVSECONDDetector', DVSECONDConfig, DVSECONDDetector)
+_register_family('DynamicVoxelNet', DynamicVoxelNetConfig, DynamicVoxelNet)
+_register_family('SASSD', SASSDConfig, SASSD)
 
 
 def build_detector(cfg):

@@ -37,6 +37,7 @@ from torch import nn
 from ...core.geometry import corners_3d, limit_period
 from ...core.nms import nms_bev
 from ..layers import PlainConvModule
+from ..losses import smooth_l1_loss as _smooth_l1
 
 INF = 1e8
 
@@ -317,12 +318,6 @@ def decode_prob_depth(cfg: PGDConfig, depth_cls):
     mult = cfg.depth_unit * torch.arange(cfg.depth_bins, dtype=torch.float32,
                                          device=depth_cls.device)
     return (torch.softmax(depth_cls, -1) * mult).sum(-1)
-
-
-def _smooth_l1(pred, target, beta):
-    diff = (pred - target).abs()
-    return torch.where(diff < beta, 0.5 * diff * diff / beta,
-                       diff - 0.5 * beta)
 
 
 def _focal_loss(logits, labels, num_classes, gamma, alpha):

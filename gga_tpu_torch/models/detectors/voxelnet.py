@@ -48,8 +48,8 @@ class PointPillarsConfig:
     # slice; the port refuses them (PointPillars)
     backbone: str = 'second'
     neck: str = 'secfpn'
-    # gga_tpu's 'bfloat16' (the reference's fp16 configs) waits: the
-    # detectors refuse it
+    # gga_tpu's 'bfloat16' (its fp16 configs are nuScenes ones with an
+    # FPN neck) waits: PointPillars refuses it
     compute_dtype: str = 'float32'
     head: Anchor3DConfig = dataclasses.field(default_factory=Anchor3DConfig)
 
@@ -90,8 +90,8 @@ class SECONDNetConfig:
     backbone_strides: Tuple[int, ...] = (1, 2)
     neck_channels: Tuple[int, ...] = (256, 256)
     neck_strides: Tuple[int, ...] = (1, 2)
-    # gga_tpu's 'bfloat16' (hv_second_secfpn_fp16_*) waits: the detectors
-    # refuse it
+    # gga_tpu's 'bfloat16' (hv_second_secfpn_fp16_*) waits: SECOND
+    # refuses it
     compute_dtype: str = 'float32'
     head: Anchor3DConfig = dataclasses.field(
         default_factory=lambda: Anchor3DConfig(
@@ -116,11 +116,6 @@ class _AnchorDetector(nn.Module):
     Anchor3DHead on an NCHW BEV map."""
 
     def _dense(self, cfg, bev_channels):
-        if cfg.compute_dtype != 'float32':
-            raise NotImplementedError(
-                f'compute_dtype {cfg.compute_dtype!r}: the _fp16_ SECOND and '
-                'PointPillars configs (a bf16 dense stack) wait for a slice '
-                'that holds them against gga_tpu (ROADMAP.md §1 item 7)')
         self.backbone = SECOND(bev_channels, cfg.backbone_channels,
                                cfg.backbone_layers, cfg.backbone_strides)
         self.neck = SECONDFPN(cfg.backbone_channels, cfg.neck_channels,
@@ -142,27 +137,49 @@ class _AnchorDetector(nn.Module):
         return self.bbox_head(self.neck(self.backbone(bev)))
 
 
+def second_encoder_args(cfg: SECONDNetConfig):
+    """SparseEncoder arguments of SECOND's conv_module encoder: gga_tpu
+    builds it with base 16 and 128 output channels."""
+    return dict(in_channels=4, sparse_shape=cfg.sparse_shape,
+                base_channels=16, output_channels=128,
+                encoder_channels=cfg.encoder_channels,
+                encoder_paddings=cfg.encoder_paddings,
+                stage_budgets=cfg.encoder_budgets,
+                out_budget=cfg.encoder_out_budget, block_type='conv_module')
+
+
 class SECONDDetector(_AnchorDetector):
     def __init__(self, cfg: SECONDNetConfig):
         super().__init__()
+        if cfg.compute_dtype != 'float32':
+            raise NotImplementedError(
+                f'compute_dtype {cfg.compute_dtype!r}: the _fp16_ SECOND '
+                'configs wait for their slice (ROADMAP.md §1, "The _fp16_ '
+                'SECOND configs (bf16)"): at full width their whole bf16 '
+                "step with the kernels meets the plain step's one-ulp noise "
+                'but not the fixed cosine floor of the bf16 gates')
         self.cfg = cfg
         self.voxel_encoder = HardSimpleVFE()
-        # gga_tpu builds the encoder with base 16 and 128 output channels
-        self.middle_encoder = SparseEncoder(
-            in_channels=4, sparse_shape=cfg.sparse_shape, base_channels=16,
-            output_channels=128, encoder_channels=cfg.encoder_channels,
-            encoder_paddings=cfg.encoder_paddings,
-            stage_budgets=cfg.encoder_budgets,
-            out_budget=cfg.encoder_out_budget, block_type='conv_module')
+        self.middle_encoder = self.build_encoder(cfg)
         self._dense(cfg, self.middle_encoder.bev_channels)
+
+    @staticmethod
+    def build_encoder(cfg):
+        return SparseEncoder(**second_encoder_args(cfg))
+
+    def voxel_features(self, points, points_valid):
+        """Voxel means of the points a voxel keeps (f32 [B, V, 4]), the
+        voxels' (z, y, x) coords and valid mask."""
+        vox, vvalid = _voxelize(self.cfg, points, points_valid)
+        return (self.voxel_encoder(vox['voxels'], vox['num_points']),
+                vox['coords'], vvalid)
 
     def extract_bev(self, points, points_valid, diag=None):
         """points [B, P, 4] f32; points_valid [B, P] -> BEV NCHW
         [B, 128 * nz, ny, nx]. A dict ``diag`` receives the encoder's
         ``occupancy_out``."""
-        vox, vvalid = _voxelize(self.cfg, points, points_valid)
-        feats = self.voxel_encoder(vox['voxels'], vox['num_points'])
-        return self.middle_encoder(feats, vox['coords'], vvalid, diag)
+        feats, coords, vvalid = self.voxel_features(points, points_valid)
+        return self.middle_encoder(feats, coords, vvalid, diag)
 
     def forward(self, points, points_valid, diag=None):
         """Returns the head's dict of NHWC f32 maps."""
@@ -177,7 +194,14 @@ class PointPillars(_AnchorDetector):
                 f'PointPillars backbone {cfg.backbone!r}, neck {cfg.neck!r}:'
                 ' the port has the SECOND backbone and SECONDFPN neck only; '
                 "gga_tpu's RegNet backbones and FPN neck wait for their "
-                'slice (ROADMAP.md §1 item 7)')
+                'slice (ROADMAP.md §1, "FreeAnchor, SSN and the RegNet '
+                'backbones")')
+        if cfg.compute_dtype != 'float32':
+            raise NotImplementedError(
+                f'compute_dtype {cfg.compute_dtype!r}: the _fp16_ '
+                'PointPillars configs are nuScenes ones with an FPN neck, '
+                'which wait for their slice (ROADMAP.md §1, "FreeAnchor, SSN '
+                'and the RegNet backbones")')
         self.cfg = cfg
         self.voxel_encoder = PillarFeatureNet(
             feat_channels=cfg.pfn_channels, voxel_size=cfg.voxel_size,

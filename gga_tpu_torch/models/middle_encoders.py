@@ -28,7 +28,10 @@ class SparseEncoder(nn.Module):
     block are not read (a SubM conv pads 1).
 
     Returns the dense BEV map NCHW [B, C*D, H, W], channels flattened
-    channel-major over (C, D) like the reference's ``view(N, C*D, H, W)``.
+    channel-major over (C, D) like the reference's ``view(N, C*D, H, W)``;
+    with ``return_stages`` (SASSD's encode features, mmdet3d's
+    sparse_encoder.py:292-295) a tuple (bev, stages), each encoder layer's
+    output as (features [B, N, C], coords [B, N, 3], valid [B, N], grid).
     ``tile_stages``, ``remat_blocks``, ``tile_shape`` and ``tile_budgets``
     are gga_tpu's TPU options: any value but their defaults is refused."""
 
@@ -41,6 +44,7 @@ class SparseEncoder(nn.Module):
                  stage_budgets: Sequence[int] = (16000, 16000, 16000),
                  out_budget: int = 16000,
                  block_type: str = 'basicblock',
+                 return_stages: bool = False,
                  tile_stages: Tuple[int, ...] = (),
                  remat_blocks: bool = False,
                  tile_shape: Tuple[int, int, int] = (2, 4, 4),
@@ -57,6 +61,7 @@ class SparseEncoder(nn.Module):
         self.stage_budgets = tuple(stage_budgets)
         self.out_budget = out_budget
         self.block_type = block_type
+        self.return_stages = return_stages
         self.conv_input = SubMConvBlock(in_channels, base_channels)
         layers = {}
         ch = base_channels
@@ -103,6 +108,7 @@ class SparseEncoder(nn.Module):
         st = sp.SparseTensor(feats, coords, valid, self.sparse_shape)
         nmap = self._subm_map(st)
         st.features = self.conv_input(feats, valid, nmap)
+        stages = []
         for i, layer in enumerate(self.encoder_layers.values()):
             for block in layer:
                 if isinstance(block, SparseConvBlock):
@@ -113,10 +119,12 @@ class SparseEncoder(nn.Module):
                     nmap = self._subm_map(st)
                 else:
                     st.features = block(st.features, st.valid, nmap)
+            stages.append((st.features, st.coords, st.valid, st.grid))
         st = self.conv_out(st)
         if diag is not None:
             diag['occupancy_out'] = _occupancy(st.valid, self.out_budget)
-        return _densify(st)
+        bev = _densify(st)
+        return (bev, stages) if self.return_stages else bev
 
 
 def _occupancy(valid, budget):

@@ -43,8 +43,11 @@ def dynamic_scatter_mean(point_features, point_voxel_ids, valid, num_voxels):
     on the card, where ``index_add`` adds with atomics in no set order,
     a voxel's mean then has the same bits from run to run (a reloaded
     checkpoint decodes exactly as the weights in memory), and the order
-    is the one of gga_tpu's scatter on the CPU. The passes are as many as
-    the most points a voxel holds.
+    is the one of gga_tpu's scatter on the CPU. The points are sorted by
+    (rank, point) once, so pass r adds the slice of rank-r points: the
+    passes are as many as the most points a voxel holds, and each point
+    is added once. Points that fell in no voxel (out of range, or in a
+    voxel the budget dropped) are added nowhere.
 
     Args:
         point_features: [B, P, C].
@@ -58,10 +61,9 @@ def dynamic_scatter_mean(point_features, point_voxel_ids, valid, num_voxels):
     B, P, C = point_features.shape
     V = num_voxels
     dev = point_voxel_ids.device
-    ids = torch.where(valid, point_voxel_ids.long(), V)
+    live = (valid & (point_voxel_ids < V)).reshape(-1)
+    ids = torch.where(live.reshape(B, P), point_voxel_ids.long(), V)
     rows = (torch.arange(B, device=dev)[:, None] * (V + 1) + ids).reshape(-1)
-    dump = (torch.arange(B, device=dev)[:, None] * (V + 1) + V).expand(
-        B, P).reshape(-1)
     # each point's rank among the points of its voxel, in point order
     rows_s, order = torch.sort(rows, stable=True)
     idx = torch.arange(rows.numel(), device=dev)
@@ -69,12 +71,17 @@ def dynamic_scatter_mean(point_features, point_voxel_ids, valid, num_voxels):
     first[1:] = rows_s[1:] != rows_s[:-1]
     rank_s = idx - torch.cummax(torch.where(first, idx, 0), 0).values
     rank = torch.empty_like(rank_s).scatter_(0, order, rank_s)
-    live = valid.reshape(-1)
+    # the live points by (rank, point), and how many of each rank
+    by_rank = torch.sort(torch.where(live, rank, rows.numel()),
+                         stable=True).indices
+    per_rank = torch.bincount(torch.where(live, rank + 1, 0))[1:].tolist()
     feat = point_features.reshape(-1, C)
     sums = point_features.new_zeros(B * (V + 1), C)
-    n_pass = int(torch.where(live, rank, -1).max()) + 1 if P else 0
-    for r in range(n_pass):
-        sums.index_add_(0, torch.where(live & (rank == r), rows, dump), feat)
+    start = 0
+    for n in per_rank:
+        sel = by_rank[start:start + n]
+        sums.index_add_(0, rows[sel], feat[sel])
+        start += n
     cnt = torch.zeros(B * (V + 1), dtype=torch.int32, device=dev).index_add(
         0, rows, live.int())
     mean = sums / cnt.clamp(min=1)[:, None]

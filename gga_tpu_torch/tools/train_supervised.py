@@ -1,25 +1,32 @@
-"""Fully supervised anchor-head training of SECOND or PointPillars on
-KITTI, on one device (the port's copy of ``tools/train_supervised.py``).
+"""Fully supervised anchor-head training of the KITTI voxel detectors on
+one device (the port's copy of ``tools/train_supervised.py``).
 
-Builds the detector of the config (``SECONDDetector`` or
-``PointPillars``), streams ``KittiDetDataset`` batches of
+Builds the detector of the config (``SECONDDetector`` in f32 or, for the
+_fp16_ configs, bf16; ``PointPillars``; ``DynamicVoxelNet``;
+``DVSECONDDetector``; ``SASSD``), streams ``KittiDetDataset`` batches of
 ``data.samples_per_gpu`` scenes (pass e in ``RandomState(e)`` order with
 the dataset's epoch set to e, the last partial batch dropped) and takes
 ``apis.anchor_train_step``s: a train-mode forward, anchors at the map's
-size, max-IoU assignment, the anchor loss, backward, a global-norm clip
-and AdamW with the cyclic lr and beta1 over ``max_epochs`` epochs, or
-``--max-steps``. At step 1 and every ``log_interval`` steps it appends a
-JSON line to ``<work-dir>/train_log.jsonl`` (gga_tpu's keys: the step's
-logs, the step, the epoch and scenes/s since the start; and the lr the
-step ran at and the gradients' norm), and at the end of each epoch it
-saves ``step_<n>.pt`` under ``<work-dir>/checkpoints``, where gga_tpu
+size, max-IoU assignment, the anchor loss (for SASSD plus its auxiliary
+point losses), backward, a global-norm clip and AdamW with the cyclic lr
+and beta1 over ``max_epochs`` epochs, or ``--max-steps``. As gga_tpu's,
+it reads only ``lr``, ``weight_decay``, ``grad_clip`` and ``betas`` of
+the config's optimizer: a config that names another schedule
+(``lr_policy='cosine'`` of the dv_second 2x8 config) trains on the cyclic
+one, at ``data.samples_per_gpu``. At step 1 and every ``log_interval``
+steps it appends a JSON line to ``<work-dir>/train_log.jsonl`` (gga_tpu's
+keys: the step's logs, the step, the epoch and scenes/s since the start;
+and the lr the step ran at, the gradients' norm and SASSD's auxiliary
+losses), and at the end of each epoch it saves ``step_<n>.pt`` under ``<work-dir>/checkpoints``, where gga_tpu
 writes its orbax checkpoint.
 
 Differences from gga_tpu, by design: ``--device`` (without a card the
 tool raises unless ``--device cpu``); ``torch.save`` checkpoints; fewer
 infos than a batch raise, where gga_tpu's loop would never take a step;
 the seeded initial weights come from ``torch.Generator(cfg.seed)``; one
-device, no mesh. As in gga_tpu there is no ``--resume``.
+device, no mesh; SASSD trains, where gga_tpu's CLI cannot (it inits
+without the auxiliary branch and reads the train-mode tuple as a dict).
+As in gga_tpu there is no ``--resume``.
 
 Usage:
     python -m gga_tpu_torch.tools.train_supervised \\

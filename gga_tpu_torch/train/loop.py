@@ -5,10 +5,10 @@ stage-4 PGD step (``tools/train_pgd.py:128-149``: FCOS-mono targets, the
 PGD loss, backward, clip and SGD), the indoor FCAF3D step
 (``tools/train_fcaf3d.py:126-139``: forward in train mode, targets and
 loss, backward through every sparse conv, clip and AdamW) and the fully
-supervised anchor step of SECOND and PointPillars
-(``tools/train_supervised.py:86-108``: forward in train mode, anchors at
-the map's size, max-IoU assignment, the anchor loss, backward, clip and
-AdamW).
+supervised anchor step of SECOND, PointPillars, DynamicVoxelNet, DVSECOND
+and SASSD (``tools/train_supervised.py:86-108``: forward in train mode,
+anchors at the map's size, max-IoU assignment, the anchor loss, for SASSD
+plus its auxiliary point losses, backward, clip and AdamW).
 """
 from __future__ import annotations
 
@@ -21,12 +21,13 @@ from ..models.dense_heads import centerpoint_head_gga as gga
 from ..models.dense_heads import fcaf3d_head
 from ..models.dense_heads import pgd_head
 from ..models.detectors.centerpoint_gga import GGADetector
+from ..models.detectors.sassd import sassd_aux_loss
 from .optim import GGAOptimizer
 
 
 @dataclasses.dataclass
 class TrainState:
-    # or PGDDetector, FCAF3DDetector, SECONDDetector, PointPillars
+    # or PGDDetector, FCAF3DDetector or an anchor detector
     model: GGADetector
     optimizer: GGAOptimizer     # or PGDOptimizer
     step: int
@@ -139,9 +140,39 @@ def fcaf3d_train_step(state: TrainState, batch, diag=None):
     return {k: v.detach() for k, v in logs.items()}
 
 
+def anchor_loss(model, batch, diag=None, mark=None):
+    """The anchor step's loss on a train-mode forward (the body of
+    gga_tpu's ``tools/train_supervised.py`` step): anchors at the map's
+    size, max-IoU assignment and the anchor loss. A SASSD forward also
+    gives its auxiliary tuple, whose two losses are summed into the total
+    with weight 1, as mmdet3d's SASSD and its runner sum them (gga_tpu's
+    CLI cannot train SASSD; every term is a gga_tpu function).
+
+    Returns (total, logs): 'loss' (the total), 'loss_cls', 'loss_bbox',
+    'loss_dir', 'num_pos', and for SASSD 'aux_loss_cls' and
+    'aux_loss_reg'."""
+    mark = mark or (lambda _: None)
+    out = model(batch['points'], batch['points_valid'], diag)
+    preds, aux = out if isinstance(out, tuple) else (out, None)
+    mark('forward')
+    cfg = model.cfg.head
+    anchors = ah.make_anchors(cfg, tuple(preds['cls'].shape[1:3]),
+                              preds['cls'].device)
+    targets = ah.assign_targets(cfg, anchors, batch['gt_boxes'],
+                                batch['gt_labels'], batch['gt_valid'])
+    total, logs = ah.loss(cfg, preds, anchors, targets)
+    if aux is not None:
+        logs.update(sassd_aux_loss(aux, batch['gt_boxes'],
+                                   batch['gt_valid']))
+        total = total + logs['aux_loss_cls'] + logs['aux_loss_reg']
+        logs['loss'] = total
+    mark('loss')
+    return total, logs
+
+
 def anchor_train_step(state: TrainState, batch, mark=None, diag=None):
-    """One SECOND or PointPillars optimization step; updates ``state`` in
-    place.
+    """One anchor-detector optimization step (SECOND, PointPillars,
+    DynamicVoxelNet, DVSECOND or SASSD); updates ``state`` in place.
 
     Args:
         batch: dict of tensors on the model's device: points [B, P, 4],
@@ -151,22 +182,14 @@ def anchor_train_step(state: TrainState, batch, mark=None, diag=None):
             ('forward', 'loss', 'backward', 'optimizer'); a timer hook.
         diag: a dict for the encoder's budget occupancy, or None.
     Returns:
-        logs: 0-d tensors: 'loss', 'loss_cls', 'loss_bbox', 'loss_dir',
-        'num_pos' and 'grad_norm' (of the unclipped gradients).
+        logs: 0-d tensors: ``anchor_loss``'s and 'grad_norm' (of the
+        unclipped gradients).
     """
     mark = mark or (lambda _: None)
     model = state.model
     model.train()
-    cfg = model.cfg.head
     state.optimizer.zero_grad()
-    preds = model(batch['points'], batch['points_valid'], diag)
-    mark('forward')
-    anchors = ah.make_anchors(cfg, tuple(preds['cls'].shape[1:3]),
-                              preds['cls'].device)
-    targets = ah.assign_targets(cfg, anchors, batch['gt_boxes'],
-                                batch['gt_labels'], batch['gt_valid'])
-    total, logs = ah.loss(cfg, preds, anchors, targets)
-    mark('loss')
+    total, logs = anchor_loss(model, batch, diag, mark)
     total.backward()
     mark('backward')
     logs['grad_norm'] = state.optimizer.step()

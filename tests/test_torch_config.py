@@ -1,10 +1,13 @@
 """The port's config files and detector builder against gga_tpu's: the same
 ``configs/gga`` files parse to the same dicts, overrides agree, and
 ``build_detector`` gives model configs equal field by field (nested head
-included), for the GGA configs and the shipped 3-class SECOND and
-PointPillars. Also the port's refusal of gga_tpu's TPU-only encoder
-options, of the PointPillars backbones and necks it does not have, and
-of the _fp16_ SECOND and PointPillars configs.
+included), for the GGA configs and the shipped KITTI voxel detectors:
+SECOND (3-class, car, the benchmark one), PointPillars (3-class, car,
+both benchmark ones), the three dynamic-voxelization configs and SASSD;
+the _fp16_ SECOND configs parse to model configs equal to gga_tpu's.
+Also the port's refusal of gga_tpu's TPU-only encoder options, of the
+PointPillars backbones and necks it does not have, and of the _fp16_
+SECOND and PointPillars configs.
 """
 import ast
 import dataclasses
@@ -20,8 +23,10 @@ from gga_tpu.models import builder as jbuilder
 from gga_tpu_torch import config as tconfig
 from gga_tpu_torch.models import builder as tbuilder
 from gga_tpu_torch.models.detectors import centerpoint_gga as tdet
+from gga_tpu_torch.models.detectors import dynamic_voxelnet as tdv
 from gga_tpu_torch.models.detectors import fcaf3d as tfcaf3d
 from gga_tpu_torch.models.detectors import pgd as tpgd
+from gga_tpu_torch.models.detectors import sassd as tsassd
 from gga_tpu_torch.models.detectors import voxelnet as tvoxelnet
 
 torch.set_num_threads(1)
@@ -33,6 +38,29 @@ DETECTOR_CONFIGS = ('gga_kitti.py', 'gga_kitti_tiny.py',
 # the supervised KITTI configs, by their path under configs/
 SECOND = 'second/hv_second_secfpn_6x8_80e_kitti-3d-3class.py'
 POINTPILLARS = 'pointpillars/hv_pointpillars_secfpn_6x8_160e_kitti-3d-3class.py'
+# the other KITTI voxel detectors' configs, with the detector each builds
+VOXEL_FAMILY = {
+    'second/hv_second_secfpn_6x8_80e_kitti-3d-car.py':
+        (tvoxelnet.SECONDDetector, tvoxelnet.SECONDNetConfig),
+    'benchmark/hv_second_secfpn_4x8_80e_pcdet_kitti-3d-3class.py':
+        (tvoxelnet.SECONDDetector, tvoxelnet.SECONDNetConfig),
+    'pointpillars/hv_pointpillars_secfpn_6x8_160e_kitti-3d-car.py':
+        (tvoxelnet.PointPillars, tvoxelnet.PointPillarsConfig),
+    'benchmark/hv_pointpillars_secfpn_3x8_100e_det3d_kitti-3d-car.py':
+        (tvoxelnet.PointPillars, tvoxelnet.PointPillarsConfig),
+    'benchmark/hv_pointpillars_secfpn_4x8_80e_pcdet_kitti-3d-3class.py':
+        (tvoxelnet.PointPillars, tvoxelnet.PointPillarsConfig),
+    'dynamic_voxelization/dv_pointpillars_secfpn_6x8_160e_kitti-3d-car.py':
+        (tdv.DynamicVoxelNet, tdv.DynamicVoxelNetConfig),
+    'dynamic_voxelization/dv_second_secfpn_6x8_80e_kitti-3d-car.py':
+        (tdv.DVSECONDDetector, tdv.DVSECONDConfig),
+    'dynamic_voxelization/dv_second_secfpn_2x8_cosine_80e_kitti-3d-3class.py':
+        (tdv.DVSECONDDetector, tdv.DVSECONDConfig),
+    'sassd/sassd_6x8_80e_kitti-3d-3class.py': (tsassd.SASSD,
+                                               tsassd.SASSDConfig),
+}
+FP16_SECOND = ('second/hv_second_secfpn_fp16_6x8_80e_kitti-3d-3class.py',
+               'second/hv_second_secfpn_fp16_6x8_80e_kitti-3d-car.py')
 
 OPTIONS = {'model.compute_dtype': 'bfloat16', 'data.samples_per_gpu': '4',
            'head.max_objs': '64', 'optimizer.betas': '(0.9, 0.99)',
@@ -101,7 +129,7 @@ def test_merge_from_options_agrees(name):
 
 
 @pytest.mark.parametrize('name', DETECTOR_CONFIGS + (
-    'gga_pdg.py', 'gga_sunrgbd.py', SECOND, POINTPILLARS))
+    'gga_pdg.py', 'gga_sunrgbd.py', SECOND, POINTPILLARS, *VOXEL_FAMILY))
 def test_build_detector_config_equals_gga_tpu(name):
     path = str(ROOT / 'configs' / ('' if '/' in name else 'gga') / name)
     model, mc = tbuilder.build_detector(tconfig.Config.fromfile(path))
@@ -113,8 +141,9 @@ def test_build_detector_config_equals_gga_tpu(name):
         'gga_sunrgbd.py': (tfcaf3d.FCAF3DDetector, tfcaf3d.FCAF3DModelConfig),
         SECOND: (tvoxelnet.SECONDDetector, tvoxelnet.SECONDNetConfig),
         POINTPILLARS: (tvoxelnet.PointPillars, tvoxelnet.PointPillarsConfig),
+        **VOXEL_FAMILY,
     }.get(name, (tdet.GGADetector, tdet.GGAModelConfig))
-    assert isinstance(model, det) and isinstance(mc, cfg_cls)
+    assert type(model) is det and type(mc) is cfg_cls
     assert _fields(mc) == _fields(ref)
     hash(mc)                                  # frozen and hashable
     if indoor:
@@ -132,6 +161,18 @@ def test_build_detector_config_equals_gga_tpu(name):
     elif name == POINTPILLARS:
         assert mc.scatter_shape == (496, 432)
         assert mc.backbone_layers == (3, 5, 5)
+    elif name in VOXEL_FAMILY:
+        car = name.endswith('-car.py')
+        assert mc.head.num_classes == (1 if car else 3)
+        assert mc.compute_dtype == 'float32'
+        if det is tsassd.SASSD:
+            assert mc.aux_channels == 64
+            # SECOND's 5 325 576 and the branch's 112 x 64 + 64 x 4
+            assert sum(p.numel() for p in model.parameters()) == (
+                5325576 + 112 * 64 + 64 * 4)
+        elif det is tdv.DynamicVoxelNet:
+            assert mc.scatter_shape == (496, 432)
+            assert model.backbone.blocks[0][0].in_channels == 4
     elif name != 'gga_kitti_tiny.py':
         assert mc.encoder_paddings[2] == (0, 0, (0, 1, 1))
         assert mc.head.max_objs == 128 and mc.max_per_task == 100
@@ -141,23 +182,41 @@ def test_build_detector_config_equals_gga_tpu(name):
                                    dict(neck='fpn')])
 def test_pointpillars_refuses_what_it_lacks(field):
     cfg = tvoxelnet.PointPillarsConfig(**field)
-    with pytest.raises(NotImplementedError, match='item 7'):
+    with pytest.raises(NotImplementedError,
+                       match='FreeAnchor, SSN and the RegNet backbones'):
         tvoxelnet.PointPillars(cfg)
 
 
-@pytest.mark.parametrize('name', [
-    'second/hv_second_secfpn_fp16_6x8_80e_kitti-3d-3class.py',
-    'second/hv_second_secfpn_fp16_6x8_80e_kitti-3d-car.py', 'pointpillars'])
+@pytest.mark.parametrize('name', [*FP16_SECOND, 'pointpillars'])
 def test_anchor_detectors_refuse_the_fp16_configs(name):
-    """The bf16 dense stack of the _fp16_ configs is not held against
-    gga_tpu yet, so the detectors refuse it by name."""
-    with pytest.raises(NotImplementedError, match='_fp16_.*item 7'):
-        if name == 'pointpillars':
+    """The _fp16_ SECOND configs wait for their slice, and gga_tpu's
+    _fp16_ PointPillars configs are nuScenes ones with an FPN neck: both
+    detectors refuse bf16 by name, citing the ROADMAP item."""
+    if name == 'pointpillars':
+        with pytest.raises(NotImplementedError,
+                           match='_fp16_.*FreeAnchor, SSN and the RegNet '
+                                 'backbones'):
             tvoxelnet.PointPillars(
                 tvoxelnet.PointPillarsConfig(compute_dtype='bfloat16'))
-        else:
+    else:
+        with pytest.raises(NotImplementedError,
+                           match='_fp16_ SECOND configs \\(bf16\\)'):
             tbuilder.build_detector(
                 tconfig.Config.fromfile(str(ROOT / 'configs' / name)))
+
+
+@pytest.mark.parametrize('name', FP16_SECOND)
+def test_fp16_second_configs_equal_gga_tpu(name):
+    """The _fp16_ SECOND configs' model configs (the port refuses to build
+    the detector) equal gga_tpu's field by field."""
+    path = str(ROOT / 'configs' / name)
+    mc = tbuilder.config_from_dict(
+        tvoxelnet.SECONDNetConfig,
+        dict(tconfig.Config.fromfile(path)['model']))
+    _, ref = jbuilder.build_detector(jconfig.Config.fromfile(path))
+    assert _fields(mc) == _fields(ref)
+    assert mc.compute_dtype == 'bfloat16'
+    assert mc.head.num_classes == (1 if name.endswith('-car.py') else 3)
 
 
 def test_unknown_key_raises_in_both():

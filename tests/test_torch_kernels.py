@@ -83,6 +83,25 @@ def _second_maps():
 
 
 @functools.lru_cache(maxsize=1)
+def _second_batch_map():
+    """The input SubM map of a train batch of the KITTI voxel detectors
+    (SECOND, DVSECOND, SASSD, bf16 SECOND: ``data.samples_per_gpu`` = 6
+    scenes of 16 000 voxels, 96 000 rows) and its rows."""
+    rng = np.random.RandomState(6)
+    B, P, V = 6, 20000, 16000
+    pts = np.concatenate([rng.uniform(2, 60, (B, P, 1)),
+                          rng.uniform(-30, 30, (B, P, 1)),
+                          rng.uniform(-2.9, 0.9, (B, P, 1)),
+                          rng.rand(B, P, 1)], -1).astype(np.float32)
+    vox = hard_voxelize(torch.from_numpy(pts), torch.ones(B, P, dtype=bool),
+                        voxel_size=(0.05, 0.05, 0.1),
+                        pc_range=(0, -40, -3, 70.4, 40, 1), max_voxels=V)
+    valid = torch.arange(V)[None] < vox['num_voxels'][:, None]
+    return flatten_nmap(sp.build_neighbor_map(vox['coords'], valid,
+                                              (41, 1600, 1408))), B * V
+
+
+@functools.lru_cache(maxsize=1)
 def _small_maps():
     """The accuracy bench's model (``GGAModelConfig.small()``: 0.1 m
     voxels of a 41 x 800 x 704 grid, 8 192 voxels a scene, stage budgets
@@ -224,6 +243,9 @@ _CONV_CASES = [
     ('second_in', 4, 16, 27, None), ('strided', 16, 32, 27, None),
     ('strided', 32, 64, 27, 2047), ('strided_z0', 64, 64, 27, None),
     ('conv_out', 64, 128, 3, None),
+    # a train batch of the KITTI voxel detectors (6 scenes, 96 000 rows):
+    # the input SubM 4 -> 16 and stage 0's 16 -> 16
+    ('second_b6', 4, 16, 27, None), ('second_b6', 16, 16, 27, None),
     # the accuracy bench's small model on its synthetic scenes: the input
     # SubM 4 -> 16 and the stage-0 SubM 16 -> 16 on the 41 x 800 x 704
     # grid, the strided 16 -> 32 and conv_out's (3, 64, 64)
@@ -247,6 +269,9 @@ def _case_map(which, k, q):
         nmap = nmap.numpy()
     elif which in ('second_in', 'strided_z0', 'conv_out'):
         nmap, rows = _second_maps()[which]
+        nmap = nmap.numpy()
+    elif which == 'second_b6':
+        nmap, rows = _second_batch_map()
         nmap = nmap.numpy()
     elif which in ('small_in', 'small_s1', 'small_out'):
         nmap, rows = _small_maps()[which]
@@ -445,6 +470,7 @@ _DW_CASES = [
     ('second_in', 4, 16, 27, None), ('strided', 16, 32, 27, None),
     ('strided', 32, 64, 27, None), ('strided_z0', 64, 64, 27, None),
     ('conv_out', 64, 128, 3, None),
+    ('second_b6', 4, 16, 27, None), ('second_b6', 16, 16, 27, None),
     # the accuracy bench's small model, as in _CONV_CASES
     ('small_in', 4, 16, 27, None), ('small_in', 16, 16, 27, None),
     ('small_s1', 16, 32, 27, None), ('small_out', 64, 64, 3, None),
