@@ -2,8 +2,9 @@
 """Run the PyTorch/CUDA port's stage-3 inference and GGA weak training
 paths, the GGA workflow's command-line tools, the stage-4 PGD retrain,
 the indoor FCAF3D retrain, the fully supervised SECOND and PointPillars,
-the accuracy benches and the rest of the KITTI voxel detectors
-(DVSECOND, SASSD, DynamicVoxelNet) on one NVIDIA card.
+the accuracy benches, the rest of the KITTI voxel detectors (DVSECOND,
+SASSD, DynamicVoxelNet) and the fully supervised nuScenes CenterPoint on
+one NVIDIA card.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -50,7 +51,8 @@ the accuracy benches and the rest of the KITTI voxel detectors
    synchronize that follows them).
 7. Whole step, kernels vs plain: one step's loss and gradients with every
    kernel and with every plain version, from the same weights, batch and
-   SRL draw: loss within 1e-2 relative, grad norm within 5e-2 relative,
+   SRL draw, cuDNN off on both sides (its algorithm choice follows the
+   free workspace, so the two sides could run different dense plans): loss within 1e-2 relative, grad norm within 5e-2 relative,
    each sparse conv weight gradient at cosine similarity >= 0.99 or, where
    the plain step with a one-ulp perturbation of the encoder input already
    moves that gradient further (the bf16 step is that sensitive at this
@@ -197,15 +199,42 @@ the accuracy benches and the rest of the KITTI voxel detectors
     ``infer_anchor`` with no kernel launch; the passes
     ``dynamic_scatter_mean`` takes a forward (its largest voxel's point
     count) printed for it and DVSECOND.
-15. Prints one JSON line describing the kernels (each with its time
+15. CenterPoint phase (``centerpoint_phase``, last), supervised
+    CenterPoint on a mini nuScenes written from seed 0
+    (``write_mini_nuscenes``: 8 train and 4 val key frames, each with 10
+    past sweeps 0.05 s apart from a moving ego, every sweep 34 720
+    ray-cast returns of a 32-beam lidar, 20-40 boxes of the ten classes
+    with velocities), read through ``NuScenesDataset`` as configured
+    (60 000 points of 11 sweeps, 128 object slots), f32, B = 4, seeded
+    random weights. The 0.1 m voxel config as shipped
+    (configs/centerpoint/centerpoint_01voxel_second_secfpn_4x8_cyclic_
+    20e_nus.py, 90 000 voxels of a 41 x 1024 x 1024 grid): 4 calls of
+    ``apis.centerpoint_train_step``, each recorded, with exact launches
+    at every step (17 gather_gemm_conv, 11 gather_gemm_dw, 4
+    gather_rows, 1 render_heatmap of all 40 class maps), each step's lr,
+    finite losses, moved weights, active sites against every budget,
+    device ms by stage and peak memory; every call of every step against
+    its plain version at the f32 gates, step 1's calls timed beside their
+    bounds; one whole step with kernels against plain (the f32 gates of
+    8.) on the seeded initial weights, before the recorded steps; a
+    profile of one more step; then ``infer_centerpoint`` (11
+    launches a forward), ``format_results`` and ``nuscenes_eval`` on the
+    val key frames (mAP and NDS finite; no AP is a gate). The 0.075 m
+    DCN circle-NMS config and the 0.2 m pillar DCN config (no sparse
+    conv, one heatmap launch a step) for 2 steps and an inference each,
+    with the same launch, replay and finiteness gates. Each path's
+    batch norms take one train batch's statistics before its inference
+    (``calibrate_bn``).
+16. Prints one JSON line describing the kernels (each with its time
     ms, device_ms, launches, bound and bound_share = bound_ms / ms,
     device_bound_share = bound_ms / device_ms, host_ms where measured;
     the f32 entries as gather_gemm_conv_f32 and gather_gemm_dw_f32, with
     ffma_bound_ms, their bound at the FFMA rate of 67 TFLOP/s, an
     ``indoor`` dict with the same numbers over FCAF3D's recorded step,
     ``second``, ``dvsecond`` and ``sassd`` dicts over those detectors'
-    steps, which gather_rows carries too, and an ``accuracy`` dict over
-    the accuracy bench's step on the two f32 sparse-conv entries,
+    steps, which gather_rows carries too, and ``accuracy`` and
+    ``centerpoint`` dicts over the accuracy bench's and the 0.1 m
+    CenterPoint config's steps on the two f32 sparse-conv entries,
     gather_rows and render_heatmap),
     the card, then, as the last line, {"ok": true, "device": {...}}. Any
     failed phase exits non-zero.
@@ -213,6 +242,7 @@ the accuracy benches and the rest of the KITTI voxel detectors
 Everything it measures is also written to chiprun_out/chip_smoke.json.
 """
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -1079,6 +1109,40 @@ def input_ulp_noise(torch, model):
         enc.forward = real
 
 
+def conv_reordered(torch, f, nmap, w):
+    """``gather_gemm_conv_plain`` with its sums in another order: tap by
+    tap from the last, each tap's products summed by a GEMM of its own."""
+    hit = (nmap >= 0)[..., None]
+    g = torch.where(hit, f[nmap.clamp(min=0)], 0).float()     # [K, Q, C]
+    out = g.new_zeros(g.shape[1], w.shape[2])
+    for k in reversed(range(g.shape[0])):
+        out += g[k] @ w[k].float()
+    return out.to(f.dtype)
+
+
+def dw_reordered(torch, f, nmap, dout, rows=4096):
+    """``gather_gemm_dw_plain`` with its sums in another order: blocks of
+    ``rows`` q rows, added from the last."""
+    out = 0
+    for q in reversed(range(0, nmap.shape[1], rows)):
+        m = nmap[:, q:q + rows]
+        g = torch.where((m >= 0)[..., None], f[m.clamp(min=0)], 0)
+        out = out + torch.einsum('kqc,qd->kcd', g.float(),
+                                 dout[q:q + rows].float())
+    return out
+
+
+@contextlib.contextmanager
+def plain_reordered(torch, mods):
+    """The plain versions, the sparse convs' with their sums in another
+    order: an f32 step that is as exact as the plain one."""
+    sparse_conv = mods[0]
+    with plain_versions(wrappers(mods)):
+        sparse_conv.gather_gemm_conv = functools.partial(conv_reordered, torch)
+        sparse_conv.gather_gemm_dw = functools.partial(dw_reordered, torch)
+        yield
+
+
 def step_comparison(torch, mods, trainer, batch, loss_fn=None,
                     n_convs=None):
     """Loss and gradients of one step with the kernels vs the plain
@@ -1086,8 +1150,19 @@ def step_comparison(torch, mods, trainer, batch, loss_fn=None,
     to the GGA loss with a seeded one), within the gates of the model's
     dtype. The step's rounding noise is read without the kernels: the
     plain step against the plain step with a one-ulp perturbation (of the
-    model's dtype) of the encoder input."""
-    gate = GATES[trainer.model.cfg.compute_dtype]
+    model's dtype) of the encoder input. The plain step with the sparse
+    convs' sums in another order (``plain_reordered``) is reported beside
+    it, and gates nothing.
+
+    All three steps run with cuDNN off, so the dense layers compute the
+    same arithmetic on both sides: with it on, cuDNN picks each conv's
+    algorithm (an FFT plan or an implicit GEMM) by the workspace the
+    allocator can give at that moment, which the plain versions' larger
+    temporaries change, and two plans' rounding can move SECOND's
+    conv_input weight gradient (a small remainder of large sums) past
+    the gate where the kernels do not."""
+    # CenterPoint's config has no dtype: it runs in f32
+    gate = GATES[getattr(trainer.model.cfg, 'compute_dtype', 'float32')]
     n_convs = N_CONVS if n_convs is None else n_convs
     if loss_fn is None:
         srl = torch.randn((3, B), generator=torch.Generator().manual_seed(
@@ -1095,20 +1170,24 @@ def step_comparison(torch, mods, trainer, batch, loss_fn=None,
 
         def loss_fn(model, b):
             return gga_loss(model, b, srl)
-    loss_k, norm_k, g_k, bn_k = loss_and_grads(torch, trainer, batch,
-                                               loss_fn)
-    with plain_versions(wrappers(mods)):
-        loss_p, norm_p, g_p, bn_p = loss_and_grads(torch, trainer, batch,
+    with torch.backends.cudnn.flags(enabled=False):
+        loss_k, norm_k, g_k, bn_k = loss_and_grads(torch, trainer, batch,
                                                    loss_fn)
-        with input_ulp_noise(torch, trainer.model):
-            _, norm_n, g_n, _ = loss_and_grads(torch, trainer, batch,
-                                               loss_fn)
+        with plain_versions(wrappers(mods)):
+            loss_p, norm_p, g_p, bn_p = loss_and_grads(torch, trainer, batch,
+                                                       loss_fn)
+            with input_ulp_noise(torch, trainer.model):
+                _, norm_n, g_n, _ = loss_and_grads(torch, trainer, batch,
+                                                   loss_fn)
+        with plain_reordered(torch, mods):
+            _, norm_r, g_r, _ = loss_and_grads(torch, trainer, batch, loss_fn)
 
     def cosines(a, b):
         return {n: float(torch.nn.functional.cosine_similarity(
             a[n].flatten(), b[n].flatten(), dim=0)) for n in a}
 
     cos, cos_noise = cosines(g_k, g_p), cosines(g_p, g_n)
+    cos_reordered = cosines(g_p, g_r)
     # each batch-norm buffer's update agrees within the gate of its
     # largest entry (means and variances in f32 of activations that
     # differ by rounding)
@@ -1127,8 +1206,11 @@ def step_comparison(torch, mods, trainer, batch, loss_fn=None,
                grad_norm_rel_plain_ulp_noise=abs(norm_n - norm_p) / norm_p,
                conv_weight_grads=len(cos), min_cosine=min(cos.values()),
                min_cosine_plain_ulp_noise=min(cos_noise.values()),
+               grad_norm_rel_plain_reordered=abs(norm_r - norm_p) / norm_p,
+               min_cosine_plain_reordered=min(cos_reordered.values()),
                bn_update_max_rel_err=bn_err[worst_bn], bn_buffers=len(bn_err),
-               cosines=cos, cosines_plain_ulp_noise=cos_noise)
+               cosines=cos, cosines_plain_ulp_noise=cos_noise,
+               cosines_plain_reordered=cos_reordered)
     if len(cos) != n_convs:
         fail(f'step comparison: {len(cos)} sparse conv weight gradients, '
              f'expected {n_convs}')
@@ -2860,6 +2942,569 @@ def voxel_family_phase(torch, mods, card, tmp):
     return res
 
 
+# --- the fully supervised nuScenes CenterPoint: the 0.1 m voxel config,
+#     the 0.075 m DCN circle-NMS config and the 0.2 m pillar DCN config --
+CP_CONFIG = ('configs/centerpoint/'
+             'centerpoint_01voxel_second_secfpn_4x8_cyclic_20e_nus.py')
+CP_SIDE = (
+    ('centerpoint 0075 dcn circle', 'configs/centerpoint/centerpoint_0075'
+     'voxel_second_secfpn_dcn_circlenms_4x8_cyclic_20e_nus.py'),
+    ('centerpoint pillar dcn', 'configs/centerpoint/centerpoint_02pillar_'
+     'second_secfpn_dcn_4x8_cyclic_20e_nus.py'))
+CP_SPLITS = (8, 4)          # train, val key frames of the mini nuScenes
+CP_SWEEPS = 10              # past sweeps a key frame, 0.05 s apart
+CP_BEAMS, CP_AZIMUTHS = 32, 1085    # one 32-beam sweep: 34 720 returns
+CP_STEPS = 4                # train steps of the 0.1 m voxel config
+CP_SIDE_STEPS = 2           # of each side config
+# the conv_module encoder of the voxel configs: conv_input, stage 0's
+# SubM, two SubM in stages 1 and 2, one in stage 3 (7 SubM), the strided
+# convs opening stages 1-3 and conv_out (4 strided); every SubM but
+# conv_input takes an input gradient through gather_gemm_conv, the
+# strided convs through gather_rows; one heatmap launch a step
+CP_CONVS, CP_DGRAD, CP_STRIDED = 11, 6, 4
+CP_PER_STEP = dict(gather_gemm_conv=CP_CONVS + CP_DGRAD,
+                   gather_gemm_dw=CP_CONVS, gather_rows=CP_STRIDED,
+                   gather_rows_t=0, render_heatmap=1)
+CP_STAGES = ('voxelize+encoder', 'backbone+neck+head', 'targets+loss',
+             'backward', 'clip+AdamW')
+# nuScenes-like (dx, dy, dz) and top speed in m/s of the ten classes
+CP_CLASSES = dict(car=((4.6, 1.9, 1.7), 12.0), truck=((6.9, 2.5, 2.8), 10.0),
+                  trailer=((12.0, 2.9, 3.9), 8.0), bus=((11.0, 2.9, 3.5), 9.0),
+                  construction_vehicle=((6.4, 2.8, 3.2), 2.0),
+                  bicycle=((1.7, 0.6, 1.3), 4.0),
+                  motorcycle=((2.1, 0.8, 1.5), 8.0),
+                  pedestrian=((0.7, 0.7, 1.8), 1.5),
+                  traffic_cone=((0.4, 0.4, 1.1), 0.0),
+                  barrier=((2.5, 0.5, 1.0), 0.0))
+CP_GROUND_Z = -1.84         # the ground in the lidar frame
+
+
+def rot_z(yaw):
+    c, s = np.cos(yaw), np.sin(yaw)
+    return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+
+
+def lidar_sweep(rng, origin, yaw, boxes):
+    """One 32-beam sweep (elevations -30 to +10 degrees, CP_AZIMUTHS
+    steps) from a sensor at ``origin`` turned by ``yaw``, in the frame
+    the boxes (gravity-centre [N, 7]) are given in: each ray returns
+    from the nearest box it meets, the ground, or a wall 40-70 m away.
+    Returns (points [n, 5] (x, y, z, intensity, ring) in the sensor's own
+    frame, index of the box each point hit or -1)."""
+    el = np.deg2rad(np.linspace(-30, 10, CP_BEAMS))[:, None]
+    az = np.linspace(-np.pi, np.pi, CP_AZIMUTHS, endpoint=False)[None]
+    d_sensor = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
+                         np.sin(el) * np.ones_like(az)], -1).reshape(-1, 3)
+    rot = rot_z(yaw)
+    d = d_sensor @ rot.T
+    o = np.asarray(origin, np.float64)
+    t = rng.uniform(40, 70, len(d))
+    down = d[:, 2] < 0
+    t_ground = np.where(down, (CP_GROUND_Z - o[2]) / np.where(down, d[:, 2],
+                                                              -1), np.inf)
+    t = np.minimum(t, t_ground)
+    hit = np.full(len(d), -1)
+    for k, b in enumerate(boxes):
+        rb = rot_z(b[6])
+        p = (o - b[:3]) @ rb                      # origin in the box frame
+        q = d @ rb
+        half = b[3:6] / 2
+        with np.errstate(divide='ignore', invalid='ignore'):
+            t1 = (-half - p) / q
+            t2 = (half - p) / q
+        t_in = np.nanmax(np.minimum(t1, t2), -1)
+        t_out = np.nanmin(np.maximum(t1, t2), -1)
+        meets = (t_out >= np.maximum(t_in, 0)) & (t_in > 0) & (t_in < t)
+        t = np.where(meets, t_in, t)
+        hit = np.where(meets, k, hit)
+    pts = o + t[:, None] * d + rng.normal(0, 0.02, d.shape)
+    local = (pts - o) @ rot                     # into the sensor's frame
+    ring = np.repeat(np.arange(CP_BEAMS), CP_AZIMUTHS).astype(np.float64)
+    cloud = np.concatenate([local, rng.rand(len(d), 1) * 100,
+                            ring[:, None]], 1).astype(np.float32)
+    return cloud, hit
+
+
+def mini_nuscenes_boxes(rng):
+    """20-40 boxes of the ten classes around the ego (gravity-centre
+    lidar boxes [N, 7], names, velocities [N, 2])."""
+    names = list(CP_CLASSES)
+    boxes, labels, vels = [], [], []
+    for _ in range(rng.randint(20, 41)):
+        for _ in range(50):       # a free spot
+            name = names[rng.randint(len(names))]
+            (dx, dy, dz), top = CP_CLASSES[name]
+            r, a = rng.uniform(5, 48), rng.uniform(-np.pi, np.pi)
+            c = np.array([r * np.cos(a), r * np.sin(a)])
+            if all(np.linalg.norm(c - b[:2]) > (dx + b[3]) / 2 + 0.5
+                   for b in boxes):
+                break
+        yaw = rng.uniform(-np.pi, np.pi)
+        speed = rng.uniform(0, top)
+        boxes.append(np.array([c[0], c[1], CP_GROUND_Z + dz / 2, dx, dy, dz,
+                               yaw]))
+        labels.append(name)
+        vels.append(speed * np.array([np.cos(yaw), np.sin(yaw)]))
+    return np.array(boxes), np.array(labels), np.array(vels)
+
+
+def write_mini_nuscenes(root, splits, n_sweeps=CP_SWEEPS, seed=0):
+    """A mini nuScenes under ``root`` in the format the info pkls of
+    mmdet3d's converter give: per key frame a lidar .bin (x, y, z,
+    intensity, ring as float32, nuScenes' five columns) and
+    ``n_sweeps`` past sweeps 0.05 s apart, taken from the moving ego
+    (8 m/s, turning 0.05 rad/s) with their sensor-to-lidar transforms,
+    of objects that moved with their velocities; 20-40 boxes of the ten
+    classes with velocities, lidar point counts and the lidar2ego /
+    ego2global transforms; ``nuscenes_infos_train.pkl`` and
+    ``nuscenes_infos_val.pkl``. Returns the points of a key frame's
+    sweeps, summed over all frames."""
+    import os
+    import pickle
+    rng = np.random.RandomState(seed)
+    for sub in ('samples', 'sweeps'):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    n_points, frame = 0, 0
+    for split, n in zip(('train', 'val'), splits):
+        infos = []
+        for _ in range(n):
+            boxes, names, vels = mini_nuscenes_boxes(rng)
+            ts = 1_000_000 + 500_000 * frame
+            cloud, hit = lidar_sweep(rng, (0.0, 0.0, 0.0), 0.0, boxes)
+            path = os.path.join('samples', f'{split}_{frame:03d}.bin')
+            cloud.tofile(os.path.join(root, path))
+            n_points += len(cloud)
+            sweeps = []
+            for k in range(1, n_sweeps + 1):
+                dt = 0.05 * k
+                origin = np.array([-8.0 * dt, 0.0, 0.0])
+                yaw = -0.05 * dt
+                moved = boxes.copy()
+                moved[:, :2] -= vels * dt
+                sw, _ = lidar_sweep(rng, origin, yaw, moved)
+                sw_path = os.path.join('sweeps',
+                                       f'{split}_{frame:03d}_{k}.bin')
+                sw.tofile(os.path.join(root, sw_path))
+                n_points += len(sw)
+                sweeps.append(dict(data_path=sw_path,
+                                   timestamp=ts - 50_000 * k,
+                                   sensor2lidar_rotation=rot_z(yaw),
+                                   sensor2lidar_translation=origin))
+            count = np.bincount(hit[hit >= 0], minlength=len(boxes))
+            infos.append(dict(
+                token=f'{split}_{frame:03d}', lidar_path=path, timestamp=ts,
+                sweeps=sweeps, gt_boxes=boxes, gt_names=names,
+                gt_velocity=vels, num_lidar_pts=count, valid_flag=count > 0,
+                lidar2ego_rotation_matrix=np.eye(3),
+                lidar2ego_translation=np.array([0.94, 0.0, 1.84]),
+                ego2global_rotation_matrix=rot_z(0.3 * frame),
+                ego2global_translation=np.array([400.0 + 10 * frame,
+                                                 1100.0, 0.0])))
+            frame += 1
+        with open(os.path.join(root, f'nuscenes_infos_{split}.pkl'),
+                  'wb') as f:
+            pickle.dump(dict(infos=infos, metadata=dict(version='mini')), f)
+    return n_points
+
+
+def centerpoint_loss_fn(model, batch):
+    """The supervised loss of one train-mode forward."""
+    from gga_tpu_torch.models.detectors.centerpoint import centerpoint_loss
+    preds = model(batch['points'], batch['points_valid'])
+    return centerpoint_loss(model.cfg, preds, batch['gt_boxes'],
+                            batch['gt_labels'], batch['gt_valid'])[0]
+
+
+def check_calls(torch, mods, rec, label):
+    """Every recorded call of a step against its plain version, at the f32
+    gates (conv 1e-5, dW 2e-5 of max|plain|, both the same bits on a
+    second call; gathers exact; heatmaps 1e-6 with the same pixels at
+    1.0). Returns the largest error of each kernel."""
+    sparse_conv, gr, heatmap = mods
+    gates = GATES['float32']
+    errs = dict.fromkeys(('gather_gemm_conv', 'gather_gemm_dw', 'gather_rows',
+                          'render_heatmap'), 0.0)
+    with torch.no_grad():
+        for i, (_, (f, nmap, w)) in enumerate(rec['gather_gemm_conv']):
+            out = sparse_conv.gather_gemm_conv(f, nmap, w)
+            ok, err = within_tolerance(
+                torch, out, sparse_conv.gather_gemm_conv_plain(f, nmap, w),
+                gates['conv'])
+            if not ok or not torch.equal(out, sparse_conv.gather_gemm_conv(
+                    f, nmap, w)):
+                fail(f'{label}: gather_gemm_conv call {i} (K, C, D) = '
+                     f'{tuple(w.shape)}: max abs err {err}, or other bits '
+                     'on a second call')
+            errs['gather_gemm_conv'] = max(errs['gather_gemm_conv'], err)
+        for i, (_, (f, nmap, dout)) in enumerate(rec['gather_gemm_dw']):
+            out = sparse_conv.gather_gemm_dw(f, nmap, dout)
+            ok, err = within_tolerance(
+                torch, out, sparse_conv.gather_gemm_dw_plain(f, nmap, dout),
+                gates['dw'])
+            if not ok or not torch.equal(out, sparse_conv.gather_gemm_dw(
+                    f, nmap, dout)):
+                fail(f'{label}: gather_gemm_dw call {i} {tuple(out.shape)}: '
+                     f'max abs err {err}, or other bits on a second call')
+            errs['gather_gemm_dw'] = max(errs['gather_gemm_dw'], err)
+        for i, (_, (src, idx)) in enumerate(rec['gather_rows']):
+            if not torch.equal(gr.gather_rows(src, idx),
+                               gr.gather_rows_plain(src, idx)):
+                fail(f'{label}: gather_rows call {i} differs from plain')
+        for i, (_, (centers, radii, valid, hw)) in enumerate(
+                rec['render_heatmap']):
+            out = heatmap.render_heatmap(centers, radii, valid, hw)
+            ref = heatmap.render_heatmap_plain(centers, radii, valid, hw)
+            err = float((out - ref).abs().max())
+            if not err <= 1e-6 or not torch.equal(out == 1.0, ref == 1.0):
+                fail(f'{label}: render_heatmap call {i} max abs err {err}, '
+                     'or other pixels at 1.0')
+            errs['render_heatmap'] = max(errs['render_heatmap'], err)
+    torch.cuda.synchronize()
+    return errs
+
+
+def site_hooks(model, sites):
+    """Forward hooks that append, for every forward of ``model``, the
+    active sites a scene: the voxels (the encoder's or scatter's valid
+    input) and, on the voxel configs, each strided conv's output."""
+    from gga_tpu_torch.models.layers import SparseConvBlock
+    enc = model.pts_middle_encoder
+    hooks = [enc.register_forward_pre_hook(
+        lambda _, args: sites.append([args[2].sum(-1)]))]
+    for m in enc.modules():
+        if isinstance(m, SparseConvBlock):
+            hooks.append(m.register_forward_hook(
+                lambda _, __, out: sites[-1].append(out.valid.sum(-1))))
+    return hooks
+
+
+def calibrate_bn(torch, model, batch):
+    """Set every batch norm's running statistics to those of one train
+    batch (momentum 1 for one train-mode forward without gradients), then
+    leave the model in eval mode. After a few steps at momentum 0.01 the
+    statistics are still near their init, where the eval-mode forward of
+    random weights carries the raw inputs' scale (tens of metres) through
+    the net and ``exp()`` of the dim head can overflow."""
+    norms = [m for m in model.modules() if hasattr(m, 'running_var')]
+    saved = [m.momentum for m in norms]
+    for m in norms:
+        m.momentum = 1.0
+    model.train()
+    with torch.no_grad():
+        model(batch['points'], batch['points_valid'])
+    for m, momentum in zip(norms, saved):
+        m.momentum = momentum
+    return model.eval()
+
+
+def centerpoint_path(torch, mods, card, root, config, label, steps,
+                     main=False):
+    """A CenterPoint config as shipped on the mini nuScenes (f32, B =
+    ``data.samples_per_gpu``, up to ``data.max_points`` points of the key
+    frame and its sweeps, seeded random weights):
+
+    0. with ``main``, one whole step with kernels against plain at the
+       f32 gates, on the seeded initial weights and the first batch,
+       before the train steps: cuDNN's kernels leave the trained weights
+       different from run to run in their last bits, and at some of
+       those states this model's weight gradients move by about 1e-4 of
+       cosine between two f32 steps that differ only in rounding, so a
+       check there would pass or fail by the run; the initial state is
+       the same on every run;
+    1. main path: ``steps`` calls of ``apis.centerpoint_train_step`` on
+       the config's optimizer (clip, AdamW, the cyclic lr over ``steps``),
+       each recorded, with the counts set to 0 just before and read just
+       after; exact launches at every step (voxel configs 17 / 11 / 4 / 1,
+       pillar 0 / 0 / 0 / 1), CUDA events at the stage marks, finite
+       losses, each step's lr, moved weights and BN statistics, active
+       sites against every budget, peak memory;
+    2. every recorded call of every step against its plain version
+       (``check_calls``); with ``main``, step 1's calls also timed beside
+       their bounds (gather_rows on a cold L2) and a profile of one more
+       step; the side configs' heatmap calls timed;
+    3. ``calibrate_bn`` on the first train batch, then
+       ``infer_centerpoint`` on the val key frames (11 launches a forward,
+       pillar 0; finite boxes), ``format_results``, ``nuscenes_eval`` (its
+       mAP and NDS finite; no AP is a gate at random weights).
+    Returns the path's numbers and kernel rows."""
+    import math
+    import os
+
+    from gga_tpu_torch import apis
+    from gga_tpu_torch.config import Config
+    from gga_tpu_torch.data.nuscenes import NuScenesDataset
+    from gga_tpu_torch.eval.nuscenes_eval import nuscenes_eval
+    from gga_tpu_torch.models.builder import config_from_dict
+    from gga_tpu_torch.models.detectors.centerpoint import CenterPointConfig
+    from gga_tpu_torch.train.optim import cyclic_cos_schedule
+    sparse_conv, gr, heatmap = mods
+    t0 = time.perf_counter()
+    cfg = Config.fromfile(config)
+    model_cfg = config_from_dict(CenterPointConfig, dict(cfg.model))
+    d = cfg.data
+    voxel = not model_cfg.pillar
+    per_step = (CP_PER_STEP if voxel
+                else dict(dict.fromkeys(CP_PER_STEP, 0), render_heatmap=1))
+
+    def dataset(info, test_mode):
+        return NuScenesDataset(
+            root, os.path.join(root, info), max_points=d.max_points,
+            max_objs=d.max_objs, sweeps_num=d.sweeps_num,
+            load_interval=d.load_interval, with_velocity=d.with_velocity,
+            point_cloud_range=tuple(cfg.point_cloud_range),
+            test_mode=test_mode, seed=cfg.seed)
+
+    keys = ('points', 'points_valid', 'gt_boxes', 'gt_labels', 'gt_valid')
+    train = dataset(d.train_info, False)
+    batch = d.samples_per_gpu
+    batches = []
+    for epoch in range(math.ceil(steps / (len(train) // batch))):
+        train.epoch = epoch
+        batches += [{k: torch.as_tensor(b[k], device=DEVICE) for k in keys}
+                    for b in train.epoch_batches(batch, seed=epoch)]
+    batches = batches[:steps]
+    grid = (f'grid {model_cfg.sparse_shape}' if voxel
+            else f'pillars {model_cfg.scatter_shape}')
+    print(f'{label}: {Path(config).name} ({grid}'
+          f', {model_cfg.max_voxels} voxels, DCN head {model_cfg.dcn_head}, '
+          f'{model_cfg.nms_type} NMS) on the mini nuScenes\'s {len(train)} '
+          f'train key frames, B = {batch} x {d.max_points} points of '
+          f'{d.sweeps_num + 1} sweeps, f32; batches loaded in '
+          f'{time.perf_counter() - t0:.1f} s')
+
+    o = cfg.optimizer
+    trainer = apis.init_centerpoint_trainer(model_cfg, steps, device=DEVICE,
+                                            seed=cfg.seed, optimizer=dict(o))
+    model = trainer.model
+    # --- 0. the whole step against plain, on the initial weights --------
+    if main:
+        cmp_step = step_comparison(torch, mods, trainer, batches[0],
+                                   centerpoint_loss_fn, CP_CONVS)
+        print_step_comparison(f'{label} whole step kernels vs plain (initial'
+                              ' weights)', cmp_step)
+
+    # --- 1. the main path: recorded train steps -------------------------
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {n: b.detach().clone() for n, b in model.named_buffers()}
+    sites, recs, events, all_logs, lrs = [], [], [], [], []
+    hooks = site_hooks(model, sites)
+    order = ('encoder', 'forward', 'loss', 'backward', 'optimizer')
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(mods)
+    for b in batches:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        stage = ['forward']
+
+        def mark(name, ev=ev, stage=stage):
+            ev[order.index(name) + 1].record()
+            stage[0] = 'backward' if name in ('loss', 'backward') else \
+                stage[0]
+
+        with contextlib.ExitStack() as stack:
+            rec = {name: stack.enter_context(recording(
+                mod, name, lambda stage=stage: stage[0]))
+                for mod, name in ((sparse_conv, 'gather_gemm_conv'),
+                                  (sparse_conv, 'gather_gemm_dw'),
+                                  (gr, 'gather_rows'), (gr, 'gather_rows_t'),
+                                  (heatmap, 'render_heatmap'))}
+            ev[0].record()
+            all_logs.append(apis.centerpoint_train_step(trainer, b, mark))
+        recs.append(rec)
+        events.append(ev)
+        lrs.append(trainer.optimizer.adamw.param_groups[0]['lr'])
+    torch.cuda.synchronize()
+    got = counts(mods)
+    peak = torch.cuda.max_memory_allocated()
+    for h in hooks:
+        h.remove()
+    want = {k: v * steps for k, v in per_step.items()}
+    if got != want:
+        fail(f'{label}: {steps} train steps launched {got}, expected {want}')
+    for i, rec in enumerate(recs):
+        n = {k: len(v) for k, v in rec.items()}
+        if n != per_step:
+            fail(f'{label}: step {i + 1} launched {n}, expected {per_step}')
+        fwd = [ph for ph, _ in rec['gather_gemm_conv']]
+        if voxel and fwd != ['forward'] * CP_CONVS + ['backward'] * CP_DGRAD:
+            fail(f'{label}: step {i + 1}: conv calls by stage {fwd}')
+    sched = cyclic_cos_schedule(o.lr, tuple(o.lr_target_ratio),
+                                o.step_ratio_up, steps)
+    for i, (lg, lr) in enumerate(zip(all_logs, lrs)):
+        finite_logs(torch, lg, f'{label} step {i + 1}')
+        if not abs(lr - sched(i)) <= 1e-12 * sched(i):
+            fail(f'{label}: step {i + 1} ran at lr {lr}, the schedule gives '
+                 f'{sched(i)}')
+    # the conv biases before a train-mode BN have a zero gradient up to
+    # rounding; every other parameter and every BN statistic must move
+    stuck = [n for n, p in model.named_parameters()
+             if torch.equal(p, params0[n]) and not n.endswith('.conv.bias')]
+    bn_stuck = [n for n, b in model.named_buffers()
+                if torch.equal(b, stats0[n]) or not torch.isfinite(b).all()]
+    if stuck or bn_stuck:
+        fail(f'{label}: {len(stuck)} parameter tensors and {len(bn_stuck)} '
+             f'BN statistics did not move: {(stuck + bn_stuck)[:8]}')
+    del params0, stats0
+    step_ms = [ev[0].elapsed_time(ev[5]) for ev in events]
+    stage_ms = {name: float(np.mean([ev[i].elapsed_time(ev[i + 1])
+                                     for ev in events[1:]]))
+                for i, name in enumerate(CP_STAGES)}
+    site_names = ['voxels'] + ([f'stage{i}' for i in (1, 2, 3)] + ['out']
+                               if voxel else [])
+    budgets = [model_cfg.max_voxels] + (
+        [*model_cfg.encoder_budgets, model_cfg.encoder_out_budget]
+        if voxel else [])
+    per_scene = {n: [int(v) for s in sites for v in s[j].tolist()]
+                 for j, n in enumerate(site_names)}
+    occupancy = {n: dict(budget=bud, mean=float(np.mean(per_scene[n])),
+                         max=max(per_scene[n]),
+                         saturated=max(per_scene[n]) >= bud)
+                 for n, bud in zip(site_names, budgets)}
+    res = dict(config=Path(config).name, steps=steps, batch=batch,
+               launches=got, step_device_ms=step_ms, stage_ms=stage_ms,
+               scenes_per_s_events=batch * (steps - 1) / (sum(step_ms[1:])
+                                                          / 1e3),
+               peak_bytes=peak, occupancy=occupancy, lrs=lrs,
+               losses=[float(lg['loss']) for lg in all_logs],
+               grad_norms=[float(lg['grad_norm']) for lg in all_logs])
+    print(f'{card}: {label}: {steps} train steps at B={batch} (f32): '
+          f'{res["scenes_per_s_events"]:.3f} scenes/s by CUDA events around '
+          f'the steps after the first; step device ms '
+          f'{[round(v, 1) for v in step_ms]}; by stage (mean after the '
+          'first) ' + ', '.join(f'{k} {v:.2f}' for k, v in stage_ms.items())
+          + f'; peak memory {peak / 2 ** 30:.2f} GiB; losses '
+          f'{[round(v, 3) for v in res["losses"]]}; launches {got}')
+    print(f'{label}: active sites a scene against their budgets: ' + ', '.join(
+        f'{n} mean {v["mean"]:.0f} max {v["max"]} of {v["budget"]}'
+        + (' (SATURATED)' if v['saturated'] else '')
+        for n, v in occupancy.items()))
+
+    # --- 2. every recorded call against its plain version ---------------
+    torch.set_grad_enabled(False)
+    errs = [check_calls(torch, mods, rec, f'{label} step {i + 1}')
+            for i, rec in enumerate(recs)]
+    res['max_abs_err'] = {k: max(e[k] for e in errs) for k in errs[0]}
+    print(f'{label}: every call of the {steps} steps against its plain '
+          'version: largest errors ' + ', '.join(
+              f'{k} {v:.3g}' for k, v in res['max_abs_err'].items()))
+    rec = recs[0]
+    res['heatmap'] = heatmap_rows(torch, heatmap, rec['render_heatmap'],
+                                  f'{label} kernels')
+    if main:
+        calls = [a for _, a in rec['gather_gemm_conv']]
+        res['conv_calls'] = [conv_row(torch, sparse_conv, *a,
+                                      f'{label} call {i}')
+                             for i, a in enumerate(calls)]
+        print_conv_rows(f'{label} kernels: gather_gemm_conv vs plain at '
+                        f'step 1\'s {CP_CONVS} forward and {CP_DGRAD} '
+                        'input-gradient calls', res['conv_calls'])
+        res['dw_calls'] = dw_rows(torch, sparse_conv, rec['gather_gemm_dw'],
+                                  f'{label} kernels')
+        flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                            device=DEVICE)
+        res['gather_rows'] = rows_rows(
+            torch, gr, [a for _, a in rec['gather_rows']], False,
+            f'{label} kernels', flush)
+        del flush, calls
+    del recs, rec
+    torch.set_grad_enabled(True)
+    if main:
+        res['step_comparison'] = cmp_step
+        res['profile'] = device_profile(
+            torch, lambda: apis.centerpoint_train_step(trainer, batches[1]))
+        print_profile(f'{label} train step', res['profile'])
+    calibrate_bn(torch, model, batches[0])
+    del batches
+    torch.cuda.empty_cache()
+
+    # --- 3. inference on the val key frames and the nuScenes eval -------
+    val = dataset(d.val_info, True)
+    bundle = apis.DetectorBundle(model, model_cfg, torch.device(DEVICE))
+    detections, ms = [], []
+    zero_counts(mods)
+    for vb in val.epoch_batches(batch, shuffle=False):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = apis.infer_centerpoint(bundle, vb['points'], vb['points_valid'])
+        end.record()
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        ms.append(start.elapsed_time(end))
+        for j in range(batch):
+            v = out['valid'][j]
+            detections.append(dict(boxes_3d=out['boxes'][j][v],
+                                   scores_3d=out['scores'][j][v],
+                                   labels_3d=out['labels'][j][v]))
+    got = counts(mods)
+    want = dict.fromkeys(CP_PER_STEP, 0)
+    want['gather_gemm_conv'] = CP_CONVS * len(ms) if voxel else 0
+    if got != want or len(detections) != len(val):
+        fail(f'{label}: infer_centerpoint launched {got} in {len(ms)} '
+             f'forwards over {len(detections)} key frames, expected {want} '
+             f'over {len(val)}')
+    if not all(np.isfinite(x['boxes_3d']).all() for x in detections):
+        fail(f'{label}: infer_centerpoint gave non-finite boxes')
+    sub = val.format_results(detections)
+    if (sorted(sub['results']) != sorted(i['token'] for i in val.data_infos)
+            or not all(np.isfinite(a['translation']).all()
+                       for annos in sub['results'].values() for a in annos)):
+        fail(f'{label}: format_results gave {len(sub["results"])} samples '
+             'or non-finite translations')
+    preds = [dict(boxes=x['boxes_3d'], scores=x['scores_3d'],
+                  names=np.array([val.CLASSES[int(c)]
+                                  for c in x['labels_3d']]))
+             for x in detections]
+    metrics = nuscenes_eval(val.eval_ground_truth(), preds)
+    if not all(k in metrics and np.isfinite(metrics[k])
+               for k in ('mAP', 'NDS')):
+        fail(f'{label}: nuscenes_eval gave no finite mAP / NDS')
+    n_det = sum(len(x['scores_3d']) for x in detections)
+    res['eval'] = dict(scenes=len(detections), forward_ms=ms,
+                       scenes_per_s=len(detections) / (sum(ms) / 1e3),
+                       detections=n_det, launches=got, mAP=metrics['mAP'],
+                       NDS=metrics['NDS'])
+    res['seconds'] = time.perf_counter() - t0
+    print(f'{card}: {label}: infer_centerpoint on {len(detections)} val key '
+          f'frames (batches of {batch}): {res["eval"]["scenes_per_s"]:.2f} '
+          f'scenes/s by CUDA events around each call (forward, decode, '
+          f'{model_cfg.nms_type} NMS), {n_det} detections; format_results '
+          f'{len(sub["results"])} samples; nuscenes_eval mAP '
+          f'{metrics["mAP"]:.4g}, NDS {metrics["NDS"]:.4g} (random weights); '
+          f'launches {got}; the path {res["seconds"]:.1f} s')
+    del trainer, model, bundle
+    torch.cuda.empty_cache()
+    return res
+
+
+def centerpoint_phase(torch, mods, card, tmp):
+    """The fully supervised nuScenes CenterPoint on a mini nuScenes written
+    from seed 0 (``write_mini_nuscenes``: 8 train and 4 val key frames of
+    10 sweeps each): the 0.1 m voxel config as shipped through
+    ``centerpoint_path`` for CP_STEPS steps with its kernels timed, the
+    whole step against plain and the eval; then the 0.075 m DCN
+    circle-NMS config and the 0.2 m pillar DCN config for CP_SIDE_STEPS
+    steps and an inference each."""
+    import os
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, 'nuscenes')
+    n_points = write_mini_nuscenes(root, CP_SPLITS)
+    frames = sum(CP_SPLITS)
+    print(f'centerpoint phase: mini nuScenes of {frames} key frames x '
+          f'{CP_SWEEPS + 1} sweeps, {n_points / frames / (CP_SWEEPS + 1):.0f}'
+          f' points a sweep, written in {time.perf_counter() - t0:.1f} s')
+    res = dict(main=centerpoint_path(torch, mods, card, root,
+                                     str(ROOT / CP_CONFIG), 'centerpoint',
+                                     CP_STEPS, main=True))
+    for label, config in CP_SIDE:
+        res[label] = centerpoint_path(torch, mods, card, root,
+                                      str(ROOT / config), label,
+                                      CP_SIDE_STEPS)
+    res['seconds'] = time.perf_counter() - t0
+    print(f'centerpoint phase: {res["seconds"]:.1f} s')
+    return res
+
+
 # --- the accuracy benches: weak GGA training to pseudo-label AP, then the
 #     PGD retrain on those pseudo labels ----------------------------------
 ACC_SCENES = 16             # synthetic scenes (make_synth_kitti, seed 0)
@@ -3167,7 +3812,10 @@ def print_step_comparison(label, cmp_step):
           f'cosine of the {cmp_step["conv_weight_grads"]} sparse conv weight '
           'gradients '
           f'{cmp_step["min_cosine"]:.8f} (plain step, one ulp of input '
-          f'noise: {cmp_step["min_cosine_plain_ulp_noise"]:.8f}); batch-norm '
+          f'noise: {cmp_step["min_cosine_plain_ulp_noise"]:.8f}; plain step, '
+          f'sums reordered: {cmp_step["min_cosine_plain_reordered"]:.8f}, '
+          f'grad norm rel {cmp_step["grad_norm_rel_plain_reordered"]:.3g}); '
+          'batch-norm '
           f'updates of {cmp_step["bn_buffers"]} buffers within '
           f'{cmp_step["bn_update_max_rel_err"]:.3g} of their largest entry')
 
@@ -3349,6 +3997,9 @@ def main():
         torch.cuda.empty_cache()
         # --- DVSECOND, bf16 SECOND, SASSD and DynamicVoxelNet ---
         vf = voxel_family_phase(torch, mods, card, tmp)
+        torch.cuda.empty_cache()
+        # --- nuScenes CenterPoint: voxel, DCN circle NMS, pillar DCN ---
+        cp = centerpoint_phase(torch, mods, card, tmp)
 
     launches, launches_f32 = tr['launches'], f32['train']['launches']
     kernels = [
@@ -3421,6 +4072,22 @@ def main():
             'launches', 'max_abs_err', 'ms', 'device_ms', 'plain_ms',
             'bound_ms', 'bound_by', 'bound_share', 'device_bound_share',
             'ffma_bound_ms', 'library_ms', 'host_ms')}
+    # the CenterPoint 0.1 m voxel step (f32, B = 4): conv, dW,
+    # gather_rows and render_heatmap
+    cpm = cp['main']
+    for entry, key, rows, lib in (
+            (kernels[2], 'gather_gemm_conv', cpm['conv_calls'], None),
+            (kernels[3], 'gather_gemm_dw', cpm['dw_calls'], None),
+            (kernels[4], 'gather_rows', cpm['gather_rows'],
+             sum(r['library_ms'] for r in cpm['gather_rows'])),
+            (kernels[6], 'render_heatmap', cpm['heatmap'], None)):
+        e = kernel_entry(entry['name'], entry['source'].split('/')[-1],
+                         entry['replaces'], cpm['launches'][key], rows,
+                         library_ms=lib)
+        entry['centerpoint'] = {k: e[k] for k in (
+            'launches', 'max_abs_err', 'ms', 'device_ms', 'plain_ms',
+            'bound_ms', 'bound_by', 'bound_share', 'device_bound_share',
+            'ffma_bound_ms', 'library_ms', 'host_ms')}
     print('kernels, summed over the train path\'s calls (ms by CUDA '
           'events, device ms by the profiler, share of the bound):')
     for k in kernels:
@@ -3436,6 +4103,7 @@ def main():
                                            for r in ind['train'])),
                             ('second', sup['train']['steps']),
                             ('accuracy', acc['steps']),
+                            ('centerpoint', cpm['steps']),
                             *((t, vf[t]['train']['steps'])
                               for t, _ in VF_PATHS)):
             if path not in k:
@@ -3462,7 +4130,8 @@ def main():
                        train_gather_rows=gr_rows, train_gather_rows_t=grt_rows,
                        train_heatmap=hm_rows, step_comparison=cmp_step,
                        f32=f32, workflow=wf, stage4=s4, indoor=ind,
-                       supervised=sup, accuracy=acc, voxel_family=vf),
+                       supervised=sup, accuracy=acc, voxel_family=vf,
+                       centerpoint=cp),
                   fh, indent=1, default=str)
 
     print(card)

@@ -7,7 +7,9 @@ monocular detector or its trainer, take PGD train steps and run its
 inference on a batch of images; for the indoor retrain, the same for
 the FCAF3D detector on batches of coloured point clouds; and for the
 fully supervised KITTI path, the same for the anchor detectors: SECOND,
-PointPillars, DynamicVoxelNet, DVSECOND and SASSD."""
+PointPillars, DynamicVoxelNet, DVSECOND and SASSD; and for the fully
+supervised nuScenes path, the same for CenterPoint (voxel and pillar,
+with or without the DCN head, rotated or circle NMS)."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,6 +19,9 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .models.detectors.centerpoint import (CenterPointConfig,
+                                           CenterPointDetector,
+                                           decode_centerpoint)
 from .models.detectors.centerpoint_gga import (GGADetector, GGAModelConfig,
                                                decode_detections)
 from .models.dense_heads import anchor3d_head, fcaf3d_head, pgd_head
@@ -434,3 +439,73 @@ def infer_anchor(bundle: DetectorBundle, points, points_valid):
     anchors = anchor3d_head.make_anchors(cfg, tuple(preds['cls'].shape[1:3]),
                                          preds['cls'].device)
     return anchor3d_head.decode(cfg, preds, anchors)
+
+
+def init_centerpoint_detector(cfg: CenterPointConfig, state_dict=None,
+                              device='cuda', seed=0) -> DetectorBundle:
+    """The CenterPoint detector in eval mode on ``device`` (f32, as
+    gga_tpu's, whose config has no compute dtype).
+
+    With a ``state_dict`` (mmdet3d keys, e.g. from
+    ``convert.from_jax_variables``) the weights are loaded strictly;
+    without one they are drawn from ``torch.Generator().manual_seed(seed)``
+    (``CenterPointDetector.init_weights``). Raises if ``device`` is CUDA
+    and no card is present."""
+    dev = resolve_device(device)
+    model = CenterPointDetector(cfg)
+    if state_dict is None:
+        model.init_weights(torch.Generator().manual_seed(seed))
+    else:
+        model.load_state_dict(state_dict)
+    return DetectorBundle(model.to(dev).eval(), cfg, dev)
+
+
+def init_centerpoint_trainer(cfg: CenterPointConfig, total_steps,
+                             state_dict=None, device='cuda', seed=0,
+                             optimizer=None) -> TrainState:
+    """The CenterPoint detector (``init_centerpoint_detector``'s) in train
+    mode on ``device`` with the nuScenes recipe's optimizer
+    (``build_optimizer(params, total_steps, **optimizer)``: the
+    global-norm clip, AdamW and the cyclic lr and beta1 of
+    configs/_base_/schedules/cyclic_20e.py's ``optimizer`` block)."""
+    model = init_centerpoint_detector(cfg, state_dict, device,
+                                      seed).model.train()
+    return TrainState(model=model,
+                      optimizer=build_optimizer(model.parameters(),
+                                                total_steps,
+                                                **(optimizer or {})),
+                      step=0, generator=torch.Generator().manual_seed(seed))
+
+
+def centerpoint_train_step(trainer: TrainState, batch, mark=None,
+                           diag=None):
+    """One CenterPoint train step on a batch of ``NuScenesDataset``
+    samples (as tensors or numpy). ``mark`` is the step's stage hook and
+    ``diag`` a dict for the budgets' occupancy
+    (``loop.centerpoint_train_step``). Returns the step's logs as 0-d
+    tensors on the trainer's device."""
+    dev = next(trainer.model.parameters()).device
+    b = {k: torch.as_tensor(batch[k], dtype=dt, device=dev)
+         for k, dt in _DET_DTYPES.items()}
+    return loop.centerpoint_train_step(trainer, b, mark, diag)
+
+
+@torch.no_grad()
+def infer_centerpoint(bundle: DetectorBundle, points, points_valid):
+    """CenterPoint inference on a batch: forward in eval mode, then
+    ``decode_centerpoint`` (top-k decode and rotated or circle NMS a
+    task).
+
+    Args:
+        points: [B, P, 5] f32 (tensor or numpy); points_valid: [B, P] bool.
+    Returns:
+        dict(boxes [B, n, 9] bottom-centre lidar with velocity (7 without),
+        scores, labels, valid, logits, each [B, n]) on the bundle's
+        device, n = tasks * min(post_max_size, max_per_task).
+    """
+    model = bundle.model.eval()
+    preds = model(torch.as_tensor(points, dtype=torch.float32,
+                                  device=bundle.device),
+                  torch.as_tensor(points_valid, dtype=torch.bool,
+                                  device=bundle.device))
+    return decode_centerpoint(bundle.cfg, preds)

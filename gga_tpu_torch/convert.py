@@ -9,9 +9,11 @@ PGDHead to mmdet3d's keys), the indoor FCAF3D detector
 (``fcaf3d_rules``) and the supervised KITTI voxel detectors
 (``second_rules`` for SECOND and DVSECOND, ``pointpillars_rules``,
 ``sassd_rules``, and DynamicVoxelNet's dense half alone, whose voxel
-features and scatter have no parameters; gga_tpu has no converter
-rules for these, so theirs stand alone). A released mmdet3d GGA
-checkpoint loads into the port directly, with no conversion.
+features and scatter have no parameters) and the nuScenes CenterPoint
+family (``centerpoint_rules``: voxel and pillar, with and without the DCN
+head, to mmdet3d's CenterPoint names); gga_tpu has no converter rules for
+these, so theirs stand alone. A released mmdet3d GGA checkpoint loads
+into the port directly, with no conversion.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 
 from .models.backbones import mink_resnet
 from .models.backbones.resnet import ARCH
+from .models.detectors.centerpoint import CenterPointConfig, common_heads
 from .models.detectors.dynamic_voxelnet import DynamicVoxelNetConfig
 from .models.detectors.fcaf3d import FCAF3DModelConfig
 from .models.detectors.pgd import PGDModelConfig
@@ -277,17 +280,15 @@ def _anchor_rules(cfg):
     return rules
 
 
-def second_rules(cfg: SECONDNetConfig):
-    """(torch_key, collection, flax_path, transform) for every tensor of
-    gga_tpu's ``SECONDDetector``: its conv_module SparseEncoder numbers
-    every block ``SparseConvBlock_<n>`` in build order (SubM and strided
-    alike, conv_out last); conv_input is 4 -> 16 whatever the first
-    stage's width, as gga_tpu builds it."""
-    enc, me = 'SparseEncoder_0', 'middle_encoder'
+def _conv_module_encoder_rules(cfg, me, base, out_channels):
+    """gga_tpu's conv_module SparseEncoder under the port's prefix ``me``:
+    it numbers every block ``SparseConvBlock_<n>`` in build order (SubM
+    and strided alike, conv_out last); conv_input is 4 -> ``base``."""
+    enc = 'SparseEncoder_0'
     rules = [(f'{me}.conv_input.0.weight', 'params',
-              f'{enc}/SubMConv3dMapped_0/kernel', 'sparse3d:4:16')]
+              f'{enc}/SubMConv3dMapped_0/kernel', f'sparse3d:4:{base}')]
     rules.extend(_bn_moves(f'{me}.conv_input.1', f'{enc}/MaskedBatchNorm_0'))
-    n, ch = 0, 16
+    n, ch = 0, base
     for i, blocks in enumerate(cfg.encoder_channels):
         for j, out_ch in enumerate(blocks):
             f = f'{enc}/SparseConvBlock_{n}'
@@ -299,9 +300,77 @@ def second_rules(cfg: SECONDNetConfig):
             n, ch = n + 1, out_ch
     f = f'{enc}/SparseConvBlock_{n}'
     rules.append((f'{me}.conv_out.0.weight', 'params',
-                  f'{f}/SparseConv3d_0/kernel', f'sparse3d:{ch}:128'))
+                  f'{f}/SparseConv3d_0/kernel',
+                  f'sparse3d:{ch}:{out_channels}'))
     rules.extend(_bn_moves(f'{me}.conv_out.1', f'{f}/MaskedBatchNorm_0'))
-    return rules + _anchor_rules(cfg)
+    return rules
+
+
+def second_rules(cfg: SECONDNetConfig):
+    """(torch_key, collection, flax_path, transform) for every tensor of
+    gga_tpu's ``SECONDDetector``: its conv_module SparseEncoder is
+    4 -> 16 at conv_input whatever the first stage's width, and 128 wide
+    at conv_out, as gga_tpu builds it."""
+    return (_conv_module_encoder_rules(cfg, 'middle_encoder', 16, 128)
+            + _anchor_rules(cfg))
+
+
+def centerpoint_rules(cfg: CenterPointConfig):
+    """(torch_key, collection, flax_path, transform) for every tensor of
+    gga_tpu's ``CenterPointDetector``, to mmdet3d's CenterPoint names:
+    the conv_module SparseEncoder (voxel configs) or PillarFeatureNet
+    (pillar configs; its scatter has no parameters), SECOND + SECONDFPN,
+    and the CenterHead: per task a SeparateHead (flax numbers its
+    ConvModules in output order: reg, height, dim, rot, [vel], heatmap),
+    or a DCNSeparateHead: the two deformable adapters (their tap-major
+    ``[k*k, Cin / groups, Cout]`` kernels to mmcv's ``[Cout, Cin /
+    groups, k, k]``, and ``conv_offset``), ``cls_head`` (flax's
+    ``ConvModule2d_0`` and ``heatmap_out``) and ``task_head``."""
+    rules = []
+
+    def conv_module(t, f):
+        rules.append((f'{t}.conv.weight', 'params', f'{f}/Conv_0/kernel',
+                      'conv2d'))
+        rules.append((f'{t}.conv.bias', 'params', f'{f}/Conv_0/bias', 'copy'))
+        rules.extend(_bn_moves(f'{t}.bn', f'{f}/BatchNorm2d_0/BatchNorm_0'))
+
+    def conv(t, f, transform='conv2d'):
+        rules.append((f'{t}.weight', 'params', f'{f}/kernel', transform))
+        rules.append((f'{t}.bias', 'params', f'{f}/bias', 'copy'))
+
+    def separate_head(t, f, names):
+        for b_i, name in enumerate(names):
+            conv_module(f'{t}.{name}.0', f'{f}/ConvModule2d_{b_i}')
+            conv(f'{t}.{name}.1', f'{f}/{name}_out')
+
+    if cfg.pillar:
+        for i in range(len(cfg.pfn_channels)):
+            t = f'pts_voxel_encoder.pfn_layers.{i}'
+            rules.append((f'{t}.linear.weight', 'params',
+                          f'PillarFeatureNet_0/Dense_{i}/kernel', 'linear'))
+            rules.extend(_bn_moves(f'{t}.norm',
+                                   f'PillarFeatureNet_0/MaskedBatchNorm_{i}'))
+    else:
+        rules.extend(_conv_module_encoder_rules(
+            cfg, 'pts_middle_encoder', cfg.encoder_channels[0][0],
+            cfg.encoder_out_channels))
+    rules.extend(_second_fpn_rules(cfg, 'pts_backbone', 'pts_neck'))
+    hd, bh = 'CenterHead_0', 'pts_bbox_head'
+    conv_module(f'{bh}.shared_conv', f'{hd}/ConvModule2d_0')
+    box = list(common_heads(cfg))
+    for t in range(len(cfg.tasks)):
+        tb, fb = f'{bh}.task_heads.{t}', f'{hd}/task{t}'
+        if not cfg.dcn_head:
+            separate_head(tb, fb, box + ['heatmap'])
+            continue
+        for adapt in ('feature_adapt_cls', 'feature_adapt_reg'):
+            rules.append((f'{tb}.{adapt}.weight', 'params',
+                          f'{fb}/{adapt}/kernel', 'deform2d'))
+            conv(f'{tb}.{adapt}.conv_offset', f'{fb}/{adapt}/conv_offset')
+        conv_module(f'{tb}.cls_head.0', f'{fb}/ConvModule2d_0')
+        conv(f'{tb}.cls_head.1', f'{fb}/heatmap_out')
+        separate_head(f'{tb}.task_head', f'{fb}/task_head', box)
+    return rules
 
 
 def pointpillars_rules(cfg: PointPillarsConfig):
@@ -338,6 +407,10 @@ def _to_torch_layout(name, x):
         return x.T
     if name == 'conv2d':            # [kh, kw, I, O] -> [O, I, kh, kw]
         return x.transpose(3, 2, 0, 1)
+    if name == 'deform2d':
+        # tap-major [k*k, I / groups, O] -> mmcv [O, I / groups, k, k]
+        k = int(round(x.shape[0] ** 0.5))
+        return x.reshape(k, k, *x.shape[1:]).transpose(3, 2, 0, 1)
     if name == 'deconv2d':
         # flax ConvTranspose [kh, kw, I, O] -> torch [I, O, kh, kw] with a
         # spatial flip: flax's transposed conv correlates, torch's convolves
@@ -361,7 +434,8 @@ def rules_of(cfg):
     (``SASSDConfig``, ``DVSECONDConfig`` of ``SECONDNetConfig``,
     ``DynamicVoxelNetConfig`` of ``PointPillarsConfig``) are tested before
     their bases; DVSECOND has SECOND's tensors."""
-    for cls, rules in ((PGDModelConfig, pgd_rules),
+    for cls, rules in ((CenterPointConfig, centerpoint_rules),
+                       (PGDModelConfig, pgd_rules),
                        (FCAF3DModelConfig, fcaf3d_rules),
                        (SASSDConfig, sassd_rules),
                        (DynamicVoxelNetConfig, _anchor_rules),
@@ -375,9 +449,10 @@ def rules_of(cfg):
 def from_jax_variables(variables_np, cfg):
     """gga_tpu ``{'params', 'batch_stats'}`` trees (nested dicts of numpy
     arrays) of the detector ``cfg`` describes (a ``GGAModelConfig``,
-    ``PGDModelConfig``, ``FCAF3DModelConfig``, or the config of an anchor
-    detector: ``SECONDNetConfig``, ``PointPillarsConfig``,
-    ``DynamicVoxelNetConfig``, ``DVSECONDConfig`` or ``SASSDConfig``) ->
+    ``PGDModelConfig``, ``FCAF3DModelConfig``, ``CenterPointConfig``, or
+    the config of an anchor detector: ``SECONDNetConfig``,
+    ``PointPillarsConfig``, ``DynamicVoxelNetConfig``, ``DVSECONDConfig``
+    or ``SASSDConfig``) ->
     the port's ``load_state_dict`` input (f32 tensors)."""
     flat = {c: _flatten(variables_np.get(c, {}))
             for c in ('params', 'batch_stats')}

@@ -84,6 +84,31 @@ def render_heatmaps(centers, radii, valid, hw, chunk=32):
     return out
 
 
+def render_class_heatmaps(centers, radii, cls_ids, valid, num_classes, hw):
+    """Per-class heatmaps of a batch of scenes (gga_tpu
+    ``render_class_heatmaps``, batched over scenes): object k of scene b
+    renders onto map ``cls_ids[b, k]`` of that scene.
+
+    Every (class, scene) map is rendered in one call of
+    ``kernels.heatmap.render_heatmap``: one kernel launch on a CUDA
+    tensor, ``render_heatmaps`` on a CPU one.
+
+    Args:
+        centers: [B, M, 2] int (x, y) feature-map centres; radii [B, M]
+            int; cls_ids [B, M] int; valid [B, M] bool.
+    Returns:
+        [num_classes, B, H, W] float32.
+    """
+    from ..kernels import heatmap
+    B, M = radii.shape
+    maps_valid = torch.stack([valid & (cls_ids == c)
+                              for c in range(num_classes)]).reshape(-1, M)
+    hms = heatmap.render_heatmap(
+        centers.int().repeat(num_classes, 1, 1),
+        radii.int().repeat(num_classes, 1), maps_valid, hw)
+    return hms.reshape(num_classes, B, *hms.shape[1:])
+
+
 def gaussian_focal_loss(pred, gaussian_target, alpha=2.0, gamma=4.0):
     """Per-element GaussianFocalLoss (mmdet ``gaussian_focal_loss``):
     positives ``-log(p) (1-p)^alpha`` where the target is 1, negatives

@@ -1,5 +1,6 @@
 """Rotated BEV NMS with static shapes (port of ``gga_tpu/core/nms.py``
-``_greedy_suppress`` and ``nms_bev``), batched over leading dims."""
+``_greedy_suppress``, ``nms_bev`` and ``circle_nms``), batched over
+leading dims."""
 from __future__ import annotations
 
 import torch
@@ -52,6 +53,33 @@ def nms_bev(boxes_xywhr, scores, thresh, post_max_size=None, valid=None):
     s = scores if valid is None else torch.where(valid, scores, -torch.inf)
     keep = _greedy_suppress(rotated_iou_bev(boxes_xywhr, boxes_xywhr), s,
                             thresh)
+    ranked = torch.sort(torch.where(keep, -s, torch.inf), dim=-1,
+                        stable=True).indices
+    idx = torch.arange(n, device=scores.device)
+    out = torch.where(idx < keep.sum(-1, keepdim=True), ranked, -1)
+    return out[..., :post_max_size], keep
+
+
+def circle_nms(centers, scores, min_radius, post_max_size=None, valid=None):
+    """Centre-distance NMS (gga_tpu ``circle_nms``, mmdet3d
+    ``box3d_nms.circle_nms``): a detection is suppressed where its squared
+    BEV centre distance to a kept higher-scoring one is below
+    ``min_radius``. The squared distance is held against the UNSQUARED
+    radius, as in the reference.
+
+    Args:
+        centers: [..., N, 2]; scores: [..., N]; valid: [..., N] bool,
+            False entries are never kept.
+    Returns:
+        (indices [..., post_max_size] int64 of kept boxes by score, -1
+         padded; keep mask [..., N] in the given order).
+    """
+    n = centers.shape[-2]
+    if post_max_size is None:
+        post_max_size = n
+    s = scores if valid is None else torch.where(valid, scores, -torch.inf)
+    d2 = ((centers[..., :, None, :] - centers[..., None, :, :]) ** 2).sum(-1)
+    keep = _greedy_suppress((d2 < min_radius).float(), s, 0.5)
     ranked = torch.sort(torch.where(keep, -s, torch.inf), dim=-1,
                         stable=True).indices
     idx = torch.arange(n, device=scores.device)

@@ -1,15 +1,18 @@
 """Config-dict -> detector construction through the MODELS registry (the
 port's copy of ``gga_tpu/models/builder.py``: the GGA detector, the
-stage-4 PGD detector, the indoor FCAF3D detector and the fully supervised
+stage-4 PGD detector, the indoor FCAF3D detector, the fully supervised
 KITTI voxel detectors: SECOND, PointPillars, DynamicVoxelNet, DVSECOND and
-SASSD; the rest of the zoo waits for its own slices).
+SASSD, and the fully supervised nuScenes CenterPoint of
+``configs/centerpoint/``; the rest of the zoo waits for its own slices).
 
 ``config_from_dict`` converts the python config-file dict into the typed
 frozen dataclass (recursively, lists -> tuples, nested dicts -> nested
 config dataclasses merged over the field default). ``MODELS.get(type)``
 takes the FULL file-level Config and returns ``(model, model_cfg)``: the
 port's detector of that type (weights not yet drawn or loaded, on the
-CPU) and its config.
+CPU) and its config. Only the ``model`` block builds a detector: the
+top-level ``tta`` block of the CenterPoint tta configs is read by neither
+package.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import dataclasses
 from ..config import MODELS
 from .dense_heads.centerpoint_head_gga import GGAHeadConfig
 from .detectors.centerpoint_gga import GGADetector, GGAModelConfig
+from .detectors.centerpoint import CenterPointConfig, CenterPointDetector
 from .detectors.dynamic_voxelnet import (DVSECONDConfig, DVSECONDDetector,
                                          DynamicVoxelNet,
                                          DynamicVoxelNetConfig)
@@ -95,6 +99,7 @@ _register_family('SECONDDetector', SECONDNetConfig, SECONDDetector)
 _register_family('DVSECONDDetector', DVSECONDConfig, DVSECONDDetector)
 _register_family('DynamicVoxelNet', DynamicVoxelNetConfig, DynamicVoxelNet)
 _register_family('SASSD', SASSDConfig, SASSD)
+_register_family('CenterPointDetector', CenterPointConfig, CenterPointDetector)
 
 
 def build_detector(cfg):

@@ -2,7 +2,8 @@
 ``gga_tpu/models/dense_heads/centerpoint_head_gga.py``).
 
 - heatmap targets centred on the initial pseudo labels, all maps of a
-  batch rendered in one launch of ``kernels.heatmap.render_heatmap``;
+  batch rendered in one launch of ``kernels.heatmap.render_heatmap``
+  (``core.gaussian.render_class_heatmaps``);
 - Boundary-Projection Loss (BPL): the predicted box's 8 corners projected
   through each object's lidar2img, L1 of their 2D extent against the 2D
   box, masked per edge where the 2D box touches the image boundary;
@@ -24,8 +25,8 @@ from typing import Tuple
 import torch
 
 from ...core import geometry as geo
-from ...core.gaussian import clip_sigmoid, gaussian_focal_loss, gaussian_radius
-from ...kernels import heatmap
+from ...core.gaussian import (clip_sigmoid, gaussian_focal_loss,
+                              gaussian_radius, render_class_heatmaps)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,18 +118,13 @@ def build_targets(cfg: GGAHeadConfig, srl_normal, labels, valid, init_pseudo,
     centers = torch.stack([cxi.clamp(0, W - 1), cyi.clamp(0, H - 1)], -1)
 
     offs = cfg.task_offsets
-    masks, map_valid = [], []
-    for t, ncls in enumerate(cfg.task_num_classes):
-        tmask = (labels >= offs[t]) & (labels < offs[t + 1])
-        mask = tmask & valid & size_ok & in_map
-        cls_in_task = torch.clamp(labels - offs[t], 0, ncls - 1)
-        masks.append(mask)
-        map_valid += [mask & (cls_in_task == c) for c in range(ncls)]
-    # every (class map, scene) of the step in one launch
-    n_maps = len(map_valid)
-    hms = heatmap.render_heatmap(
-        centers.int().repeat(n_maps, 1, 1), radius.repeat(n_maps, 1),
-        torch.cat(map_valid), (H, W)).reshape(n_maps, B, H, W)
+    live = valid & size_ok & in_map
+    masks = [live & (labels >= offs[t]) & (labels < offs[t + 1])
+             for t in range(len(cfg.task_num_classes))]
+    # every (class map, scene) of the step in one launch; the classes of
+    # task t are the maps offs[t]:offs[t + 1]
+    hms = render_class_heatmaps(centers, radius, labels, live, offs[-1],
+                                (H, W))
 
     targets = []
     boundary = (~bdry_masks).float()

@@ -1,6 +1,7 @@
 """SECONDFPN neck (port of ``gga_tpu/models/necks/second_fpn.py``): per
-level a deconv (stride > 1) or a 1x1 conv (stride 1), then BN+ReLU;
-levels concatenated on channels. NCHW."""
+level a deconv (stride > 1) or a k x k conv of stride k = round(1 / stride)
+(stride <= 1: a 1x1 conv at stride 1, a 2x2 stride-2 conv at 0.5), then
+BN+ReLU; levels concatenated on channels. NCHW."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -25,7 +26,10 @@ class SECONDFPN(nn.Module):
                 up = ConvTranspose2d(in_ch, out_ch, stride, stride,
                                      bias=False)
             else:
-                up = Conv2d(in_ch, out_ch, 1, 1, bias=False)
+                # flax's 'SAME' conv of kernel = stride k pads nothing on
+                # a map whose size k divides
+                k = int(round(1 / stride))
+                up = Conv2d(in_ch, out_ch, k, k, bias=False)
             deblocks.append(nn.Sequential(up, BatchNorm2d(out_ch), nn.ReLU()))
         self.deblocks = nn.ModuleList(deblocks)
 

@@ -47,16 +47,18 @@ class PillarFeatureNet(nn.Module):
     point gains its offset to its pillar's points mean (f_cluster) and to
     the pillar's centre in x and y (f_center), then PFN layers, the
     pooled features concatenated back between two layers. The points
-    carry (x, y, z, intensity), so the first layer takes 4 + 5 channels."""
+    carry ``in_channels`` features ((x, y, z, intensity) on KITTI, plus
+    the sweep's time lag on nuScenes), so the first layer takes
+    ``in_channels`` + 5 channels."""
 
     def __init__(self, feat_channels: Tuple[int, ...] = (64,),
                  voxel_size: Tuple[float, float, float] = (0.16, 0.16, 4.0),
                  point_cloud_range: Sequence[float] = (
-                     0, -39.68, -3, 69.12, 39.68, 1)):
+                     0, -39.68, -3, 69.12, 39.68, 1), in_channels=4):
         super().__init__()
         self.voxel_size = tuple(voxel_size)
         self.point_cloud_range = tuple(point_cloud_range)
-        ch = 4 + 5
+        ch = in_channels + 5
         layers = []
         for out_ch in feat_channels:
             layers.append(PFNLayer(ch, out_ch))

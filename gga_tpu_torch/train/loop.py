@@ -8,7 +8,11 @@ loss, backward through every sparse conv, clip and AdamW) and the fully
 supervised anchor step of SECOND, PointPillars, DynamicVoxelNet, DVSECOND
 and SASSD (``tools/train_supervised.py:86-108``: forward in train mode,
 anchors at the map's size, max-IoU assignment, the anchor loss, for SASSD
-plus its auxiliary point losses, backward, clip and AdamW).
+plus its auxiliary point losses, backward, clip and AdamW), and the fully
+supervised nuScenes CenterPoint step (gga_tpu's ``centerpoint_loss``
+under ``value_and_grad``, then the clip and AdamW of a config's
+``optimizer`` block: forward in train mode, targets at the head's map
+size, the loss, backward, clip and AdamW).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from ..models.dense_heads import anchor3d_head as ah
 from ..models.dense_heads import centerpoint_head_gga as gga
 from ..models.dense_heads import fcaf3d_head
 from ..models.dense_heads import pgd_head
+from ..models.detectors.centerpoint import centerpoint_loss
 from ..models.detectors.centerpoint_gga import GGADetector
 from ..models.detectors.sassd import sassd_aux_loss
 from .optim import GGAOptimizer
@@ -194,5 +199,46 @@ def anchor_train_step(state: TrainState, batch, mark=None, diag=None):
     mark('backward')
     logs['grad_norm'] = state.optimizer.step()
     mark('optimizer')
+    state.step += 1
+    return {k: v.detach() for k, v in logs.items()}
+
+
+def centerpoint_train_step(state: TrainState, batch, mark=None, diag=None):
+    """One CenterPoint optimization step; updates ``state`` in place.
+
+    Args:
+        batch: dict of tensors on the model's device: points [B, P, 5],
+            points_valid [B, P], gt_boxes [B, M, 9] (bottom-centre lidar
+            and velocity; 7 without velocity), gt_labels [B, M], gt_valid
+            [B, M].
+        mark: called with the name of each stage as it is enqueued
+            ('encoder': voxelize and the sparse encoder or the pillar
+            scatter; 'forward': backbone, neck and head; 'loss': targets
+            and loss; 'backward'; 'optimizer': clip and AdamW); a timer
+            hook.
+        diag: a dict for the encoder's budget occupancy, or None.
+    Returns:
+        logs: 0-d tensors: each task's 'task<t>.loss_heatmap' and
+        'task<t>.loss_bbox', 'loss', 'grad_norm' (of the unclipped
+        gradients) and the diagnostics as 'diag.<name>'.
+    """
+    mark = mark or (lambda _: None)
+    model = state.model
+    model.train()
+    state.optimizer.zero_grad()
+    diag = {} if diag is None else diag
+    bev = model.extract_bev(batch['points'], batch['points_valid'], diag)
+    mark('encoder')
+    preds = model.head(bev)
+    mark('forward')
+    total, logs = centerpoint_loss(model.cfg, preds, batch['gt_boxes'],
+                                   batch['gt_labels'], batch['gt_valid'])
+    mark('loss')
+    total.backward()
+    mark('backward')
+    logs['grad_norm'] = state.optimizer.step()
+    mark('optimizer')
+    for name, value in diag.items():
+        logs[f'diag.{name}'] = value
     state.step += 1
     return {k: v.detach() for k, v in logs.items()}

@@ -3,8 +3,10 @@
 ``build_detector`` gives model configs equal field by field (nested head
 included), for the GGA configs and the shipped KITTI voxel detectors:
 SECOND (3-class, car, the benchmark one), PointPillars (3-class, car,
-both benchmark ones), the three dynamic-voxelization configs and SASSD;
-the _fp16_ SECOND configs parse to model configs equal to gga_tpu's.
+both benchmark ones), the three dynamic-voxelization configs, SASSD and
+all 16 nuScenes CenterPoint configs (voxel and pillar, DCN head, circle
+NMS, tta); the _fp16_ SECOND configs parse to model configs equal to
+gga_tpu's.
 Also the port's refusal of gga_tpu's TPU-only encoder options, of the
 PointPillars backbones and necks it does not have, and of the _fp16_
 SECOND and PointPillars configs.
@@ -22,12 +24,14 @@ from gga_tpu import config as jconfig
 from gga_tpu.models import builder as jbuilder
 from gga_tpu_torch import config as tconfig
 from gga_tpu_torch.models import builder as tbuilder
+from gga_tpu_torch.models.detectors import centerpoint as tcp
 from gga_tpu_torch.models.detectors import centerpoint_gga as tdet
 from gga_tpu_torch.models.detectors import dynamic_voxelnet as tdv
 from gga_tpu_torch.models.detectors import fcaf3d as tfcaf3d
 from gga_tpu_torch.models.detectors import pgd as tpgd
 from gga_tpu_torch.models.detectors import sassd as tsassd
 from gga_tpu_torch.models.detectors import voxelnet as tvoxelnet
+from gga_tpu_torch.ops import sparse as sp
 
 torch.set_num_threads(1)
 
@@ -59,6 +63,12 @@ VOXEL_FAMILY = {
     'sassd/sassd_6x8_80e_kitti-3d-3class.py': (tsassd.SASSD,
                                                tsassd.SASSDConfig),
 }
+# the nuScenes CenterPoint configs, by their path under configs/
+CENTERPOINT = tuple(f'centerpoint/{p.name}' for p in sorted(
+    (ROOT / 'configs' / 'centerpoint').glob('*.py')))
+# CenterPointConfig.encoder_paddings: gga_tpu's default and the port's
+GGA_TPU_CP_PADDINGS = ((1,), (1, 1, 1), (1, 1, 1), ((1, 1, 0), 1))
+CP_PADDINGS = ((1,), (1, 1, 1), (1, 1, 1), ((0, 1, 1), 1))
 FP16_SECOND = ('second/hv_second_secfpn_fp16_6x8_80e_kitti-3d-3class.py',
                'second/hv_second_secfpn_fp16_6x8_80e_kitti-3d-car.py')
 
@@ -83,6 +93,40 @@ def _fields(dc):
                      if dataclasses.is_dataclass(getattr(dc, f.name))
                      else getattr(dc, f.name))
             for f in dataclasses.fields(dc)}
+
+
+def _bev_grid(mc):
+    """(nz, ny, nx) of the conv_module SparseEncoder's output."""
+    grid = mc.sparse_shape
+    for pad in (mc.encoder_paddings[1][0], mc.encoder_paddings[2][0],
+                mc.encoder_paddings[3][0]):
+        grid = sp._ds_prep(grid, 3, 2, pad)[3]
+    return sp._ds_prep(grid, (3, 1, 1), (2, 1, 1), 0)[3]
+
+
+def test_gga_tpu_centerpoint_padding_leaves_the_bev_a_column_short():
+    """gga_tpu's default stage-3 padding (1, 1, 0) pads z and y, not x: its
+    0.1 m voxel config's BEV is 128 x 127, and tracing its detector fails
+    where SECONDFPN concatenates it with the 128 x 128 upsampled level.
+    The port's (0, 1, 1) gives 128 x 128."""
+    import jax
+    import jax.numpy as jnp
+    from gga_tpu.models.detectors import centerpoint as jcp
+    ref = jcp.CenterPointConfig()
+    assert ref.encoder_paddings == GGA_TPU_CP_PADDINGS
+    assert _bev_grid(ref) == (2, 128, 127)
+    assert _bev_grid(tcp.CenterPointConfig()) == (2, 128, 128)
+    model = jcp.CenterPointDetector(ref)
+    pts = jax.ShapeDtypeStruct((1, 4000, 5), jnp.float32)
+    valid = jax.ShapeDtypeStruct((1, 4000), jnp.bool_)
+    with pytest.raises(TypeError, match=r'\(1, 128, 127, 256\), '
+                                        r'\(1, 128, 128, 256\)'):
+        jax.eval_shape(lambda p, v: model.init(jax.random.PRNGKey(0), p, v,
+                                               train=False), pts, valid)
+
+
+def test_there_are_sixteen_centerpoint_configs():
+    assert len(CENTERPOINT) == 16
 
 
 def test_there_are_five_gga_configs():
@@ -129,7 +173,8 @@ def test_merge_from_options_agrees(name):
 
 
 @pytest.mark.parametrize('name', DETECTOR_CONFIGS + (
-    'gga_pdg.py', 'gga_sunrgbd.py', SECOND, POINTPILLARS, *VOXEL_FAMILY))
+    'gga_pdg.py', 'gga_sunrgbd.py', SECOND, POINTPILLARS, *VOXEL_FAMILY,
+    *CENTERPOINT))
 def test_build_detector_config_equals_gga_tpu(name):
     path = str(ROOT / 'configs' / ('' if '/' in name else 'gga') / name)
     model, mc = tbuilder.build_detector(tconfig.Config.fromfile(path))
@@ -142,9 +187,18 @@ def test_build_detector_config_equals_gga_tpu(name):
         SECOND: (tvoxelnet.SECONDDetector, tvoxelnet.SECONDNetConfig),
         POINTPILLARS: (tvoxelnet.PointPillars, tvoxelnet.PointPillarsConfig),
         **VOXEL_FAMILY,
+        **dict.fromkeys(CENTERPOINT, (tcp.CenterPointDetector,
+                                      tcp.CenterPointConfig)),
     }.get(name, (tdet.GGADetector, tdet.GGAModelConfig))
     assert type(model) is det and type(mc) is cfg_cls
-    assert _fields(mc) == _fields(ref)
+    fields, ref_fields = _fields(mc), _fields(ref)
+    if name in CENTERPOINT:
+        # the port repairs gga_tpu's stage-3 padding, whose reversed
+        # (z, y, x) order leaves the voxel configs' BEV a column short of
+        # the neck's upsampled level (test_gga_tpu_centerpoint_padding_...)
+        assert ref_fields['encoder_paddings'] == GGA_TPU_CP_PADDINGS
+        ref_fields['encoder_paddings'] = CP_PADDINGS
+    assert fields == ref_fields
     hash(mc)                                  # frozen and hashable
     if indoor:
         assert mc.depth == 34 and mc.voxel_size == mc.head.voxel_size == 0.01
@@ -173,6 +227,23 @@ def test_build_detector_config_equals_gga_tpu(name):
         elif det is tdv.DynamicVoxelNet:
             assert mc.scatter_shape == (496, 432)
             assert model.backbone.blocks[0][0].in_channels == 4
+    elif name in CENTERPOINT:
+        assert mc.tasks == (1, 2, 2, 1, 2, 2)
+        assert mc.dcn_head == ('_dcn_' in name)
+        assert mc.nms_type == ('circle' if 'circlenms' in name
+                               else 'rotated')
+        assert mc.with_velocity == (not name.endswith('novelo.py'))
+        assert mc.pillar == ('02pillar' in name)
+        if mc.pillar:
+            assert mc.neck_strides == (0.5, 1, 2)
+            # the stride-0.5 level is a 2x2 stride-2 conv
+            assert model.pts_neck.deblocks[0][0].kernel_size == (2, 2)
+        else:
+            side = 1440 if '0075' in name else 1024
+            assert mc.sparse_shape == (41, side, side)
+            # a BEV of 2 x 128 channels on the head's side / 8 square map
+            assert model.pts_middle_encoder.bev_channels == 256
+            assert _bev_grid(mc) == (2, side // 8, side // 8)
     elif name != 'gga_kitti_tiny.py':
         assert mc.encoder_paddings[2] == (0, 0, (0, 1, 1))
         assert mc.head.max_objs == 128 and mc.max_per_task == 100
@@ -243,7 +314,7 @@ def test_registry_names_the_known_types():
     assert reg.build({'type': 'D', 'a': 1}) == {'a': 1}
     cfg = tconfig.Config.fromfile(
         str(ROOT / 'configs' / 'gga' / 'gga_kitti_tiny.py'))
-    cfg.model.type = 'CenterPointDetector'
+    cfg.model.type = 'PartA2Detector'
     with pytest.raises(KeyError, match='GGADetector'):
         tbuilder.build_detector(cfg)
 

@@ -145,6 +145,36 @@ def _small_maps():
                 small_out=(out, B * 6144))
 
 
+@functools.lru_cache(maxsize=1)
+def _centerpoint_maps():
+    """The nuScenes CenterPoint encoder's maps (0.1 x 0.1 x 0.2 m voxels of
+    a 41 x 1024 x 1024 grid, 90 000 voxels a scene, stage budgets
+    90 000 / 60 000 / 40 000) on a train batch of 4 scenes of 60 000
+    points: the input SubM map (360 000 rows) and the stage-3 SubM map
+    after the three strided convs (160 000 rows); each with its rows."""
+    rng = np.random.RandomState(13)
+    B, P, V = 4, 60000, 90000
+    r = 51 * np.sqrt(rng.rand(B, P, 1))
+    a = rng.uniform(-np.pi, np.pi, (B, P, 1))
+    pts = np.concatenate([r * np.cos(a), r * np.sin(a),
+                          rng.uniform(-3, 1, (B, P, 1)), rng.rand(B, P, 2)],
+                         -1).astype(np.float32)
+    vox = hard_voxelize(torch.from_numpy(pts), torch.ones(B, P, dtype=bool),
+                        voxel_size=(0.1, 0.1, 0.2),
+                        pc_range=(-51.2, -51.2, -5.0, 51.2, 51.2, 3.0),
+                        max_points=10, max_voxels=V)
+    coords = vox['coords']
+    valid = torch.arange(V)[None] < vox['num_voxels'][:, None]
+    grid = (41, 1024, 1024)
+    subm = flatten_nmap(sp.build_neighbor_map(coords, valid, grid))
+    st = (coords, valid, grid)
+    for pad, budget in ((1, 90000), (1, 60000), ((0, 1, 1), 40000)):
+        *st, _ = sp.downsample_rulebook_compact(*st, (3, 3, 3), (2, 2, 2),
+                                                pad, budget)
+    s3 = flatten_nmap(sp.build_neighbor_map(*st))
+    return dict(cp_in=(subm, B * V), cp_s3=(s3, B * 40000))
+
+
 def _strided_bwd_map(M=1024):
     """The dense backward map [27, B*V] of a strided rulebook (MinkResNet's
     strided convs' input gradient; mostly -1) and the rows it indexes,
@@ -251,6 +281,11 @@ _CONV_CASES = [
     # grid, the strided 16 -> 32 and conv_out's (3, 64, 64)
     ('small_in', 4, 16, 27, None), ('small_in', 16, 16, 27, None),
     ('small_s1', 16, 32, 27, None), ('small_out', 64, 64, 3, None),
+    # a train batch of nuScenes CenterPoint (4 scenes, 360 000 rows): the
+    # input SubM 4 -> 16 and stage 0's 16 -> 16, and stage 3's 128 -> 128
+    # SubM on its 160 000 rows
+    ('cp_in', 4, 16, 27, None), ('cp_in', 16, 16, 27, None),
+    ('cp_s3', 128, 128, 27, None),
 ]
 
 
@@ -275,6 +310,9 @@ def _case_map(which, k, q):
         nmap = nmap.numpy()
     elif which in ('small_in', 'small_s1', 'small_out'):
         nmap, rows = _small_maps()[which]
+        nmap = nmap.numpy()
+    elif which in ('cp_in', 'cp_s3'):
+        nmap, rows = _centerpoint_maps()[which]
         nmap = nmap.numpy()
     else:
         rng = np.random.RandomState(11)
@@ -474,6 +512,9 @@ _DW_CASES = [
     # the accuracy bench's small model, as in _CONV_CASES
     ('small_in', 4, 16, 27, None), ('small_in', 16, 16, 27, None),
     ('small_s1', 16, 32, 27, None), ('small_out', 64, 64, 3, None),
+    # nuScenes CenterPoint, as in _CONV_CASES
+    ('cp_in', 4, 16, 27, None), ('cp_in', 16, 16, 27, None),
+    ('cp_s3', 128, 128, 27, None),
 ]
 
 
@@ -636,6 +677,9 @@ _HEATMAP_CASES = [
     (4, 40, 50, 44, 'radius'), (4, 40, 61, 47, 'overlap'),
     (3, 40, 50, 44, 'empty'), (1, 40, 50, 44, 'random'),
     (2, 1500, 64, 40, 'random'),
+    # nuScenes CenterPoint's step: B x 10 class maps of 128 object slots,
+    # 128 x 128 (0.1 m voxel and 0.2 m pillar) and 180 x 180 (0.075 m)
+    (40, 128, 128, 128, 'random'), (40, 128, 180, 180, 'random'),
 ]
 
 
