@@ -3,8 +3,8 @@
 paths, the GGA workflow's command-line tools, the stage-4 PGD retrain,
 the indoor FCAF3D retrain, the fully supervised SECOND and PointPillars,
 the accuracy benches, the rest of the KITTI voxel detectors (DVSECOND,
-SASSD, DynamicVoxelNet) and the fully supervised nuScenes CenterPoint on
-one NVIDIA card.
+SASSD, DynamicVoxelNet), the fully supervised nuScenes CenterPoint and
+the two-stage PartA2 on one NVIDIA card.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -225,7 +225,27 @@ one NVIDIA card.
     with the same launch, replay and finiteness gates. Each path's
     batch norms take one train batch's statistics before its inference
     (``calibrate_bn``).
-16. Prints one JSON line describing the kernels (each with its time
+16. PartA2 phase (``parta2_phase``, after the CenterPoint phase) on the
+    workflow's mini KITTI: the 3-class config as shipped
+    (configs/parta2/hv_PartA2_secfpn_2x8_cyclic_80e_kitti-3d-3class.py:
+    SparseUNet with the inverse sparse conv on 16 000 voxels of a
+    41 x 1600 x 1408 grid, SECOND + SECONDFPN, the RPN, the semantic head,
+    RoI-aware pooling and the part-aggregation bbox head; f32, B = 2,
+    seeded random weights). One whole step with kernels against plain
+    (the f32 gates of 8., cuDNN off, the kernel step's proposals given to
+    every step) on the initial weights and the first batch, the same on
+    two more batches printed, not gated, and one forward + backward timed
+    with cuDNN on and off; 3 calls of
+    ``apis.parta2_train_step`` across an epoch boundary, each recorded,
+    with exact launches at every step (55 gather_gemm_conv: 28 forward,
+    27 input gradients; 28 gather_gemm_dw; nothing else), each step's lr,
+    finite losses, moved weights, active sites against every budget,
+    device ms by stage and peak memory; every call of every step against
+    its plain version, step 1's timed beside their bounds; a profile of
+    one more step; ``calibrate_bn``, then ``infer_parta2`` on the 8 val
+    scenes (28 launches a forward, finite boxes). The proposals kept and
+    the positive RoIs a step are printed, not gated.
+17. Prints one JSON line describing the kernels (each with its time
     ms, device_ms, launches, bound and bound_share = bound_ms / ms,
     device_bound_share = bound_ms / device_ms, host_ms where measured;
     the f32 entries as gather_gemm_conv_f32 and gather_gemm_dw_f32, with
@@ -235,7 +255,8 @@ one NVIDIA card.
     steps, which gather_rows carries too, and ``accuracy`` and
     ``centerpoint`` dicts over the accuracy bench's and the 0.1 m
     CenterPoint config's steps on the two f32 sparse-conv entries,
-    gather_rows and render_heatmap),
+    gather_rows and render_heatmap, and ``parta2`` dicts over PartA2's
+    steps on the two f32 sparse-conv entries),
     the card, then, as the last line, {"ok": true, "device": {...}}. Any
     failed phase exits non-zero.
 
@@ -1059,12 +1080,14 @@ def gga_loss(model, batch, srl):
                     batch['ibp_valid'])[0]
 
 
-def loss_and_grads(torch, trainer, batch, loss_fn):
+def loss_and_grads(torch, trainer, batch, loss_fn, conv_types=None):
     """One step's loss (``loss_fn(model, batch)`` of a train-mode
-    forward), gradient norm, sparse conv weight gradients and batch-norm
-    statistics updates, without the optimizer; the running statistics are
-    restored afterwards."""
+    forward), gradient norm, sparse conv weight gradients (of the modules
+    of ``conv_types``, by default the submanifold and compact strided
+    convs) and batch-norm statistics updates, without the optimizer; the
+    running statistics are restored afterwards."""
     from gga_tpu_torch.models.layers import SubMConv3d, SparseConv3d
+    conv_types = conv_types or (SubMConv3d, SparseConv3d)
     model = trainer.model
     model.train()
     model.zero_grad(set_to_none=True)
@@ -1075,7 +1098,7 @@ def loss_and_grads(torch, trainer, batch, loss_fn):
     norm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
     conv_grads = {n: m.weight.grad.detach().clone()
                   for n, m in model.named_modules()
-                  if isinstance(m, (SubMConv3d, SparseConv3d))}
+                  if isinstance(m, conv_types)}
     stat_moves = {}
     with torch.no_grad():
         for n, b in model.named_buffers():
@@ -1144,7 +1167,7 @@ def plain_reordered(torch, mods):
 
 
 def step_comparison(torch, mods, trainer, batch, loss_fn=None,
-                    n_convs=None):
+                    n_convs=None, conv_types=None, gated=True):
     """Loss and gradients of one step with the kernels vs the plain
     versions, same weights and batch (and SRL draw: ``loss_fn`` defaults
     to the GGA loss with a seeded one), within the gates of the model's
@@ -1152,7 +1175,8 @@ def step_comparison(torch, mods, trainer, batch, loss_fn=None,
     plain step against the plain step with a one-ulp perturbation (of the
     model's dtype) of the encoder input. The plain step with the sparse
     convs' sums in another order (``plain_reordered``) is reported beside
-    it, and gates nothing.
+    it, and gates nothing. ``gated=False`` measures the same and gates
+    nothing.
 
     All three steps run with cuDNN off, so the dense layers compute the
     same arithmetic on both sides: with it on, cuDNN picks each conv's
@@ -1172,15 +1196,16 @@ def step_comparison(torch, mods, trainer, batch, loss_fn=None,
             return gga_loss(model, b, srl)
     with torch.backends.cudnn.flags(enabled=False):
         loss_k, norm_k, g_k, bn_k = loss_and_grads(torch, trainer, batch,
-                                                   loss_fn)
+                                                   loss_fn, conv_types)
         with plain_versions(wrappers(mods)):
             loss_p, norm_p, g_p, bn_p = loss_and_grads(torch, trainer, batch,
-                                                       loss_fn)
+                                                       loss_fn, conv_types)
             with input_ulp_noise(torch, trainer.model):
                 _, norm_n, g_n, _ = loss_and_grads(torch, trainer, batch,
-                                                   loss_fn)
+                                                   loss_fn, conv_types)
         with plain_reordered(torch, mods):
-            _, norm_r, g_r, _ = loss_and_grads(torch, trainer, batch, loss_fn)
+            _, norm_r, g_r, _ = loss_and_grads(torch, trainer, batch, loss_fn,
+                                               conv_types)
 
     def cosines(a, b):
         return {n: float(torch.nn.functional.cosine_similarity(
@@ -1193,12 +1218,7 @@ def step_comparison(torch, mods, trainer, batch, loss_fn=None,
     # differ by rounding)
     bn_err = {n: float((bn_k[n] - bn_p[n]).abs().max()
                        / bn_p[n].abs().max().clamp(min=1e-12)) for n in bn_p}
-    if not all(torch.isfinite(v).all() for v in bn_k.values()):
-        fail('step comparison: non-finite batch-norm statistics')
     worst_bn = max(bn_err, key=bn_err.get)
-    if not bn_err[worst_bn] <= gate['bn']:
-        fail(f'step comparison: batch-norm update of {worst_bn} differs by '
-             f'{bn_err[worst_bn]} of its largest entry')
     res = dict(loss_kernel=loss_k, loss_plain=loss_p,
                loss_rel=abs(loss_k - loss_p) / abs(loss_p),
                grad_norm_kernel=norm_k, grad_norm_plain=norm_p,
@@ -1211,6 +1231,13 @@ def step_comparison(torch, mods, trainer, batch, loss_fn=None,
                bn_update_max_rel_err=bn_err[worst_bn], bn_buffers=len(bn_err),
                cosines=cos, cosines_plain_ulp_noise=cos_noise,
                cosines_plain_reordered=cos_reordered)
+    if not gated:
+        return res
+    if not all(torch.isfinite(v).all() for v in bn_k.values()):
+        fail('step comparison: non-finite batch-norm statistics')
+    if not bn_err[worst_bn] <= gate['bn']:
+        fail(f'step comparison: batch-norm update of {worst_bn} differs by '
+             f'{bn_err[worst_bn]} of its largest entry')
     if len(cos) != n_convs:
         fail(f'step comparison: {len(cos)} sparse conv weight gradients, '
              f'expected {n_convs}')
@@ -3178,20 +3205,25 @@ def site_hooks(model, sites):
     return hooks
 
 
-def calibrate_bn(torch, model, batch):
+def calibrate_bn(torch, model, batch, forward=None):
     """Set every batch norm's running statistics to those of one train
-    batch (momentum 1 for one train-mode forward without gradients), then
-    leave the model in eval mode. After a few steps at momentum 0.01 the
-    statistics are still near their init, where the eval-mode forward of
-    random weights carries the raw inputs' scale (tens of metres) through
-    the net and ``exp()`` of the dim head can overflow."""
+    batch (momentum 1 for one train-mode forward without gradients:
+    ``forward(model, batch)``, by default the model on the batch's
+    points), then leave the model in eval mode. After a few steps at
+    momentum 0.01 the statistics are still near their init, where the
+    eval-mode forward of random weights carries the raw inputs' scale
+    (tens of metres) through the net and ``exp()`` of the dim head can
+    overflow."""
     norms = [m for m in model.modules() if hasattr(m, 'running_var')]
     saved = [m.momentum for m in norms]
     for m in norms:
         m.momentum = 1.0
     model.train()
     with torch.no_grad():
-        model(batch['points'], batch['points_valid'])
+        if forward is None:
+            model(batch['points'], batch['points_valid'])
+        else:
+            forward(model, batch)
     for m, momentum in zip(norms, saved):
         m.momentum = momentum
     return model.eval()
@@ -3502,6 +3534,392 @@ def centerpoint_phase(torch, mods, card, tmp):
                                       CP_SIDE_STEPS)
     res['seconds'] = time.perf_counter() - t0
     print(f'centerpoint phase: {res["seconds"]:.1f} s')
+    return res
+
+
+# --- PartA2: SparseUNet with the inverse sparse conv, the RPN and the
+#     part-aggregation RoI head ---------------------------------------------
+PA_CONFIG = 'configs/parta2/hv_PartA2_secfpn_2x8_cyclic_80e_kitti-3d-3class.py'
+PA_STEPS = 3                # the last 2 batches of epoch 0, the first of 1
+# SparseUNet: conv_input + stage 0's SubM, a strided conv and 2 SubM in
+# each of stages 1-3, conv_out (12 in the encoder), then 4 x (the lateral
+# block's 2 SubM, the merge SubM, the inverse conv or, last, a SubM) in
+# the decoder (16); every conv but conv_input takes an input gradient
+# through gather_gemm_conv (the strided and inverse convs' on their
+# swapped maps), none through gather_rows; no heatmap
+PA_CONVS, PA_DGRAD = 28, 27
+PA_PER_STEP = dict(gather_gemm_conv=PA_CONVS + PA_DGRAD,
+                   gather_gemm_dw=PA_CONVS, gather_rows=0, gather_rows_t=0,
+                   render_heatmap=0)
+PA_STAGES = ('voxelize+UNet', 'BEV+RPN+proposals+RoI pool+RCNN',
+             'targets+loss', 'backward', 'clip+AdamW')
+PA_EVAL_BATCH = 2           # scenes a forward of infer_parta2
+# epoch 0's batches whose whole step is also compared, ungated: where a
+# rounding moves a ReLU or a max across a tie, the step's gradients jump
+# (ROADMAP.md §3, PartA2), and these two meet such a jump
+PA_NOISE_BATCHES = (6, 3)
+
+
+def parta2_forward(torch, model, batch, seed=5):
+    """A train-mode forward of PartA2 on a batch with a seeded draw (the
+    RoI sampler's and the dropout masks)."""
+    from gga_tpu_torch.models.detectors import parta2 as p2
+    draws = p2.parta2_draws(model, batch['points'].shape[0],
+                            torch.Generator().manual_seed(seed),
+                            batch['points'].device)
+    return model(batch['points'], batch['points_valid'], batch['gt_boxes'],
+                 batch['gt_labels'], batch['gt_valid'], draws)
+
+
+@contextlib.contextmanager
+def frozen_proposals():
+    """The first call's proposals given to every later call of PartA2's
+    forward: the proposals are a discrete function of the RPN's scores
+    (top-k, NMS), so two forwards whose scores differ by rounding may
+    keep other boxes, and the RoIs' pooled cells may then differ too. A
+    comparison of the sparse convs holds them fixed."""
+    from gga_tpu_torch.models.detectors import parta2 as p2
+    real = p2.rpn_proposals
+    kept = []
+
+    def frozen(*args, **kwargs):
+        if not kept:
+            kept.append(real(*args, **kwargs))
+        return kept[0]
+
+    p2.rpn_proposals = frozen
+    try:
+        yield
+    finally:
+        p2.rpn_proposals = real
+
+
+@contextlib.contextmanager
+def roi_counts(rec):
+    """Append to ``rec``, for every PartA2 forward, the proposals each
+    scene keeps and, in train mode, its valid and positive sampled RoIs
+    (tensors on the card, read after the run)."""
+    from gga_tpu_torch.models.detectors import parta2 as p2
+    real_p, real_s = p2.rpn_proposals, p2.assign_and_sample
+
+    def props(*args, **kwargs):
+        out = real_p(*args, **kwargs)
+        rec.append(dict(proposals=out['valid'].sum(-1)))
+        return out
+
+    def sample(*args, **kwargs):
+        out = real_s(*args, **kwargs)
+        rec[-1].update(rois=out['roi_valid'].sum(-1),
+                       positives=out['pos_mask'].sum(-1))
+        return out
+
+    p2.rpn_proposals, p2.assign_and_sample = props, sample
+    try:
+        yield rec
+    finally:
+        p2.rpn_proposals, p2.assign_and_sample = real_p, real_s
+
+
+def parta2_phase(torch, mods, card, tmp):
+    """PartA2 (the 3-class config as shipped: 16 000 voxels of a
+    41 x 1600 x 1408 grid, SparseUNet budgets 16 000 / 14 000 / 12 000 and
+    12 000 at conv_out, SECOND 128 / 256 + SECONDFPN, an RPN of 512
+    features, 512 train / 100 test proposals, 128 sampled RoIs a scene on
+    14^3 grids; f32, B = 2, seeded random weights) on the workflow's mini
+    KITTI (its 16 trainval scenes, the reduced clouds):
+
+    0. one whole step with kernels against plain, on the seeded initial
+       weights and the dataset's first batch (epoch 0's, as every anchor
+       path's), cuDNN off (``step_comparison``, the f32 gates; the
+       proposals of the kernel step and one seeded draw given to all four
+       steps, ``frozen_proposals``); the same four steps on epoch 0's
+       PA_NOISE_BATCHES, printed, not gated; and one forward + backward
+       with cuDNN on and off timed (the RCNN head's 3-D convs take
+       torch's native conv without cuDNN);
+    1. main path: PA_STEPS calls of ``apis.parta2_train_step`` on the
+       config's optimizer and the schedule of its 80 epochs, as the CLI
+       builds them (the last two batches of epoch 0, the first of epoch
+       1), each recorded, the counts set to 0 just before and read
+       just after: exact launches at every step (55 gather_gemm_conv: 28
+       forward, 27 input gradients; 28 gather_gemm_dw; nothing else),
+       CUDA events at the stage marks, finite losses, each step's lr,
+       every parameter and BN statistic moved (but zero-initialised
+       biases that no gradient reached), active sites against every
+       budget, peak memory; the proposals kept and the positive RoIs a
+       step printed, not gated (random weights may meet none);
+    2. every recorded call of every step against its plain version at the
+       f32 gates (``check_calls``), step 1's calls timed beside their
+       bounds; a profile of one more step;
+    3. ``calibrate_bn`` on the first batch, then ``infer_parta2`` on the 8
+       val scenes (28 launches a forward, finite boxes).
+    Returns the phase's numbers and kernel rows."""
+    import os
+
+    from gga_tpu_torch import apis
+    from gga_tpu_torch.data.kitti_det import KittiDetDataset
+    from gga_tpu_torch.models.detectors.parta2 import parta2_loss
+    from gga_tpu_torch.models.layers import (RulebookConv3d, RulebookConvBlock,
+                                             SparseInverseConv3d, SubMConv3d)
+    from gga_tpu_torch.train.optim import cyclic_cos_schedule
+    sparse_conv, gr, heatmap = mods
+    t0 = time.perf_counter()
+    data = os.path.join(tmp, 'kitti')
+    cfg, model_cfg, batch, dataset, b0 = supervised_data(
+        torch, data, str(ROOT / PA_CONFIG))
+    keys = ('points', 'points_valid', 'gt_boxes', 'gt_labels', 'gt_valid')
+    b0 = {k: b0[k] for k in keys}
+    batches = []
+    for epoch in (0, 1):
+        dataset.epoch = epoch
+        eb = [{k: torch.as_tensor(b[k], device=DEVICE) for k in keys}
+              for b in dataset.epoch_batches(batch, seed=epoch)]
+        batches += eb[len(eb) - PA_STEPS + 1:] if epoch == 0 else eb[:1]
+        if epoch == 0:
+            noise_batches = [eb[i] for i in PA_NOISE_BATCHES]
+    d = cfg.data
+    print(f'parta2: {Path(PA_CONFIG).name} (grid {model_cfg.sparse_shape}, '
+          f'{model_cfg.max_voxels} voxels, UNet budgets '
+          f'{model_cfg.unet_budgets} / {model_cfg.unet_out_budget}, '
+          f'{model_cfg.train_proposals} train proposals, '
+          f'{model_cfg.roi.num_rois} RoIs of {model_cfg.roi.roi_out_size}^3)'
+          f' on the mini KITTI\'s {len(dataset)} trainval scenes, B = '
+          f'{batch} x {d.max_points} points, f32')
+    o = cfg.optimizer
+    # the schedule of the CLI's run of the config (80 epochs), whose
+    # first steps these are
+    total = len(dataset) // batch * cfg.max_epochs
+    trainer = apis.init_parta2_trainer(
+        model_cfg, total, device=DEVICE, seed=cfg.seed,
+        optimizer=dict(lr=o.lr, weight_decay=o.weight_decay,
+                       grad_clip=o.grad_clip,
+                       betas=tuple(o.get('betas', (0.95, 0.99)))))
+    model = trainer.model
+    res = dict(config=Path(PA_CONFIG).name, steps=PA_STEPS, batch=batch,
+               total_steps=total)
+
+    # --- 0. the whole step against plain, on the initial weights --------
+    def loss_fn(m, b):
+        with frozen_proposals():
+            out = parta2_forward(torch, m, b)
+        return parta2_loss(m.cfg, out, b['gt_boxes'], b['gt_labels'],
+                           b['gt_valid'])[0]
+
+    t = time.perf_counter()
+    with frozen_proposals():
+        cmp_step = step_comparison(
+            torch, mods, trainer, b0, loss_fn, PA_CONVS,
+            conv_types=(SubMConv3d, RulebookConv3d, SparseInverseConv3d))
+    cmp_step['seconds'] = time.perf_counter() - t
+    print_step_comparison('parta2 whole step kernels vs plain (initial '
+                          'weights, cuDNN off, the proposals of the kernel '
+                          'step)', cmp_step)
+    noise = []
+    for i, b in zip(PA_NOISE_BATCHES, noise_batches):
+        with frozen_proposals():
+            r = step_comparison(
+                torch, mods, trainer, b, loss_fn, PA_CONVS,
+                conv_types=(SubMConv3d, RulebookConv3d, SparseInverseConv3d),
+                gated=False)
+        noise.append(dict(batch=i, **{k: r[k] for k in (
+            'min_cosine', 'min_cosine_plain_ulp_noise',
+            'min_cosine_plain_reordered', 'loss_rel', 'grad_norm_rel')}))
+        print(f'parta2 whole step on epoch 0\'s batch {i}, not gated: 1 - '
+              f'cosine kernels {1 - r["min_cosine"]:.3g}, plain with one ulp '
+              f'of input noise {1 - r["min_cosine_plain_ulp_noise"]:.3g}, '
+              f'plain reordered {1 - r["min_cosine_plain_reordered"]:.3g} '
+              '(min over the 28 sparse conv weight gradients)')
+    del noise_batches
+    cudnn_ms = {}
+    for on in (True, False):
+        with torch.backends.cudnn.flags(enabled=on):
+            loss_and_grads(torch, trainer, b0, loss_fn)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            loss_and_grads(torch, trainer, b0, loss_fn)
+            ev[1].record()
+            torch.cuda.synchronize()
+            cudnn_ms['on' if on else 'off'] = ev[0].elapsed_time(ev[1])
+    res.update(step_comparison=cmp_step, step_noise=noise,
+               loss_and_grads_ms=cudnn_ms)
+    print(f'{card}: parta2: one forward + backward (no optimizer) '
+          f'{cudnn_ms["on"]:.1f} ms with cuDNN, {cudnn_ms["off"]:.1f} ms '
+          f'without (torch\'s native 3-D conv in the RCNN head); the whole '
+          f'step comparison took {cmp_step["seconds"]:.1f} s')
+
+    # --- 1. the main path: recorded train steps -------------------------
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {n: b.detach().clone() for n, b in model.named_buffers()}
+    sites, recs, events, all_logs, lrs, rois = [], [], [], [], [], []
+    enc = model.middle_encoder
+    hooks = [enc.register_forward_pre_hook(
+        lambda _, args: sites.append([args[2].sum(-1)]))]
+    hooks += [m.register_forward_hook(
+        lambda _, __, out: sites[-1].append(out[0].valid.sum(-1)))
+        for m in enc.modules() if isinstance(m, RulebookConvBlock)]
+    order = ('encoder', 'forward', 'loss', 'backward', 'optimizer')
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(mods)
+    with roi_counts(rois):
+        for b in batches:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            stage = ['forward']
+
+            def mark(name, ev=ev, stage=stage):
+                ev[order.index(name) + 1].record()
+                stage[0] = ('backward' if name in ('loss', 'backward')
+                            else stage[0])
+
+            with contextlib.ExitStack() as stack:
+                rec = {name: stack.enter_context(recording(
+                    mod, name, lambda stage=stage: stage[0]))
+                    for mod, name in ((sparse_conv, 'gather_gemm_conv'),
+                                      (sparse_conv, 'gather_gemm_dw'),
+                                      (gr, 'gather_rows'),
+                                      (gr, 'gather_rows_t'),
+                                      (heatmap, 'render_heatmap'))}
+                ev[0].record()
+                all_logs.append(apis.parta2_train_step(trainer, b, mark, {}))
+            recs.append(rec)
+            events.append(ev)
+            lrs.append(trainer.optimizer.adamw.param_groups[0]['lr'])
+    torch.cuda.synchronize()
+    got = counts(mods)
+    peak = torch.cuda.max_memory_allocated()
+    for h in hooks:
+        h.remove()
+    want = {k: v * PA_STEPS for k, v in PA_PER_STEP.items()}
+    if got != want:
+        fail(f'parta2: {PA_STEPS} train steps launched {got}, expected '
+             f'{want}')
+    for i, rec in enumerate(recs):
+        n = {k: len(v) for k, v in rec.items()}
+        if n != PA_PER_STEP:
+            fail(f'parta2: step {i + 1} launched {n}, expected {PA_PER_STEP}')
+        by_stage = [ph for ph, _ in rec['gather_gemm_conv']]
+        if by_stage != ['forward'] * PA_CONVS + ['backward'] * PA_DGRAD:
+            fail(f'parta2: step {i + 1}: conv calls by stage {by_stage}')
+    sched = cyclic_cos_schedule(o.lr, total_steps=total)
+    for i, (lg, lr) in enumerate(zip(all_logs, lrs)):
+        finite_logs(torch, lg, f'parta2 step {i + 1}')
+        if not abs(lr - sched(i)) <= 1e-12 * sched(i):
+            fail(f'parta2: step {i + 1} ran at lr {lr}, the schedule gives '
+                 f'{sched(i)}')
+    # a zero-initialised bias that no gradient reached (the RCNN's box
+    # branch without positive RoIs) stays zero under AdamW's decay; every
+    # other parameter and every BN statistic must move
+    stuck = [n for n, p in model.named_parameters()
+             if torch.equal(p, params0[n]) and bool(params0[n].any())]
+    unreached = [n for n, p in model.named_parameters()
+                 if torch.equal(p, params0[n]) and not params0[n].any()]
+    bn_stuck = [n for n, b in model.named_buffers()
+                if torch.equal(b, stats0[n]) or not torch.isfinite(b).all()]
+    if stuck or bn_stuck:
+        fail(f'parta2: {len(stuck)} parameter tensors and {len(bn_stuck)} '
+             f'BN statistics did not move: {(stuck + bn_stuck)[:8]}')
+    del params0, stats0
+    step_ms = [ev[0].elapsed_time(ev[5]) for ev in events]
+    stage_ms = {name: float(np.mean([ev[i].elapsed_time(ev[i + 1])
+                                     for ev in events[1:]]))
+                for i, name in enumerate(PA_STAGES)}
+    names = ['voxels', 'stage1', 'stage2', 'stage3', 'out']
+    budgets = [model_cfg.max_voxels, *model_cfg.unet_budgets,
+               model_cfg.unet_out_budget]
+    per_scene = {n: [int(v) for s_ in sites for v in s_[j].tolist()]
+                 for j, n in enumerate(names)}
+    occupancy = {n: dict(budget=bud, mean=float(np.mean(per_scene[n])),
+                         max=max(per_scene[n]),
+                         saturated=max(per_scene[n]) >= bud)
+                 for n, bud in zip(names, budgets)}
+    roi_stats = {k: [r[k].tolist() for r in rois]
+                 for k in ('proposals', 'rois', 'positives')}
+    res.update(launches=got, step_device_ms=step_ms, stage_ms=stage_ms,
+               scenes_per_s_events=batch * (PA_STEPS - 1)
+               / (sum(step_ms[1:]) / 1e3),
+               peak_bytes=peak, occupancy=occupancy, lrs=lrs,
+               losses=[float(lg['loss']) for lg in all_logs],
+               logs=[{k: float(v) for k, v in lg.items()} for lg in all_logs],
+               roi_stats=roi_stats, unreached=unreached)
+    print(f'{card}: parta2: {PA_STEPS} train steps at B={batch} (f32): '
+          f'{res["scenes_per_s_events"]:.3f} scenes/s by CUDA events around '
+          f'the steps after the first; step device ms '
+          f'{[round(v, 1) for v in step_ms]}; by stage (mean after the '
+          'first) ' + ', '.join(f'{k} {v:.2f}' for k, v in stage_ms.items())
+          + f'; peak memory {peak / 2 ** 30:.2f} GiB; losses '
+          f'{[round(v, 3) for v in res["losses"]]}; launches {got}')
+    print('parta2: active sites a scene against their budgets: ' + ', '.join(
+        f'{n} mean {v["mean"]:.0f} max {v["max"]} of {v["budget"]}'
+        + (' (SATURATED)' if v['saturated'] else '')
+        for n, v in occupancy.items()))
+    print(f'parta2: proposals kept a scene {roi_stats["proposals"]}, valid '
+          f'RoIs {roi_stats["rois"]}, positive RoIs '
+          f'{roi_stats["positives"]} (not gated); RPN positives '
+          f'{[lg["rpn_num_pos"] for lg in res["logs"]]}; parameters no '
+          f'gradient reached: {unreached}')
+
+    # --- 2. every recorded call against its plain version ---------------
+    torch.set_grad_enabled(False)
+    errs = [check_calls(torch, mods, rec, f'parta2 step {i + 1}')
+            for i, rec in enumerate(recs)]
+    res['max_abs_err'] = {k: max(e[k] for e in errs) for k in errs[0]}
+    print(f'parta2: every call of the {PA_STEPS} steps against its plain '
+          'version: largest errors ' + ', '.join(
+              f'{k} {v:.3g}' for k, v in res['max_abs_err'].items()))
+    rec = recs[0]
+    res['conv_calls'] = [conv_row(torch, sparse_conv, *a, f'parta2 call {i}')
+                         for i, (_, a) in enumerate(rec['gather_gemm_conv'])]
+    print_conv_rows(f'parta2 kernels: gather_gemm_conv vs plain at step 1\'s '
+                    f'{PA_CONVS} forward and {PA_DGRAD} input-gradient calls',
+                    res['conv_calls'])
+    res['dw_calls'] = dw_rows(torch, sparse_conv, rec['gather_gemm_dw'],
+                              'parta2 kernels')
+    del recs, rec
+    torch.set_grad_enabled(True)
+    res['profile'] = device_profile(
+        torch, lambda: apis.parta2_train_step(trainer, batches[1]))
+    print_profile('parta2 train step', res['profile'])
+    calibrate_bn(torch, model, b0, lambda m, b: parta2_forward(torch, m, b))
+    del batches, b0
+    torch.cuda.empty_cache()
+
+    # --- 3. inference on the val scenes ---------------------------------
+    val = KittiDetDataset(data, os.path.join(data, SUP_VAL_INFO),
+                          pc_range=cfg.point_cloud_range,
+                          pts_prefix=d.pts_prefix, max_points=d.max_points,
+                          test_mode=True)
+    bundle = apis.DetectorBundle(model, model_cfg, torch.device(DEVICE))
+    ms, kept, props = [], [], []
+    zero_counts(mods)
+    with roi_counts(props):
+        for vb in val.epoch_batches(PA_EVAL_BATCH, shuffle=False):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = apis.infer_parta2(bundle, vb['points'], vb['points_valid'])
+            end.record()
+            if not torch.isfinite(out['boxes']).all():
+                fail('parta2: infer_parta2 gave non-finite boxes')
+            kept += out['valid'].sum(-1).tolist()
+            ms.append(start.elapsed_time(end))
+    got = counts(mods)
+    want = dict(dict.fromkeys(PA_PER_STEP, 0),
+                gather_gemm_conv=PA_CONVS * len(ms))
+    if got != want or len(kept) != len(val):
+        fail(f'parta2: infer_parta2 launched {got} in {len(ms)} forwards '
+             f'over {len(kept)} scenes, expected {want} over {len(val)}')
+    res['eval'] = dict(scenes=len(kept), forward_ms=ms,
+                       scenes_per_s=len(kept) / (sum(ms) / 1e3), kept=kept,
+                       proposals=[p['proposals'].tolist() for p in props],
+                       launches=got)
+    res['seconds'] = time.perf_counter() - t0
+    print(f'{card}: parta2: infer_parta2 on {len(kept)} val scenes (batches '
+          f'of {PA_EVAL_BATCH}): {res["eval"]["scenes_per_s"]:.2f} scenes/s '
+          'by CUDA events around each call (forward, test proposals, RoI '
+          f'pool, RCNN, decode, NMS); kept boxes a scene {kept}; launches '
+          f'{got}; the phase {res["seconds"]:.1f} s')
+    del trainer, model, bundle
+    torch.cuda.empty_cache()
     return res
 
 
@@ -4000,6 +4418,9 @@ def main():
         torch.cuda.empty_cache()
         # --- nuScenes CenterPoint: voxel, DCN circle NMS, pillar DCN ---
         cp = centerpoint_phase(torch, mods, card, tmp)
+        torch.cuda.empty_cache()
+        # --- PartA2: SparseUNet, RPN and the part-aggregation RoI head ---
+        pa = parta2_phase(torch, mods, card, tmp)
 
     launches, launches_f32 = tr['launches'], f32['train']['launches']
     kernels = [
@@ -4088,6 +4509,17 @@ def main():
             'launches', 'max_abs_err', 'ms', 'device_ms', 'plain_ms',
             'bound_ms', 'bound_by', 'bound_share', 'device_bound_share',
             'ffma_bound_ms', 'library_ms', 'host_ms')}
+    # PartA2's steps (f32, B = 2): the two sparse-conv kernels, the
+    # inverse convs' swapped maps among their calls
+    for entry, key, rows in (
+            (kernels[2], 'gather_gemm_conv', pa['conv_calls']),
+            (kernels[3], 'gather_gemm_dw', pa['dw_calls'])):
+        e = kernel_entry(entry['name'], entry['source'].split('/')[-1],
+                         entry['replaces'], pa['launches'][key], rows)
+        entry['parta2'] = {k: e[k] for k in (
+            'launches', 'max_abs_err', 'ms', 'device_ms', 'plain_ms',
+            'bound_ms', 'bound_by', 'bound_share', 'device_bound_share',
+            'ffma_bound_ms', 'library_ms')}
     print('kernels, summed over the train path\'s calls (ms by CUDA '
           'events, device ms by the profiler, share of the bound):')
     for k in kernels:
@@ -4104,6 +4536,7 @@ def main():
                             ('second', sup['train']['steps']),
                             ('accuracy', acc['steps']),
                             ('centerpoint', cpm['steps']),
+                            ('parta2', pa['steps']),
                             *((t, vf[t]['train']['steps'])
                               for t, _ in VF_PATHS)):
             if path not in k:
@@ -4131,7 +4564,7 @@ def main():
                        train_heatmap=hm_rows, step_comparison=cmp_step,
                        f32=f32, workflow=wf, stage4=s4, indoor=ind,
                        supervised=sup, accuracy=acc, voxel_family=vf,
-                       centerpoint=cp),
+                       centerpoint=cp, parta2=pa),
                   fh, indent=1, default=str)
 
     print(card)

@@ -9,7 +9,8 @@ the FCAF3D detector on batches of coloured point clouds; and for the
 fully supervised KITTI path, the same for the anchor detectors: SECOND,
 PointPillars, DynamicVoxelNet, DVSECOND and SASSD; and for the fully
 supervised nuScenes path, the same for CenterPoint (voxel and pillar,
-with or without the DCN head, rotated or circle NMS)."""
+with or without the DCN head, rotated or circle NMS); and for the
+two-stage KITTI detector, the same for PartA2."""
 from __future__ import annotations
 
 import dataclasses
@@ -30,6 +31,8 @@ from .models.detectors.dynamic_voxelnet import (DVSECONDConfig,
                                                 DynamicVoxelNet,
                                                 DynamicVoxelNetConfig)
 from .models.detectors.fcaf3d import FCAF3DDetector, FCAF3DModelConfig
+from .models.detectors.parta2 import (PartA2Config, PartA2Detector,
+                                      decode_parta2)
 from .models.detectors.pgd import PGDDetector, PGDModelConfig
 from .models.detectors.sassd import SASSD, SASSDConfig
 from .models.detectors.voxelnet import (PointPillars, PointPillarsConfig,
@@ -509,3 +512,69 @@ def infer_centerpoint(bundle: DetectorBundle, points, points_valid):
                   torch.as_tensor(points_valid, dtype=torch.bool,
                                   device=bundle.device))
     return decode_centerpoint(bundle.cfg, preds)
+
+
+def init_parta2_detector(cfg: PartA2Config, state_dict=None, device='cuda',
+                         seed=0) -> DetectorBundle:
+    """The PartA2 detector in eval mode on ``device`` (f32, as gga_tpu's,
+    whose config has no compute dtype).
+
+    With a ``state_dict`` (e.g. from ``convert.from_jax_variables``) the
+    weights are loaded strictly; without one they are drawn from
+    ``torch.Generator().manual_seed(seed)``
+    (``PartA2Detector.init_weights``). Raises if ``device`` is CUDA and no
+    card is present."""
+    dev = resolve_device(device)
+    model = PartA2Detector(cfg)
+    if state_dict is None:
+        model.init_weights(torch.Generator().manual_seed(seed))
+    else:
+        model.load_state_dict(state_dict)
+    return DetectorBundle(model.to(dev).eval(), cfg, dev)
+
+
+def init_parta2_trainer(cfg: PartA2Config, total_steps, state_dict=None,
+                        device='cuda', seed=0, optimizer=None) -> TrainState:
+    """The PartA2 detector (``init_parta2_detector``'s) in train mode on
+    ``device`` with the KITTI recipe's optimizer (``build_optimizer(
+    params, total_steps, **optimizer)``: the global-norm clip, AdamW and
+    the cyclic lr and beta1 of configs/_base_/schedules/cyclic_40e.py's
+    ``optimizer`` block) and a generator, seeded with ``seed``, for the
+    RoI sampler's draws and the dropout masks."""
+    model = init_parta2_detector(cfg, state_dict, device, seed).model.train()
+    return TrainState(model=model,
+                      optimizer=build_optimizer(model.parameters(),
+                                                total_steps,
+                                                **(optimizer or {})),
+                      step=0, generator=torch.Generator().manual_seed(seed))
+
+
+def parta2_train_step(trainer: TrainState, batch, mark=None, diag=None):
+    """One PartA2 train step on a batch of ``KittiDetDataset`` samples (as
+    tensors or numpy). ``mark`` is the step's stage hook and ``diag`` a
+    dict for the UNet's budget occupancy (``loop.parta2_train_step``).
+    Returns the step's logs as 0-d tensors on the trainer's device."""
+    dev = next(trainer.model.parameters()).device
+    b = {k: torch.as_tensor(batch[k], dtype=dt, device=dev)
+         for k, dt in _DET_DTYPES.items()}
+    return loop.parta2_train_step(trainer, b, mark, diag)
+
+
+@torch.no_grad()
+def infer_parta2(bundle: DetectorBundle, points, points_valid):
+    """PartA2 inference on a batch: forward in eval mode (the test
+    proposals, their pooling and the RCNN), then ``decode_parta2`` (the
+    refined boxes and a class-agnostic rotated NMS).
+
+    Args:
+        points: [B, P, 4] f32 (tensor or numpy); points_valid: [B, P] bool.
+    Returns:
+        dict(boxes [B, R, 7] bottom-centre lidar, scores, labels, valid)
+        on the bundle's device, R = ``test_proposals``.
+    """
+    model = bundle.model.eval()
+    out = model(torch.as_tensor(points, dtype=torch.float32,
+                                device=bundle.device),
+                torch.as_tensor(points_valid, dtype=torch.bool,
+                                device=bundle.device))
+    return decode_parta2(bundle.cfg, out)

@@ -12,8 +12,11 @@ PGDHead to mmdet3d's keys), the indoor FCAF3D detector
 features and scatter have no parameters) and the nuScenes CenterPoint
 family (``centerpoint_rules``: voxel and pillar, with and without the DCN
 head, to mmdet3d's CenterPoint names); gga_tpu has no converter rules for
-these, so theirs stand alone. A released mmdet3d GGA checkpoint loads
-into the port directly, with no conversion.
+these, so theirs stand alone; and PartA2 (``parta2_rules``: SparseUNet,
+SECOND + SECONDFPN, the RPN, the semantic head and the part-aggregation
+bbox head, whose dense 3-D convs and linears keep torch's layouts). A
+released mmdet3d GGA checkpoint loads into the port directly, with no
+conversion.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from .models.backbones.resnet import ARCH
 from .models.detectors.centerpoint import CenterPointConfig, common_heads
 from .models.detectors.dynamic_voxelnet import DynamicVoxelNetConfig
 from .models.detectors.fcaf3d import FCAF3DModelConfig
+from .models.detectors.parta2 import PartA2Config
 from .models.detectors.pgd import PGDModelConfig
 from .models.detectors.sassd import SASSDConfig
 from .models.detectors.voxelnet import PointPillarsConfig, SECONDNetConfig
@@ -266,18 +270,24 @@ def fcaf3d_rules(cfg: FCAF3DModelConfig):
     return rules
 
 
-def _anchor_rules(cfg):
-    """SECOND + SECONDFPN + Anchor3DHead under mmdet3d's VoxelNet names.
-    The head's channels keep gga_tpu's order (anchor class, rotation,
-    value); a released mmdet3d checkpoint may need them reordered."""
-    rules = _second_fpn_rules(cfg, 'backbone', 'neck')
+def _anchor_head_rules(head):
+    """Anchor3DHead's three convs under the port's prefix ``head``. The
+    channels keep gga_tpu's order (anchor class, rotation, value); a
+    released mmdet3d checkpoint may need them reordered."""
+    rules = []
     for t, f in (('conv_cls', 'conv_cls'), ('conv_reg', 'conv_reg'),
                  ('conv_dir_cls', 'conv_dir')):
-        rules.append((f'bbox_head.{t}.weight', 'params',
+        rules.append((f'{head}.{t}.weight', 'params',
                       f'Anchor3DHead_0/{f}/kernel', 'conv2d'))
-        rules.append((f'bbox_head.{t}.bias', 'params',
+        rules.append((f'{head}.{t}.bias', 'params',
                       f'Anchor3DHead_0/{f}/bias', 'copy'))
     return rules
+
+
+def _anchor_rules(cfg):
+    """SECOND + SECONDFPN + Anchor3DHead under mmdet3d's VoxelNet names."""
+    return (_second_fpn_rules(cfg, 'backbone', 'neck')
+            + _anchor_head_rules('bbox_head'))
 
 
 def _conv_module_encoder_rules(cfg, me, base, out_channels):
@@ -395,6 +405,114 @@ def sassd_rules(cfg: SASSDConfig):
         for n in ('point_fc', 'point_cls', 'point_reg')]
 
 
+def _sparse_unet_rules(cfg: PartA2Config, me):
+    """gga_tpu's ``SparseUNet`` under the port's prefix ``me``, in flax's
+    build order: ``SubMConv3dMapped_<n>`` and ``MaskedBatchNorm_<n>``
+    numbered across the encoder and the decoder; the strided convs' raw
+    kernels ``spconv<i + 1>``, ``conv_out`` and the inverse convs'
+    ``inv_<i>``."""
+    u = 'SparseUNet_0'
+    rules = []
+    n = dict(subm=0, bn=0)
+
+    def subm(t, i_ch, o_ch):
+        rules.append((f'{t}.weight', 'params',
+                      f'{u}/SubMConv3dMapped_{n["subm"]}/kernel',
+                      f'sparse3d:{i_ch}:{o_ch}'))
+        n['subm'] += 1
+
+    def raw(t, name, i_ch, o_ch):
+        rules.append((f'{t}.weight', 'params', f'{u}/{name}',
+                      f'sparse3d:{i_ch}:{o_ch}'))
+
+    def bn(t):
+        rules.extend(_bn_moves(t, f'{u}/MaskedBatchNorm_{n["bn"]}'))
+        n['bn'] += 1
+
+    ch = cfg.unet_channels[0][0]
+    subm(f'{me}.conv_input.0', 4, ch)
+    bn(f'{me}.conv_input.1')
+    for i, blocks in enumerate(cfg.unet_channels):
+        for j, out_ch in enumerate(blocks):
+            t = f'{me}.encoder_layers.encoder_layer{i + 1}.{j}'
+            if i and not j:
+                raw(f'{t}.0', f'spconv{i + 1}', ch, out_ch)
+            else:
+                subm(f'{t}.0', ch, out_ch)
+            bn(f'{t}.1')
+            ch = out_ch
+    raw(f'{me}.conv_out.0', 'conv_out', ch, cfg.unet_out_channels)
+    bn(f'{me}.conv_out.1')
+    levels = len(cfg.unet_decoder_channels)
+    for d, dch in enumerate(cfg.unet_decoder_channels):
+        k = levels - d
+        lat = f'{me}.lateral_layer{k}'
+        subm(f'{lat}.conv1', dch[0], dch[0])
+        bn(f'{lat}.bn1')
+        subm(f'{lat}.conv2', dch[0], dch[0])
+        bn(f'{lat}.bn2')
+        subm(f'{me}.merge_layer{k}.0', ch + dch[0], dch[1])
+        bn(f'{me}.merge_layer{k}.1')
+        up = f'{me}.upsample_layer{k}'
+        if k != 1:
+            raw(f'{up}.0', f'inv_{k - 1}', dch[1], dch[2])
+        else:
+            subm(f'{up}.0', dch[1], dch[2])
+        bn(f'{up}.1')
+        ch = dch[2]
+    return rules
+
+
+def parta2_rules(cfg: PartA2Config):
+    """(torch_key, collection, flax_path, transform) for every tensor of
+    gga_tpu's ``PartA2Detector``: SparseUNet (``middle_encoder``),
+    SECOND + SECONDFPN, the RPN (``rpn_head``), and ``roi_head``: the
+    semantic head's two linears and the bbox head. flax numbers the bbox
+    head's ``SubMConvDense_<n>`` part convs first, then the seg, merge and
+    down convs; its shared FCs ``Dense_<k>`` / ``BatchNorm_<k>``, its
+    branches ``cls_<i>`` / ``cls_bn<i>`` / ``cls_out`` (and ``reg_``)."""
+    rules = (_sparse_unet_rules(cfg, 'middle_encoder')
+             + _second_fpn_rules(cfg, 'backbone', 'neck')
+             + _anchor_head_rules('rpn_head'))
+    sh = 'roi_head.semantic_head'
+    for t, f in (('seg_cls_layer', 'Dense_0'), ('seg_reg_layer', 'Dense_1')):
+        rules.append((f'{sh}.{t}.weight', 'params',
+                      f'PointwiseSemanticHead_0/{f}/kernel', 'linear'))
+        rules.append((f'{sh}.{t}.bias', 'params',
+                      f'PointwiseSemanticHead_0/{f}/bias', 'copy'))
+    b, h = cfg.bbox, 'PartA2BboxHead_0'
+    bh = 'roi_head.bbox_head'
+    n_conv = 0
+    for t, count in (('conv_part', len(b.part_conv_channels)),
+                     ('conv_seg', len(b.seg_conv_channels)),
+                     ('conv_down.merge_conv', len(b.merge_conv_channels)),
+                     ('conv_down.down_conv', len(b.down_conv_channels))):
+        for i in range(count):
+            f = f'{h}/SubMConvDense_{n_conv}'
+            rules.append((f'{bh}.{t}.{i}.0.weight', 'params',
+                          f'{f}/Conv_0/kernel', 'conv3d'))
+            rules.extend(_bn_moves(f'{bh}.{t}.{i}.1', f'{f}/MaskedBN_0'))
+            n_conv += 1
+    step = 2 if b.dropout_ratio > 0 else 1
+    for k in range(len(b.shared_fc_channels) - 1):
+        t = f'{bh}.shared_fc.{step * k}'
+        rules.append((f'{t}.conv.weight', 'params', f'{h}/Dense_{k}/kernel',
+                      'linear'))
+        rules.extend(_bn_moves(f'{t}.bn', f'{h}/BatchNorm_{k}'))
+    for name, chans in (('cls', b.cls_channels), ('reg', b.reg_channels)):
+        t = f'{bh}.conv_{name}'
+        for i in range(len(chans)):
+            idx = i + 1 if i else 0          # a Dropout sits at index 1
+            rules.append((f'{t}.{idx}.conv.weight', 'params',
+                          f'{h}/{name}_{i}/kernel', 'linear'))
+            rules.extend(_bn_moves(f'{t}.{idx}.bn', f'{h}/{name}_bn{i}'))
+        rules.append((f'{t}.{len(chans) + 1}.weight', 'params',
+                      f'{h}/{name}_out/kernel', 'linear'))
+        rules.append((f'{t}.{len(chans) + 1}.bias', 'params',
+                      f'{h}/{name}_out/bias', 'copy'))
+    return rules
+
+
 def _to_torch_layout(name, x):
     """One flax tensor -> its mmdet3d state_dict layout."""
     x = np.asarray(x)
@@ -405,6 +523,8 @@ def _to_torch_layout(name, x):
         return x.reshape(*dhw, int(i_ch), int(o_ch)).transpose(4, 0, 1, 2, 3)
     if name == 'linear':            # [I, O] -> [O, I]
         return x.T
+    if name == 'conv3d':            # [kx, ky, kz, I, O] -> [O, I, kx, ky, kz]
+        return x.transpose(4, 3, 0, 1, 2)
     if name == 'conv2d':            # [kh, kw, I, O] -> [O, I, kh, kw]
         return x.transpose(3, 2, 0, 1)
     if name == 'deform2d':
@@ -434,7 +554,8 @@ def rules_of(cfg):
     (``SASSDConfig``, ``DVSECONDConfig`` of ``SECONDNetConfig``,
     ``DynamicVoxelNetConfig`` of ``PointPillarsConfig``) are tested before
     their bases; DVSECOND has SECOND's tensors."""
-    for cls, rules in ((CenterPointConfig, centerpoint_rules),
+    for cls, rules in ((PartA2Config, parta2_rules),
+                       (CenterPointConfig, centerpoint_rules),
                        (PGDModelConfig, pgd_rules),
                        (FCAF3DModelConfig, fcaf3d_rules),
                        (SASSDConfig, sassd_rules),
@@ -452,7 +573,7 @@ def from_jax_variables(variables_np, cfg):
     ``PGDModelConfig``, ``FCAF3DModelConfig``, ``CenterPointConfig``, or
     the config of an anchor detector: ``SECONDNetConfig``,
     ``PointPillarsConfig``, ``DynamicVoxelNetConfig``, ``DVSECONDConfig``
-    or ``SASSDConfig``) ->
+    or ``SASSDConfig``, or a ``PartA2Config``) ->
     the port's ``load_state_dict`` input (f32 tensors)."""
     flat = {c: _flatten(variables_np.get(c, {}))
             for c in ('params', 'batch_stats')}

@@ -90,3 +90,21 @@ def rotated_iou_bev(boxes1, boxes2, eps=1e-8):
     a2 = boxes2[..., 2] * boxes2[..., 3]
     union = a1[..., :, None] + a2[..., None, :] - inter
     return inter / union.clamp(min=eps)
+
+
+def rotated_iou_3d(boxes1, boxes2, eps=1e-8):
+    """Pairwise 3D IoU of [..., N, 7] x [..., M, 7] bottom-centre boxes
+    (x, y, z, dx, dy, dz, yaw): the rotated BEV overlap times the z
+    overlap (gga_tpu ``rotated_iou_3d``, its 'iou' mode)."""
+    bev = [0, 1, 3, 4, 6]
+    inter_bev = rotated_overlap(boxes1[..., bev], boxes2[..., bev])
+    z1lo, z1hi = boxes1[..., 2], boxes1[..., 2] + boxes1[..., 5]
+    z2lo, z2hi = boxes2[..., 2], boxes2[..., 2] + boxes2[..., 5]
+    zoverlap = (torch.minimum(z1hi[..., :, None], z2hi[..., None, :])
+                - torch.maximum(z1lo[..., :, None], z2lo[..., None, :])
+                ).clamp(min=0.0)
+    inter = inter_bev * zoverlap
+    v1 = boxes1[..., 3] * boxes1[..., 4] * boxes1[..., 5]
+    v2 = boxes2[..., 3] * boxes2[..., 4] * boxes2[..., 5]
+    union = v1[..., :, None] + v2[..., None, :] - inter
+    return inter / union.clamp(min=eps)

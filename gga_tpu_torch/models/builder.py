@@ -2,8 +2,9 @@
 port's copy of ``gga_tpu/models/builder.py``: the GGA detector, the
 stage-4 PGD detector, the indoor FCAF3D detector, the fully supervised
 KITTI voxel detectors: SECOND, PointPillars, DynamicVoxelNet, DVSECOND and
-SASSD, and the fully supervised nuScenes CenterPoint of
-``configs/centerpoint/``; the rest of the zoo waits for its own slices).
+SASSD and the two-stage PartA2, and the fully supervised nuScenes
+CenterPoint of ``configs/centerpoint/``; the rest of the zoo waits for
+its own slices).
 
 ``config_from_dict`` converts the python config-file dict into the typed
 frozen dataclass (recursively, lists -> tuples, nested dicts -> nested
@@ -26,6 +27,7 @@ from .detectors.dynamic_voxelnet import (DVSECONDConfig, DVSECONDDetector,
                                          DynamicVoxelNet,
                                          DynamicVoxelNetConfig)
 from .detectors.fcaf3d import FCAF3DDetector, FCAF3DModelConfig
+from .detectors.parta2 import PartA2Config, PartA2Detector
 from .detectors.pgd import PGDDetector, PGDModelConfig
 from .detectors.sassd import SASSD, SASSDConfig
 from .detectors.voxelnet import (PointPillars, PointPillarsConfig,
@@ -99,6 +101,7 @@ _register_family('SECONDDetector', SECONDNetConfig, SECONDDetector)
 _register_family('DVSECONDDetector', DVSECONDConfig, DVSECONDDetector)
 _register_family('DynamicVoxelNet', DynamicVoxelNetConfig, DynamicVoxelNet)
 _register_family('SASSD', SASSDConfig, SASSD)
+_register_family('PartA2Detector', PartA2Config, PartA2Detector)
 _register_family('CenterPointDetector', CenterPointConfig, CenterPointDetector)
 
 

@@ -189,6 +189,79 @@ class SparseConv3d(_SparseConv):
                                og)
 
 
+class RulebookConv3d(_SparseConv):
+    """Strided sparse conv on the rulebook with a dense backward map
+    (gga_tpu ``rulebook_conv`` on ``downsample_rulebook_batched``: the
+    strided convs of SparseUNet, whose maps its decoder's inverse convs
+    reuse). ``forward`` returns the output set and the maps."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=(3, 3, 3),
+                 stride=(2, 2, 2), padding=(1, 1, 1), out_budget=16000):
+        super().__init__(in_channels, out_channels, kernel_size)
+        self.stride = sp._triple(stride)
+        self.padding = sp._triple(padding)
+        self.out_budget = out_budget
+
+    def forward(self, st: sp.SparseTensor):
+        """-> (SparseTensor, (fwd_flat [K, B*M], bwd_flat [K, B*N]))."""
+        oc, ov, og, fwd_flat, bwd_flat = sp.downsample_rulebook_batched(
+            st.coords, st.valid, st.grid, self.kernel_size, self.stride,
+            self.padding, self.out_budget)
+        B, N, C = st.features.shape
+        out = sp.RulebookConvFunction.apply(
+            st.features.reshape(B * N, C), self.weight, fwd_flat, bwd_flat,
+            ov.reshape(-1))
+        M = ov.shape[1]
+        return (sp.SparseTensor(out.reshape(B, M, self.out_channels), oc, ov,
+                                og), (fwd_flat, bwd_flat))
+
+
+class SparseInverseConv3d(_SparseConv):
+    """spconv's SparseInverseConv3d on the maps of the strided conv it
+    inverts (``ops.sparse.sparse_inverse_conv``): features of the
+    downsampled set onto that conv's input set."""
+
+    def forward(self, x, maps, out_valid):
+        """x [B, M, C]; maps (fwd_flat, bwd_flat) of the strided conv;
+        out_valid [B, N] -> [B, N, D]."""
+        B, M, C = x.shape
+        out = sp.sparse_inverse_conv(x.reshape(B * M, C), self.weight,
+                                     *maps, out_valid.reshape(-1))
+        return out.reshape(B, out_valid.shape[1], self.out_channels)
+
+
+class RulebookConvBlock(nn.Sequential):
+    """``RulebookConv3d`` + masked BN + ReLU (children ``0`` conv, ``1``
+    norm); ``forward`` also returns the conv's maps."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=(3, 3, 3),
+                 stride=(2, 2, 2), padding=(1, 1, 1), out_budget=16000):
+        super().__init__(
+            RulebookConv3d(in_channels, out_channels, kernel_size, stride,
+                           padding, out_budget),
+            MaskedBatchNorm(out_channels))
+
+    def forward(self, st: sp.SparseTensor):
+        conv, bn = self[0], self[1]
+        st, maps = conv(st)
+        st.features = F.relu(bn(st.features, st.valid))
+        return st, maps
+
+
+class InverseConvBlock(nn.Sequential):
+    """``SparseInverseConv3d`` + masked BN + ReLU (children ``0`` conv,
+    ``1`` norm)."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=3):
+        super().__init__(SparseInverseConv3d(in_channels, out_channels,
+                                             kernel_size),
+                         MaskedBatchNorm(out_channels))
+
+    def forward(self, x, maps, out_valid):
+        conv, bn = self[0], self[1]
+        return F.relu(bn(conv(x, maps, out_valid), out_valid))
+
+
 class SparseConvBlock(nn.Sequential):
     """Strided sparse conv + masked BN + ReLU (mmdet3d's sparse
     ConvModule; state_dict children ``0`` conv, ``1`` norm)."""

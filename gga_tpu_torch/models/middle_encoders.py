@@ -1,6 +1,7 @@
 """Middle encoders (port of ``gga_tpu/models/middle_encoders.py``): the
 sparse ``SparseEncoder`` on the row engine, in its basicblock (GGA) and
-conv_module (SECOND) variants, and PointPillars' ``PointPillarsScatter``."""
+conv_module (SECOND) variants, PartA2's ``SparseUNet``, and PointPillars'
+``PointPillarsScatter``."""
 from __future__ import annotations
 
 from typing import Sequence, Tuple
@@ -10,8 +11,8 @@ from torch import nn
 
 from ..ops import sparse as sp
 from ..ops.scatter import pillar_scatter
-from .layers import (SparseBasicBlock, SparseConvBlock, SubMConvBlock,
-                     flatten_nmap)
+from .layers import (InverseConvBlock, RulebookConvBlock, SparseBasicBlock,
+                     SparseConvBlock, SubMConvBlock, flatten_nmap)
 
 
 class SparseEncoder(nn.Module):
@@ -146,6 +147,121 @@ def _densify(st):
     dense = dense.reshape(B, nz * ny * nx + 1, C)[:, :-1]
     return dense.reshape(B, nz, ny, nx, C).permute(0, 4, 1, 2, 3).reshape(
         B, C * nz, ny, nx)
+
+
+class SparseUNet(nn.Module):
+    """PartA2's UNet-shaped sparse middle encoder (gga_tpu ``SparseUNet``,
+    ``middle_encoders.py:215-371``; mmdet3d's sparse_unet.py:19).
+
+    Encoder: ``conv_input`` (SubM + BN + ReLU), four stages of SubM
+    blocks, stages 2-4 opened by a stride-2 sparse conv on
+    ``downsample_rulebook_batched`` (budget ``stage_budgets[i - 1]``)
+    whose maps are kept; ``conv_out`` (3, 1, 1) stride (2, 1, 1) on the
+    last stage, densified to the BEV map channel-major over (C, D). One
+    neighbor map per active set is shared by every SubM conv on it.
+
+    Decoder, from the deepest stage up (``lateral_layer{k}``,
+    ``merge_layer{k}``, ``upsample_layer{k}``, k = 4..1): a lateral
+    SparseBasicBlock on the stage's encoder output, its concat after the
+    rising features, the merge SubM, plus the concat's interleaved
+    channel pairs summed (mmdet3d's ``reduce_channel``), then the inverse
+    conv of the stage's strided conv onto the set below (k > 1) or a SubM
+    (k = 1).
+
+    Returns (bev NCHW [B, C*D, H, W], seg_feats [B, N, C_seg] on the
+    input active set)."""
+
+    def __init__(self, in_channels=4, sparse_shape=(41, 1600, 1408),
+                 base_channels=16, output_channels=128,
+                 encoder_channels: Sequence[Sequence[int]] = (
+                     (16,), (32, 32, 32), (64, 64, 64), (64, 64, 64)),
+                 encoder_sconv_paddings: Sequence = (1, 1, (0, 1, 1)),
+                 decoder_channels: Sequence[Sequence[int]] = (
+                     (64, 64, 64), (64, 64, 32), (32, 32, 16),
+                     (16, 16, 16)),
+                 stage_budgets: Sequence[int] = (16000, 16000, 16000),
+                 out_budget: int = 16000):
+        super().__init__()
+        self.sparse_shape = tuple(sparse_shape)
+        self.stage_budgets = tuple(stage_budgets)
+        self.out_budget = out_budget
+        self.conv_input = SubMConvBlock(in_channels, base_channels)
+        layers = {}
+        ch = base_channels
+        grid = self.sparse_shape
+        for i, blocks in enumerate(encoder_channels):
+            layer = []
+            for j, out_ch in enumerate(blocks):
+                if i != 0 and j == 0:
+                    pad = encoder_sconv_paddings[i - 1]
+                    layer.append(RulebookConvBlock(
+                        ch, out_ch, 3, 2, pad, stage_budgets[i - 1]))
+                    grid = sp._ds_prep(grid, 3, 2, pad)[3]
+                else:
+                    layer.append(SubMConvBlock(ch, out_ch))
+                ch = out_ch
+            layers[f'encoder_layer{i + 1}'] = nn.ModuleList(layer)
+        self.encoder_layers = nn.ModuleDict(layers)
+        self.conv_out = RulebookConvBlock(ch, output_channels, (3, 1, 1),
+                                          (2, 1, 1), 0, out_budget)
+        grid = sp._ds_prep(grid, (3, 1, 1), (2, 1, 1), 0)[3]
+        self.bev_channels = output_channels * grid[0]
+        n = len(decoder_channels)
+        for d, dch in enumerate(decoder_channels):
+            k = n - d
+            setattr(self, f'lateral_layer{k}', SparseBasicBlock(dch[0]))
+            setattr(self, f'merge_layer{k}', SubMConvBlock(2 * dch[0],
+                                                           dch[1]))
+            setattr(self, f'upsample_layer{k}',
+                    InverseConvBlock(dch[1], dch[2]) if k != 1
+                    else SubMConvBlock(dch[1], dch[2]))
+        self.seg_channels = decoder_channels[-1][2]
+
+    def forward(self, feats, coords, valid, diag=None):
+        """feats [B, V, C]; coords [B, V, 3] (z, y, x) sorted; valid [B, V].
+
+        With a dict ``diag``, records the budget occupancy (mean active
+        sites a scene over the budget): ``occupancy_stage{i}`` after each
+        strided conv, ``occupancy_out`` after conv_out."""
+        st = sp.SparseTensor(feats, coords, valid, self.sparse_shape)
+        nmaps = [SparseEncoder._subm_map(st)]
+        st.features = self.conv_input(feats, valid, nmaps[0])
+        sets, rulebooks, encoded = [], [None], []
+        for i, layer in enumerate(self.encoder_layers.values()):
+            for block in layer:
+                if isinstance(block, RulebookConvBlock):
+                    st, maps = block(st)
+                    rulebooks.append(maps)
+                    nmaps.append(SparseEncoder._subm_map(st))
+                    if diag is not None:
+                        diag[f'occupancy_stage{i}'] = _occupancy(
+                            st.valid, self.stage_budgets[i - 1])
+                else:
+                    st.features = block(st.features, st.valid, nmaps[i])
+            sets.append(st.valid)
+            encoded.append(st.features)
+        out, _ = self.conv_out(st)
+        if diag is not None:
+            diag['occupancy_out'] = _occupancy(out.valid, self.out_budget)
+        bev = _densify(out)
+
+        x = encoded[-1]
+        for i in reversed(range(len(encoded))):
+            k = i + 1
+            lat = getattr(self, f'lateral_layer{k}')(encoded[i], sets[i],
+                                                     nmaps[i])
+            cat = torch.cat([x, lat], -1)                  # [B, N, 2C]
+            merge = getattr(self, f'merge_layer{k}')
+            merged = merge(cat, sets[i], nmaps[i])
+            # reduce_channel: the concat's channels summed in interleaved
+            # groups (sparse_unet.py:186)
+            reduced = cat.reshape(*cat.shape[:2], merged.shape[-1],
+                                  -1).sum(-1)
+            x = merged + reduced
+            up = getattr(self, f'upsample_layer{k}')
+            x = (up(x, rulebooks[i], sets[i - 1]) if i != 0
+                 else up(x, sets[0], nmaps[0]))
+        return bev, x
 
 
 class PointPillarsScatter(nn.Module):

@@ -2,8 +2,8 @@
 rulebooks of strided convs (compact for the GGA encoder, with a dense
 backward map for MinkResNet), the three convs as autograd Functions, and
 the sparse ops of FCAF3D (max pool, generative transposed conv, union
-add, lookup, top-k prune) (port of ``gga_tpu/ops/sparse.py``, default
-flags).
+add, lookup, top-k prune) and SparseUNet's inverse conv (port of
+``gga_tpu/ops/sparse.py``, default flags).
 
 Active voxels live in a fixed budget ``N`` per scene, sorted by
 linearized (z, y, x) id with invalid rows parked at the end. Maps index
@@ -647,3 +647,29 @@ class RulebookConvFunction(torch.autograd.Function):
             w_t = weights.transpose(1, 2).to(features.dtype).contiguous()
             df = sparse_conv.gather_gemm_conv(dout, bwd_flat, w_t)
         return df, dw, None, None, None
+
+
+def sparse_inverse_conv(features, weights, fwd_flat, bwd_flat, in_valid):
+    """SparseInverseConv3d (gga_tpu ``sparse_inverse_conv``,
+    ``sparse.py:1532``; spconv's indice_key reuse in SparseUNet's decoder):
+    the downsampled features deconvolved back onto the PRE-downsample
+    active set of the strided conv whose rulebook is given.
+
+    ``out[n] = sum_k features[bwd_flat[k, n]] @ W[k]``: the strided conv's
+    ``RulebookConvFunction`` with its two maps in each other's roles. Its
+    input gradient is then the gather-GEMM on ``fwd_flat`` with ``W^T``,
+    its weight gradient ``gather_gemm_dw(features, bwd_flat, dout)``. A
+    pre-downsample row that feeds no site through offset k is -1 in
+    ``bwd_flat`` and takes nothing from k (gga_tpu's ``hit`` False).
+
+    Args:
+        features: [B*M, C_low] downsampled features.
+        weights: [K, C_low, C_out] f32.
+        fwd_flat / bwd_flat: ``downsample_rulebook_batched``'s maps of the
+            matching strided conv ([K, B*M] and [K, B*N]).
+        in_valid: [B*N] validity of the pre-downsample set.
+    Returns:
+        [B*N, C_out], zero on invalid rows.
+    """
+    return RulebookConvFunction.apply(features, weights, bwd_flat, fwd_flat,
+                                      in_valid)

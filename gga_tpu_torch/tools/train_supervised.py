@@ -3,13 +3,17 @@ one device (the port's copy of ``tools/train_supervised.py``).
 
 Builds the detector of the config (``SECONDDetector`` in f32 or, for the
 _fp16_ configs, bf16; ``PointPillars``; ``DynamicVoxelNet``;
-``DVSECONDDetector``; ``SASSD``), streams ``KittiDetDataset`` batches of
-``data.samples_per_gpu`` scenes (pass e in ``RandomState(e)`` order with
-the dataset's epoch set to e, the last partial batch dropped) and takes
-``apis.anchor_train_step``s: a train-mode forward, anchors at the map's
-size, max-IoU assignment, the anchor loss (for SASSD plus its auxiliary
-point losses), backward, a global-norm clip and AdamW with the cyclic lr
-and beta1 over ``max_epochs`` epochs, or ``--max-steps``. As gga_tpu's,
+``DVSECONDDetector``; ``SASSD``; ``PartA2Detector``), streams
+``KittiDetDataset`` batches of ``data.samples_per_gpu`` scenes (pass e in
+``RandomState(e)`` order with the dataset's epoch set to e, the last
+partial batch dropped) and takes ``apis.anchor_train_step``s: a
+train-mode forward, anchors at the map's size, max-IoU assignment, the
+anchor loss (for SASSD plus its auxiliary point losses), backward, a
+global-norm clip and AdamW with the cyclic lr and beta1 over
+``max_epochs`` epochs, or ``--max-steps``; for PartA2 the same optimizer
+on ``apis.parta2_train_step``s (the two-stage forward, with the RoI
+sampler's draws and the dropout masks from the trainer's generator, and
+``parta2_loss``: RPN + semantic + RCNN). As gga_tpu's,
 it reads only ``lr``, ``weight_decay``, ``grad_clip`` and ``betas`` of
 the config's optimizer: a config that names another schedule
 (``lr_policy='cosine'`` of the dv_second 2x8 config) trains on the cyclic
@@ -25,7 +29,10 @@ tool raises unless ``--device cpu``); ``torch.save`` checkpoints; fewer
 infos than a batch raise, where gga_tpu's loop would never take a step;
 the seeded initial weights come from ``torch.Generator(cfg.seed)``; one
 device, no mesh; SASSD trains, where gga_tpu's CLI cannot (it inits
-without the auxiliary branch and reads the train-mode tuple as a dict).
+without the auxiliary branch and reads the train-mode tuple as a dict);
+PartA2 trains, where gga_tpu's CLI cannot (it inits with
+``train=False``, gives no RoI sampler rng, and reads ``preds['cls']``
+of a forward that returns ``{'rpn', 'sem', 'samples', 'rcnn', ...}``).
 As in gga_tpu there is no ``--resume``.
 
 Usage:
@@ -44,6 +51,7 @@ import time
 from .. import apis
 from ..data.kitti_det import KittiDetDataset
 from ..device import resolve_device
+from ..models.detectors.parta2 import PartA2Config
 from ..tools_lib import model_config_from_cfg
 from ..train import checkpoints as ckpt
 from .train import load_config
@@ -88,7 +96,11 @@ def main(argv=None):
     print(f'device={dev} batch={batch_size} total_steps={total}')
 
     o = cfg.optimizer
-    trainer = apis.init_anchor_trainer(
+    init, train_step = ((apis.init_parta2_trainer, apis.parta2_train_step)
+                        if isinstance(model_cfg, PartA2Config)
+                        else (apis.init_anchor_trainer,
+                              apis.anchor_train_step))
+    trainer = init(
         model_cfg, total, device=dev, seed=cfg.seed,
         optimizer=dict(lr=o.lr, weight_decay=o.weight_decay,
                        grad_clip=o.grad_clip,
@@ -107,7 +119,7 @@ def main(argv=None):
         ds.epoch = epoch
         for batch in ds.epoch_batches(batch_size, seed=epoch):
             lr = trainer.optimizer.lr_schedule(trainer.optimizer.count)
-            logs = apis.anchor_train_step(trainer, batch)
+            logs = train_step(trainer, batch)
             step += 1
             if t_first is None:
                 float(logs['loss'])                 # the first step is done

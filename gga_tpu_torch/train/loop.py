@@ -12,7 +12,11 @@ plus its auxiliary point losses, backward, clip and AdamW), and the fully
 supervised nuScenes CenterPoint step (gga_tpu's ``centerpoint_loss``
 under ``value_and_grad``, then the clip and AdamW of a config's
 ``optimizer`` block: forward in train mode, targets at the head's map
-size, the loss, backward, clip and AdamW).
+size, the loss, backward, clip and AdamW), and the two-stage PartA2 step
+(gga_tpu's ``parta2_loss`` under ``value_and_grad``, then the clip and
+AdamW of the KITTI recipe: voxelize and the UNet, the BEV stack, the RPN,
+the semantic head, the proposals, their sampling, RoI-aware pooling and
+the RCNN, the loss, backward, clip and AdamW).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from ..models.dense_heads import fcaf3d_head
 from ..models.dense_heads import pgd_head
 from ..models.detectors.centerpoint import centerpoint_loss
 from ..models.detectors.centerpoint_gga import GGADetector
+from ..models.detectors.parta2 import parta2_draws, parta2_loss
 from ..models.detectors.sassd import sassd_aux_loss
 from .optim import GGAOptimizer
 
@@ -36,9 +41,10 @@ class TrainState:
     model: GGADetector
     optimizer: GGAOptimizer     # or PGDOptimizer
     step: int
-    # draws the per-step SRL prior samples (gga_tpu folds its key with the
-    # step; the two streams differ, the distribution is the same); the
-    # other steps draw nothing
+    # draws the per-step SRL prior samples of the GGA step and the RoI
+    # sampler's draw and dropout masks of the PartA2 step (gga_tpu folds
+    # its key with the step; the streams differ, the distributions are the
+    # same); the other steps draw nothing
     generator: torch.Generator
 
 
@@ -233,6 +239,52 @@ def centerpoint_train_step(state: TrainState, batch, mark=None, diag=None):
     mark('forward')
     total, logs = centerpoint_loss(model.cfg, preds, batch['gt_boxes'],
                                    batch['gt_labels'], batch['gt_valid'])
+    mark('loss')
+    total.backward()
+    mark('backward')
+    logs['grad_norm'] = state.optimizer.step()
+    mark('optimizer')
+    for name, value in diag.items():
+        logs[f'diag.{name}'] = value
+    state.step += 1
+    return {k: v.detach() for k, v in logs.items()}
+
+
+def parta2_train_step(state: TrainState, batch, mark=None, diag=None,
+                      draws=None):
+    """One PartA2 optimization step; updates ``state`` in place.
+
+    Args:
+        batch: dict of tensors on the model's device: points [B, P, 4],
+            points_valid [B, P], gt_boxes [B, M, 7] (bottom-centre lidar),
+            gt_labels [B, M], gt_valid [B, M].
+        mark: called with the name of each stage as it is enqueued
+            ('encoder': voxelize and the UNet; 'forward': the BEV stack,
+            the RPN, the semantic head, the proposals, their sampling, the
+            pooling and the RCNN; 'loss'; 'backward'; 'optimizer': clip
+            and AdamW); a timer hook.
+        diag: a dict for the UNet's budget occupancy, or None.
+        draws: the step's random draws (``parta2_draws``' dict); drawn
+            from ``state.generator`` when None.
+    Returns:
+        logs: 0-d tensors: ``parta2_loss``'s, 'grad_norm' (of the
+        unclipped gradients) and the diagnostics as 'diag.<name>'.
+    """
+    mark = mark or (lambda _: None)
+    model = state.model
+    model.train()
+    if draws is None:
+        draws = parta2_draws(model, batch['points'].shape[0], state.generator,
+                             batch['points'].device)
+    state.optimizer.zero_grad()
+    diag = {} if diag is None else diag
+    enc = model.encode(batch['points'], batch['points_valid'], diag)
+    mark('encoder')
+    out = model.heads(enc, batch['gt_boxes'], batch['gt_labels'],
+                      batch['gt_valid'], draws)
+    mark('forward')
+    total, logs = parta2_loss(model.cfg, out, batch['gt_boxes'],
+                              batch['gt_labels'], batch['gt_valid'])
     mark('loss')
     total.backward()
     mark('backward')

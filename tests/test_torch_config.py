@@ -5,8 +5,8 @@ included), for the GGA configs and the shipped KITTI voxel detectors:
 SECOND (3-class, car, the benchmark one), PointPillars (3-class, car,
 both benchmark ones), the three dynamic-voxelization configs, SASSD and
 all 16 nuScenes CenterPoint configs (voxel and pillar, DCN head, circle
-NMS, tta); the _fp16_ SECOND configs parse to model configs equal to
-gga_tpu's.
+NMS, tta) and the three PartA2 configs (3-class, car, the benchmark one);
+the _fp16_ SECOND configs parse to model configs equal to gga_tpu's.
 Also the port's refusal of gga_tpu's TPU-only encoder options, of the
 PointPillars backbones and necks it does not have, and of the _fp16_
 SECOND and PointPillars configs.
@@ -28,6 +28,7 @@ from gga_tpu_torch.models.detectors import centerpoint as tcp
 from gga_tpu_torch.models.detectors import centerpoint_gga as tdet
 from gga_tpu_torch.models.detectors import dynamic_voxelnet as tdv
 from gga_tpu_torch.models.detectors import fcaf3d as tfcaf3d
+from gga_tpu_torch.models.detectors import parta2 as tparta2
 from gga_tpu_torch.models.detectors import pgd as tpgd
 from gga_tpu_torch.models.detectors import sassd as tsassd
 from gga_tpu_torch.models.detectors import voxelnet as tvoxelnet
@@ -62,6 +63,12 @@ VOXEL_FAMILY = {
         (tdv.DVSECONDDetector, tdv.DVSECONDConfig),
     'sassd/sassd_6x8_80e_kitti-3d-3class.py': (tsassd.SASSD,
                                                tsassd.SASSDConfig),
+    'parta2/hv_PartA2_secfpn_2x8_cyclic_80e_kitti-3d-3class.py':
+        (tparta2.PartA2Detector, tparta2.PartA2Config),
+    'parta2/hv_PartA2_secfpn_2x8_cyclic_80e_kitti-3d-car.py':
+        (tparta2.PartA2Detector, tparta2.PartA2Config),
+    'benchmark/hv_PartA2_secfpn_4x8_cyclic_80e_pcdet_kitti-3d-3class.py':
+        (tparta2.PartA2Detector, tparta2.PartA2Config),
 }
 # the nuScenes CenterPoint configs, by their path under configs/
 CENTERPOINT = tuple(f'centerpoint/{p.name}' for p in sorted(
@@ -215,6 +222,17 @@ def test_build_detector_config_equals_gga_tpu(name):
     elif name == POINTPILLARS:
         assert mc.scatter_shape == (496, 432)
         assert mc.backbone_layers == (3, 5, 5)
+    elif det is tparta2.PartA2Detector:
+        car = name.endswith('-car.py')
+        assert mc.rpn.num_classes == (1 if car else 3)
+        assert mc.sparse_shape == (41, 1600, 1408)
+        assert mc.unet_budgets == (16000, 14000, 12000)
+        # SparseUNet's BEV: 128 channels x 2 levels of z on 200 x 176
+        assert model.middle_encoder.bev_channels == 256
+        assert model.middle_encoder.seg_channels == 16
+        # 7^3 cells of the 256-wide last down conv into the first FC
+        fc = model.roi_head['bbox_head'].shared_fc[0].conv
+        assert fc.in_features == 256 * 7 ** 3 and fc.out_features == 512
     elif name in VOXEL_FAMILY:
         car = name.endswith('-car.py')
         assert mc.head.num_classes == (1 if car else 3)
@@ -314,7 +332,7 @@ def test_registry_names_the_known_types():
     assert reg.build({'type': 'D', 'a': 1}) == {'a': 1}
     cfg = tconfig.Config.fromfile(
         str(ROOT / 'configs' / 'gga' / 'gga_kitti_tiny.py'))
-    cfg.model.type = 'PartA2Detector'
+    cfg.model.type = 'PointRCNNDetector'
     with pytest.raises(KeyError, match='GGADetector'):
         tbuilder.build_detector(cfg)
 

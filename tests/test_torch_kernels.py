@@ -175,6 +175,39 @@ def _centerpoint_maps():
     return dict(cp_in=(subm, B * V), cp_s3=(s3, B * 40000))
 
 
+@functools.lru_cache(maxsize=1)
+def _parta2_maps():
+    """PartA2's SparseUNet maps (0.05 m voxels of a 41 x 1600 x 1408 grid,
+    16 000 voxels a scene, strided budgets 16 000 / 14 000 / 12 000 and
+    12 000 at conv_out) on a train batch of 2 scenes of 20 000 points: the
+    inverse convs' maps, which are the strided rulebooks' backward maps
+    read forwards ([27, B*N] rows into the B*M downsampled rows): stage
+    2's onto stage 1's set and stage 1's onto the input set; stage 2's
+    SubM map (the merge SubM's) and conv_out's (3, 1, 1) map; each with
+    the rows it indexes."""
+    rng = np.random.RandomState(14)
+    B, P, V = 2, 20000, 16000
+    pts = np.concatenate([rng.uniform(2, 60, (B, P, 1)),
+                          rng.uniform(-30, 30, (B, P, 1)),
+                          rng.uniform(-2.9, 0.9, (B, P, 1)),
+                          rng.rand(B, P, 1)], -1).astype(np.float32)
+    vox = hard_voxelize(torch.from_numpy(pts), torch.ones(B, P, dtype=bool),
+                        voxel_size=(0.05, 0.05, 0.1),
+                        pc_range=(0, -40, -3, 70.4, 40, 1), max_voxels=V)
+    st = (vox['coords'], torch.arange(V)[None] < vox['num_voxels'][:, None],
+          (41, 1600, 1408))
+    bwd = []
+    for pad, budget in ((1, 16000), (1, 14000), ((0, 1, 1), 12000)):
+        *st, _, b = sp.downsample_rulebook_batched(*st, 3, 2, pad, budget)
+        bwd.append((b, B * budget))
+        if budget == 14000:
+            s2 = (flatten_nmap(sp.build_neighbor_map(*st)), B * budget)
+    *_, out, _ = sp.downsample_rulebook_batched(*st, (3, 1, 1), (2, 1, 1), 0,
+                                                12000)
+    return dict(pa_inv2=bwd[1], pa_inv1=bwd[0], pa_s2=s2,
+                pa_out=(out, B * 12000))
+
+
 def _strided_bwd_map(M=1024):
     """The dense backward map [27, B*V] of a strided rulebook (MinkResNet's
     strided convs' input gradient; mostly -1) and the rows it indexes,
@@ -286,6 +319,11 @@ _CONV_CASES = [
     # SubM on its 160 000 rows
     ('cp_in', 4, 16, 27, None), ('cp_in', 16, 16, 27, None),
     ('cp_s3', 128, 128, 27, None),
+    # a train batch of PartA2 (2 scenes): the inverse convs' swapped maps
+    # (64 -> 32 onto stage 1's set, 32 -> 16 onto the input set), the
+    # merge SubM (27, 128, 64) and conv_out's (3, 64, 128)
+    ('pa_inv2', 64, 32, 27, None), ('pa_inv1', 32, 16, 27, None),
+    ('pa_s2', 128, 64, 27, None), ('pa_out', 64, 128, 3, None),
 ]
 
 
@@ -313,6 +351,9 @@ def _case_map(which, k, q):
         nmap = nmap.numpy()
     elif which in ('cp_in', 'cp_s3'):
         nmap, rows = _centerpoint_maps()[which]
+        nmap = nmap.numpy()
+    elif which.startswith('pa_'):
+        nmap, rows = _parta2_maps()[which]
         nmap = nmap.numpy()
     else:
         rng = np.random.RandomState(11)
@@ -515,6 +556,10 @@ _DW_CASES = [
     # nuScenes CenterPoint, as in _CONV_CASES
     ('cp_in', 4, 16, 27, None), ('cp_in', 16, 16, 27, None),
     ('cp_s3', 128, 128, 27, None),
+    # PartA2, as in _CONV_CASES (the inverse convs' weight gradients
+    # gather the downsampled rows through the same swapped maps)
+    ('pa_inv2', 64, 32, 27, None), ('pa_inv1', 32, 16, 27, None),
+    ('pa_s2', 128, 64, 27, None), ('pa_out', 64, 128, 3, None),
 ]
 
 
