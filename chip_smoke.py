@@ -3,8 +3,9 @@
 paths, the GGA workflow's command-line tools, the stage-4 PGD retrain,
 the indoor FCAF3D retrain, the fully supervised SECOND and PointPillars,
 the accuracy benches, the rest of the KITTI voxel detectors (DVSECOND,
-SASSD, DynamicVoxelNet), the fully supervised nuScenes CenterPoint and
-the two-stage PartA2 on one NVIDIA card.
+SASSD, DynamicVoxelNet), the fully supervised nuScenes CenterPoint, the
+two-stage PartA2, and the indoor family (stage 1 for SUN RGB-D and
+ScanNet, FCAF3D on ScanNet, VoteNet) on one NVIDIA card.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -245,7 +246,33 @@ the two-stage PartA2 on one NVIDIA card.
     one more step; ``calibrate_bn``, then ``infer_parta2`` on the 8 val
     scenes (28 launches a forward, finite boxes). The proposals kept and
     the positive RoIs a step are printed, not gated.
-17. Prints one JSON line describing the kernels (each with its time
+17. Indoor family phase (``indoor_family_phase``, last). Stage 1 on the
+    card machine: raw SUN RGB-D (24 scenes: ``.mat`` depth clouds of
+    30 000 points, label and calib text, frame-header-only JPEGs) and
+    ScanNet (12 scenes: 50 000 vertices, aligned boxes, NYU40 labels)
+    layouts written from seed 0 and converted by
+    ``gga_tpu_torch.tools.create_data.main``: the info count of each
+    split, every points dump N x 6, the boxes and classes as written,
+    the converters' seconds. FCAF3D as shipped on ScanNet
+    (configs/fcaf3d/fcaf3d_8x2_scannet-3d-18class.py, f32, B = 2 x 40 000
+    points from ``ScanNetDataset``): one whole step with kernels against
+    plain on the initial weights (the f32 gates of 8., cuDNN off); 2
+    recorded ``apis.fcaf3d_train_step`` calls and ``infer_indoor`` over
+    the val split with exact launches (79 / 40 a step, 40 a forward),
+    every call against plain, step 1's timed (the ScanNet kernel rows),
+    each step's lr, finite losses, moved weights, active sites against
+    every budget; ``indoor_eval``. VoteNet as shipped (PointNet2SASSG +
+    VoteHead, f32, the height above the floor as the 4th channel, built
+    in this script) on SUN RGB-D at B = 16 x 20 000 points (3 steps,
+    ``infer_votenet`` over the val split, ``indoor_eval`` at 0.25 /
+    0.5, a profile of one more step), on ScanNet at B = 8 x 40 000 (2
+    steps and inference) and with the IoU loss (1 step): no kernel
+    launched, every parameter and output on the card, finite losses
+    with every term, each step's lr, moved weights, device ms a step by
+    stage (FPS + ball query, SA MLPs, FP, vote head, targets + loss,
+    backward, clip + AdamW), scenes/s, peak memory, and, not gated, one
+    scene's forward on the card against the CPU's.
+18. Prints one JSON line describing the kernels (each with its time
     ms, device_ms, launches, bound and bound_share = bound_ms / ms,
     device_bound_share = bound_ms / device_ms, host_ms where measured;
     the f32 entries as gather_gemm_conv_f32 and gather_gemm_dw_f32, with
@@ -255,8 +282,9 @@ the two-stage PartA2 on one NVIDIA card.
     steps, which gather_rows carries too, and ``accuracy`` and
     ``centerpoint`` dicts over the accuracy bench's and the 0.1 m
     CenterPoint config's steps on the two f32 sparse-conv entries,
-    gather_rows and render_heatmap, and ``parta2`` dicts over PartA2's
-    steps on the two f32 sparse-conv entries),
+    gather_rows and render_heatmap, ``parta2`` dicts over PartA2's
+    steps and ``scannet`` dicts over FCAF3D's ScanNet steps on the two
+    f32 sparse-conv entries),
     the card, then, as the last line, {"ok": true, "device": {...}}. Any
     failed phase exits non-zero.
 
@@ -1084,8 +1112,9 @@ def loss_and_grads(torch, trainer, batch, loss_fn, conv_types=None):
     """One step's loss (``loss_fn(model, batch)`` of a train-mode
     forward), gradient norm, sparse conv weight gradients (of the modules
     of ``conv_types``, by default the submanifold and compact strided
-    convs) and batch-norm statistics updates, without the optimizer; the
-    running statistics are restored afterwards."""
+    convs; a module's ``weight``, else its ``kernel``) and batch-norm
+    statistics updates, without the optimizer; the running statistics
+    are restored afterwards."""
     from gga_tpu_torch.models.layers import SubMConv3d, SparseConv3d
     conv_types = conv_types or (SubMConv3d, SparseConv3d)
     model = trainer.model
@@ -1096,7 +1125,8 @@ def loss_and_grads(torch, trainer, batch, loss_fn, conv_types=None):
     total.backward()
     grads = [p.grad for p in model.parameters() if p.grad is not None]
     norm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
-    conv_grads = {n: m.weight.grad.detach().clone()
+    conv_grads = {n: getattr(m, 'weight', getattr(m, 'kernel', None))
+                  .grad.detach().clone()
                   for n, m in model.named_modules()
                   if isinstance(m, conv_types)}
     stat_moves = {}
@@ -1108,12 +1138,14 @@ def loss_and_grads(torch, trainer, batch, loss_fn, conv_types=None):
 
 
 @contextlib.contextmanager
-def input_ulp_noise(torch, model):
-    """The sparse encoder's input (the VFE output) moved up by one ulp of
-    its dtype in a seeded half of its nonzero entries: a perturbation as
-    small as one rounding step, to measure how far the step's gradients
-    move under rounding alone."""
-    enc = getattr(model, 'pts_middle_encoder', None) or model.middle_encoder
+def input_ulp_noise(torch, model, module=None):
+    """The first input of ``module`` (by default the sparse encoder, whose
+    input is the VFE output) moved up by one ulp of its dtype in a seeded
+    half of its nonzero entries: a perturbation as small as one rounding
+    step, to measure how far the step's gradients move under rounding
+    alone."""
+    enc = module or (getattr(model, 'pts_middle_encoder', None)
+                     or model.middle_encoder)
     real = enc.forward
 
     def noisy(feats, *args, **kwargs):
@@ -1167,7 +1199,8 @@ def plain_reordered(torch, mods):
 
 
 def step_comparison(torch, mods, trainer, batch, loss_fn=None,
-                    n_convs=None, conv_types=None, gated=True):
+                    n_convs=None, conv_types=None, gated=True,
+                    noise_module=None):
     """Loss and gradients of one step with the kernels vs the plain
     versions, same weights and batch (and SRL draw: ``loss_fn`` defaults
     to the GGA loss with a seeded one), within the gates of the model's
@@ -1200,7 +1233,7 @@ def step_comparison(torch, mods, trainer, batch, loss_fn=None,
         with plain_versions(wrappers(mods)):
             loss_p, norm_p, g_p, bn_p = loss_and_grads(torch, trainer, batch,
                                                        loss_fn, conv_types)
-            with input_ulp_noise(torch, trainer.model):
+            with input_ulp_noise(torch, trainer.model, noise_module):
                 _, norm_n, g_n, _ = loss_and_grads(torch, trainer, batch,
                                                    loss_fn, conv_types)
         with plain_reordered(torch, mods):
@@ -1918,19 +1951,25 @@ IN_CLASS_DIMS = ((2.0, 1.6, 0.6), (1.4, 0.8, 0.75), (2.0, 0.9, 0.85),
                  (1.6, 0.8, 0.55))
 
 
-def mini_indoor_scene(rng, n_points, floor_z=-1.2):
+def mini_indoor_scene(rng, n_points, floor_z=-1.2, class_dims=IN_CLASS_DIMS,
+                      rotate=True):
     """One SUN RGB-D-like room in the depth frame (z up): a floor, two
-    walls and 4-8 upright boxes of the 10 classes inside +-6 m x +-2.5 m,
-    points spread over the visible surfaces with a colour per surface.
+    walls and 4-8 upright boxes of the classes of ``class_dims`` (their
+    (dx, dy, dz)) inside +-6 m x +-2.5 m, turned about z where
+    ``rotate`` (else axis-aligned, a zero yaw), points spread over the
+    visible surfaces with a colour per surface: the background's first,
+    then each box's, as many a box.
     Returns (points [n, 6] f32 xyzrgb, boxes [m, 7] gravity-centered
     (x, y, z, dx, dy, dz, yaw), labels [m])."""
     n_obj = rng.randint(4, 9)
-    labels = rng.randint(0, 10, n_obj)
-    dims = np.asarray(IN_CLASS_DIMS)[labels] * rng.uniform(0.85, 1.15,
-                                                           (n_obj, 3))
+    labels = rng.randint(0, len(class_dims), n_obj)
+    dims = np.asarray(class_dims)[labels] * rng.uniform(0.85, 1.15,
+                                                        (n_obj, 3))
     xy = np.stack([rng.uniform(-5.0, 5.0, n_obj),
                    rng.uniform(-1.8, 1.8, n_obj)], -1)
     yaw = rng.uniform(-np.pi, np.pi, n_obj)
+    if not rotate:
+        yaw = np.zeros(n_obj)
     boxes = np.concatenate([xy, floor_z + dims[:, 2:3] / 2, dims,
                             yaw[:, None]], -1).astype(np.float32)
     n_box = n_points * 2 // 5 // n_obj
@@ -3923,6 +3962,774 @@ def parta2_phase(torch, mods, card, tmp):
     return res
 
 
+# --- the indoor family: stage 1 for SUN RGB-D and ScanNet, FCAF3D on
+#     ScanNet, VoteNet on SUN RGB-D and ScanNet ---------------------------
+IF_SUN_SPLITS = (16, 8)     # train, val scenes of the raw mini SUN RGB-D
+IF_SUN_POINTS = 30000       # depth points a scene
+IF_SUN_IMAGE = (530, 730)   # (height, width) in each JPEG's frame header
+IF_SN_SPLITS = (8, 4)       # train, val scenes of the raw mini ScanNet
+IF_SN_POINTS = 50000        # vertices a scene
+IF_WORKERS = 8              # create_data's --workers
+IF_FCAF3D = 'configs/fcaf3d/fcaf3d_8x2_scannet-3d-18class.py'
+IF_FCAF3D_STEPS = 2
+# VoteNet's configs: (config, dataset, train steps, inference on the val
+# split)
+IF_VOTENET = (
+    ('configs/votenet/votenet_16x8_sunrgbd-3d-10class.py', 'sunrgbd', 3,
+     True),
+    ('configs/votenet/votenet_8x8_scannet-3d-18class.py', 'scannet', 2,
+     True),
+    ('configs/votenet/votenet_iouloss_8x8_scannet-3d-18class.py', 'scannet',
+     1, False))
+# the 18 ScanNet classes' (dx, dy, dz), metres: the VoteNet ScanNet
+# config's mean sizes
+SN_CLASS_DIMS = (
+    (0.77, 0.81, 0.93), (1.88, 1.84, 1.19), (0.61, 0.61, 0.72),
+    (1.40, 1.51, 0.83), (0.98, 1.07, 0.63), (0.53, 0.60, 1.75),
+    (0.96, 0.72, 1.15), (0.83, 1.05, 1.69), (0.21, 0.42, 0.54),
+    (1.44, 1.90, 0.27), (1.03, 1.40, 0.88), (1.38, 0.66, 1.68),
+    (0.67, 0.71, 1.30), (0.42, 0.38, 1.75), (0.59, 0.59, 0.74),
+    (0.51, 0.51, 0.30), (1.15, 1.05, 0.50), (0.48, 0.49, 0.58))
+# the loss terms of every VoteNet step (plus iou_loss where its weight is
+# set)
+VN_TERMS = ('vote_loss', 'objectness_loss', 'center_loss', 'dir_class_loss',
+            'dir_res_loss', 'size_class_loss', 'size_res_loss',
+            'semantic_loss', 'loss', 'num_pos', 'grad_norm')
+VN_STAGES = ('FPS + ball query', 'SA MLPs', 'FP', 'vote head',
+             'targets + loss', 'backward', 'clip + AdamW')
+
+
+def jpeg_header(height, width):
+    """A baseline JPEG's SOI, its SOF0 frame header (``height`` x
+    ``width``, three components) and EOI, with no scan: the machine with
+    the card has no image library, and the converter reads the shape
+    from the frame header alone."""
+    import struct
+    comps = b''.join(bytes((i, 0x11, 0)) for i in (1, 2, 3))
+    return (b'\xff\xd8\xff\xc0' + struct.pack('>HBHHB', 17, 8, height, width,
+                                              3) + comps + b'\xff\xd9')
+
+
+def write_raw_sunrgbd(root, splits=IF_SUN_SPLITS, n_points=IF_SUN_POINTS,
+                      seed=0):
+    """SUN RGB-D's raw layout under ``root`` (``sunrgbd_trainval/{depth/
+    *.mat, label/*.txt, calib/*.txt, image/*.jpg, train_data_idx.txt,
+    val_data_idx.txt}``) of ``mini_indoor_scene`` rooms, ids from 1; each
+    label file also holds a box of a class outside the ten. Returns
+    {id: (boxes [m, 7] gravity-centred, labels [m])} as written."""
+    import math
+    import os
+
+    from scipy import io as sio
+
+    from gga_tpu_torch.data.sunrgbd import CLASSES
+    rng = np.random.RandomState(seed)
+    tv = os.path.join(root, 'sunrgbd_trainval')
+    for d in ('depth', 'label', 'calib', 'image'):
+        os.makedirs(os.path.join(tv, d), exist_ok=True)
+    k = np.array([[529.5, 0, 365.0], [0, 529.5, 265.0], [0, 0, 1]])
+    written = {}
+    ids = list(range(1, sum(splits) + 1))
+    for idx in ids:
+        pts, boxes, labels = mini_indoor_scene(rng, n_points)
+        sio.savemat(os.path.join(tv, 'depth', f'{idx:06d}.mat'),
+                    {'instance': pts})
+        with open(os.path.join(tv, 'label', f'{idx:06d}.txt'), 'w') as f:
+            # name xmin ymin dx dy (the 2-D box), cx cy cz, the half
+            # sizes along y, x and z, then the heading's (cos, sin)
+            for name, b in [*zip((CLASSES[i] for i in labels), boxes),
+                            ('lamp', boxes[0])]:
+                x, y, z, dx, dy, dz, yaw = (float(v) for v in b)
+                f.write(f'{name} 10 20 100 80 {x!r} {y!r} {z!r} '
+                        f'{dy / 2!r} {dx / 2!r} {dz / 2!r} '
+                        f'{math.cos(yaw)!r} {math.sin(yaw)!r}\n')
+        with open(os.path.join(tv, 'calib', f'{idx:06d}.txt'), 'w') as f:
+            for m in (np.eye(3), k):
+                f.write(' '.join(repr(float(v)) for v in
+                                 m.reshape(-1, order='F')) + '\n')
+        with open(os.path.join(tv, 'image', f'{idx:06d}.jpg'), 'wb') as f:
+            f.write(jpeg_header(*IF_SUN_IMAGE))
+        written[idx] = (boxes, labels)
+    for split, part in (('train', ids[:splits[0]]),
+                        ('val', ids[splits[0]:])):
+        with open(os.path.join(tv, f'{split}_data_idx.txt'), 'w') as f:
+            f.write('\n'.join(map(str, part)) + '\n')
+    return written
+
+
+def write_raw_scannet(root, splits=IF_SN_SPLITS, n_points=IF_SN_POINTS,
+                      seed=0):
+    """ScanNet's raw layout under ``root`` (``meta_data/scannetv2_{train,
+    val}.txt`` + ``scannet_instance_data/{id}_{vert, aligned_bbox,
+    unaligned_bbox, axis_align_matrix, sem_label, ins_label}.npy``) of
+    axis-aligned ``mini_indoor_scene`` rooms of the 18 classes, their
+    floor at z = 0 (ScanNet's aligned frame): each box's points carry its
+    NYU40 id and instance, the floor and walls id 2 and instance 0.
+    Returns {scene: (boxes [m, 7] gravity-centred with a zero yaw,
+    labels [m])} as written."""
+    import os
+
+    from gga_tpu_torch.data.indoor_converter import SCANNET_DET_IDS
+    rng = np.random.RandomState(seed)
+    inst = os.path.join(root, 'scannet_instance_data')
+    os.makedirs(inst, exist_ok=True)
+    os.makedirs(os.path.join(root, 'meta_data'), exist_ok=True)
+    names = [f'scene{i:04d}_00' for i in range(sum(splits))]
+    written = {}
+    for name in names:
+        pts, boxes, labels = mini_indoor_scene(
+            rng, n_points, floor_z=0.0, class_dims=SN_CLASS_DIMS,
+            rotate=False)
+        m = len(boxes)
+        n_box = n_points * 2 // 5 // m
+        n_bg = n_points - n_box * m
+        ins = np.concatenate([np.zeros(n_bg, np.int64),
+                              np.repeat(np.arange(1, m + 1), n_box)])
+        sem = np.concatenate([np.full(n_bg, 2, np.int64),
+                              np.repeat(SCANNET_DET_IDS[labels], n_box)])
+        aligned = np.concatenate([boxes[:, :6].astype(np.float64),
+                                  SCANNET_DET_IDS[labels][:, None]], -1)
+        for suffix, arr in (('vert', pts), ('aligned_bbox', aligned),
+                            ('unaligned_bbox', aligned),
+                            ('axis_align_matrix', np.eye(4)),
+                            ('sem_label', sem), ('ins_label', ins)):
+            np.save(os.path.join(inst, f'{name}_{suffix}.npy'), arr)
+        written[name] = (boxes, labels)
+    for split, part in (('train', names[:splits[0]]),
+                        ('val', names[splits[0]:])):
+        with open(os.path.join(root, 'meta_data', f'scannetv2_{split}.txt'),
+                  'w') as f:
+            f.write('\n'.join(part) + '\n')
+    return written
+
+
+def check_infos(root, pkls, splits, written, n_points, label, atol):
+    """The stage-1 gates: the info count of each split, every pts_path an
+    N x 6 f32 dump of the scene's points, and the annos' boxes (within
+    ``atol``) and classes those written. Returns the infos by split."""
+    import os
+    import pickle
+    infos = {}
+    for split, n in zip(('train', 'val'), splits):
+        with open(pkls[split], 'rb') as f:
+            infos[split] = pickle.load(f)
+        if len(infos[split]) != n:
+            fail(f'{label}: {len(infos[split])} {split} infos, expected {n}')
+        for info in infos[split]:
+            key = info['point_cloud']['lidar_idx']
+            path = os.path.join(root, info['pts_path'])
+            size = os.path.getsize(path) if os.path.exists(path) else None
+            if size != n_points * 6 * 4:
+                fail(f'{label}: {info["pts_path"]} holds {size} bytes, '
+                     f'expected {n_points} x 6 f32')
+            boxes, labels = written[key]
+            a = info['annos']
+            got = np.asarray(a.get('gt_boxes_upright_depth', np.zeros((0, 7))))
+            if (a['gt_num'] != len(labels)
+                    or not np.array_equal(a['class'], labels)
+                    or not np.allclose(got, boxes[:, :got.shape[1]],
+                                       rtol=0, atol=atol)):
+                fail(f'{label}: scene {key}: annos {a["gt_num"]} boxes of '
+                     f'classes {a.get("class")} differ from the '
+                     f'{len(labels)} written ({labels})')
+    return infos
+
+
+def indoor_stage1(torch, card, tmp):
+    """Stage 1 on the card machine: raw mini SUN RGB-D and ScanNet layouts
+    written from seed 0, converted by ``create_data.main``, gated by
+    ``check_infos``. Returns (dict of roots and pkls, the numbers)."""
+    import os
+
+    from gga_tpu_torch.data.indoor_converter import jpeg_shape
+    from gga_tpu_torch.tools import create_data
+    res, data = {}, {}
+    for name, writer, splits, n_points, atol in (
+            ('sunrgbd', write_raw_sunrgbd, IF_SUN_SPLITS, IF_SUN_POINTS,
+             1e-5),
+            ('scannet', write_raw_scannet, IF_SN_SPLITS, IF_SN_POINTS, 0.0)):
+        root = os.path.join(tmp, f'{name}_raw')
+        t0 = time.perf_counter()
+        written = writer(root, splits, n_points)
+        t1 = time.perf_counter()
+        pkls = create_data.main([name, '--root-path', root, '--out-dir',
+                                 root, '--workers', str(IF_WORKERS)])
+        t2 = time.perf_counter()
+        infos = check_infos(root, pkls, splits, written, n_points,
+                            f'stage 1 {name}', atol)
+        if name == 'sunrgbd':
+            shapes = {tuple(i['image']['image_shape'])
+                      for s in infos.values() for i in s}
+            if shapes != {IF_SUN_IMAGE} or jpeg_shape(os.path.join(
+                    root, 'sunrgbd_trainval', 'image',
+                    '000001.jpg')) != IF_SUN_IMAGE:
+                fail(f'stage 1 sunrgbd: image shapes {shapes}')
+        else:
+            for split in ('train', 'val'):
+                for f in ('resampled_scene_idxs', 'label_weight'):
+                    if not os.path.exists(os.path.join(
+                            root, 'seg_info', f'{split}_{f}.npy')):
+                        fail(f'stage 1 scannet: no seg_info {split}_{f}')
+        res[name] = dict(write_s=t1 - t0, convert_s=t2 - t1,
+                         infos={k: len(v) for k, v in infos.items()},
+                         boxes=sum(len(w[1]) for w in written.values()))
+        data[name] = dict(root=root, pkls=pkls)
+        print(f'{card}: stage 1 {name}: raw layout of '
+              f'{sum(splits)} scenes x {n_points} points written in '
+              f'{t1 - t0:.2f} s, create_data {name} --workers {IF_WORKERS} '
+              f'in {t2 - t1:.3f} s (host); infos {res[name]["infos"]}, '
+              f'{res[name]["boxes"]} boxes and their classes as written, '
+              'every points dump N x 6')
+    return data, res
+
+
+def fcaf3d_loss_fn(model, batch):
+    """FCAF3D's loss of one forward in the model's mode."""
+    from gga_tpu_torch.models.dense_heads import fcaf3d_head
+    outs = model(batch['points'], batch['colors'], batch['points_valid'])
+    return fcaf3d_head.loss(model.cfg.head, outs, batch['gt_boxes'],
+                            batch['gt_labels'], batch['obj_valid'])[0]
+
+
+def fcaf3d_scannet(torch, mods, card, data):
+    """FCAF3D as shipped on ScanNet (configs/fcaf3d/fcaf3d_8x2_scannet-3d-
+    18class.py: MinkResNet34 + head, 18 classes, axis-aligned boxes, f32,
+    B = 2 x 40 000 points from ``ScanNetDataset`` on stage 1's infos):
+
+    0. one whole step with kernels against plain on the seeded initial
+       weights and the first batch, cuDNN off (``step_comparison``, the
+       f32 gates, the noise at the backbone's input);
+    1. main path: IF_FCAF3D_STEPS calls of ``apis.fcaf3d_train_step``,
+       each recorded, then ``infer_indoor`` over the val split; the counts
+       set to 0 just before and read just after: exactly 79
+       gather_gemm_conv (40 forward, 39 input gradients) and 40
+       gather_gemm_dw a step, 40 gather_gemm_conv a forward, nothing
+       else; finite losses, each step's lr, every parameter and BN
+       statistic moved, active sites against every budget;
+    2. every recorded call against its plain version (``check_calls``),
+       step 1's timed beside their bounds (the kernel rows' ScanNet
+       entries);
+    3. ``indoor_eval`` of the val split's detections (the mAP keys).
+    Returns the numbers and the kernel rows."""
+    from gga_tpu_torch import apis
+    from gga_tpu_torch.apis import _INDOOR_DTYPES
+    from gga_tpu_torch.config import Config
+    from gga_tpu_torch.data.scannet import CLASSES, ScanNetDataset
+    from gga_tpu_torch.eval.indoor_eval import indoor_eval
+    from gga_tpu_torch.models.backbones.mink_resnet import MinkConv
+    from gga_tpu_torch.models.builder import build_detector
+    from gga_tpu_torch.train.optim import piecewise_constant_schedule
+    sparse_conv = mods[0]
+    t0 = time.perf_counter()
+    cfg = Config.fromfile(str(ROOT / IF_FCAF3D))
+    model_cfg = build_detector(cfg)[1]
+    head = model_cfg.head
+    batch, n_points = cfg.data.samples_per_gpu, cfg.data.num_points
+    root, pkls = data['root'], data['pkls']
+    train_set = ScanNetDataset(root, pkls['train'], num_points=n_points,
+                               max_objs=head.max_objs)
+    batches = list(train_set.epoch_batches(batch, seed=0))
+    trainer = apis.init_fcaf3d_trainer(model_cfg, len(batches),
+                                       device=DEVICE, seed=0,
+                                       optimizer=dict(cfg.optimizer))
+    model = trainer.model
+    print(f'fcaf3d scannet: {IF_FCAF3D}, MinkResNet{model_cfg.depth}, '
+          f'{head.n_classes} classes, with_yaw {head.with_yaw}, voxel '
+          f'{model_cfg.voxel_size} m, B = {batch} x {n_points} points, f32')
+    res = {}
+
+    # --- 0. the whole step against plain on the initial weights ----------
+    n_mink = sum(isinstance(m, MinkConv) for m in model.modules())
+    first = {k: torch.as_tensor(batches[0][k], dtype=dt, device=DEVICE)
+             for k, dt in _INDOOR_DTYPES.items()}
+    cmp_step = step_comparison(torch, mods, trainer, first, fcaf3d_loss_fn,
+                               n_convs=n_mink, conv_types=(MinkConv,),
+                               noise_module=model.backbone)
+    print_step_comparison('fcaf3d scannet: whole step kernels vs plain '
+                          '(initial weights, first batch, cuDNN off)',
+                          cmp_step)
+    res['step_comparison'] = cmp_step
+
+    # --- 1. main path: the train steps, then inference over val ----------
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {n: b.clone() for n, b in model.named_buffers()
+              if n.endswith(('running_mean', 'running_var'))}
+    recs, logs, step_ms, diags, lrs = [], [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(mods)
+    for i in range(IF_FCAF3D_STEPS):
+        diag = {}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with recording(sparse_conv, 'gather_gemm_conv') as cc, \
+                recording(sparse_conv, 'gather_gemm_dw') as dc:
+            ev[0].record()
+            logs.append(apis.fcaf3d_train_step(
+                trainer, batches[i % len(batches)], diag))
+            ev[1].record()
+        lrs.append(trainer.optimizer.adamw.param_groups[0]['lr'])
+        recs.append(dict(gather_gemm_conv=cc, gather_gemm_dw=dc,
+                         gather_rows=[], render_heatmap=[]))
+        step_ms.append(ev)
+        diags.append(diag)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    train_launches = counts(mods)
+    val_set = ScanNetDataset(root, pkls['val'], num_points=n_points,
+                             max_objs=head.max_objs, test_mode=True)
+    gts, dts = [], []
+    t_inf = time.perf_counter()
+    for bt in val_set.epoch_batches(batch, shuffle=False, drop_last=False):
+        d = apis.infer_indoor(apis.DetectorBundle(model, model_cfg,
+                                                  torch.device(DEVICE)),
+                              bt['points'], bt['colors'], bt['points_valid'])
+        if not all(v.device.type == DEVICE for v in d.values()):
+            fail('fcaf3d scannet: infer_indoor gave tensors off the card')
+        d = {k: v.cpu().numpy() for k, v in d.items()}
+        for j in range(len(bt['points'])):
+            v = d['valid'][j]
+            dts.append(dict(boxes=d['boxes'][j][v], labels=d['labels'][j][v],
+                            scores=d['scores'][j][v]))
+            ov = bt['obj_valid'][j]
+            gts.append(dict(gt_boxes=bt['gt_boxes'][j][ov],
+                            labels=bt['gt_labels'][j][ov]))
+    infer_s = time.perf_counter() - t_inf
+    got = counts(mods)
+    n_fwd = -(-len(val_set) // batch)
+    want = dict(IN_PER_STEP, gather_gemm_conv=IN_PER_STEP['gather_gemm_conv']
+                * IF_FCAF3D_STEPS + IN_CONVS * n_fwd,
+                gather_gemm_dw=IN_PER_STEP['gather_gemm_dw'] * IF_FCAF3D_STEPS)
+    if got != want:
+        fail(f'fcaf3d scannet: {IF_FCAF3D_STEPS} train steps and {n_fwd} '
+             f'forwards launched {got}, expected {want}')
+    for i, rec in enumerate(recs):
+        n = {k: len(v) for k, v in rec.items() if v}
+        if n != dict(gather_gemm_conv=IN_CONVS + IN_DGRAD,
+                     gather_gemm_dw=IN_CONVS):
+            fail(f'fcaf3d scannet: step {i + 1} launched {n}')
+    o = cfg.optimizer
+    sched = piecewise_constant_schedule(
+        o.lr, {len(batches) * e: o.lr_gamma for e in o.lr_steps})
+    for i, (lg, lr) in enumerate(zip(logs, lrs)):
+        finite_logs(torch, lg, f'fcaf3d scannet step {i + 1}')
+        if not abs(lr - sched(i)) <= 1e-12 * sched(i):
+            fail(f'fcaf3d scannet: step {i + 1} ran at lr {lr}, the '
+                 f'schedule gives {sched(i)}')
+    stuck = [n for n, p in model.named_parameters()
+             if torch.equal(p, params0[n])]
+    stuck += [n for n, b in model.named_buffers()
+              if n in stats0 and torch.equal(b, stats0[n])]
+    if stuck:
+        fail(f'fcaf3d scannet: {len(stuck)} tensors did not move: '
+             f'{stuck[:8]}')
+    ms = [a.elapsed_time(b) for a, b in step_ms]
+    budgets = dict(voxels=model_cfg.max_voxels)
+    for name, bud in zip(('conv1', 'pool', 'layer1', 'layer2', 'layer3',
+                          'layer4'), model_cfg.backbone_budgets):
+        budgets[name] = bud
+    for i, bud in enumerate(head.level_budgets):
+        budgets[f'head{i}'] = bud
+    active = {k: [int(v) for d in diags for v in d[f'active.{k}'].tolist()]
+              for k in budgets}
+    res.update(steps=IF_FCAF3D_STEPS, step_device_ms=ms,
+               launches=train_launches, peak_bytes=peak,
+               losses=[float(lg['loss']) for lg in logs],
+               num_pos=[float(lg['num_pos']) for lg in logs], lrs=lrs,
+               active={k: dict(per_scene=active[k], budget=budgets[k])
+                       for k in budgets})
+    print(f'{card}: fcaf3d scannet: {IF_FCAF3D_STEPS} steps at B={batch}: '
+          f'step device ms {[round(v, 1) for v in ms]}, peak '
+          f'{peak / 2 ** 30:.2f} GiB, launches {train_launches}; losses '
+          f'{[round(v, 4) for v in res["losses"]]}, num_pos '
+          f'{res["num_pos"]}, lr {lrs}')
+    print(f'{card}: fcaf3d scannet active sites a scene / budget (the '
+          f'{IF_FCAF3D_STEPS} steps\' scenes): ' + ', '.join(
+              f'{k} {min(v)}-{max(v)}/{budgets[k]}'
+              for k, v in active.items()))
+
+    # --- 2. every call against plain; step 1's timed ---------------------
+    torch.set_grad_enabled(False)
+    errs = [check_calls(torch, mods, rec, f'fcaf3d scannet step {i + 1}')
+            for i, rec in enumerate(recs)]
+    calls = recs[0]['gather_gemm_conv']
+    conv_rows = [conv_row(torch, sparse_conv, *a, f'fcaf3d scannet call {i}')
+                 for i, (_, a) in enumerate(calls)]
+    print_conv_rows(f'fcaf3d scannet kernels: gather_gemm_conv f32 vs plain '
+                    f'at step 1\'s {IN_CONVS} forward calls',
+                    conv_rows[:IN_CONVS])
+    print_conv_rows(f'fcaf3d scannet kernels: gather_gemm_conv f32 vs plain '
+                    f'at step 1\'s {IN_DGRAD} input-gradient calls',
+                    conv_rows[IN_CONVS:])
+    dwr = dw_rows(torch, sparse_conv, recs[0]['gather_gemm_dw'],
+                  'fcaf3d scannet kernels')
+    torch.set_grad_enabled(True)
+    del recs, calls
+
+    # --- 3. the indoor eval ----------------------------------------------
+    _, ap = indoor_eval(gts, dts, classes=CLASSES)
+    missing = [k for k in ('mAP_0.25', 'mAP_0.50') if k not in ap]
+    if missing:
+        fail(f'fcaf3d scannet: indoor_eval gave no {missing}')
+    res['eval'] = dict(scenes=len(val_set), infer_s=infer_s,
+                       scenes_per_s=len(val_set) / infer_s,
+                       detections=sum(len(d['scores']) for d in dts),
+                       launches=IN_CONVS * n_fwd, ap=ap)
+    res.update(conv_calls=conv_rows, dw_calls=dwr, max_errs=errs,
+               seconds=time.perf_counter() - t0)
+    print(f'{card}: fcaf3d scannet: infer_indoor on {len(val_set)} val '
+          f'scenes {res["eval"]["scenes_per_s"]:.2f} scenes/s (host clock, '
+          f'decode and the copy to the host included), '
+          f'{res["eval"]["detections"]} detections; mAP_0.25 '
+          f'{ap["mAP_0.25"]:.4g}, mAP_0.50 {ap["mAP_0.50"]:.4g}; the path '
+          f'{res["seconds"]:.1f} s')
+    del trainer, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def votenet_input(batch):
+    """A dataset batch as VoteNet's input (numpy): the points' xyz and
+    their height above the floor, z less the scene's 0.99th percentile
+    of z (mmdet3d's ``LoadPointsFromFile(shift_height=True)``: neither
+    gga_tpu nor the port has such a function, their datasets give xyz and
+    colours), and the boxes moved from the datasets' gravity centres to
+    the bottom centres VoteHead's targets read."""
+    xyz = batch['points']
+    floor = np.percentile(xyz[..., 2], 0.99, axis=-1)[:, None]
+    boxes = batch['gt_boxes'].copy()
+    boxes[..., 2] -= boxes[..., 5] / 2
+    return dict(points=np.concatenate(
+        [xyz, (xyz[..., 2] - floor)[..., None]], -1).astype(np.float32),
+        points_valid=batch['points_valid'], gt_boxes=boxes,
+        gt_labels=batch['gt_labels'], obj_valid=batch['obj_valid'])
+
+
+@contextlib.contextmanager
+def votenet_stage_events(torch, model):
+    """CUDA events around the parts of each VoteNet step: every farthest
+    point sampling and ball query (``ops/points.py``), each backbone set
+    abstraction and feature propagation, and the head. Yields ``spans``,
+    a list with one dict a step of {part: [(start, end), ...]}; append
+    a dict before each step."""
+    from gga_tpu_torch.ops import points as po
+    spans = []
+    in_head = [False]
+
+    def add(key, pair):
+        spans[-1].setdefault(key, []).append(pair)
+
+    def timed(fn, key):
+        def wrapper(*a, **k):
+            pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            pair[0].record()
+            out = fn(*a, **k)
+            pair[1].record()
+            add(f'{key}.{"head" if in_head[0] else "backbone"}', pair)
+            return out
+        return wrapper
+
+    def hooks(module, key):
+        pair = []
+
+        def pre(*_):
+            pair[:] = [torch.cuda.Event(enable_timing=True)
+                       for _ in range(2)]
+            pair[0].record()
+            if key == 'head':
+                in_head[0] = True
+
+        def post(*_):
+            pair[1].record()
+            add(key, tuple(pair))
+            if key == 'head':
+                in_head[0] = False
+        return [module.register_forward_pre_hook(pre),
+                module.register_forward_hook(post)]
+
+    real = po.furthest_point_sample, po.ball_query
+    po.furthest_point_sample = timed(real[0], 'fps')
+    po.ball_query = timed(real[1], 'ball_query')
+    handles = [h for sa in model.backbone.SA_modules for h in hooks(sa, 'sa')]
+    handles += [h for fp in model.backbone.FP_modules
+                for h in hooks(fp, 'fp')]
+    handles += hooks(model.bbox_head, 'head')
+    try:
+        yield spans
+    finally:
+        po.furthest_point_sample, po.ball_query = real
+        for h in handles:
+            h.remove()
+
+
+def votenet_stage_ms(spans, marks):
+    """Device ms of one step by VN_STAGES from its spans and its marks
+    (start, forward, loss, backward, optimizer events)."""
+    def total(key):
+        return sum(a.elapsed_time(b) for a, b in spans.get(key, []))
+    sampling_bb = total('fps.backbone') + total('ball_query.backbone')
+    sampling_head = total('fps.head') + total('ball_query.head')
+    return {
+        'FPS + ball query': sampling_bb + sampling_head,
+        'SA MLPs': total('sa') - sampling_bb,
+        'FP': total('fp'),
+        'vote head': total('head') - sampling_head,
+        'targets + loss': marks[1].elapsed_time(marks[2]),
+        'backward': marks[2].elapsed_time(marks[3]),
+        'clip + AdamW': marks[3].elapsed_time(marks[4])}
+
+
+def votenet_path(torch, mods, card, data, config, dataset, steps, infer,
+                 profile=False):
+    """One VoteNet config as shipped (f32, B = ``data.samples_per_gpu`` x
+    ``data.num_points`` points, the height channel of ``votenet_input``)
+    on stage 1's infos of ``dataset``, seeded random weights:
+
+    1. main path: ``steps`` calls of ``apis.votenet_train_step`` on the
+       config's optimizer and schedule (the 3x schedule, the epochs of
+       the train split at B), then, with ``infer``, ``apis.
+       infer_votenet`` over the val split; the counts set to 0 just
+       before and read just after: no kernel launched; every parameter
+       and output on the card; finite losses with every term present
+       (``iou_loss`` where its weight is set); each step's lr; every
+       parameter and BN statistic moved (but zero-initialised tensors no
+       gradient reached, printed); CUDA events by VN_STAGES, scenes/s by
+       events, peak memory;
+    2. with ``profile``, one more step under the profiler (the device's
+       busy share);
+    3. ``indoor_eval`` of the val split's detections at 0.25 / 0.5, the
+       boxes moved back to gravity centres (the mAP keys);
+    4. ungated, with ``infer``: one val scene's eval forward on the card
+       against the same weights' forward on the CPU (the share of equal
+       farthest-point-sampling indices, the largest difference of the
+       proposals' centres)."""
+    import copy
+
+    from gga_tpu_torch import apis
+    from gga_tpu_torch.config import Config
+    from gga_tpu_torch.data.scannet import ScanNetDataset
+    from gga_tpu_torch.data.sunrgbd import SunRgbdDataset
+    from gga_tpu_torch.eval.indoor_eval import indoor_eval
+    from gga_tpu_torch.models.builder import build_detector
+    from gga_tpu_torch.ops import points as po
+    from gga_tpu_torch.train.optim import piecewise_constant_schedule
+    t0 = time.perf_counter()
+    cfg = Config.fromfile(str(ROOT / config))
+    model_cfg = build_detector(cfg)[1]
+    head = model_cfg.head
+    label = f'votenet {Path(config).stem}'
+    batch, n_points = cfg.data.samples_per_gpu, cfg.data.num_points
+    ds_cls = SunRgbdDataset if dataset == 'sunrgbd' else ScanNetDataset
+    root, pkls = data[dataset]['root'], data[dataset]['pkls']
+    train_set = ds_cls(root, pkls['train'], num_points=n_points,
+                       max_objs=head.max_objs)
+    spe = len(train_set) // batch
+    if not spe:
+        fail(f'{label}: {len(train_set)} train scenes, fewer than B = '
+             f'{batch}')
+    trainer = apis.init_votenet_trainer(model_cfg, spe, device=DEVICE,
+                                        seed=0, optimizer=dict(cfg.optimizer))
+    model = trainer.model
+    print(f'{label}: PointNet2SASSG {model_cfg.num_points} + VoteHead '
+          f'({head.num_classes} classes, {head.num_dir_bins} direction '
+          f'bins, iou_loss_weight {head.iou_loss_weight}), B = {batch} x '
+          f'{n_points} points, f32, {spe} steps an epoch')
+    if not all(p.device.type == DEVICE for p in model.parameters()):
+        fail(f'{label}: parameters off the card')
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {n: b.clone() for n, b in model.named_buffers()}
+    inputs = [votenet_input(b) for e in range(-(-steps // spe))
+              for b in train_set.epoch_batches(batch, seed=e)][:steps]
+
+    # --- 1. main path ----------------------------------------------------
+    logs, lrs, marks, res = [], [], [], {}
+    order = ('forward', 'loss', 'backward', 'optimizer')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(mods)
+    with votenet_stage_events(torch, model) as spans:
+        for i in range(steps):
+            ev = {k: torch.cuda.Event(enable_timing=True)
+                  for k in ('start',) + order}
+            spans.append({})
+            ev['start'].record()
+            logs.append(apis.votenet_train_step(
+                trainer, inputs[i], lambda name, ev=ev: ev[name].record()))
+            lrs.append(trainer.optimizer.adamw.param_groups[0]['lr'])
+            marks.append([ev[k] for k in ('start',) + order])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    train_launches = counts(mods)
+    if any(train_launches.values()):
+        fail(f'{label}: {steps} train steps launched {train_launches}; '
+             'VoteNet reaches no hand kernel')
+    terms = VN_TERMS + (('iou_loss',) if head.iou_loss_weight else ())
+    sched = piecewise_constant_schedule(
+        cfg.optimizer.lr, {spe * e: cfg.optimizer.lr_gamma
+                           for e in cfg.optimizer.lr_steps})
+    for i, (lg, lr) in enumerate(zip(logs, lrs)):
+        if sorted(lg) != sorted(terms):
+            fail(f'{label}: step {i + 1} logged {sorted(lg)}, expected '
+                 f'{sorted(terms)}')
+        if not all(v.device.type == DEVICE for v in lg.values()):
+            fail(f'{label}: step {i + 1} logs off the card')
+        finite_logs(torch, lg, f'{label} step {i + 1}')
+        if not abs(lr - sched(i)) <= 1e-12 * sched(i):
+            fail(f'{label}: step {i + 1} ran at lr {lr}, the schedule gives '
+                 f'{sched(i)}')
+    stuck = [n for n, p in model.named_parameters()
+             if torch.equal(p, params0[n]) and bool(params0[n].any())]
+    unreached = [n for n, p in model.named_parameters()
+                 if torch.equal(p, params0[n]) and not params0[n].any()]
+    stuck += [n for n, b in model.named_buffers()
+              if torch.equal(b, stats0[n]) or not torch.isfinite(b).all()]
+    if stuck:
+        fail(f'{label}: {len(stuck)} tensors did not move: {stuck[:8]}')
+    del params0, stats0
+    step_ms = [m[0].elapsed_time(m[-1]) for m in marks]
+    timed = list(range(1 if steps > 1 else 0, steps))
+    stages = {k: float(np.mean([votenet_stage_ms(spans[i], marks[i])[k]
+                                for i in timed])) for k in VN_STAGES}
+    fps_ms = float(np.mean([sum(a.elapsed_time(b) for key in (
+        'fps.backbone', 'fps.head') for a, b in spans[i].get(key, []))
+        for i in timed]))
+    res.update(steps=steps, batch=batch, points=n_points,
+               step_device_ms=step_ms, stage_ms=stages, fps_ms=fps_ms,
+               scenes_per_s_events=batch * len(timed) / (
+                   sum(step_ms[i] for i in timed) / 1e3),
+               peak_bytes=peak, launches=train_launches, lrs=lrs,
+               unreached=unreached,
+               logs=[{k: float(v) for k, v in lg.items()} for lg in logs])
+    print(f'{card}: {label}: {steps} steps at B={batch} (f32): step device '
+          f'ms {[round(v, 1) for v in step_ms]}, '
+          f'{res["scenes_per_s_events"]:.2f} scenes/s by CUDA events '
+          f'(steps {[i + 1 for i in timed]}), peak '
+          f'{peak / 2 ** 30:.2f} GiB; launches {train_launches}; lr {lrs}')
+    print(f'{card}: {label}: device ms a step by stage (events, mean of '
+          f'steps {[i + 1 for i in timed]}): ' + ', '.join(
+              f'{k} {v:.1f}' for k, v in stages.items())
+          + f'; farthest point sampling alone {fps_ms:.1f}')
+    print(f'{label}: losses ' + ', '.join(
+        f'{k} {[round(lg[k], 4) for lg in res["logs"]]}' for k in terms)
+        + (f'; zero-initialised and unreached: {unreached}'
+           if unreached else ''))
+
+    # --- 2. the device's busy share of one more step ---------------------
+    if profile:
+        prof = device_profile(torch, lambda: apis.votenet_train_step(
+            trainer, inputs[-1]))
+        print_profile(f'{label} train step', prof)
+        res['profile'] = prof
+
+    if infer:
+        # --- 1. (cont.) inference over the val split ---------------------
+        val_set = ds_cls(root, pkls['val'], num_points=n_points,
+                         max_objs=head.max_objs, test_mode=True)
+        bundle = apis.DetectorBundle(model, model_cfg, torch.device(DEVICE))
+        gts, dts, infer_s = [], [], 0.0
+        zero_counts(mods)
+        for bt in val_set.epoch_batches(batch, shuffle=False,
+                                        drop_last=False):
+            x = votenet_input(bt)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            d = apis.infer_votenet(bundle, x['points'], x['points_valid'])
+            if not all(v.device.type == DEVICE for v in d.values()):
+                fail(f'{label}: infer_votenet gave tensors off the card')
+            d = {k: v.cpu().numpy() for k, v in d.items()}
+            infer_s += time.perf_counter() - t1
+            for j in range(len(x['points'])):
+                v = d['valid'][j]
+                boxes = d['boxes'][j][v].copy()
+                boxes[:, 2] += boxes[:, 5] / 2        # to gravity centres
+                if not np.isfinite(boxes).all():
+                    fail(f'{label}: non-finite kept boxes')
+                dts.append(dict(boxes=boxes, labels=d['labels'][j][v],
+                                scores=d['scores'][j][v]))
+                ov = bt['obj_valid'][j]
+                gts.append(dict(gt_boxes=bt['gt_boxes'][j][ov],
+                                labels=bt['gt_labels'][j][ov]))
+        got = counts(mods)
+        if any(got.values()):
+            fail(f'{label}: infer_votenet launched {got}')
+        # --- 3. the indoor eval -----------------------------------------
+        _, ap = indoor_eval(gts, dts, iou_thresholds=(0.25, 0.5),
+                            classes=ds_cls.CLASSES)
+        missing = [k for k in ('mAP_0.25', 'mAP_0.50') if k not in ap]
+        if missing:
+            fail(f'{label}: indoor_eval gave no {missing}')
+        res['eval'] = dict(scenes=len(val_set), infer_s=infer_s,
+                           scenes_per_s=len(val_set) / infer_s,
+                           detections=sum(len(d['scores']) for d in dts),
+                           ap=ap)
+        print(f'{card}: {label}: infer_votenet on {len(val_set)} val scenes '
+              f'{res["eval"]["scenes_per_s"]:.2f} scenes/s (host clock, '
+              'decode, NMS and the copy to the host included), '
+              f'{res["eval"]["detections"]} detections; mAP_0.25 '
+              f'{ap["mAP_0.25"]:.4g}, mAP_0.50 {ap["mAP_0.50"]:.4g}')
+
+        # --- 4. ungated: the card's forward against the CPU's ------------
+        x = votenet_input(next(val_set.epoch_batches(1, shuffle=False)))
+        sampled = dict(card=[], cpu=[])
+        run = ['card']
+        real = po.furthest_point_sample
+
+        def keep(points, valid, num):
+            out = real(points, valid, num)
+            sampled[run[0]].append(out.cpu())
+            return out
+
+        cpu_model = copy.deepcopy(model).cpu().eval()
+        po.furthest_point_sample = keep
+        try:
+            with torch.no_grad():
+                card_out = model.eval()(*(torch.as_tensor(
+                    x[k], device=DEVICE) for k in ('points', 'points_valid')))
+                run[0] = 'cpu'
+                cpu_out = cpu_model(*(torch.as_tensor(x[k]) for k in (
+                    'points', 'points_valid')))
+        finally:
+            po.furthest_point_sample = real
+        same = [float((a == b).float().mean())
+                for a, b in zip(sampled['card'], sampled['cpu'])]
+        res['card_vs_cpu'] = dict(
+            fps_equal_share=same,
+            max_abs_center=float((card_out['center'].cpu()
+                                  - cpu_out['center']).abs().max()),
+            max_abs_agg_xyz=float((card_out['agg_xyz'].cpu()
+                                   - cpu_out['agg_xyz']).abs().max()),
+            max_abs_obj=float((card_out['obj'].cpu()
+                               - cpu_out['obj']).abs().max()))
+        print(f'{label}: one val scene, the card\'s forward against the '
+              'CPU\'s (not gated): share of equal FPS indices a sampling '
+              f'{[round(s, 4) for s in same]}, max |d| of the proposal '
+              f'centres {res["card_vs_cpu"]["max_abs_center"]:.3g} m, '
+              f'objectness logits {res["card_vs_cpu"]["max_abs_obj"]:.3g}')
+        del cpu_model, card_out, cpu_out
+    res['seconds'] = time.perf_counter() - t0
+    print(f'{label}: the path {res["seconds"]:.1f} s')
+    del trainer, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def indoor_family_phase(torch, mods, card, tmp):
+    """Stage 1 for SUN RGB-D and ScanNet (``indoor_stage1``), FCAF3D on
+    ScanNet (``fcaf3d_scannet``) and VoteNet on each IF_VOTENET config
+    (``votenet_path``; the SUN RGB-D one profiled)."""
+    t0 = time.perf_counter()
+    data, res = indoor_stage1(torch, card, tmp)
+    res['fcaf3d_scannet'] = fcaf3d_scannet(torch, mods, card,
+                                           data['scannet'])
+    res['votenet'] = {}
+    for i, (config, dataset, steps, infer) in enumerate(IF_VOTENET):
+        res['votenet'][Path(config).stem] = votenet_path(
+            torch, mods, card, data, config, dataset, steps, infer,
+            profile=i == 0)
+    res['seconds'] = time.perf_counter() - t0
+    print(f'indoor family phase: {res["seconds"]:.1f} s')
+    return res
+
+
 # --- the accuracy benches: weak GGA training to pseudo-label AP, then the
 #     PGD retrain on those pseudo labels ----------------------------------
 ACC_SCENES = 16             # synthetic scenes (make_synth_kitti, seed 0)
@@ -4421,6 +5228,9 @@ def main():
         torch.cuda.empty_cache()
         # --- PartA2: SparseUNet, RPN and the part-aggregation RoI head ---
         pa = parta2_phase(torch, mods, card, tmp)
+        torch.cuda.empty_cache()
+        # --- indoor stage 1, FCAF3D on ScanNet, VoteNet ---
+        fam = indoor_family_phase(torch, mods, card, tmp)
 
     launches, launches_f32 = tr['launches'], f32['train']['launches']
     kernels = [
@@ -4520,6 +5330,18 @@ def main():
             'launches', 'max_abs_err', 'ms', 'device_ms', 'plain_ms',
             'bound_ms', 'bound_by', 'bound_share', 'device_bound_share',
             'ffma_bound_ms', 'library_ms')}
+    # FCAF3D's steps on ScanNet (f32, B = 2 x 40 000 points): the two
+    # sparse-conv kernels
+    sn = fam['fcaf3d_scannet']
+    for entry, key, rows in (
+            (kernels[2], 'gather_gemm_conv', sn['conv_calls']),
+            (kernels[3], 'gather_gemm_dw', sn['dw_calls'])):
+        e = kernel_entry(entry['name'], entry['source'].split('/')[-1],
+                         entry['replaces'], sn['launches'][key], rows)
+        entry['scannet'] = {k: e[k] for k in (
+            'launches', 'max_abs_err', 'ms', 'device_ms', 'plain_ms',
+            'bound_ms', 'bound_by', 'bound_share', 'device_bound_share',
+            'ffma_bound_ms', 'library_ms')}
     print('kernels, summed over the train path\'s calls (ms by CUDA '
           'events, device ms by the profiler, share of the bound):')
     for k in kernels:
@@ -4537,6 +5359,7 @@ def main():
                             ('accuracy', acc['steps']),
                             ('centerpoint', cpm['steps']),
                             ('parta2', pa['steps']),
+                            ('scannet', sn['steps']),
                             *((t, vf[t]['train']['steps'])
                               for t, _ in VF_PATHS)):
             if path not in k:
@@ -4564,7 +5387,7 @@ def main():
                        train_heatmap=hm_rows, step_comparison=cmp_step,
                        f32=f32, workflow=wf, stage4=s4, indoor=ind,
                        supervised=sup, accuracy=acc, voxel_family=vf,
-                       centerpoint=cp, parta2=pa),
+                       centerpoint=cp, parta2=pa, indoor_family=fam),
                   fh, indent=1, default=str)
 
     print(card)

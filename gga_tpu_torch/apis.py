@@ -10,7 +10,8 @@ fully supervised KITTI path, the same for the anchor detectors: SECOND,
 PointPillars, DynamicVoxelNet, DVSECOND and SASSD; and for the fully
 supervised nuScenes path, the same for CenterPoint (voxel and pillar,
 with or without the DCN head, rotated or circle NMS); and for the
-two-stage KITTI detector, the same for PartA2."""
+two-stage KITTI detector, the same for PartA2; and for the indoor
+point-based detector, the same for VoteNet."""
 from __future__ import annotations
 
 import dataclasses
@@ -26,6 +27,7 @@ from .models.detectors.centerpoint import (CenterPointConfig,
 from .models.detectors.centerpoint_gga import (GGADetector, GGAModelConfig,
                                                decode_detections)
 from .models.dense_heads import anchor3d_head, fcaf3d_head, pgd_head
+from .models.dense_heads import vote_head
 from .models.detectors.dynamic_voxelnet import (DVSECONDConfig,
                                                 DVSECONDDetector,
                                                 DynamicVoxelNet,
@@ -35,6 +37,7 @@ from .models.detectors.parta2 import (PartA2Config, PartA2Detector,
                                       decode_parta2)
 from .models.detectors.pgd import PGDDetector, PGDModelConfig
 from .models.detectors.sassd import SASSD, SASSDConfig
+from .models.detectors.votenet import VoteNet, VoteNetConfig
 from .models.detectors.voxelnet import (PointPillars, PointPillarsConfig,
                                         SECONDDetector, SECONDNetConfig)
 from .models.layers import init_params
@@ -578,3 +581,83 @@ def infer_parta2(bundle: DetectorBundle, points, points_valid):
                 torch.as_tensor(points_valid, dtype=torch.bool,
                                 device=bundle.device))
     return decode_parta2(bundle.cfg, out)
+
+
+# configs/_base_/schedules/schedule_3x.py's optimizer block, VoteNet's
+VOTENET_OPTIMIZER = dict(lr=0.008, weight_decay=0.01, grad_clip=10.0,
+                         lr_policy='step', lr_steps=(24, 32), lr_gamma=0.1)
+
+
+def init_votenet_detector(cfg: VoteNetConfig, state_dict=None,
+                          device='cuda', seed=0) -> DetectorBundle:
+    """The VoteNet detector in eval mode on ``device`` (f32, as
+    gga_tpu's).
+
+    With a ``state_dict`` (mmdet3d keys, e.g. from
+    ``convert.from_jax_variables``) the weights are loaded strictly;
+    without one they are drawn from ``torch.Generator().manual_seed(seed)``
+    (``VoteNet.init_weights``). Raises if ``device`` is CUDA and no card
+    is present."""
+    dev = resolve_device(device)
+    model = VoteNet(cfg)
+    if state_dict is None:
+        model.init_weights(torch.Generator().manual_seed(seed))
+    else:
+        model.load_state_dict(state_dict)
+    return DetectorBundle(model.to(dev).eval(), cfg, dev)
+
+
+def init_votenet_trainer(cfg: VoteNetConfig, steps_per_epoch,
+                         state_dict=None, device='cuda', seed=0,
+                         optimizer=None) -> TrainState:
+    """The VoteNet detector (``init_votenet_detector``'s) in train mode on
+    ``device`` with the indoor 3x schedule's optimizer
+    (``build_fcaf3d_optimizer(params, steps_per_epoch, **optimizer)``:
+    the global-norm clip, AdamW and the lr stepped down at the
+    ``lr_steps`` epochs; ``optimizer`` is a config file's ``optimizer``
+    block, ``VOTENET_OPTIMIZER`` when None)."""
+    model = init_votenet_detector(cfg, state_dict, device,
+                                  seed).model.train()
+    opt = dict(VOTENET_OPTIMIZER if optimizer is None else optimizer)
+    return TrainState(model=model,
+                      optimizer=build_fcaf3d_optimizer(model.parameters(),
+                                                       steps_per_epoch,
+                                                       **opt),
+                      step=0, generator=torch.Generator().manual_seed(seed))
+
+
+_VOTENET_DTYPES = dict(points=torch.float32, points_valid=torch.bool,
+                       gt_boxes=torch.float32, gt_labels=torch.int64,
+                       obj_valid=torch.bool)
+
+
+def votenet_train_step(trainer: TrainState, batch, mark=None):
+    """One VoteNet train step on a batch (points [B, P, C] with the
+    feature channels, points_valid, gt_boxes [B, M, 7] bottom-centre depth
+    boxes, gt_labels, obj_valid; tensors or numpy). ``mark`` is the step's
+    stage hook (``loop.votenet_train_step``). Returns the step's logs as
+    0-d tensors on the trainer's device."""
+    dev = next(trainer.model.parameters()).device
+    b = {k: torch.as_tensor(batch[k], dtype=dt, device=dev)
+         for k, dt in _VOTENET_DTYPES.items()}
+    return loop.votenet_train_step(trainer, b, mark)
+
+
+@torch.no_grad()
+def infer_votenet(bundle: DetectorBundle, points, points_valid):
+    """VoteNet inference on a batch: forward in eval mode, then
+    ``vote_head.decode`` (the boxes and a class-aware axis-aligned NMS).
+
+    Args:
+        points: [B, P, C] f32 (tensor or numpy); points_valid: [B, P] bool.
+    Returns:
+        dict(boxes [B, max_out, 7] bottom-centre depth boxes, scores,
+        labels, valid) on the bundle's device; ``eval/indoor_eval.py``
+        reads gravity-centred boxes (z + dz / 2).
+    """
+    model = bundle.model.eval()
+    preds = model(torch.as_tensor(points, dtype=torch.float32,
+                                  device=bundle.device),
+                  torch.as_tensor(points_valid, dtype=torch.bool,
+                                  device=bundle.device))
+    return vote_head.decode(bundle.cfg.head, preds)

@@ -14,7 +14,10 @@ family (``centerpoint_rules``: voxel and pillar, with and without the DCN
 head, to mmdet3d's CenterPoint names); gga_tpu has no converter rules for
 these, so theirs stand alone; and PartA2 (``parta2_rules``: SparseUNet,
 SECOND + SECONDFPN, the RPN, the semantic head and the part-aggregation
-bbox head, whose dense 3-D convs and linears keep torch's layouts). A
+bbox head, whose dense 3-D convs and linears keep torch's layouts); and
+VoteNet (``votenet_rules``, the copy of ``torch2flax.votenet_rules`` and
+``_votenet_pred_slices``: the fused ``pred_out`` goes to mmdet3d's
+``conv_cls`` and ``conv_reg`` as ``export_votenet`` splits it). A
 released mmdet3d GGA checkpoint loads into the port directly, with no
 conversion.
 """
@@ -33,6 +36,7 @@ from .models.detectors.fcaf3d import FCAF3DModelConfig
 from .models.detectors.parta2 import PartA2Config
 from .models.detectors.pgd import PGDModelConfig
 from .models.detectors.sassd import SASSDConfig
+from .models.detectors.votenet import VoteNetConfig
 from .models.detectors.voxelnet import PointPillarsConfig, SECONDNetConfig
 
 
@@ -513,9 +517,71 @@ def parta2_rules(cfg: PartA2Config):
     return rules
 
 
+def votenet_rules(cfg: VoteNetConfig):
+    """(torch key, collection, flax path, transform) of VoteNet
+    (``torch2flax.votenet_rules`` with the fc / bn placeholders resolved,
+    plus the fused ``pred_out`` split as ``export_votenet`` splits it:
+    ``cols:`` transforms take the listed column ranges). The set
+    abstractions' conv weights are Conv2d ``[O, I, 1, 1]``
+    (``conv1x1_2d``), every other 1x1 weight Conv1d ``[O, I, 1]``."""
+    rules = []
+
+    def conv_bn(torch_prefix, flax_prefix, k, child='layer{k}',
+                conv='conv1x1'):
+        t = f'{torch_prefix}.{child.format(k=k)}'
+        rules.append((f'{t}.conv.weight', 'params', f'{flax_prefix}/fc{k}/'
+                      'kernel', conv))
+        rules.extend(_bn_moves(f'{t}.bn', f'{flax_prefix}/bn{k}'))
+
+    bb = 'PointNet2SASSG_0'
+    for i, chans in enumerate(cfg.sa_channels):
+        for k in range(len(chans)):
+            conv_bn(f'backbone.SA_modules.{i}.mlps.0',
+                    f'{bb}/sa{i}/SharedMLP_0', k, conv='conv1x1_2d')
+    for i, chans in enumerate(cfg.fp_channels):
+        for k in range(len(chans)):
+            conv_bn(f'backbone.FP_modules.{i}.mlps',
+                    f'{bb}/fp{i}/SharedMLP_0', k)
+    h, hd = cfg.head, 'VoteHead_0'
+    for k in range(len(h.vote_conv_channels)):
+        conv_bn('bbox_head.vote_module.vote_conv', f'{hd}/vote_mlp', k,
+                child='{k}')
+    rules.append(('bbox_head.vote_module.conv_out.weight', 'params',
+                  f'{hd}/vote_out/kernel', 'conv1x1'))
+    rules.append(('bbox_head.vote_module.conv_out.bias', 'params',
+                  f'{hd}/vote_out/bias', 'copy'))
+    for k in range(len(h.agg_mlp)):
+        conv_bn('bbox_head.vote_aggregation.mlps.0',
+                f'{hd}/vote_aggregation/SharedMLP_0', k)
+    for k in range(len(h.pred_conv_channels)):
+        conv_bn('bbox_head.conv_pred.shared_convs', f'{hd}/pred_shared', k)
+    # [obj 2 | reg n_reg | sem c]: conv_cls takes obj and sem, conv_reg
+    # the rest
+    n_reg = h.n_reg
+    cls_cols = f'cols:0-2,{2 + n_reg}-{2 + n_reg + h.num_classes}'
+    reg_cols = f'cols:2-{2 + n_reg}'
+    for t, cols in (('conv_cls', cls_cols), ('conv_reg', reg_cols)):
+        for name in ('kernel', 'bias'):
+            rules.append((f'bbox_head.conv_pred.{t}.'
+                          f'{"weight" if name == "kernel" else "bias"}',
+                          'params', f'{hd}/pred_out/{name}', cols))
+    return rules
+
+
 def _to_torch_layout(name, x):
     """One flax tensor -> its mmdet3d state_dict layout."""
     x = np.asarray(x)
+    if name.startswith('cols:'):
+        # the listed [start, end) column ranges of a kernel [I, O] (laid
+        # out as a 1x1 Conv1d) or of a bias [O]
+        spans = [tuple(map(int, r.split('-')))
+                 for r in name[len('cols:'):].split(',')]
+        x = np.concatenate([x[..., a:b] for a, b in spans], -1)
+        return x.T[..., None] if x.ndim == 2 else x
+    if name == 'conv1x1':           # [I, O] -> [O, I, 1]
+        return x.T[..., None]
+    if name == 'conv1x1_2d':        # [I, O] -> [O, I, 1, 1]
+        return x.T[..., None, None]
     if name.startswith('sparse3d'):
         # flax [K, I, O] -> spconv2 [O, kz, ky, kx, I]
         _, i_ch, o_ch = name.split(':')
@@ -554,7 +620,8 @@ def rules_of(cfg):
     (``SASSDConfig``, ``DVSECONDConfig`` of ``SECONDNetConfig``,
     ``DynamicVoxelNetConfig`` of ``PointPillarsConfig``) are tested before
     their bases; DVSECOND has SECOND's tensors."""
-    for cls, rules in ((PartA2Config, parta2_rules),
+    for cls, rules in ((VoteNetConfig, votenet_rules),
+                       (PartA2Config, parta2_rules),
                        (CenterPointConfig, centerpoint_rules),
                        (PGDModelConfig, pgd_rules),
                        (FCAF3DModelConfig, fcaf3d_rules),
@@ -573,7 +640,7 @@ def from_jax_variables(variables_np, cfg):
     ``PGDModelConfig``, ``FCAF3DModelConfig``, ``CenterPointConfig``, or
     the config of an anchor detector: ``SECONDNetConfig``,
     ``PointPillarsConfig``, ``DynamicVoxelNetConfig``, ``DVSECONDConfig``
-    or ``SASSDConfig``, or a ``PartA2Config``) ->
+    or ``SASSDConfig``, or a ``PartA2Config`` or ``VoteNetConfig``) ->
     the port's ``load_state_dict`` input (f32 tensors)."""
     flat = {c: _flatten(variables_np.get(c, {}))
             for c in ('params', 'batch_stats')}

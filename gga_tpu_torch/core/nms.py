@@ -1,6 +1,6 @@
-"""Rotated BEV NMS with static shapes (port of ``gga_tpu/core/nms.py``
-``_greedy_suppress``, ``nms_bev`` and ``circle_nms``), batched over
-leading dims."""
+"""NMS with static shapes (port of ``gga_tpu/core/nms.py``
+``_greedy_suppress``, ``nms_bev``, ``circle_nms`` and ``aligned_3d_nms``),
+batched over leading dims."""
 from __future__ import annotations
 
 import torch
@@ -85,3 +85,28 @@ def circle_nms(centers, scores, min_radius, post_max_size=None, valid=None):
     idx = torch.arange(n, device=scores.device)
     out = torch.where(idx < keep.sum(-1, keepdim=True), ranked, -1)
     return out[..., :post_max_size], keep
+
+
+def aligned_3d_nms(boxes, scores, classes, thresh, valid=None):
+    """Class-aware axis-aligned 3D NMS (gga_tpu ``aligned_3d_nms``,
+    mmdet3d ``box3d_nms.aligned_3d_nms``): the IoU of boxes of different
+    classes is 0.
+
+    Args:
+        boxes: [..., N, 6] (x1, y1, z1, x2, y2, z2); scores: [..., N];
+            classes: [..., N]; valid: [..., N] bool, False entries are
+            never kept.
+    Returns:
+        keep mask [..., N] bool in the given order.
+    """
+    xyz1, xyz2 = boxes[..., :3], boxes[..., 3:6]
+    vol = (xyz2 - xyz1).clamp(min=0.0).prod(-1)
+    lo = torch.maximum(xyz1[..., :, None, :], xyz1[..., None, :, :])
+    hi = torch.minimum(xyz2[..., :, None, :], xyz2[..., None, :, :])
+    inter = (hi - lo).clamp(min=0.0).prod(-1)
+    union = vol[..., :, None] + vol[..., None, :] - inter
+    iou = inter / union.clamp(min=1e-8)
+    iou = torch.where(classes[..., :, None] == classes[..., None, :], iou,
+                      0.0)
+    s = scores if valid is None else torch.where(valid, scores, -torch.inf)
+    return _greedy_suppress(iou, s, thresh)

@@ -2,9 +2,11 @@
 ``gga_tpu/data/sunrgbd.py``; mmdet3d's SUNRGBDDataset) over
 mmdet3d-format info pkls: per scene a points .bin (xyzrgb f32) and annos
 with ``gt_boxes_upright_depth`` [M, 7] (gravity-centered) and ``class``
-labels. Items are numpy dicts of fixed shapes; train-time augmentation
-draws, from one ``RandomState(seed)`` in gga_tpu's order: the point
-sample, a horizontal flip, a global rotation, scale and translation.
+labels, as the port's ``data/indoor_converter.py`` writes them
+(``python -m gga_tpu_torch.tools.create_data sunrgbd``). Items are numpy
+dicts of fixed shapes; train-time augmentation draws, from one
+``RandomState(seed)`` in gga_tpu's order: the point sample, a horizontal
+flip, a global rotation, scale and translation.
 
 The draws are stateful, item after item, so the stream depends on the
 order items are read: the epoch loader reads them in the calling

@@ -1,5 +1,6 @@
 """Loss functions shared by the port's heads (port of
-``gga_tpu/models/losses.py smooth_l1_loss``)."""
+``gga_tpu/models/losses.py`` ``smooth_l1_loss`` and
+``axis_aligned_iou_loss``)."""
 from __future__ import annotations
 
 import torch
@@ -10,3 +11,15 @@ def smooth_l1_loss(pred, target, beta=1.0):
     above it, d = |pred - target|."""
     d = (pred - target).abs()
     return torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta)
+
+
+def axis_aligned_iou_loss(pred, target):
+    """1 - IoU of [..., 6] (x1, y1, z1, x2, y2, z2) boxes (gga_tpu
+    ``axis_aligned_iou_loss``, mmdet3d's AxisAlignedIoULoss without its
+    reduction); negative extents count as 0."""
+    lo = torch.maximum(pred[..., :3], target[..., :3])
+    hi = torch.minimum(pred[..., 3:], target[..., 3:])
+    inter = (hi - lo).clamp(min=0.0).prod(-1)
+    vp = (pred[..., 3:] - pred[..., :3]).clamp(min=0.0).prod(-1)
+    vt = (target[..., 3:] - target[..., :3]).clamp(min=0.0).prod(-1)
+    return 1.0 - inter / (vp + vt - inter).clamp(min=1e-8)

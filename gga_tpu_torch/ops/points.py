@@ -1,7 +1,8 @@
-"""Point-cloud neighbour ops (port of the parts of ``gga_tpu/ops/points.py``
-that SASSD's auxiliary branch needs): squared distances, k nearest
-neighbours, three-NN and inverse-distance interpolation, batched over
-scenes.
+"""Point-cloud ops (port of ``gga_tpu/ops/points.py``): squared
+distances, k nearest neighbours, three-NN and inverse-distance
+interpolation (SASSD's auxiliary branch, PointNet++'s feature
+propagation), farthest point sampling, ball query and grouping
+(PointNet++'s set abstraction), batched over scenes.
 
 gga_tpu computes these with XLA, not Pallas, so they are plain PyTorch.
 Distances follow gga_tpu's formula ``|a|^2 + |b|^2 - 2 a.b`` (clamped at
@@ -11,7 +12,9 @@ the result. The norms accumulate as XLA's reduction does on the CPU (one
 fused multiply-add a coordinate, emulated in float64), the dot product is
 a full f32 matrix product (TF32 is off on the card, ``device.py``), and
 neighbours are ordered by (distance, index), so equal distances keep
-``jax.lax.top_k``'s order: the lower index first.
+``jax.lax.top_k``'s order: the lower index first. Farthest point sampling
+accumulates its ``|p - last|^2`` the same way, and its argmax, like
+``jnp.argmax``, takes the first of equal values.
 """
 from __future__ import annotations
 
@@ -22,6 +25,10 @@ BIG = 1e10
 # 16 000 voxel means against 16 000 sites would otherwise take 1 GB a
 # scene and stage
 QUERY_BLOCK = 2048
+# entries of the [scenes, queries, supports] arrays one pass of
+# ``ball_query`` holds (about 1 GB of int64 ranks): SUN RGB-D's first set
+# abstraction, 2 048 centres on 20 000 points, takes three scenes a pass
+BALL_QUERY_ELEMENTS = 1 << 27
 
 
 def squared_norm(x):
@@ -115,3 +122,121 @@ def three_interpolate(features, idx, dist2, eps=1e-8):
     g = features.gather(1, idx.reshape(B, Q * S, 1).expand(
         B, Q * S, features.shape[-1])).reshape(B, Q, S, -1)
     return torch.einsum('bqs,bqsc->bqc', w.to(g.dtype), g)
+
+
+def furthest_point_sample(points, valid, num_samples):
+    """Iterative farthest point sampling (gga_tpu
+    ``furthest_point_sample``, mmcv's), batched over scenes.
+
+    The first sample is the first valid point; each further one is the
+    point farthest from those taken, invalid points at distance -1 (so
+    they are taken only where no valid point is left, and the samples
+    repeat where a scene has fewer valid points than ``num_samples``).
+    ``num_samples - 1`` sequential argmax steps, with no host sync.
+
+    Args:
+        points: [B, P, 3]; valid: [B, P] bool.
+    Returns:
+        [B, num_samples] int64 indices.
+    """
+    B = points.shape[0]
+    with torch.no_grad():
+        start = valid.to(torch.uint8).argmax(-1)
+        idxs = torch.empty(B, num_samples, dtype=torch.long,
+                           device=points.device)
+        idxs[:, 0] = start
+        min_d = torch.where(valid, BIG, -1.0)
+        last = start
+        for i in range(1, num_samples):
+            lp = points.gather(1, last[:, None, None].expand(B, 1, 3))
+            d = torch.where(valid, squared_norm(points - lp), -1.0)
+            min_d = torch.minimum(min_d, d)
+            last = min_d.argmax(-1)
+            idxs[:, i] = last
+    return idxs
+
+
+def ball_query(query, support, radius, num_samples, q_valid=None,
+               s_valid=None):
+    """Up to ``num_samples`` supports within ``radius`` of each query
+    (gga_tpu ``ball_query``, mmcv's semantics): the hits in support
+    order, the free slots filled with the first hit, index 0 with count 0
+    for a query that hits nothing. A support hits where its squared
+    distance (``square_distance``) is below ``radius ** 2``; its slot is
+    its rank among the row's hits. No gradient flows. The [queries,
+    supports] arrays are built for as many scenes at a time as
+    ``BALL_QUERY_ELEMENTS`` allows.
+
+    Args:
+        query: [B, Q, 3]; support: [B, P, 3]; q_valid [B, Q] and s_valid
+            [B, P] bool, or None.
+    Returns:
+        (indices [B, Q, num_samples] int64, counts [B, Q] int64).
+    """
+    B, Q, _ = query.shape
+    P = support.shape[1]
+    S = num_samples
+    step = max(1, BALL_QUERY_ELEMENTS // max(Q * P, 1))
+    cols = torch.arange(P, device=query.device).expand(step, Q, P)
+    idx, counts = [], []
+    with torch.no_grad():
+        for s in range(0, B, step):
+            e = min(s + step, B)
+            d = square_distance(
+                query[s:e], support[s:e],
+                None if q_valid is None else q_valid[s:e],
+                None if s_valid is None else s_valid[s:e])
+            hit = d < radius ** 2
+            del d
+            rank = hit.cumsum(-1) - 1
+            slot = torch.where(hit & (rank < S), rank, S)
+            del rank
+            out = torch.full((e - s, Q, S + 1), -1, dtype=torch.long,
+                             device=query.device)
+            out.scatter_(-1, slot, cols[:e - s])
+            del slot
+            out = out[..., :S]
+            first = out[..., :1].clamp(min=0)
+            idx.append(torch.where(out >= 0, out, first))
+            counts.append(hit.sum(-1).clamp(max=S))
+    return torch.cat(idx), torch.cat(counts)
+
+
+def gather_points(points, idx):
+    """[B, P, C] gathered at [B, S] -> [B, S, C] (mmcv gather_points); the
+    gradient reaches ``points``."""
+    B, S = idx.shape
+    return points.gather(1, idx[..., None].expand(B, S, points.shape[-1]))
+
+
+def group_points(points, idx):
+    """[B, P, C] gathered at [B, Q, S] -> [B, Q, S, C] (mmcv
+    grouping_operation); the gradient reaches ``points``."""
+    B, Q, S = idx.shape
+    return gather_points(points, idx.reshape(B, Q * S)).reshape(B, Q, S, -1)
+
+
+def query_and_group(points, features, centers, radius, num_samples,
+                    p_valid=None, use_xyz=True):
+    """QueryAndGroup (gga_tpu ``query_and_group``, mmcv's): ball query,
+    then each member's xyz relative to its centre, concatenated before
+    its features where ``use_xyz``; members past a query's count are 0.
+
+    Args:
+        points: [B, P, 3]; features: [B, P, C] or None; centers: [B, Q, 3];
+            p_valid: [B, P] bool or None.
+    Returns:
+        ([B, Q, S, C (+3)] grouped features, [B, Q, S] in-ball mask).
+    """
+    idx, counts = ball_query(centers, points, radius, num_samples,
+                             s_valid=p_valid)
+    grouped_xyz = group_points(points, idx) - centers[:, :, None, :]
+    mask = (torch.arange(num_samples, device=idx.device)
+            < counts[..., None])
+    if features is None:
+        out = grouped_xyz
+    elif use_xyz:
+        out = torch.cat([grouped_xyz, group_points(features, idx)], -1)
+    else:
+        out = group_points(features, idx)
+    return torch.where(mask[..., None], out, 0.0), mask

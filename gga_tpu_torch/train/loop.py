@@ -16,7 +16,11 @@ size, the loss, backward, clip and AdamW), and the two-stage PartA2 step
 (gga_tpu's ``parta2_loss`` under ``value_and_grad``, then the clip and
 AdamW of the KITTI recipe: voxelize and the UNet, the BEV stack, the RPN,
 the semantic head, the proposals, their sampling, RoI-aware pooling and
-the RCNN, the loss, backward, clip and AdamW).
+the RCNN, the loss, backward, clip and AdamW), and the indoor VoteNet
+step (gga_tpu's ``vote_head.loss`` of ``build_targets`` under
+``value_and_grad``, as ``tests/test_models/test_votenet.py`` composes
+them, then the clip and AdamW of ``configs/_base_/schedules/
+schedule_3x.py``).
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from ..models.dense_heads import anchor3d_head as ah
 from ..models.dense_heads import centerpoint_head_gga as gga
 from ..models.dense_heads import fcaf3d_head
 from ..models.dense_heads import pgd_head
+from ..models.dense_heads import vote_head
 from ..models.detectors.centerpoint import centerpoint_loss
 from ..models.detectors.centerpoint_gga import GGADetector
 from ..models.detectors.parta2 import parta2_draws, parta2_loss
@@ -292,5 +297,50 @@ def parta2_train_step(state: TrainState, batch, mark=None, diag=None,
     mark('optimizer')
     for name, value in diag.items():
         logs[f'diag.{name}'] = value
+    state.step += 1
+    return {k: v.detach() for k, v in logs.items()}
+
+
+def votenet_loss(model, batch, mark=None):
+    """VoteNet's loss on a forward in the module's mode: the targets of
+    the forward's seeds and proposals (``vote_head.build_targets``), then
+    ``vote_head.loss``. Returns (total, logs)."""
+    mark = mark or (lambda _: None)
+    preds = model(batch['points'], batch['points_valid'])
+    mark('forward')
+    cfg = model.cfg.head
+    targets = vote_head.build_targets(
+        cfg, preds['seed_xyz'], preds['seed_valid'], preds['agg_xyz'],
+        preds['agg_valid'], batch['gt_boxes'], batch['gt_labels'],
+        batch['obj_valid'])
+    total, logs = vote_head.loss(cfg, preds, targets)
+    mark('loss')
+    return total, logs
+
+
+def votenet_train_step(state: TrainState, batch, mark=None):
+    """One VoteNet optimization step; updates ``state`` in place.
+
+    Args:
+        batch: dict of tensors on the model's device: points [B, P, C]
+            (xyz and the features), points_valid [B, P], gt_boxes
+            [B, M, 7] (bottom-centre depth boxes), gt_labels [B, M],
+            obj_valid [B, M].
+        mark: called with the name of each stage as it is enqueued
+            ('forward', 'loss': targets and loss, 'backward',
+            'optimizer': clip and AdamW); a timer hook.
+    Returns:
+        logs: 0-d tensors: the loss terms, 'loss', 'num_pos' and
+        'grad_norm' (of the unclipped gradients).
+    """
+    mark = mark or (lambda _: None)
+    model = state.model
+    model.train()
+    state.optimizer.zero_grad()
+    total, logs = votenet_loss(model, batch, mark)
+    total.backward()
+    mark('backward')
+    logs['grad_norm'] = state.optimizer.step()
+    mark('optimizer')
     state.step += 1
     return {k: v.detach() for k, v in logs.items()}

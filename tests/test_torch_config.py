@@ -5,7 +5,9 @@ included), for the GGA configs and the shipped KITTI voxel detectors:
 SECOND (3-class, car, the benchmark one), PointPillars (3-class, car,
 both benchmark ones), the three dynamic-voxelization configs, SASSD and
 all 16 nuScenes CenterPoint configs (voxel and pillar, DCN head, circle
-NMS, tta) and the three PartA2 configs (3-class, car, the benchmark one);
+NMS, tta), the three PartA2 configs (3-class, car, the benchmark one),
+the three VoteNet configs (SUN RGB-D, ScanNet, ScanNet with the IoU
+loss) and FCAF3D's ScanNet config;
 the _fp16_ SECOND configs parse to model configs equal to gga_tpu's.
 Also the port's refusal of gga_tpu's TPU-only encoder options, of the
 PointPillars backbones and necks it does not have, and of the _fp16_
@@ -31,6 +33,7 @@ from gga_tpu_torch.models.detectors import fcaf3d as tfcaf3d
 from gga_tpu_torch.models.detectors import parta2 as tparta2
 from gga_tpu_torch.models.detectors import pgd as tpgd
 from gga_tpu_torch.models.detectors import sassd as tsassd
+from gga_tpu_torch.models.detectors import votenet as tvotenet
 from gga_tpu_torch.models.detectors import voxelnet as tvoxelnet
 from gga_tpu_torch.ops import sparse as sp
 
@@ -76,6 +79,17 @@ CENTERPOINT = tuple(f'centerpoint/{p.name}' for p in sorted(
 # CenterPointConfig.encoder_paddings: gga_tpu's default and the port's
 GGA_TPU_CP_PADDINGS = ((1,), (1, 1, 1), (1, 1, 1), ((1, 1, 0), 1))
 CP_PADDINGS = ((1,), (1, 1, 1), (1, 1, 1), ((0, 1, 1), 1))
+# the indoor configs, with the detector each builds
+INDOOR = {
+    'votenet/votenet_16x8_sunrgbd-3d-10class.py': (tvotenet.VoteNet,
+                                                   tvotenet.VoteNetConfig),
+    'votenet/votenet_8x8_scannet-3d-18class.py': (tvotenet.VoteNet,
+                                                  tvotenet.VoteNetConfig),
+    'votenet/votenet_iouloss_8x8_scannet-3d-18class.py':
+        (tvotenet.VoteNet, tvotenet.VoteNetConfig),
+    'fcaf3d/fcaf3d_8x2_scannet-3d-18class.py': (tfcaf3d.FCAF3DDetector,
+                                                tfcaf3d.FCAF3DModelConfig),
+}
 FP16_SECOND = ('second/hv_second_secfpn_fp16_6x8_80e_kitti-3d-3class.py',
                'second/hv_second_secfpn_fp16_6x8_80e_kitti-3d-car.py')
 
@@ -181,7 +195,7 @@ def test_merge_from_options_agrees(name):
 
 @pytest.mark.parametrize('name', DETECTOR_CONFIGS + (
     'gga_pdg.py', 'gga_sunrgbd.py', SECOND, POINTPILLARS, *VOXEL_FAMILY,
-    *CENTERPOINT))
+    *CENTERPOINT, *INDOOR))
 def test_build_detector_config_equals_gga_tpu(name):
     path = str(ROOT / 'configs' / ('' if '/' in name else 'gga') / name)
     model, mc = tbuilder.build_detector(tconfig.Config.fromfile(path))
@@ -193,7 +207,7 @@ def test_build_detector_config_equals_gga_tpu(name):
         'gga_sunrgbd.py': (tfcaf3d.FCAF3DDetector, tfcaf3d.FCAF3DModelConfig),
         SECOND: (tvoxelnet.SECONDDetector, tvoxelnet.SECONDNetConfig),
         POINTPILLARS: (tvoxelnet.PointPillars, tvoxelnet.PointPillarsConfig),
-        **VOXEL_FAMILY,
+        **VOXEL_FAMILY, **INDOOR,
         **dict.fromkeys(CENTERPOINT, (tcp.CenterPointDetector,
                                       tcp.CenterPointConfig)),
     }.get(name, (tdet.GGADetector, tdet.GGAModelConfig))
@@ -262,6 +276,23 @@ def test_build_detector_config_equals_gga_tpu(name):
             # a BEV of 2 x 128 channels on the head's side / 8 square map
             assert model.pts_middle_encoder.bev_channels == 256
             assert _bev_grid(mc) == (2, side // 8, side // 8)
+    elif det is tvotenet.VoteNet:
+        scannet = 'scannet' in name
+        assert mc.num_points == (2048, 1024, 512, 256)
+        assert mc.head.num_classes == (18 if scannet else 10)
+        assert mc.head.with_rot == (not scannet)
+        assert mc.head.num_dir_bins == (1 if scannet else 12)
+        assert mc.head.iou_loss_weight == (10 / 3 if 'iouloss' in name
+                                           else 0.0)
+        # the fused prediction: objectness and classes, then the
+        # partial-bin regression
+        assert model.bbox_head.conv_pred.conv_cls.weight.shape[0] == (
+            2 + mc.head.num_classes)
+        assert model.bbox_head.conv_pred.conv_reg.weight.shape[0] == (
+            3 + 2 * mc.head.num_dir_bins + 4 * mc.head.num_sizes)
+    elif name in INDOOR:
+        assert mc.head.n_classes == 18 and mc.head.n_reg_outs == 6
+        assert not mc.head.with_yaw and mc.depth == 34
     elif name != 'gga_kitti_tiny.py':
         assert mc.encoder_paddings[2] == (0, 0, (0, 1, 1))
         assert mc.head.max_objs == 128 and mc.max_per_task == 100

@@ -208,6 +208,48 @@ def _parta2_maps():
                 pa_out=(out, B * 12000))
 
 
+@functools.lru_cache(maxsize=1)
+def _scannet_maps():
+    """FCAF3D's maps on a ScanNet train batch
+    (configs/fcaf3d/fcaf3d_8x2_scannet-3d-18class.py: 0.01 m voxels of
+    its +-6.4 x +-6.4 x +-2.56 m range, MinkResNet34's budgets; 2 scenes
+    of 40 000 points of an 8 x 8 m room: a floor, two walls and boxes of
+    furniture): conv1's strided rulebook (3 -> 64, the stage with the
+    most rows) and the first stage's SubM map after the pool (64 -> 64);
+    each with the rows it indexes."""
+    from gga_tpu_torch.models.detectors.fcaf3d import FCAF3DModelConfig
+    cfg = FCAF3DModelConfig()
+    rng = np.random.RandomState(15)
+    B, P = 2, 40000
+    n_floor, n_wall = P // 3, P // 6
+    parts = [np.stack([rng.uniform(-4, 4, (B, n_floor)),
+                       rng.uniform(-4, 4, (B, n_floor)),
+                       np.full((B, n_floor), -1.2)], -1),
+             np.stack([rng.uniform(-4, 4, (B, n_wall)),
+                       np.full((B, n_wall), 4.0),
+                       rng.uniform(-1.2, 1.5, (B, n_wall))], -1),
+             np.stack([np.full((B, n_wall), -4.0),
+                       rng.uniform(-4, 4, (B, n_wall)),
+                       rng.uniform(-1.2, 1.5, (B, n_wall))], -1)]
+    n_box = P - n_floor - 2 * n_wall
+    centre = rng.uniform(-3, 3, (B, n_box // 500 + 1, 3))[
+        :, np.arange(n_box) // 500]
+    parts.append(centre * [1, 1, 0.1] + rng.uniform(-0.4, 0.4, (B, n_box, 3)))
+    pts = np.concatenate(parts, 1).astype(np.float32)
+    vox = hard_voxelize(torch.from_numpy(pts), torch.ones(B, P, dtype=bool),
+                        voxel_size=(cfg.voxel_size,) * 3,
+                        pc_range=tuple(cfg.pc_range), max_points=1,
+                        max_voxels=cfg.max_voxels)
+    st = (vox['coords'], torch.arange(cfg.max_voxels)[None]
+          < vox['num_voxels'][:, None], cfg.grid_zyx)
+    b0, b1 = cfg.backbone_budgets[:2]
+    oc, ov, og, fwd, _ = sp.downsample_rulebook_batched(*st, 3, 2, 1, b0)
+    pooled = sp.downsample_coords(sp.SparseTensor(None, oc, ov, og),
+                                  (2, 2, 2), (2, 2, 2), 0, b1)
+    s1 = flatten_nmap(sp.build_neighbor_map(*pooled))
+    return dict(sn_conv1=(fwd, B * cfg.max_voxels), sn_layer1=(s1, B * b1))
+
+
 def _strided_bwd_map(M=1024):
     """The dense backward map [27, B*V] of a strided rulebook (MinkResNet's
     strided convs' input gradient; mostly -1) and the rows it indexes,
@@ -324,6 +366,9 @@ _CONV_CASES = [
     # merge SubM (27, 128, 64) and conv_out's (3, 64, 128)
     ('pa_inv2', 64, 32, 27, None), ('pa_inv1', 32, 16, 27, None),
     ('pa_s2', 128, 64, 27, None), ('pa_out', 64, 128, 3, None),
+    # FCAF3D on a ScanNet train batch (2 scenes of 40 000 points): conv1
+    # (3 -> 64) on its rulebook and the first stage's SubM 64 -> 64
+    ('sn_conv1', 3, 64, 27, None), ('sn_layer1', 64, 64, 27, None),
 ]
 
 
@@ -354,6 +399,9 @@ def _case_map(which, k, q):
         nmap = nmap.numpy()
     elif which.startswith('pa_'):
         nmap, rows = _parta2_maps()[which]
+        nmap = nmap.numpy()
+    elif which.startswith('sn_'):
+        nmap, rows = _scannet_maps()[which]
         nmap = nmap.numpy()
     else:
         rng = np.random.RandomState(11)
@@ -560,6 +608,8 @@ _DW_CASES = [
     # gather the downsampled rows through the same swapped maps)
     ('pa_inv2', 64, 32, 27, None), ('pa_inv1', 32, 16, 27, None),
     ('pa_s2', 128, 64, 27, None), ('pa_out', 64, 128, 3, None),
+    # FCAF3D on a ScanNet train batch, as in _CONV_CASES
+    ('sn_conv1', 3, 64, 27, None), ('sn_layer1', 64, 64, 27, None),
 ]
 
 
