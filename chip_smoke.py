@@ -4,8 +4,9 @@ paths, the GGA workflow's command-line tools, the stage-4 PGD retrain,
 the indoor FCAF3D retrain, the fully supervised SECOND and PointPillars,
 the accuracy benches, the rest of the KITTI voxel detectors (DVSECOND,
 SASSD, DynamicVoxelNet), the fully supervised nuScenes CenterPoint, the
-two-stage PartA2, and the indoor family (stage 1 for SUN RGB-D and
-ScanNet, FCAF3D on ScanNet, VoteNet) on one NVIDIA card.
+two-stage PartA2, the indoor family (stage 1 for SUN RGB-D and ScanNet,
+FCAF3D on ScanNet, VoteNet), and the sharded stage 3 and the two-rank
+data-parallel GGA step on one NVIDIA card.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -272,7 +273,31 @@ ScanNet, FCAF3D on ScanNet, VoteNet) on one NVIDIA card.
     stage (FPS + ball query, SA MLPs, FP, vote head, targets + loss,
     backward, clip + AdamW), scenes/s, peak memory, and, not gated, one
     scene's forward on the card against the CPU's.
-18. Prints one JSON line describing the kernels (each with its time
+18. Data-parallel phase (``data_parallel_phase``, last): two processes
+    on the one card. (a) The stage-3 CLI as ``--rank 0/1 --world 2
+    --tmpdir`` (spawned, started together) on the workflow's mini KITTI
+    with the matching config as shipped, against the same CLI in one
+    process: rank 0's merged pseudo pkl must hold the one-process pkl's
+    scenes in its order with the same box count a scene, boxes and
+    scores within 1e-4 (the largest difference of every float field is
+    printed: the two runs batch other scenes together, so cuDNN may pick
+    other algorithms); each rank launches 21 gather_gemm_conv per batch
+    and nothing else. The checkpoint holds the seeded weights, as the
+    workflow's six steps leave no box above the score threshold. (b) The
+    full-width f32 GGA step (``configs('float32')``, bench.py's point) as
+    two ``gloo`` ranks of 4 scenes (``parallel.mesh``; NCCL refuses two
+    ranks on one device) against one process of 8, from the same seeded
+    weights, batch and SRL draw, cuDNN off on both sides, the one-process
+    step first and freed: the loss within 1e-4 relative, each sparse conv
+    weight gradient (summed over the ranks, before the clip, in float64)
+    at cosine >= 0.9999, or >= 0.999 within twice the one-process step's
+    one-ulp distance, every batch-norm running statistic within 1e-4
+    relative plus 1e-5; then ``DP_STEPS`` train steps a rank with exact
+    launches (37 / 21 / 4 / 1 a step on each rank) and the weights
+    bit-equal on both ranks after them. Prints per-rank step ms, the
+    gradients' all-reduce ms and peak memory a rank. Gloo on one card
+    says nothing of NCCL across cards.
+19. Prints one JSON line describing the kernels (each with its time
     ms, device_ms, launches, bound and bound_share = bound_ms / ms,
     device_bound_share = bound_ms / device_ms, host_ms where measured;
     the f32 entries as gather_gemm_conv_f32 and gather_gemm_dw_f32, with
@@ -1108,13 +1133,15 @@ def gga_loss(model, batch, srl):
                     batch['ibp_valid'])[0]
 
 
-def loss_and_grads(torch, trainer, batch, loss_fn, conv_types=None):
+def loss_and_grads(torch, trainer, batch, loss_fn, conv_types=None,
+                   after_backward=None):
     """One step's loss (``loss_fn(model, batch)`` of a train-mode
     forward), gradient norm, sparse conv weight gradients (of the modules
     of ``conv_types``, by default the submanifold and compact strided
     convs; a module's ``weight``, else its ``kernel``) and batch-norm
     statistics updates, without the optimizer; the running statistics
-    are restored afterwards."""
+    are restored afterwards. ``after_backward`` runs between the backward
+    and the reading of the gradients (a data-parallel rank's all-reduce)."""
     from gga_tpu_torch.models.layers import SubMConv3d, SparseConv3d
     conv_types = conv_types or (SubMConv3d, SparseConv3d)
     model = trainer.model
@@ -1123,6 +1150,8 @@ def loss_and_grads(torch, trainer, batch, loss_fn, conv_types=None):
     stats0 = {n: b.clone() for n, b in model.named_buffers()}
     total = loss_fn(model, batch)
     total.backward()
+    if after_backward is not None:
+        after_backward()
     grads = [p.grad for p in model.parameters() if p.grad is not None]
     norm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
     conv_grads = {n: getattr(m, 'weight', getattr(m, 'kernel', None))
@@ -5103,6 +5132,405 @@ def f32_phase(torch, apis, sp, mods, card):
                 train_dw_calls=dwr, step_comparison=cmp_step)
 
 
+# --- data parallel: the sharded stage 3 and the two-rank GGA step ----------
+
+DP_WORLD = 2
+DP_STEPS = 3                # train steps a rank, after the comparison
+DP_SEED = 10                # the comparison's batch; the steps' follow it
+DP_AR_REPS = 5              # timed all-reduces of the step's gradients
+DP_TOL = 1e-4               # loss, boxes and scores, batch-norm statistics
+
+
+def dp_kernel_modules():
+    """The kernel modules of the path, in a spawned process (which
+    imports this file anew, without ``main``'s path)."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    from gga_tpu_torch.kernels import gather_rows as gr
+    from gga_tpu_torch.kernels import heatmap, sparse_conv
+    return sparse_conv, gr, heatmap
+
+
+def dp_sync(torch, dev):
+    if str(dev).startswith('cuda'):
+        torch.cuda.synchronize()
+
+
+def dp_stage3_rank(rank, world, argv, out):
+    """One process of the sharded stage-3 CLI (``--rank`` / ``--world``,
+    no process group): its summary and launches to ``out``."""
+    mods = dp_kernel_modules()
+    from gga_tpu_torch.tools import generate_pseudo_labels_gga as stage3
+    zero_counts(mods)
+    res = stage3.main(argv + ['--rank', str(rank), '--world', str(world)])
+    res['launches'] = counts(mods)
+    with open(Path(out) / f'stage3_rank{rank}.json', 'w') as f:
+        json.dump(res, f, default=str)
+
+
+def pseudo_pkl_diff(got, want):
+    """(mismatches, the largest difference of each float field) of two
+    pseudo-info lists: the scenes in order, the box count and names a
+    scene, and boxes and scores within ``DP_TOL``."""
+    bad, worst = [], {}
+    if [i['image']['image_idx'] for i in got] != [
+            i['image']['image_idx'] for i in want]:
+        return ['scene order'], worst
+    for g, w in zip(got, want):
+        ga, wa = g['annos'], w['annos']
+        idx = w['image']['image_idx']
+        if len(ga['name']) != len(wa['name']) or list(ga['name']) != list(
+                wa['name']):
+            bad.append(f'scene {idx}: {len(ga["name"])} boxes vs '
+                       f'{len(wa["name"])}')
+            continue
+        for k, v in wa.items():
+            v = np.asarray(v)
+            if v.dtype.kind != 'f' or not v.size:
+                continue
+            d = float(np.abs(np.asarray(ga[k], np.float64) - v).max())
+            worst[k] = max(worst.get(k, 0.0), d)
+            if k in ('location', 'dimensions', 'rotation_y', 'score') \
+                    and not d <= DP_TOL:
+                bad.append(f'scene {idx}: {k} differs by {d}')
+    return bad, worst
+
+
+def dp_stage3(torch, apis, mods, card, tmp):
+    """(a): the stage-3 CLI as two processes against one process."""
+    import pickle
+
+    from gga_tpu_torch.config import Config
+    from gga_tpu_torch.tools import generate_pseudo_labels_gga as stage3
+    from gga_tpu_torch.tools_lib import model_config_from_cfg
+    from gga_tpu_torch.train import checkpoints as ckpt
+
+    work = Path(tmp) / 'data_parallel'
+    opts = ['--cfg-options', f'data_root={Path(tmp) / "kitti"}/',
+            *WF_OPTIONS]
+    cfg = Config.fromfile(str(ROOT / WF_MATCHING)).merge_from_options(
+        dict(kv.split('=', 1) for kv in opts[1:]))
+    ckpt_dir = str(work / 'checkpoints')
+    ckpt.save_checkpoint(ckpt_dir, apis.init_trainer(
+        model_config_from_cfg(cfg), 10, device=DEVICE,
+        seed=cfg.get('seed', 0)))
+    torch.cuda.empty_cache()
+    argv = [str(ROOT / WF_MATCHING), '--checkpoint', ckpt_dir, '--device',
+            DEVICE, *opts]
+    zero_counts(mods)
+    one = stage3.main(argv + ['--out', str(work / 'pseudo_one.pkl')])
+    one['launches'] = counts(mods)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(
+        dp_stage3_rank, args=(DP_WORLD, argv + [
+            '--out', str(work / 'pseudo_ranks.pkl'), '--tmpdir',
+            str(work / 'parts')], str(work)), nprocs=DP_WORLD, join=True)
+    wall_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(DP_WORLD):
+        with open(work / f'stage3_rank{r}.json') as f:
+            ranks.append(json.load(f))
+    n = one['infos']
+    batch = cfg.data.samples_per_gpu
+    for r, res in enumerate(ranks):
+        scenes = len(range(r, n, DP_WORLD))
+        want = dict(gather_gemm_conv=N_CONVS * -(-scenes // batch),
+                    gather_gemm_dw=0, gather_rows=0, gather_rows_t=0,
+                    render_heatmap=0)
+        if res['launches'] != want:
+            fail(f'data parallel: stage-3 rank {r} launches '
+                 f'{res["launches"]}, expected {want}')
+    if ranks[0].get('infos') != n or ranks[1].get('scenes') != n // 2:
+        fail(f'data parallel: stage-3 ranks report {ranks}, expected {n} '
+             'merged scenes')
+    with open(work / 'pseudo_one.pkl', 'rb') as f:
+        want = pickle.load(f)
+    with open(work / 'pseudo_ranks.pkl', 'rb') as f:
+        got = pickle.load(f)
+    bad, worst = pseudo_pkl_diff(got, want)
+    if bad:
+        fail(f'data parallel: the merged pseudo pkl differs from one '
+             f'process\'s: {bad[:5]}')
+    boxes = sum(len(i['annos']['name']) for i in want)
+    print(f'{card}: data parallel (a) stage-3 CLI as {DP_WORLD} processes '
+          f'on one card: {n} scenes in {wall_s:.2f} s of wall time, spawn '
+          f'included (one process: {one["seconds"]:.2f} s load through '
+          f'matching); rank 0 merged the one-process pkl\'s {n} scenes in '
+          f'its order, {boxes} boxes, the same count a scene; largest '
+          'differences: ' + ', '.join(f'{k} {v:.3g}'
+                                      for k, v in sorted(worst.items()))
+          + f'; launches a rank {[r["launches"] for r in ranks]}')
+    return dict(scenes=n, boxes=boxes, wall_s=wall_s, one=one, ranks=ranks,
+                max_diff=worst)
+
+
+def dp_batch(torch, spec, seed):
+    """One global train batch of ``spec``'s size on its device."""
+    return {k: torch.from_numpy(v).to(spec['device'])
+            for k, v in make_batch(spec['B'], spec['P'], spec['M'],
+                                   spec['PC'], seed).items()}
+
+
+def dp_srl(torch, spec):
+    """The SRL prior's normal draw of the comparison's global batch."""
+    return torch.randn((len(spec['tcfg'].head.task_num_classes), spec['B']),
+                       generator=torch.Generator().manual_seed(5)).to(
+                           spec['device'])
+
+
+def dp_reference(torch, apis, spec):
+    """(b), one process: the comparison's loss, sparse conv weight
+    gradients (float64, on the host), the batch-norm statistics after the
+    forward, the same gradients under one ulp of input noise, and the
+    wall ms of a train step after a warm-up one."""
+    dev = spec['device']
+    trainer = apis.init_trainer(spec['tcfg'], total_steps=10000, device=dev,
+                                seed=0)
+    batch = dp_batch(torch, spec, DP_SEED)
+    srl = dp_srl(torch, spec)
+
+    def loss_fn(model, b):
+        return gga_loss(model, b, srl)
+
+    stats0 = {n: b.clone() for n, b in trainer.model.named_buffers()}
+    with torch.backends.cudnn.flags(enabled=False):
+        loss, _, grads, moves = loss_and_grads(torch, trainer, batch,
+                                               loss_fn)
+        with input_ulp_noise(torch, trainer.model):
+            _, _, noisy, _ = loss_and_grads(torch, trainer, batch, loss_fn)
+    res = dict(loss=loss,
+               grads={n: g.double().cpu() for n, g in grads.items()},
+               noisy={n: g.double().cpu() for n, g in noisy.items()},
+               stats={n: (stats0[n] + m).cpu() for n, m in moves.items()})
+    ms = []
+    for _ in range(2):
+        dp_sync(torch, dev)
+        t0 = time.perf_counter()
+        apis.train_step(trainer, batch)
+        dp_sync(torch, dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    res['step_ms'] = ms[-1]
+    return res
+
+
+def dp_train_rank(rank, world, spec):
+    """(b), one rank of a gloo group of ``world`` on ``spec['device']``:
+    the comparison's loss and gradients summed over the ranks before the
+    clip, then ``DP_STEPS`` train steps with the counts set to 0 just
+    before them and read just after; its numbers to ``spec['out']``."""
+    mods = dp_kernel_modules()
+    import torch
+    from gga_tpu_torch import apis
+    from gga_tpu_torch.parallel import mesh
+
+    dev = spec['device']
+    if dev.startswith('cuda'):
+        torch.cuda.set_device(torch.device(dev).index or 0)
+    mesh.init_distributed(spec['url'], world, rank, 'gloo')
+    try:
+        res = dp_train(torch, apis, mesh, mods, rank, world, spec)
+    finally:
+        mesh.shutdown()
+    torch.save(res, Path(spec['out']) / f'train_rank{rank}.pt')
+
+
+def dp_train(torch, apis, mesh, mods, rank, world, spec):
+    dev = spec['device']
+    b = spec['B'] // world
+    trainer = apis.init_trainer(spec['tcfg'], total_steps=10000, device=dev,
+                                seed=0)
+    params = trainer.optimizer.params
+    batches = [mesh.shard_rows(dp_batch(torch, spec, DP_SEED + i), rank,
+                               world) for i in range(DP_STEPS + 1)]
+    srl = dp_srl(torch, spec)[:, rank * b:(rank + 1) * b]
+    stats0 = {n: t.clone() for n, t in trainer.model.named_buffers()}
+    with torch.backends.cudnn.flags(enabled=False):
+        loss, _, grads, moves = loss_and_grads(
+            torch, trainer, batches[0], lambda m, bt: gga_loss(m, bt, srl),
+            after_backward=lambda: mesh.all_reduce_grads(params))
+    loss = float(mesh.sum_over_ranks([torch.tensor(loss, device=dev)])[0])
+    res = dict(loss=loss, grads={n: g.double().cpu()
+                                 for n, g in grads.items()},
+               stats={n: (stats0[n] + m).cpu() for n, m in moves.items()})
+    if dev.startswith('cuda'):
+        torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    dp_sync(torch, dev)
+    zero_counts(mods)
+    for batch in batches[1:]:
+        t0 = time.perf_counter()
+        logs = apis.train_step(trainer, batch)
+        dp_sync(torch, dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(logs['loss']))
+    res.update(launches=counts(mods), step_ms=step_ms, losses=losses,
+               peak_bytes=(torch.cuda.max_memory_allocated()
+                           if dev.startswith('cuda') else None))
+    # one more step with every all-reduce counted and timed by the host
+    # clock between synchronizes: the share of a step they take
+    real, calls = torch.distributed.all_reduce, []
+
+    def timed(t, *args, **kwargs):
+        dp_sync(torch, dev)
+        t0 = time.perf_counter()
+        out = real(t, *args, **kwargs)
+        dp_sync(torch, dev)
+        calls.append(((time.perf_counter() - t0) * 1e3,
+                      t.numel() * t.element_size()))
+        return out
+
+    torch.distributed.all_reduce = timed
+    try:
+        t0 = time.perf_counter()
+        apis.train_step(trainer, batches[1])
+        dp_sync(torch, dev)
+        res['counted_step_ms'] = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.distributed.all_reduce = real
+    res.update(all_reduces=len(calls),
+               all_reduce_ms_sum=sum(ms for ms, _ in calls),
+               all_reduce_bytes_sum=sum(n for _, n in calls))
+    flat = torch.cat([p.detach().reshape(-1) for p in params])
+    lead = flat.clone()
+    torch.distributed.broadcast(lead, 0)
+    res['weights_equal_rank0'] = bool(torch.equal(flat, lead))
+    ar = []
+    for _ in range(DP_AR_REPS):
+        dp_sync(torch, dev)
+        t0 = time.perf_counter()
+        mesh.all_reduce_grads(params)
+        dp_sync(torch, dev)
+        ar.append((time.perf_counter() - t0) * 1e3)
+    res.update(allreduce_ms=ar, allreduce_bytes=4 * (
+        len(params) + sum(p.numel() for p in params)))
+    return res
+
+
+def cosine64(a, b):
+    return float((a * b).sum() / (a.norm() * b.norm()).clamp(min=1e-300))
+
+
+def dp_step(torch, apis, card, tmp):
+    """(b): the full-width f32 GGA step at two gloo ranks against one
+    process."""
+    _, tcfg = configs('float32')
+    spec = dict(tcfg=tcfg, device=DEVICE, B=B, P=P, M=M_OBJ, PC=PC,
+                out=str(Path(tmp) / 'data_parallel'),
+                url=f'file://{Path(tmp) / "data_parallel" / "store"}')
+    Path(spec['out']).mkdir(exist_ok=True)
+    one = dp_reference(torch, apis, spec)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(dp_train_rank, args=(DP_WORLD, spec),
+                                nprocs=DP_WORLD, join=True)
+    wall_s = time.perf_counter() - t0
+    ranks = [torch.load(Path(spec['out']) / f'train_rank{r}.pt',
+                        weights_only=False) for r in range(DP_WORLD)]
+    loss_rel = abs(ranks[0]['loss'] - one['loss']) / abs(one['loss'])
+    if not (np.isfinite(ranks[0]['loss']) and loss_rel <= DP_TOL):
+        fail(f'data parallel: two-rank loss {ranks[0]["loss"]} vs one '
+             f'process {one["loss"]}')
+    gate = GATES['float32']
+    cos, cos_noise = {}, {}
+    for name, g in one['grads'].items():
+        cos_noise[name] = cosine64(g, one['noisy'][name])
+        for r in ranks:
+            c = cosine64(r['grads'][name], g)
+            cos[name] = min(c, cos.get(name, 1.0))
+        c = cos[name]
+        if not (c >= gate['cos_min'] or (
+                c >= gate['cos_floor']
+                and 1 - c <= 2 * (1 - cos_noise[name]))):
+            fail(f'data parallel: {name} weight gradient cosine {c} < '
+                 f'{gate["cos_min"]} and beyond twice the one-process '
+                 f'step\'s one-ulp noise (cosine {cos_noise[name]}) or '
+                 f'{gate["cos_floor"]}')
+    if len(cos) != N_CONVS:
+        fail(f'data parallel: {len(cos)} sparse conv weight gradients, '
+             f'expected {N_CONVS}')
+    # each running statistic's largest |rank - one| over its bound
+    # (DP_TOL of |one| plus 1e-5); <= 1 passes
+    stat_err = 0.0
+    for name, want in one['stats'].items():
+        for r in ranks:
+            ratio = float(((r['stats'][name] - want).abs()
+                           / (DP_TOL * want.abs() + 1e-5)).max())
+            stat_err = max(stat_err, ratio)
+            if not ratio <= 1.0:
+                fail(f'data parallel: batch-norm statistic {name} differs '
+                     f'from one process\'s by {ratio} of {DP_TOL} '
+                     'relative plus 1e-5')
+    for r, res in enumerate(ranks):
+        want = {k: v * DP_STEPS for k, v in PER_STEP.items()}
+        got = {k: res['launches'][k] for k in want}
+        if got != want or res['launches']['gather_rows_t']:
+            fail(f'data parallel: rank {r} launches {res["launches"]} in '
+                 f'{DP_STEPS} steps, expected {want}')
+        if not res['weights_equal_rank0']:
+            fail(f'data parallel: rank {r}\'s weights differ from rank 0\'s '
+                 f'after {DP_STEPS} steps')
+        if not all(np.isfinite(res['losses'])):
+            fail(f'data parallel: rank {r} losses {res["losses"]}')
+    step_ms = [float(np.mean(r['step_ms'][1:])) for r in ranks]
+    ar_ms = [float(np.mean(r['allreduce_ms'])) for r in ranks]
+    peak = [r['peak_bytes'] for r in ranks]
+    print(f'{card}: data parallel (b) GGA step, f32, {DP_WORLD} gloo ranks x '
+          f'{B // DP_WORLD} scenes vs one process x {B}: loss '
+          f'{ranks[0]["loss"]:.8g} vs {one["loss"]:.8g} (rel {loss_rel:.3g});'
+          f' min cosine of the {len(cos)} sparse conv weight gradients '
+          f'{min(cos.values()):.8f} (one process, one ulp of input noise: '
+          f'{min(cos_noise.values()):.8f}); batch-norm statistics within '
+          f'{stat_err:.3g} of their bound; launches a rank '
+          f'{ranks[0]["launches"]} in {DP_STEPS} steps; weights equal on '
+          'both ranks')
+    print(f'{card}: data parallel (b) per-rank step ms (after the first) '
+          f'{[round(v, 2) for v in step_ms]} vs one process x {B} '
+          f'{one["step_ms"]:.2f}; gradient all-reduce '
+          f'({ranks[0]["allreduce_bytes"] / 2 ** 20:.1f} MiB, gloo through '
+          f'the host) ms {[round(v, 2) for v in ar_ms]}; peak memory a rank '
+          + str([None if v is None else f'{v / 2 ** 30:.2f} GiB'
+                 for v in peak]) + f'; {wall_s:.1f} s of wall time, spawn '
+          'included. Gloo on one card says nothing of NCCL across cards.')
+    print(f'{card}: data parallel (b) a counted step a rank: '
+          f'{ranks[0]["all_reduces"]} all-reduces '
+          f'({ranks[0]["all_reduce_bytes_sum"] / 2 ** 20:.1f} MiB: the batch '
+          'norms\' moments forward and back, the loss normalisers, the '
+          'gradients, the logs) take '
+          f'{[round(r["all_reduce_ms_sum"], 1) for r in ranks]} ms of a '
+          f'{[round(r["counted_step_ms"], 1) for r in ranks]} ms step '
+          '(host clock between synchronizes)')
+    return dict(loss=ranks[0]['loss'], loss_one=one['loss'],
+                loss_rel=loss_rel, min_cosine=min(cos.values()),
+                min_cosine_noise=min(cos_noise.values()), cosines=cos,
+                cosines_noise=cos_noise, bn_stats_of_bound=stat_err,
+                launches=[r['launches'] for r in ranks], step_ms=step_ms,
+                step_ms_all=[r['step_ms'] for r in ranks],
+                one_process_step_ms=one['step_ms'], allreduce_ms=ar_ms,
+                allreduce_bytes=ranks[0]['allreduce_bytes'],
+                counted={k: [r[k] for r in ranks] for k in (
+                    'all_reduces', 'all_reduce_ms_sum',
+                    'all_reduce_bytes_sum', 'counted_step_ms')},
+                peak_bytes=peak, wall_s=wall_s,
+                losses=[r['losses'] for r in ranks])
+
+
+def data_parallel_phase(torch, mods, card, tmp):
+    """The sharded stage 3 and the two-rank GGA step, two processes on
+    the one card (spawned: a fork after CUDA is up breaks). Main path of
+    each process: its counts are set to 0 just before its run and read
+    just after."""
+    from gga_tpu_torch import apis
+
+    t0 = time.perf_counter()
+    res = dict(stage3=dp_stage3(torch, apis, mods, card, tmp))
+    torch.cuda.empty_cache()
+    res['step'] = dp_step(torch, apis, card, tmp)
+    res['seconds'] = time.perf_counter() - t0
+    print(f'data parallel phase: {res["seconds"]:.1f} s')
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5231,6 +5659,9 @@ def main():
         torch.cuda.empty_cache()
         # --- indoor stage 1, FCAF3D on ScanNet, VoteNet ---
         fam = indoor_family_phase(torch, mods, card, tmp)
+        torch.cuda.empty_cache()
+        # --- the sharded stage 3 and the two-rank GGA step ---
+        dp = data_parallel_phase(torch, mods, card, tmp)
 
     launches, launches_f32 = tr['launches'], f32['train']['launches']
     kernels = [
@@ -5387,7 +5818,8 @@ def main():
                        train_heatmap=hm_rows, step_comparison=cmp_step,
                        f32=f32, workflow=wf, stage4=s4, indoor=ind,
                        supervised=sup, accuracy=acc, voxel_family=vf,
-                       centerpoint=cp, parta2=pa, indoor_family=fam),
+                       centerpoint=cp, parta2=pa, indoor_family=fam,
+                       data_parallel=dp),
                   fh, indent=1, default=str)
 
     print(card)

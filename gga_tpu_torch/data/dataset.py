@@ -81,12 +81,21 @@ class EpochBatchSampler(tud.Sampler):
     """The batches of ``gga_tpu``'s ``PrefetchLoader.epoch``: the scene
     order is ``RandomState(seed + epoch).shuffle``, cut into full batches
     (the last partial batch dropped). ``skip`` leaves out the first
-    batches of the epoch (a resume inside an epoch)."""
+    batches of the epoch (a resume inside an epoch).
 
-    def __init__(self, n, batch_size, seed=0):
+    With ``world`` ranks ``batch_size`` is the global batch and rank
+    ``rank`` takes its rows of each (``parallel.mesh.shard_rows``'s
+    rows ``r*b ... (r+1)*b``, ``b = batch_size // world``)."""
+
+    def __init__(self, n, batch_size, seed=0, rank=0, world=1):
+        if batch_size % world:
+            raise ValueError(f'a global batch of {batch_size} does not split '
+                             f'over {world} ranks')
         self.n = n
         self.batch_size = batch_size
         self.seed = seed
+        self.rows = slice(rank * batch_size // world,
+                          (rank + 1) * batch_size // world)
         self.epoch = 0
         self.skip = 0
 
@@ -97,7 +106,8 @@ class EpochBatchSampler(tud.Sampler):
         order = np.arange(self.n)
         np.random.RandomState(self.seed + self.epoch).shuffle(order)
         for b in range(self.skip, self.n // self.batch_size):
-            yield order[b * self.batch_size:(b + 1) * self.batch_size].tolist()
+            batch = order[b * self.batch_size:(b + 1) * self.batch_size]
+            yield batch[self.rows].tolist()
 
 
 class EpochLoader:
@@ -113,11 +123,17 @@ class EpochLoader:
     epoch: it reproduces ``PrefetchLoader(num_workers=1)`` batch for batch
     over any number of epochs. Two or more workers are forked per epoch
     and each advances its own copy of that rng, so what is pasted depends
-    on ``num_workers``, as in gga_tpu."""
+    on ``num_workers``, as in gga_tpu. With ``world`` ranks
+    (``batch_size`` the global batch) it loads rank ``rank``'s rows of
+    each batch; each rank's database sampler then draws on its own scenes
+    only, so what is pasted also depends on the world size, as in
+    gga_tpu's forked workers."""
 
-    def __init__(self, dataset, batch_size, num_workers=0, seed=0):
+    def __init__(self, dataset, batch_size, num_workers=0, seed=0, rank=0,
+                 world=1):
         self.dataset = dataset
-        self.sampler = EpochBatchSampler(len(dataset), batch_size, seed)
+        self.sampler = EpochBatchSampler(len(dataset), batch_size, seed,
+                                         rank, world)
         workers = num_workers if num_workers > 1 else 0
         self.loader = tud.DataLoader(
             dataset, batch_sampler=self.sampler, num_workers=workers,

@@ -25,6 +25,7 @@ from typing import Tuple
 import torch
 
 from ...core import geometry as geo
+from ...parallel import mesh
 from ...core.gaussian import (clip_sigmoid, gaussian_focal_loss,
                               gaussian_radius, render_class_heatmaps)
 
@@ -240,6 +241,10 @@ def loss(cfg: GGAHeadConfig, preds, targets, ibp_xy, ibp_valid):
         ibp_xy / ibp_valid: [B, M, P, 2] clusters and [B, M, P] masks.
     Returns:
         (total loss, dict of logged scalars).
+
+    Under a process group the normalisers (``num_pos``, ``avg``) are sums
+    over the global batch: each rank's total is its share of the global
+    loss, and the ranks' totals sum to it.
     """
     cw = torch.tensor(cfg.code_weights, dtype=torch.float32,
                       device=ibp_xy.device)
@@ -247,7 +252,7 @@ def loss(cfg: GGAHeadConfig, preds, targets, ibp_xy, ibp_valid):
     total = 0.0
     for t, (tp, tt) in enumerate(zip(preds, targets)):
         hm_pred = clip_sigmoid(tp['heatmap'])
-        num_pos = (tt['heatmap'] == 1.0).sum()
+        num_pos = mesh.global_sum((tt['heatmap'] == 1.0).sum())
         loss_hm = gaussian_focal_loss(
             hm_pred, tt['heatmap'], cfg.focal_alpha, cfg.focal_gamma
         ).sum() / torch.clamp(num_pos, min=1)
@@ -257,7 +262,7 @@ def loss(cfg: GGAHeadConfig, preds, targets, ibp_xy, ibp_valid):
             cfg, pred, tt['ind'], tt['lidar2img'])
 
         maskf = tt['mask'].float()
-        avg = maskf.sum() + 1e-4
+        avg = mesh.global_sum(maskf.sum()) + 1e-4
         bbox_w = maskf[..., None] * torch.isfinite(
             tt['anno_box']).float() * cw
 

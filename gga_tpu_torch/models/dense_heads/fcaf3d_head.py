@@ -29,6 +29,7 @@ from torch import nn
 from ...core.nms import nms_bev
 from ...core.rotated_iou import rotated_overlap
 from ...ops import sparse as sp
+from ...parallel import mesh
 from ..backbones.mink_resnet import MinkBatchNorm, MinkConv, subm, subm_map
 
 INF = 1e8
@@ -304,6 +305,10 @@ def loss(cfg: FCAF3DConfig, head_outs, gt_boxes, gt_labels, obj_valid):
         gt_boxes: [B, M, 7]; gt_labels: [B, M]; obj_valid: [B, M].
     Returns:
         (total, logs: center_loss, bbox_loss, cls_loss, loss, num_pos).
+
+    The normalisers are per scene; under a process group the mean over
+    scenes and ``num_pos`` span the global batch (``mesh.global_mean``:
+    each rank's terms are its shares of the global ones).
     """
     points = _cat(head_outs, 'points')
     pvalid = _cat(head_outs, 'valid')
@@ -345,11 +350,12 @@ def loss(cfg: FCAF3DConfig, head_outs, gt_boxes, gt_labels, obj_valid):
     denom = (center_t * posf).sum(1).clamp(min=1e-6)
     bbox_loss = ((1 - iou) * center_t * posf).sum(1) / denom
 
-    logs = dict(center_loss=center_loss.mean(), bbox_loss=bbox_loss.mean(),
-                cls_loss=cls_loss.mean())
+    logs = dict(center_loss=mesh.global_mean(center_loss),
+                bbox_loss=mesh.global_mean(bbox_loss),
+                cls_loss=mesh.global_mean(cls_loss))
     total = logs['center_loss'] + logs['bbox_loss'] + logs['cls_loss']
     logs['loss'] = total
-    logs['num_pos'] = posf.sum()
+    logs['num_pos'] = mesh.global_sum(posf.sum())
     return total, logs
 
 

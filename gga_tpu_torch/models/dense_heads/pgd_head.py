@@ -36,6 +36,7 @@ from torch import nn
 
 from ...core.geometry import corners_3d, limit_period
 from ...core.nms import nms_bev
+from ...parallel import mesh
 from ..layers import PlainConvModule
 from ..losses import smooth_l1_loss as _smooth_l1
 
@@ -415,6 +416,9 @@ def loss(cfg: PGDConfig, preds, fuse_lambda, targets, cam2img,
     Returns:
         (total, logs): the 0-d total and the terms ``loss_cls`` ...
         ``loss_centerness`` (as gga_tpu), ``loss`` and ``num_pos``.
+
+    Under a process group ``num_pos`` and the focal term's ``B`` count the
+    global batch: each rank's terms are its shares of the global ones.
     """
     B = preds[0]['cls_score'].shape[0]
     dev = cam2img.device
@@ -430,13 +434,14 @@ def loss(cfg: PGDConfig, preds, fuse_lambda, targets, cam2img,
     bt = targets['bbox_targets_3d']                         # [B, Np, 11]
     ct = targets['centerness']
     pos = targets['pos_mask'].float()
-    num_pos = pos.sum()
+    num_pos = mesh.global_sum(pos.sum())
     avg = num_pos.clamp(min=1.0)
 
     logs = {}
     logs['loss_cls'] = _focal_loss(cls_scores, labels, cfg.num_classes,
                                    cfg.focal_gamma,
-                                   cfg.focal_alpha).sum() / (num_pos + B)
+                                   cfg.focal_alpha).sum() / (
+                                       num_pos + B * mesh.world_size())
     cw = torch.tensor(cfg.code_weight, dtype=torch.float32, device=dev)
     w = pos[..., None] * cw
 

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import sparse as sp
+from ..parallel import mesh
 
 
 def flatten_nmap(nmap, n_in=None):
@@ -42,7 +43,10 @@ def flatten_nmap(nmap, n_in=None):
 class MaskedBatchNorm(nn.Module):
     """BatchNorm1d over active voxels only (eps 1e-3, momentum 0.01):
     padding rows are excluded from the statistics and come out as 0.
-    The running variance is unbiased, as in torch and gga_tpu."""
+    The running variance is unbiased, as in torch and gga_tpu. Under a
+    process group the count, the sums and the centred second moment span
+    the global batch (``mesh.global_sum``; gga_tpu's GSPMD reductions):
+    the global mean first, then the sum of squares about it."""
 
     def __init__(self, num_features, eps=1e-3, momentum=0.01):
         super().__init__()
@@ -59,9 +63,11 @@ class MaskedBatchNorm(nn.Module):
         if self.training:
             m = valid[..., None].float()
             dims = tuple(range(x.dim() - 1))
-            cnt = m.sum().clamp(min=1.0)
-            mean = (xf * m).sum(dims) / cnt
-            var = (((xf - mean) ** 2) * m).sum(dims) / cnt
+            sums = mesh.global_sum(torch.cat([(xf * m).sum(dims),
+                                              m.sum()[None]]))
+            cnt = sums[-1].clamp(min=1.0)
+            mean = sums[:-1] / cnt
+            var = mesh.global_sum((((xf - mean) ** 2) * m).sum(dims)) / cnt
             with torch.no_grad():
                 self.running_mean.lerp_(mean, self.momentum)
                 self.running_var.lerp_(var * cnt / (cnt - 1).clamp(min=1.0),
@@ -75,7 +81,9 @@ class MaskedBatchNorm(nn.Module):
 class BatchNorm2d(nn.Module):
     """Dense BN on NCHW maps matching flax ``nn.BatchNorm`` (eps 1e-3,
     momentum 0.01): f32 arithmetic, output in the input dtype, and a
-    BIASED running variance (torch's own BatchNorm2d keeps it unbiased)."""
+    BIASED running variance (torch's own BatchNorm2d keeps it unbiased).
+    Under a process group the moments span the global batch, as
+    ``MaskedBatchNorm``'s."""
 
     def __init__(self, num_features, eps=1e-3, momentum=0.01):
         super().__init__()
@@ -89,8 +97,20 @@ class BatchNorm2d(nn.Module):
     def forward(self, x):
         xf = x.float()
         if self.training:
-            mean = xf.mean((0, 2, 3))
-            var = xf.var((0, 2, 3), unbiased=False)
+            if mesh.distributed():
+                sums = mesh.global_sum(torch.cat([
+                    xf.sum((0, 2, 3)),
+                    xf.new_tensor([xf.numel() // xf.shape[1]])]))
+                mean = sums[:-1] / sums[-1]
+                # the mean detached, as torch.var's backward: the variance's
+                # derivative in the mean is zero, and its f32 remainder
+                # would only add noise
+                var = mesh.global_sum(
+                    ((xf - mean.detach()[:, None, None]) ** 2)
+                    .sum((0, 2, 3))) / sums[-1]
+            else:
+                mean = xf.mean((0, 2, 3))
+                var = xf.var((0, 2, 3), unbiased=False)
             with torch.no_grad():
                 self.running_mean.lerp_(mean, self.momentum)
                 self.running_var.lerp_(var, self.momentum)

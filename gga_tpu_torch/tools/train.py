@@ -1,5 +1,5 @@
-"""Stage 2: GGA weak training on one device (the port's copy of
-``tools/train.py``).
+"""Stage 2: GGA weak training, data-parallel over the processes of a
+``torchrun`` launch (the port's copy of ``tools/train.py``).
 
 Reads a config file, writes ``config_dump.py`` into the work dir, trains
 with ``apis.train_step`` on batches of the epoch loader, appends one JSON
@@ -16,16 +16,34 @@ The step count sizes the schedules as gga_tpu does: ``total_steps`` is
 epoch; ``--load-from DIR`` loads the weights of DIR's newest checkpoint
 and starts at step 0. The database sampler's rng is not checkpointed.
 
+One process per card, as PyTorch runs DDP (gga_tpu runs one process
+per host over a device mesh): under ``torchrun`` each rank joins the
+group (``nccl`` on cards, ``gloo`` with ``--device cpu``;
+``--dist-url``, by default ``env://``), runs on ``cuda:LOCAL_RANK``, and
+takes its rows of each global batch of ``samples_per_gpu x world``
+scenes, as gga_tpu's global batch is ``samples_per_gpu x devices``. The batch norms' moments and the loss
+normalisers span the global batch and the gradients are summed over the
+ranks (``parallel.mesh``), so the ranks take the one-process step on the
+global batch. Each rank's database sampler draws on its own scenes, so the
+pasted objects differ from one process's, as gga_tpu's forked workers'
+do. Rank 0 alone writes ``config_dump.py``, ``train_log.jsonl`` and the
+checkpoints, in the one-process format; every rank reads the same
+checkpoint on ``--resume``, under any world size. The periodic eval shards
+the scenes over the ranks (``parallel.dist_eval``) and rank 0 scores them.
+
 Differences from gga_tpu: the seeded initial weights are drawn from a
 ``torch.Generator`` seeded with ``cfg.seed`` (``apis.init_detector``), not
-from ``PRNGKey(cfg.seed)``; one device, no mesh. Without a card the tool
-raises unless ``--device cpu``.
+from ``PRNGKey(cfg.seed)``. Without a card the tool raises unless
+``--device cpu``.
 
 Usage:
-    python -m gga_tpu_torch.tools.train configs/gga/gga_kitti.py \\
+    [torchrun --nproc-per-node N] -m gga_tpu_torch.tools.train \\
+        configs/gga/gga_kitti.py \\
         [--work-dir D] [--resume | --load-from DIR] [--max-steps N] \\
         [--device cuda|cpu] [--no-eval] [--eval-info PKL] \\
+        [--dist-url URL] \\
         [--cfg-options k.ey=val ...]
+(``python -m gga_tpu_torch.tools.train ...`` for one process.)
 """
 from __future__ import annotations
 
@@ -42,6 +60,8 @@ from ..config import Config
 from ..data.dataset import EpochLoader, KittiGGADataset
 from ..data.sampler import GGADataBaseSampler
 from ..device import resolve_device
+from ..parallel import mesh
+from ..parallel.dist_eval import run_sharded_inference
 from ..train import checkpoints as ckpt
 from ..tools_lib import model_config_from_cfg
 
@@ -61,8 +81,24 @@ def parse_args(argv=None):
                    help='info pkl for periodic eval (EvalHook equivalent); '
                         'defaults to the train info')
     p.add_argument('--no-eval', action='store_true')
+    add_dist_args(p)
     p.add_argument('--cfg-options', nargs='*', default=[])
     return p.parse_args(argv)
+
+
+def add_dist_args(p):
+    """The process-group flag of the CLIs (read under torchrun)."""
+    p.add_argument('--dist-url', default=None,
+                   help='rendezvous of the group (default env://; '
+                        'file:///path for a FileStore)')
+
+
+def launch(args):
+    """(device, rank, world) of this process: ``mesh.init_from_env`` on
+    the flags (it joins a group when world > 1), then the device
+    resolved."""
+    device, rank, world = mesh.init_from_env(args.device, args.dist_url)
+    return resolve_device(device), rank, world
 
 
 def load_config(path, options):
@@ -94,23 +130,34 @@ def main(argv=None):
     included), the share of it spent waiting on the loader, and the
     checkpoints' sizes and save/load times."""
     args = parse_args(argv)
-    dev = resolve_device(args.device)
+    dev, rank, world = launch(args)
+    try:
+        return _train(args, dev, rank, world)
+    finally:
+        if world > 1:
+            mesh.shutdown()
+
+
+def _train(args, dev, rank, world):
+    lead = rank == 0
     cfg = load_config(args.config, args.cfg_options)
     work_dir = args.work_dir or cfg.get('work_dir', './work_dirs/run')
     os.makedirs(work_dir, exist_ok=True)
-    with open(os.path.join(work_dir, 'config_dump.py'), 'w') as f:
-        f.write(cfg.dump())
+    if lead:
+        with open(os.path.join(work_dir, 'config_dump.py'), 'w') as f:
+            f.write(cfg.dump())
 
     model_cfg = model_config_from_cfg(cfg)
     apis.check_compute_dtype(model_cfg, dev)
     dataset = build_dataset(cfg)
-    batch_size = cfg.data.samples_per_gpu
+    # the global batch, as gga_tpu's samples_per_gpu x devices
+    batch_size = cfg.data.samples_per_gpu * world
     steps_per_epoch = max(len(dataset) // batch_size, 1)
     total_steps = steps_per_epoch * cfg.max_epochs
     if args.max_steps:
         total_steps = min(total_steps, args.max_steps)
-    print(f'device={dev} batch={batch_size} steps/epoch={steps_per_epoch} '
-          f'total={total_steps}')
+    print(f'rank {rank}/{world} device={dev} batch={batch_size} '
+          f'steps/epoch={steps_per_epoch} total={total_steps}')
 
     trainer = apis.init_trainer(model_cfg, total_steps, device=dev,
                                 seed=cfg.seed,
@@ -132,7 +179,7 @@ def main(argv=None):
 
     loader = EpochLoader(dataset, batch_size,
                          num_workers=cfg.get('loader_workers', 8),
-                         seed=cfg.seed)
+                         seed=cfg.seed, rank=rank, world=world)
     log_path = os.path.join(work_dir, 'train_log.jsonl')
     start = step = trainer.step
     first_epoch, skip = divmod(start, steps_per_epoch)
@@ -178,10 +225,11 @@ def main(argv=None):
                             loader_wait_share=(
                                 wait_s / (steady_s + now - t_mark)
                                 if t_mark is not None else 0.0), **logs)
-                print(f'step {step} loss {logs["loss"]:.3f} lr {lr:.3g} '
-                      f'({batch_size / dt:.1f} scenes/s)')
-                with open(log_path, 'a') as f:
-                    f.write(json.dumps(line) + '\n')
+                if lead:
+                    print(f'step {step} loss {logs["loss"]:.3f} lr '
+                          f'{lr:.3g} ({batch_size / dt:.1f} scenes/s)')
+                    with open(log_path, 'a') as f:
+                        f.write(json.dumps(line) + '\n')
             if args.max_steps and step >= args.max_steps:
                 done = True
                 break
@@ -189,7 +237,7 @@ def main(argv=None):
             float(logs['loss'])             # the epoch's steps are done
         if t_mark is not None:
             steady_s += time.perf_counter() - t_mark
-        if (epoch + 1) % cfg.checkpoint_interval == 0 or done:
+        if lead and ((epoch + 1) % cfg.checkpoint_interval == 0 or done):
             t = time.perf_counter()
             ckpt.save_checkpoint(ckpt_dir, trainer, step=step)
             summary['ckpt_save_ms'].append((time.perf_counter() - t) * 1e3)
@@ -198,7 +246,7 @@ def main(argv=None):
             print(f'saved checkpoint @ step {step}')
         if (not args.no_eval
                 and (epoch + 1) % cfg.get('eval_interval', 5) == 0):
-            run_eval(args, cfg, trainer, batch_size)
+            run_eval(args, cfg, trainer, cfg.data.samples_per_gpu, work_dir)
     steady = step - start - 1
     summary.update(
         start_step=start, steps=step - start, end_step=step,
@@ -213,14 +261,15 @@ def main(argv=None):
     return summary
 
 
-def run_eval(args, cfg, trainer, batch_size):
+def run_eval(args, cfg, trainer, batch_size, work_dir):
     """Periodic KITTI eval (the reference's EvalHook,
-    apis/train.py:287-308)."""
+    apis/train.py:287-308): each rank runs its shard of the scenes in
+    batches of ``batch_size`` through ``<work_dir>/eval_parts``, and rank 0
+    scores the merged detections."""
     import pickle
 
     from ..eval.kitti_eval import kitti_eval
     from ..eval.submission import detections_to_kitti_annos
-    from ..tools_lib import run_inference
 
     info_path = os.path.join(
         cfg.data_root, args.eval_info or cfg.data.train_info)
@@ -230,8 +279,11 @@ def run_eval(args, cfg, trainer, batch_size):
     bundle = apis.DetectorBundle(model, model.cfg,
                                  next(model.parameters()).device)
     with torch.no_grad():
-        dets = run_inference(bundle, cfg, infos, batch_size)
+        dets = run_sharded_inference(bundle, cfg, infos, batch_size,
+                                     os.path.join(work_dir, 'eval_parts'))
     model.train()
+    if dets is None:
+        return
     det_annos = detections_to_kitti_annos(
         dets, infos, class_names=('Pedestrian', 'Cyclist', 'Car'))
     gt_annos = [info['annos'] for info in infos]

@@ -1,7 +1,7 @@
 """The indoor GGA retrain: FCAF3D (MinkResNet34 + FCAF3DHead) on SUN
-RGB-D pseudo labels or ground truth, on one device (the port's copy of
-``tools/train_fcaf3d.py``; the reference trains
-``configs/fcaf3d/fcaf3d_8x2_sunrgbd-3d-10class.py``).
+RGB-D pseudo labels or ground truth, data-parallel over the processes of
+a ``torchrun`` launch (the port's copy of ``tools/train_fcaf3d.py``; the
+reference trains ``configs/fcaf3d/fcaf3d_8x2_sunrgbd-3d-10class.py``).
 
 Reads a config file (``configs/gga/gga_sunrgbd.py``; flags override it),
 trains ``FCAF3DDetector`` on the ``SunRgbdDataset`` of the info pkl with
@@ -22,17 +22,29 @@ newest checkpoint of the work dir (weights, optimizer, step) at the batch
 after it, which gga_tpu's tool cannot do; the augmentation draws after a
 resume start afresh from the dataset's seed; fewer infos than a batch
 raise, where gga_tpu trains 0 steps; the seeded initial weights come from
-``torch.Generator(cfg.seed)`` (gga_tpu's initializers, another stream);
-one device, no mesh. Like gga_tpu, the tool reads one item before
-training (gga_tpu initializes its variables on it), so the augmentation
-stream is gga_tpu's. Without a card the tool raises unless
-``--device cpu``.
+``torch.Generator(cfg.seed)`` (gga_tpu's initializers, another stream).
+Like gga_tpu, the tool reads one item before training (gga_tpu
+initializes its variables on it), so the augmentation stream is
+gga_tpu's. Without a card the tool raises unless ``--device cpu``.
+
+Under ``torchrun`` the tool trains data-parallel, one process per card
+(``nccl`` on cards, ``gloo`` with ``--device cpu``; ``--dist-url``, by
+default ``env://``): rank r runs on
+``cuda:LOCAL_RANK``, the global batch is ``--batch-size x world``
+(``--batch-size`` is per process, as ``samples_per_gpu``) and rank r takes
+its rows of each; the batch norms and loss normalisers span the global
+batch and the gradients are summed over the ranks (``parallel.mesh``), so
+the step is the one-process step on the global batch. Rank 0 alone logs
+and writes the checkpoints, in the one-process format; ``--resume`` reads
+them under any world size.
 
 Usage:
-    python -m gga_tpu_torch.tools.train_fcaf3d configs/gga/gga_sunrgbd.py \\
+    [torchrun --nproc-per-node N] -m gga_tpu_torch.tools.train_fcaf3d \\
+        configs/gga/gga_sunrgbd.py \\
         [--info PKL] [--data-root D] [--work-dir W] [--batch-size N] \\
         [--epochs N] [--repeat N] [--lr LR] [--num-points N] \\
         [--max-steps N] [--resume] [--tiny] [--device cuda|cpu] \\
+        [--dist-url URL] \\
         [--cfg-options k.ey=val ...]
 """
 from __future__ import annotations
@@ -43,10 +55,10 @@ from pathlib import Path
 
 from .. import apis
 from ..data.sunrgbd import SunRgbdDataset
-from ..device import resolve_device
 from ..models.detectors.fcaf3d import FCAF3DModelConfig
+from ..parallel import mesh
 from ..tools_lib import model_config_from_cfg, train_passes
-from .train import load_config
+from .train import add_dist_args, launch, load_config
 
 DEFAULT_CONFIG = str(Path(__file__).resolve().parents[2] / 'configs' / 'gga'
                      / 'gga_sunrgbd.py')
@@ -69,6 +81,7 @@ def parse_args(argv=None):
                    help='resume from the newest checkpoint in the work dir')
     p.add_argument('--tiny', action='store_true')
     p.add_argument('--device', default='cuda')
+    add_dist_args(p)
     p.add_argument('--cfg-options', nargs='*', default=[])
     return p.parse_args(argv)
 
@@ -80,7 +93,15 @@ def main(argv=None):
     checkpoints' size and save / load ms, and the schedule's
     ``steps_per_epoch``."""
     args = parse_args(argv)
-    dev = resolve_device(args.device)
+    dev, rank, world = launch(args)
+    try:
+        return _train(args, dev, rank, world)
+    finally:
+        if world > 1:
+            mesh.shutdown()
+
+
+def _train(args, dev, rank, world):
     cfg = load_config(args.config, args.cfg_options)
     work_dir = args.work_dir or cfg.get('work_dir',
                                         './work_dirs/sunrgbd_fcaf3d')
@@ -93,7 +114,8 @@ def main(argv=None):
     num_points = args.num_points or cfg.data.get('num_points', 20000)
     dataset = SunRgbdDataset(data_root, info, num_points=num_points,
                              max_objs=model_cfg.head.max_objs)
-    batch_size = args.batch_size or cfg.data.get('samples_per_gpu', 2)
+    batch_size = (args.batch_size or cfg.data.get('samples_per_gpu', 2)
+                  ) * world
     if len(dataset) < batch_size:
         raise ValueError(f'{info} holds {len(dataset)} infos, fewer than one '
                          f'batch of {batch_size}: a pass would train no step '
@@ -105,8 +127,8 @@ def main(argv=None):
     total_steps = epochs * repeat * per_pass
     if args.max_steps:
         total_steps = min(total_steps, args.max_steps)
-    print(f'device={dev} batch={batch_size} steps/epoch={steps_per_epoch} '
-          f'total={total_steps}')
+    print(f'rank {rank}/{world} device={dev} batch={batch_size} '
+          f'steps/epoch={steps_per_epoch} total={total_steps}')
 
     opt = dict(cfg.get('optimizer', {}))
     if args.lr:
@@ -123,7 +145,8 @@ def main(argv=None):
                            total_steps=total_steps, work_dir=work_dir,
                            resume=args.resume,
                            loader_workers=cfg.get('loader_workers', 0),
-                           log_interval=cfg.get('log_interval', 20))
+                           log_interval=cfg.get('log_interval', 20),
+                           rank=rank, world=world)
     summary['steps_per_epoch'] = steps_per_epoch
     return summary
 

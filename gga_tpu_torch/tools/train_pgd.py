@@ -1,6 +1,7 @@
-"""Stage 4: the PGD monocular retrain on the pseudo labels, on one device
-(the port's copy of ``tools/train_pgd.py``; the reference's
-``dist_train.sh configs/gga/gga_pdg.py``).
+"""Stage 4: the PGD monocular retrain on the pseudo labels, data-parallel
+over the processes of a ``torchrun`` launch (the port's copy of
+``tools/train_pgd.py``; the reference's ``dist_train.sh
+configs/gga/gga_pdg.py``).
 
 Reads a config file (``configs/gga/gga_pdg.py``; flags override it),
 trains ``PGDDetector`` on the ``KittiMonoDataset`` of the pseudo-label
@@ -23,14 +24,27 @@ gga_tpu's tool decays after it; ``--resume`` continues from the newest
 checkpoint of the work dir (weights, optimizer, step) at the batch after
 it, where gga_tpu parses the flag and ignores it; fewer infos than a
 batch raise, where gga_tpu trains 0 steps; the seeded initial weights
-come from ``torch.Generator(cfg.seed)``; one device, no mesh. Without a
-card the tool raises unless ``--device cpu``.
+come from ``torch.Generator(cfg.seed)``. Without a card the tool raises
+unless ``--device cpu``.
+
+Under ``torchrun`` the tool trains data-parallel, one process per card
+(``nccl`` on cards, ``gloo`` with ``--device cpu``; ``--dist-url``, by
+default ``env://``): rank r runs on
+``cuda:LOCAL_RANK``, the global batch is ``--batch-size x world``
+(``--batch-size`` is per process, as ``samples_per_gpu``) and rank r takes
+its rows of each; the batch norms and loss normalisers span the global
+batch and the gradients are summed over the ranks (``parallel.mesh``), so
+the step is the one-process step on the global batch. Rank 0 alone logs
+and writes the checkpoints, in the one-process format; ``--resume`` reads
+them under any world size.
 
 Usage:
-    python -m gga_tpu_torch.tools.train_pgd configs/gga/gga_pdg.py \\
+    [torchrun --nproc-per-node N] -m gga_tpu_torch.tools.train_pgd \\
+        configs/gga/gga_pdg.py \\
         [--info PKL] [--data-root D] [--work-dir W] [--batch-size N] \\
         [--epochs N] [--lr LR] [--max-steps N] [--resume] [--tiny] \\
-        [--min-score S] [--device cuda|cpu] [--cfg-options k.ey=val ...]
+        [--min-score S] [--device cuda|cpu] [--dist-url URL] \\
+        [--cfg-options k.ey=val ...]
 """
 from __future__ import annotations
 
@@ -40,10 +54,10 @@ from pathlib import Path
 
 from .. import apis
 from ..data.kitti.mono_dataset import KittiMonoDataset
-from ..device import resolve_device
 from ..models.detectors.pgd import PGDModelConfig
+from ..parallel import mesh
 from ..tools_lib import model_config_from_cfg, train_passes
-from .train import load_config
+from .train import add_dist_args, launch, load_config
 
 DEFAULT_CONFIG = str(Path(__file__).resolve().parents[2] / 'configs' / 'gga'
                      / 'gga_pdg.py')
@@ -66,6 +80,7 @@ def parse_args(argv=None):
     p.add_argument('--min-score', type=float, default=None,
                    help='filter pseudo labels below this score')
     p.add_argument('--device', default='cuda')
+    add_dist_args(p)
     p.add_argument('--cfg-options', nargs='*', default=[])
     return p.parse_args(argv)
 
@@ -76,7 +91,15 @@ def main(argv=None):
     included), the share of it spent waiting on the loader, and the
     checkpoints' size and save / load ms."""
     args = parse_args(argv)
-    dev = resolve_device(args.device)
+    dev, rank, world = launch(args)
+    try:
+        return _train(args, dev, rank, world)
+    finally:
+        if world > 1:
+            mesh.shutdown()
+
+
+def _train(args, dev, rank, world):
     cfg = load_config(args.config, args.cfg_options)
     work_dir = args.work_dir or cfg.get('work_dir', './work_dirs/kitti_pgd')
     os.makedirs(work_dir, exist_ok=True)
@@ -88,7 +111,7 @@ def main(argv=None):
     min_score = (args.min_score if args.min_score is not None
                  else cfg.data.get('min_score'))
     dataset = KittiMonoDataset(data_root, info, min_score=min_score)
-    batch_size = args.batch_size or cfg.data.samples_per_gpu
+    batch_size = (args.batch_size or cfg.data.samples_per_gpu) * world
     if len(dataset) < batch_size:
         raise ValueError(f'{info} holds {len(dataset)} infos, fewer than one '
                          f'batch of {batch_size}: an epoch would train no '
@@ -98,8 +121,8 @@ def main(argv=None):
     total_steps = steps_per_epoch * epochs
     if args.max_steps:
         total_steps = min(total_steps, args.max_steps)
-    print(f'device={dev} batch={batch_size} steps/epoch={steps_per_epoch} '
-          f'total={total_steps}')
+    print(f'rank {rank}/{world} device={dev} batch={batch_size} '
+          f'steps/epoch={steps_per_epoch} total={total_steps}')
 
     opt = dict(cfg.get('optimizer', {}))
     if args.lr:
@@ -115,7 +138,7 @@ def main(argv=None):
                         resume=args.resume,
                         loader_workers=cfg.get('loader_workers', 0),
                         log_interval=cfg.get('log_interval', 20),
-                        unit='images')
+                        unit='images', rank=rank, world=world)
 
 
 if __name__ == '__main__':

@@ -28,7 +28,9 @@ Differences from gga_tpu, by design: ``--device`` (without a card the
 tool raises unless ``--device cpu``); ``torch.save`` checkpoints; fewer
 infos than a batch raise, where gga_tpu's loop would never take a step;
 the seeded initial weights come from ``torch.Generator(cfg.seed)``; one
-device, no mesh; SASSD trains, where gga_tpu's CLI cannot (it inits
+device, no mesh: a ``torchrun`` launch of more than one process is
+refused, since the anchor and PartA2 steps do not reduce their loss
+normalisers over ranks; SASSD trains, where gga_tpu's CLI cannot (it inits
 without the auxiliary branch and reads the train-mode tuple as a dict);
 PartA2 trains, where gga_tpu's CLI cannot (it inits with
 ``train=False``, gives no RoI sampler rng, and reads ``preds['cls']``
@@ -73,6 +75,9 @@ def main(argv=None):
     them (loading included, checkpoints not), the checkpoints' size and
     save ms, and the paths of the log and the checkpoint dir."""
     args = parse_args(argv)
+    if int(os.environ.get('WORLD_SIZE', '1')) > 1:
+        raise NotImplementedError('train_supervised trains in one process: '
+                                  'launch it without torchrun')
     dev = resolve_device(args.device)
     cfg = load_config(args.config, args.cfg_options)
     work_dir = (args.work_dir or cfg.get('work_dir')

@@ -135,7 +135,7 @@ def evaluate_mono(bundle, dataset, batch_size=4):
 
 def train_passes(trainer, dataset, step_fn, *, batch_size, passes,
                  total_steps, work_dir, resume=False, loader_workers=0,
-                 log_interval=20, unit='scenes'):
+                 log_interval=20, unit='scenes', rank=0, world=1):
     """The retrain tools' loop: ``step_fn(trainer, batch)`` over
     ``passes`` passes of ``EpochLoader(dataset, batch_size)`` (pass p in
     ``RandomState(p)`` order, the last partial batch dropped) until
@@ -145,7 +145,10 @@ def train_passes(trainer, dataset, step_fn, *, batch_size, passes,
     waiting on the loader, and the step's logs); ``step_<n>.pt`` under
     ``<work_dir>/checkpoints`` at the end of every pass. With ``resume``
     it continues from the newest checkpoint (weights, optimizer, step) at
-    the batch after it.
+    the batch after it. With ``world`` ranks of a process group
+    ``batch_size`` is the global batch, rank ``rank`` loads its rows of
+    each, and rank 0 alone prints, logs and saves checkpoints (in the
+    one-process format); every rank resumes from the same checkpoint.
 
     Returns a summary: the steps taken and the step it started at, the
     wall time of the steps after the first, ``<unit>_per_s`` over them
@@ -160,7 +163,9 @@ def train_passes(trainer, dataset, step_fn, *, batch_size, passes,
         summary['ckpt_load_ms'] = (time.perf_counter() - t0) * 1e3
         print(f'resume: {"ok, step " + str(trainer.step) if ok else "no checkpoint"}')
 
-    loader = EpochLoader(dataset, batch_size, num_workers=loader_workers)
+    lead = rank == 0
+    loader = EpochLoader(dataset, batch_size, num_workers=loader_workers,
+                         rank=rank, world=world)
     per_pass = len(dataset) // batch_size
     log_path = os.path.join(work_dir, 'train_log.jsonl')
     start = step = trainer.step
@@ -197,12 +202,15 @@ def train_passes(trainer, dataset, step_fn, *, batch_size, passes,
                         f'{unit}_per_sec': batch_size / dt,
                         'loader_wait_share': wait_s / max(
                             now - t_mark - ckpt_s, 1e-9), **logs}
-                print(f'step {step} loss {logs["loss"]:.3f} lr {lr:.3g} '
-                      f'({batch_size / dt:.1f} {unit}/s)')
-                with open(log_path, 'a') as f:
-                    f.write(json.dumps(line) + '\n')
+                if lead:
+                    print(f'step {step} loss {logs["loss"]:.3f} lr '
+                          f'{lr:.3g} ({batch_size / dt:.1f} {unit}/s)')
+                    with open(log_path, 'a') as f:
+                        f.write(json.dumps(line) + '\n')
             t_ask = time.perf_counter()
         float(logs['loss'])                 # the pass's steps are done
+        if not lead:
+            continue
         t = time.perf_counter()
         ckpt.save_checkpoint(ckpt_dir, trainer, step=step)
         ckpt_s += time.perf_counter() - t

@@ -21,6 +21,14 @@ step (gga_tpu's ``vote_head.loss`` of ``build_targets`` under
 ``value_and_grad``, as ``tests/test_models/test_votenet.py`` composes
 them, then the clip and AdamW of ``configs/_base_/schedules/
 schedule_3x.py``).
+
+Under a ``torch.distributed`` group (``parallel.mesh``) the GGA, PGD and
+FCAF3D steps train data-parallel: each rank runs its rows of the global
+batch, the norms and loss normalisers reduce over the global batch, and
+the gradients are summed over the ranks before the clip, so every rank's
+clip and optimizer see the one-process gradient and the weights stay in
+step. Their logged loss terms are global values. The other steps refuse
+a group of more than one rank.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ from ..models.detectors.centerpoint import centerpoint_loss
 from ..models.detectors.centerpoint_gga import GGADetector
 from ..models.detectors.parta2 import parta2_draws, parta2_loss
 from ..models.detectors.sassd import sassd_aux_loss
+from ..parallel import mesh
 from .optim import GGAOptimizer
 
 
@@ -53,6 +62,28 @@ class TrainState:
     generator: torch.Generator
 
 
+def _global_logs(logs, means=()):
+    """The logs of a data-parallel step as global values: each rank's
+    loss terms are its shares of the global terms (local sums over global
+    normalisers) and are summed over the ranks; the keys starting with
+    one of ``means`` (per-scene means) are averaged; 'grad_norm' and
+    'num_pos' are global already. One all-reduce; the logs as they are in
+    one process."""
+    if not mesh.distributed():
+        return logs
+    keys = [k for k in logs if k not in ('grad_norm', 'num_pos')]
+    world = mesh.world_size()
+    for k, v in zip(keys, mesh.sum_over_ranks([logs[k] for k in keys])):
+        logs[k] = v / world if k.startswith(means) else v
+    return logs
+
+
+def _single_process(step):
+    if mesh.distributed():
+        raise NotImplementedError(
+            f'{step} does not train data-parallel: run it in one process')
+
+
 def gga_train_step(state: TrainState, batch, head_cfg, mark=None,
                    srl_normal=None):
     """One optimization step; updates ``state`` in place.
@@ -64,9 +95,13 @@ def gga_train_step(state: TrainState, batch, head_cfg, mark=None,
             [B, M, 4], lidar2img [B, M, 4, 4], ibp_xy [B, M, Pc, 2],
             ibp_valid [B, M, Pc].
         mark: called with the name of each stage as it is enqueued
-            ('forward', 'loss', 'backward', 'optimizer'); a timer hook.
-        srl_normal: the [T, B] standard-normal draw of the SRL prior;
-            drawn from ``state.generator`` when None.
+            ('forward', 'loss', 'backward', under a process group
+            'all_reduce', then 'optimizer'); a timer hook.
+        srl_normal: the [T, B] standard-normal draw of the SRL prior for
+            this rank's rows; when None, every rank draws the
+            [T, B x world] draw of the global batch from
+            ``state.generator`` (the same on every rank) and keeps its own
+            columns, as gga_tpu draws once for the global batch.
     Returns:
         logs: 0-d tensors: 'loss', each task's terms, 'grad_norm' (of the
         unclipped gradients) and the encoder's 'diag.occupancy_*'.
@@ -79,9 +114,10 @@ def gga_train_step(state: TrainState, batch, head_cfg, mark=None,
     preds = model(batch['points'], batch['points_valid'], diag)
     mark('forward')
     if srl_normal is None:
+        b, r = batch['labels'].shape[0], mesh.rank()
         srl_normal = torch.randn(
-            (len(head_cfg.task_num_classes), batch['labels'].shape[0]),
-            generator=state.generator)
+            (len(head_cfg.task_num_classes), b * mesh.world_size()),
+            generator=state.generator)[:, r * b:(r + 1) * b]
     srl_normal = srl_normal.to(batch['labels'].device)
     targets = gga.build_targets(
         head_cfg, srl_normal, batch['labels'], batch['obj_valid'],
@@ -92,12 +128,16 @@ def gga_train_step(state: TrainState, batch, head_cfg, mark=None,
     mark('loss')
     total.backward()
     mark('backward')
+    if mesh.distributed():
+        mesh.all_reduce_grads(state.optimizer.params)
+        mark('all_reduce')
     logs['grad_norm'] = state.optimizer.step()
     mark('optimizer')
     for name, value in diag.items():
         logs[f'diag.{name}'] = value
     state.step += 1
-    return {k: v.detach() for k, v in logs.items()}
+    return _global_logs({k: v.detach() for k, v in logs.items()},
+                        means=('diag.',))
 
 
 def pgd_train_step(state: TrainState, batch):
@@ -126,9 +166,10 @@ def pgd_train_step(state: TrainState, batch):
     total, logs = pgd_head.loss(cfg, preds, fuse, targets, batch['cam2img'],
                                 fsz)
     total.backward()
+    mesh.all_reduce_grads(state.optimizer.params)
     logs['grad_norm'] = state.optimizer.step()
     state.step += 1
-    return {k: v.detach() for k, v in logs.items()}
+    return _global_logs({k: v.detach() for k, v in logs.items()})
 
 
 def fcaf3d_train_step(state: TrainState, batch, diag=None):
@@ -151,9 +192,10 @@ def fcaf3d_train_step(state: TrainState, batch, diag=None):
     total, logs = fcaf3d_head.loss(model.cfg.head, outs, batch['gt_boxes'],
                                    batch['gt_labels'], batch['obj_valid'])
     total.backward()
+    mesh.all_reduce_grads(state.optimizer.params)
     logs['grad_norm'] = state.optimizer.step()
     state.step += 1
-    return {k: v.detach() for k, v in logs.items()}
+    return _global_logs({k: v.detach() for k, v in logs.items()})
 
 
 def anchor_loss(model, batch, diag=None, mark=None):
@@ -201,6 +243,7 @@ def anchor_train_step(state: TrainState, batch, mark=None, diag=None):
         logs: 0-d tensors: ``anchor_loss``'s and 'grad_norm' (of the
         unclipped gradients).
     """
+    _single_process('anchor_train_step')
     mark = mark or (lambda _: None)
     model = state.model
     model.train()
@@ -233,6 +276,7 @@ def centerpoint_train_step(state: TrainState, batch, mark=None, diag=None):
         'task<t>.loss_bbox', 'loss', 'grad_norm' (of the unclipped
         gradients) and the diagnostics as 'diag.<name>'.
     """
+    _single_process('centerpoint_train_step')
     mark = mark or (lambda _: None)
     model = state.model
     model.train()
@@ -275,6 +319,7 @@ def parta2_train_step(state: TrainState, batch, mark=None, diag=None,
         logs: 0-d tensors: ``parta2_loss``'s, 'grad_norm' (of the
         unclipped gradients) and the diagnostics as 'diag.<name>'.
     """
+    _single_process('parta2_train_step')
     mark = mark or (lambda _: None)
     model = state.model
     model.train()
@@ -333,6 +378,7 @@ def votenet_train_step(state: TrainState, batch, mark=None):
         logs: 0-d tensors: the loss terms, 'loss', 'num_pos' and
         'grad_norm' (of the unclipped gradients).
     """
+    _single_process('votenet_train_step')
     mark = mark or (lambda _: None)
     model = state.model
     model.train()

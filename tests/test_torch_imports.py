@@ -33,3 +33,8 @@ def test_scan_covers_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert 'gga_tpu_torch/kernels/sparse_conv.py' in names
     assert 'chip_smoke.py' in names
+    # the data-parallel package and the top-level entry points
+    assert {'gga_tpu_torch/parallel/__init__.py',
+            'gga_tpu_torch/parallel/mesh.py',
+            'gga_tpu_torch/parallel/dist_eval.py',
+            'gga_tpu_torch/entry.py'} <= names

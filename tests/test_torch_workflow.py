@@ -157,13 +157,16 @@ def test_clis_need_a_card_or_the_cpu(workflow, tmp_path):
 
 @pytest.mark.parametrize('flag', ['--rank', '--world'])
 def test_stage3_cli_takes_no_rank_or_world(workflow, flag, capsys):
-    """Sharded stage 3 is not ported: the flags are refused, not ignored."""
+    """Sharded stage 3 takes --rank and --world together: either flag
+    alone is refused, not ignored (a rank without its world would merge a
+    partial run; a world without a rank would wait for parts that never
+    come). tests/test_torch_ddp_train.py runs the two together."""
     with pytest.raises(SystemExit):
         generate_pseudo_labels_gga.main([
             TINY, '--checkpoint', os.path.join(workflow['work'],
                                                'checkpoints'),
             '--device', 'cpu', flag, '1'])
-    assert 'unrecognized arguments' in capsys.readouterr().err
+    assert '--rank and --world go together' in capsys.readouterr().err
 
 
 def _trainer(seed=0):
