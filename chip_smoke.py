@@ -5,8 +5,9 @@ the indoor FCAF3D retrain, the fully supervised SECOND and PointPillars,
 the accuracy benches, the rest of the KITTI voxel detectors (DVSECOND,
 SASSD, DynamicVoxelNet), the fully supervised nuScenes CenterPoint, the
 two-stage PartA2, the indoor family (stage 1 for SUN RGB-D and ScanNet,
-FCAF3D on ScanNet, VoteNet), and the sharded stage 3 and the two-rank
-data-parallel GGA step on one NVIDIA card.
+FCAF3D on ScanNet, VoteNet), the sharded stage 3 and the two-rank
+data-parallel GGA step, and the point-based KITTI detectors (3DSSD,
+PointRCNN) on one NVIDIA card.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -297,7 +298,20 @@ data-parallel GGA step on one NVIDIA card.
     bit-equal on both ranks after them. Prints per-rank step ms, the
     gradients' all-reduce ms and peak memory a rank. Gloo on one card
     says nothing of NCCL across cards.
-19. Prints one JSON line describing the kernels (each with its time
+19. Point family phase (``point_family_phase``, last): 3DSSD's car config
+    (B = 4) and PointRCNN's 3-class config (B = 2) as shipped, f32, at
+    16 384 points a scene of the workflow's mini KITTI, seeded weights
+    (``point_path``): the card's eval forward against the same forward
+    on the CPU (level-0 D-FPS indices equal; with the CPU's sampled
+    indices and, for PointRCNN, its proposals given, every output within
+    1e-4 of max|CPU|; the share of the picks the card makes alone that
+    equal the CPU's printed), 2 recorded train steps (no kernel launch,
+    finite losses, positives, the schedule's lr, moved weights; device
+    ms by stage: D-FPS, F-FPS, ball query + grouping, SA MLPs, head or
+    FP neck, RPN + NMS and RoI stage; peak memory) and one
+    ``infer_ssd3d`` / ``infer_point_rcnn`` call (boxes [B, n, 7], finite,
+    3DSSD's dims at least 0.1).
+20. Prints one JSON line describing the kernels (each with its time
     ms, device_ms, launches, bound and bound_share = bound_ms / ms,
     device_bound_share = bound_ms / device_ms, host_ms where measured;
     the f32 entries as gather_gemm_conv_f32 and gather_gemm_dw_f32, with
@@ -309,7 +323,8 @@ data-parallel GGA step on one NVIDIA card.
     CenterPoint config's steps on the two f32 sparse-conv entries,
     gather_rows and render_heatmap, ``parta2`` dicts over PartA2's
     steps and ``scannet`` dicts over FCAF3D's ScanNet steps on the two
-    f32 sparse-conv entries),
+    f32 sparse-conv entries, and ``point_family`` dicts with each
+    kernel's launches in the point family's train steps, 0),
     the card, then, as the last line, {"ok": true, "device": {...}}. Any
     failed phase exits non-zero.
 
@@ -5531,6 +5546,420 @@ def data_parallel_phase(torch, mods, card, tmp):
     return res
 
 
+# --- the point-based KITTI detectors: 3DSSD and PointRCNN ----------------
+PF_PATHS = (('configs/3dssd/3dssd_4x4_kitti-3d-car.py', 'ssd3d'),
+            ('configs/point_rcnn/point_rcnn_2x8_kitti-3d-3classes.py',
+             'point_rcnn'))
+PF_STEPS = 2                # recorded train steps of each detector
+PF_TOL = 1e-4               # card forward against the CPU's, of max|CPU|
+PF_STAGES = dict(
+    ssd3d=('D-FPS', 'F-FPS', 'ball query + grouping', 'SA MLPs', 'head',
+           'targets + loss', 'backward', 'clip + AdamW'),
+    point_rcnn=('D-FPS', 'ball query + grouping', 'SA MLPs', 'FP neck',
+                'RPN + NMS', 'RoI stage', 'targets + loss', 'backward',
+                'clip + AdamW'))
+
+
+def car_only(batch):
+    """A ``KittiDetDataset`` batch for the car config: Car (the dataset's
+    label 2) as label 0, the other classes' boxes dropped (3DSSD's car
+    config has ``num_classes=1``; with the dataset's labels it would meet
+    no positive)."""
+    car = batch['gt_valid'] & (batch['gt_labels'] == 2)
+    return dict(batch, gt_labels=np.where(car, 0, -1), gt_valid=car)
+
+
+@contextlib.contextmanager
+def point_stage_events(torch, model, kind):
+    """CUDA events around the parts of each 3DSSD or PointRCNN forward:
+    each farthest point sampling (D-FPS over xyz, F-FPS over wider
+    points) and grouping (``query_and_group``: ball query and gather),
+    the backbone's set abstractions and aggregation layers, the head
+    (3DSSD), the FP neck, the RPN head and its proposals, and the RoI
+    stage (sampler, pooling, bbox head) (PointRCNN). Yields ``spans``,
+    a list with one dict a forward of {part: [(start, end), ...]};
+    append a dict before each forward."""
+    from gga_tpu_torch.models.detectors import point_rcnn as prc
+    from gga_tpu_torch.ops import points as po
+    spans = []
+    where = ['backbone']
+
+    def add(key, pair):
+        spans[-1].setdefault(key, []).append(pair)
+
+    def timed(fn, key):
+        def wrapper(*a, **k):
+            pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            pair[0].record()
+            out = fn(*a, **k)
+            pair[1].record()
+            name = key(a) if callable(key) else key
+            add(f'{name}.{where[0]}', pair)
+            return out
+        return wrapper
+
+    def hooks(module, key, region=None):
+        pair = []
+
+        def pre(*_):
+            pair[:] = [torch.cuda.Event(enable_timing=True)
+                       for _ in range(2)]
+            pair[0].record()
+            if region:
+                where[0] = region
+
+        def post(*_):
+            pair[1].record()
+            add(key, tuple(pair))
+            if region:
+                where[0] = 'backbone'
+        return [module.register_forward_pre_hook(pre),
+                module.register_forward_hook(post)]
+
+    real = dict(fps=po.furthest_point_sample, qg=po.query_and_group)
+    po.furthest_point_sample = timed(
+        real['fps'], lambda a: 'D-FPS' if a[0].shape[-1] == 3 else 'F-FPS')
+    po.query_and_group = timed(real['qg'], 'grouping')
+    bb = model.backbone
+    handles = [h for m in (*bb.SA_modules,
+                           *(a for a in bb.aggregation_mlps if a is not None))
+               for h in hooks(m, 'sa')]
+    if kind == 'ssd3d':
+        handles += hooks(model.bbox_head, 'head', 'head')
+    else:
+        real.update(props=prc.rpn_proposals, sample=prc.assign_and_sample,
+                    pool=prc.roipoint_pool3d)
+        prc.rpn_proposals = timed(real['props'], 'proposals')
+        prc.assign_and_sample = timed(real['sample'], 'roi')
+        prc.roipoint_pool3d = timed(real['pool'], 'roi')
+        handles += hooks(model.neck, 'neck')
+        handles += hooks(model.rpn_head, 'rpn')
+        handles += hooks(model.roi_head['bbox_head'], 'bbox_head', 'head')
+    try:
+        yield spans
+    finally:
+        po.furthest_point_sample, po.query_and_group = real['fps'], real['qg']
+        if kind != 'ssd3d':
+            prc.rpn_proposals, prc.assign_and_sample, prc.roipoint_pool3d = (
+                real['props'], real['sample'], real['pool'])
+        for h in handles:
+            h.remove()
+
+
+def point_stage_ms(kind, spans, marks):
+    """Device ms of one step by PF_STAGES[kind] from its spans and its
+    marks (start, forward, loss, backward, optimizer events)."""
+    def total(*keys):
+        return sum(a.elapsed_time(b) for k in keys for a, b in spans.get(k,
+                                                                          []))
+    sampled = total('D-FPS.backbone', 'F-FPS.backbone',
+                    'grouping.backbone')
+    out = {'D-FPS': total('D-FPS.backbone', 'D-FPS.head'),
+           'F-FPS': total('F-FPS.backbone', 'F-FPS.head'),
+           'ball query + grouping': total('grouping.backbone',
+                                          'grouping.head'),
+           'SA MLPs': total('sa') - sampled}
+    in_head = total('D-FPS.head', 'F-FPS.head', 'grouping.head')
+    if kind == 'ssd3d':
+        out['head'] = total('head') - in_head
+    else:
+        del out['F-FPS']
+        out['FP neck'] = total('neck')
+        out['RPN + NMS'] = total('rpn') + total('proposals.backbone')
+        out['RoI stage'] = total('roi.backbone', 'bbox_head') - in_head
+    out.update({'targets + loss': marks[1].elapsed_time(marks[2]),
+                'backward': marks[2].elapsed_time(marks[3]),
+                'clip + AdamW': marks[3].elapsed_time(marks[4])})
+    return out
+
+
+def max_rel_diff(torch, got, ref):
+    """The largest |got - ref| over max|ref| of each float entry of two
+    nested output dicts (``ref`` on the CPU), and whether their integer
+    and bool entries are equal."""
+    out, equal = {}, True
+
+    def walk(g, r, name):
+        nonlocal equal
+        if isinstance(r, dict):
+            for k in r:
+                walk(g[k], r[k], f'{name}{k}.')
+        elif isinstance(r, (list, tuple)):
+            for i, (a, b) in enumerate(zip(g, r)):
+                walk(a, b, f'{name}{i}.')
+        elif torch.is_tensor(r):
+            g = g.detach().cpu()
+            r = r.detach()
+            if r.dtype.is_floating_point:
+                # equal entries (infinities too) differ by 0; a NaN where
+                # the CPU has none by inf
+                d = torch.where(g == r, 0.0, (g - r).abs()).nan_to_num(
+                    nan=float('inf'))
+                scale = float(r[torch.isfinite(r)].abs().max()) if bool(
+                    torch.isfinite(r).any()) else 0.0
+                out[name[:-1]] = (float(d.max()) / max(scale, 1e-30)
+                                  if r.numel() else 0.0)
+            elif not torch.equal(g, r):
+                equal = False
+                out[name[:-1]] = 'differs'
+    walk(got, ref, '')
+    return out, equal
+
+
+def point_card_vs_cpu(torch, model, kind, batch, label):
+    """The card's eval forward against the same weights' on the CPU, on
+    ``batch``: the level-0 D-FPS indices the card picks alone must equal
+    the CPU's; with the CPU's sampled indices given (and, for PointRCNN,
+    its proposals), every output within PF_TOL of the CPU's largest
+    entry. Prints, ungated, the share of each level's picks the card
+    makes alone that equal the CPU's (3DSSD's F-FPS halves apart)."""
+    import copy
+    cpu_model = copy.deepcopy(model).cpu().eval()
+    model.eval()
+    pts, val = (torch.as_tensor(batch[k]) for k in ('points',
+                                                    'points_valid'))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = cpu_model(pts, val)
+        cpu_s = time.perf_counter() - t0
+        alone = model(pts.to(DEVICE), val.to(DEVICE))
+        if kind == 'ssd3d':
+            given = model(pts.to(DEVICE), val.to(DEVICE),
+                          sample_idx=[i.to(DEVICE) for i in
+                                      ref['sample_idx']])
+            ref_idx, card_idx = ref['sample_idx'], alone['sample_idx']
+        else:
+            idx = {k: [i.to(DEVICE) for i in v]
+                   for k, v in ref['sample_idx'].items()}
+            props = {k: v.to(DEVICE) for k, v in ref['props'].items()}
+            given = model(pts.to(DEVICE), val.to(DEVICE), sample_idx=idx,
+                          proposals=props)
+            ref_idx = ref['sample_idx']['backbone']
+            card_idx = alone['sample_idx']['backbone']
+    model.train()
+    if not torch.equal(card_idx[0].cpu(), ref_idx[0]):
+        fail(f'{label}: the card\'s level-0 D-FPS indices differ from the '
+             'CPU\'s')
+    share = {}
+    for lvl, (c, r) in enumerate(zip(card_idx, ref_idx)):
+        c = c.cpu()
+        if kind == 'ssd3d' and lvl > 0:
+            half = r.shape[1] // 2            # the F-FPS half first
+            share[f'level {lvl} F-FPS'] = float(
+                (c[:, :half] == r[:, :half]).float().mean())
+            share[f'level {lvl} D-FPS'] = float(
+                (c[:, half:] == r[:, half:]).float().mean())
+        else:
+            share[f'level {lvl}'] = float((c == r).float().mean())
+    diffs, equal = max_rel_diff(torch, given, ref)
+    worst = max((v for v in diffs.values() if isinstance(v, float)),
+                default=0.0)
+    print(f'{label}: eval forward, card against CPU (TF32 off, the CPU\'s '
+          f'sampled indices{"" if kind == "ssd3d" else " and proposals"} '
+          f'given): max |d| / max|CPU| {worst:.3g} (gate {PF_TOL}), '
+          f'integer and mask outputs {"equal" if equal else "DIFFER"}; '
+          'the picks the card makes alone equal to the CPU\'s (not gated): '
+          + ', '.join(f'{k} {v:.4f}' for k, v in share.items())
+          + f'; the CPU forward {cpu_s:.1f} s')
+    if not equal or worst > PF_TOL:
+        bad = {k: v for k, v in diffs.items()
+               if not isinstance(v, float) or v > PF_TOL}
+        fail(f'{label}: card forward against the CPU: {bad}')
+    del cpu_model
+    return dict(max_rel_diff=worst, diffs=diffs, pick_share=share,
+                cpu_forward_s=cpu_s)
+
+
+def point_path(torch, mods, card, data, config, kind):
+    """One point-based detector (``config`` as shipped, f32, seeded random
+    weights) on the mini KITTI's trainval infos at the config's B and
+    ``max_points`` (3DSSD: Car as label 0, ``car_only``):
+
+    1. the card's eval forward against the CPU's (``point_card_vs_cpu``);
+    2. main path: PF_STEPS calls of ``apis.ssd3d_train_step`` /
+       ``point_rcnn_train_step`` on the config's optimizer and schedule
+       (3DSSD: the lr stepped at epochs 45 and 60; PointRCNN: the cyclic
+       lr of its 80 epochs), the counts set to 0 just before and read
+       just after: no kernel launched, finite losses, ``num_pos`` > 0,
+       each step's lr the schedule's, every parameter and BN statistic
+       moved (but zero-initialised biases no gradient reached, printed:
+       the RCNN's box branch where no sampled RoI is positive); CUDA
+       events by PF_STAGES, scenes/s by events, peak memory;
+    3. one ``infer_*`` call on a val batch: no launch, finite boxes
+       [B, n, 7] (3DSSD's dims at least 0.1)."""
+    import os
+
+    from gga_tpu_torch import apis
+    from gga_tpu_torch.config import Config
+    from gga_tpu_torch.data.kitti_det import KittiDetDataset
+    from gga_tpu_torch.models.builder import build_detector
+    from gga_tpu_torch.train.optim import (cyclic_cos_schedule,
+                                           piecewise_constant_schedule)
+    t0 = time.perf_counter()
+    cfg = Config.fromfile(str(ROOT / config))
+    model_cfg = build_detector(cfg)[1]
+    d = cfg.data
+    label = f'{kind} {Path(config).stem}'
+    batch = d.samples_per_gpu
+
+    def dataset(info, test_mode=False):
+        return KittiDetDataset(data, os.path.join(data, info),
+                               pc_range=cfg.point_cloud_range,
+                               pts_prefix=d.pts_prefix,
+                               max_points=d.max_points, seed=cfg.seed,
+                               test_mode=test_mode)
+
+    train_set = dataset(SUP_INFO)
+    prep = car_only if kind == 'ssd3d' else (lambda b: b)
+    batches = [prep(b) for b in train_set.epoch_batches(batch, seed=0)]
+    spe = len(batches)
+    if spe < PF_STEPS:
+        fail(f'{label}: {len(train_set)} train scenes give {spe} batches of '
+             f'{batch}, fewer than {PF_STEPS}')
+    opt = dict(cfg.optimizer)
+    if kind == 'ssd3d':
+        trainer = apis.init_ssd3d_trainer(model_cfg, spe, device=DEVICE,
+                                          seed=cfg.seed, optimizer=opt)
+        sched = piecewise_constant_schedule(
+            opt['lr'], {spe * e: opt['lr_gamma'] for e in opt['lr_steps']})
+        step_fn = apis.ssd3d_train_step
+    else:
+        total = spe * cfg.max_epochs
+        trainer = apis.init_point_rcnn_trainer(model_cfg, total,
+                                               device=DEVICE, seed=cfg.seed,
+                                               optimizer=opt)
+        sched = cyclic_cos_schedule(opt['lr'], opt['lr_target_ratio'],
+                                    opt['step_ratio_up'], total)
+        step_fn = apis.point_rcnn_train_step
+    model = trainer.model
+    n_pts = int(np.asarray(batches[0]['points_valid']).sum(-1).min())
+    print(f'{label}: B = {batch} x {d.max_points} points ({n_pts} valid in '
+          f'the first batch\'s sparsest scene), f32, {spe} steps an epoch, '
+          f'{sum(p.numel() for p in model.parameters())} parameters')
+    if not all(p.device.type == DEVICE for p in model.parameters()):
+        fail(f'{label}: parameters off the card')
+    res = dict(config=Path(config).name, batch=batch,
+               points=d.max_points, steps=PF_STEPS)
+
+    # --- 1. the card's eval forward against the CPU's --------------------
+    res['card_vs_cpu'] = point_card_vs_cpu(torch, model, kind, batches[0],
+                                           label)
+
+    # --- 2. main path ----------------------------------------------------
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {n: b.clone() for n, b in model.named_buffers()}
+    logs, lrs, marks = [], [], []
+    order = ('forward', 'loss', 'backward', 'optimizer')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(mods)
+    with point_stage_events(torch, model, kind) as spans:
+        for i in range(PF_STEPS):
+            ev = {k: torch.cuda.Event(enable_timing=True)
+                  for k in ('start',) + order}
+            spans.append({})
+            ev['start'].record()
+            logs.append(step_fn(trainer, batches[i],
+                                lambda name, ev=ev: ev[name].record()))
+            lrs.append(trainer.optimizer.adamw.param_groups[0]['lr'])
+            marks.append([ev[k] for k in ('start',) + order])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = counts(mods)
+    if any(launches.values()):
+        fail(f'{label}: {PF_STEPS} train steps launched {launches}; the '
+             'point detectors reach no hand kernel')
+    for i, (lg, lr) in enumerate(zip(logs, lrs)):
+        finite_logs(torch, lg, f'{label} step {i + 1}')
+        if not all(v.device.type == DEVICE for v in lg.values()):
+            fail(f'{label}: step {i + 1} logs off the card')
+        if not float(lg['num_pos']) > 0:
+            fail(f'{label}: step {i + 1} met no positive')
+        if not abs(lr - sched(i)) <= 1e-12 * sched(i):
+            fail(f'{label}: step {i + 1} ran at lr {lr}, the schedule gives '
+                 f'{sched(i)}')
+    stuck = [n for n, p in model.named_parameters()
+             if torch.equal(p, params0[n]) and bool(params0[n].any())]
+    unreached = [n for n, p in model.named_parameters()
+                 if torch.equal(p, params0[n]) and not params0[n].any()]
+    stuck += [n for n, b in model.named_buffers()
+              if torch.equal(b, stats0[n]) or not torch.isfinite(b).all()]
+    if stuck:
+        fail(f'{label}: {len(stuck)} tensors did not move: {stuck[:8]}')
+    del params0, stats0
+    step_ms = [m[0].elapsed_time(m[-1]) for m in marks]
+    timed = list(range(1, PF_STEPS)) or [0]
+    res['unreached'] = unreached
+    stages = {k: float(np.mean([point_stage_ms(kind, spans[i], marks[i])[k]
+                                for i in timed])) for k in PF_STAGES[kind]}
+    res.update(step_device_ms=step_ms, stage_ms=stages, peak_bytes=peak,
+               launches=launches, lrs=lrs,
+               scenes_per_s_events=batch * len(timed) / (
+                   sum(step_ms[i] for i in timed) / 1e3),
+               logs=[{k: float(v) for k, v in lg.items()} for lg in logs])
+    print(f'{card}: {label}: {PF_STEPS} steps at B={batch} (f32): step '
+          f'device ms {[round(v, 1) for v in step_ms]}, '
+          f'{res["scenes_per_s_events"]:.2f} scenes/s by CUDA events (steps '
+          f'{[i + 1 for i in timed]}), peak {peak / 2 ** 30:.2f} GiB; '
+          f'launches {launches}; lr {lrs}')
+    print(f'{card}: {label}: device ms a step by stage (events, steps '
+          f'{[i + 1 for i in timed]}): ' + ', '.join(
+              f'{k} {v:.1f}' for k, v in stages.items()))
+    print(f'{label}: losses ' + ', '.join(
+        f'{k} {[round(lg[k], 4) for lg in res["logs"]]}'
+        for k in res['logs'][0])
+        + (f'; zero-initialised and unreached (no positive RoI): '
+           f'{unreached}' if unreached else ''))
+
+    # --- 3. one inference call ------------------------------------------
+    val = next(dataset(SUP_VAL_INFO, test_mode=True).epoch_batches(
+        batch, shuffle=False))
+    bundle = apis.DetectorBundle(model, model_cfg, torch.device(DEVICE))
+    infer = apis.infer_ssd3d if kind == 'ssd3d' else apis.infer_point_rcnn
+    zero_counts(mods)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    det = infer(bundle, val['points'], val['points_valid'])
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t1
+    if any(counts(mods).values()):
+        fail(f'{label}: inference launched {counts(mods)}')
+    boxes = det['boxes']
+    n_out = (model_cfg.head.max_out if kind == 'ssd3d'
+             else model_cfg.rpn.num_proposals)
+    if tuple(boxes.shape) != (batch, n_out, 7) or boxes.device.type != DEVICE:
+        fail(f'{label}: inference gave boxes {tuple(boxes.shape)} on '
+             f'{boxes.device}, expected ({batch}, {n_out}, 7) on the card')
+    if not torch.isfinite(boxes).all():
+        fail(f'{label}: non-finite boxes')
+    if kind == 'ssd3d' and not bool((boxes[..., 3:6] >= 0.1).all()):
+        fail(f'{label}: boxes with a dim below 0.1')
+    res['infer'] = dict(seconds=infer_s, scenes_per_s=batch / infer_s,
+                        kept=int(det['valid'].sum()))
+    res['seconds'] = time.perf_counter() - t0
+    print(f'{card}: {label}: one inference call on {batch} val scenes '
+          f'{infer_s * 1e3:.1f} ms (host clock, decode and NMS included), '
+          f'{res["infer"]["kept"]} boxes kept; the path '
+          f'{res["seconds"]:.1f} s')
+    del trainer, model, bundle
+    torch.cuda.empty_cache()
+    return res
+
+
+def point_family_phase(torch, mods, card, tmp):
+    """3DSSD and PointRCNN (``point_path`` on each PF_PATHS config) on the
+    workflow's mini KITTI under ``tmp/kitti`` (its trainval infos; stage
+    1's reduced clouds, ``max_points`` = 16 384 a scene)."""
+    import os
+    t0 = time.perf_counter()
+    data = os.path.join(tmp, 'kitti')
+    res = {kind: point_path(torch, mods, card, data, config, kind)
+           for config, kind in PF_PATHS}
+    res['seconds'] = time.perf_counter() - t0
+    print(f'{card}: point family phase: {res["seconds"]:.1f} s')
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5662,6 +6091,9 @@ def main():
         torch.cuda.empty_cache()
         # --- the sharded stage 3 and the two-rank GGA step ---
         dp = data_parallel_phase(torch, mods, card, tmp)
+        torch.cuda.empty_cache()
+        # --- the point-based KITTI detectors: 3DSSD and PointRCNN ---
+        pf = point_family_phase(torch, mods, card, tmp)
 
     launches, launches_f32 = tr['launches'], f32['train']['launches']
     kernels = [
@@ -5773,6 +6205,11 @@ def main():
             'launches', 'max_abs_err', 'ms', 'device_ms', 'plain_ms',
             'bound_ms', 'bound_by', 'bound_share', 'device_bound_share',
             'ffma_bound_ms', 'library_ms')}
+    # the point-based detectors reach no kernel: their launches, 0
+    for entry in kernels:
+        entry['point_family'] = dict(launches=sum(
+            pf[kind]['launches'].get(entry['name'].replace('_f32', ''), 0)
+            for _, kind in PF_PATHS))
     print('kernels, summed over the train path\'s calls (ms by CUDA '
           'events, device ms by the profiler, share of the bound):')
     for k in kernels:
@@ -5819,7 +6256,7 @@ def main():
                        f32=f32, workflow=wf, stage4=s4, indoor=ind,
                        supervised=sup, accuracy=acc, voxel_family=vf,
                        centerpoint=cp, parta2=pa, indoor_family=fam,
-                       data_parallel=dp),
+                       data_parallel=dp, point_family=pf),
                   fh, indent=1, default=str)
 
     print(card)

@@ -11,7 +11,8 @@ PointPillars, DynamicVoxelNet, DVSECOND and SASSD; and for the fully
 supervised nuScenes path, the same for CenterPoint (voxel and pillar,
 with or without the DCN head, rotated or circle NMS); and for the
 two-stage KITTI detector, the same for PartA2; and for the indoor
-point-based detector, the same for VoteNet."""
+point-based detector, the same for VoteNet; and for the point-based KITTI
+detectors, the same for 3DSSD and PointRCNN."""
 from __future__ import annotations
 
 import dataclasses
@@ -28,6 +29,7 @@ from .models.detectors.centerpoint_gga import (GGADetector, GGAModelConfig,
                                                decode_detections)
 from .models.dense_heads import anchor3d_head, fcaf3d_head, pgd_head
 from .models.dense_heads import vote_head
+from .models.dense_heads.ssd_3d_head import decode_ssd3d
 from .models.detectors.dynamic_voxelnet import (DVSECONDConfig,
                                                 DVSECONDDetector,
                                                 DynamicVoxelNet,
@@ -36,7 +38,10 @@ from .models.detectors.fcaf3d import FCAF3DDetector, FCAF3DModelConfig
 from .models.detectors.parta2 import (PartA2Config, PartA2Detector,
                                       decode_parta2)
 from .models.detectors.pgd import PGDDetector, PGDModelConfig
+from .models.detectors.point_rcnn import (PointRCNNConfig, PointRCNNDetector,
+                                          decode_point_rcnn)
 from .models.detectors.sassd import SASSD, SASSDConfig
+from .models.detectors.ssd3d import SSD3DNet, SSD3DNetConfig
 from .models.detectors.votenet import VoteNet, VoteNetConfig
 from .models.detectors.voxelnet import (PointPillars, PointPillarsConfig,
                                         SECONDDetector, SECONDNetConfig)
@@ -661,3 +666,135 @@ def infer_votenet(bundle: DetectorBundle, points, points_valid):
                   torch.as_tensor(points_valid, dtype=torch.bool,
                                   device=bundle.device))
     return vote_head.decode(bundle.cfg.head, preds)
+
+
+def _init_point_detector(model, state_dict, device, seed):
+    dev = resolve_device(device)
+    if state_dict is None:
+        model.init_weights(torch.Generator().manual_seed(seed))
+    else:
+        model.load_state_dict(state_dict)
+    return DetectorBundle(model.to(dev).eval(), model.cfg, dev)
+
+
+def _det_batch(trainer, batch):
+    dev = next(trainer.model.parameters()).device
+    return {k: torch.as_tensor(batch[k], dtype=dt, device=dev)
+            for k, dt in _DET_DTYPES.items()}
+
+
+def _points(bundle, points, points_valid):
+    return (torch.as_tensor(points, dtype=torch.float32, device=bundle.device),
+            torch.as_tensor(points_valid, dtype=torch.bool,
+                            device=bundle.device))
+
+
+# configs/3dssd/3dssd_4x4_kitti-3d-car.py's optimizer block
+SSD3D_OPTIMIZER = dict(lr=0.002, weight_decay=0.0, grad_clip=10.0,
+                       lr_policy='step', lr_steps=(45, 60), lr_gamma=0.1)
+
+
+def init_ssd3d_detector(cfg: SSD3DNetConfig, state_dict=None, device='cuda',
+                        seed=0) -> DetectorBundle:
+    """The 3DSSD detector in eval mode on ``device`` (f32, as gga_tpu's).
+
+    With a ``state_dict`` (mmdet3d keys, e.g. from
+    ``convert.from_jax_variables``) the weights are loaded strictly;
+    without one they are drawn from ``torch.Generator().manual_seed(seed)``
+    (``SSD3DNet.init_weights``). Raises if ``device`` is CUDA and no card
+    is present."""
+    return _init_point_detector(SSD3DNet(cfg), state_dict, device, seed)
+
+
+def init_ssd3d_trainer(cfg: SSD3DNetConfig, steps_per_epoch, state_dict=None,
+                       device='cuda', seed=0, optimizer=None) -> TrainState:
+    """The 3DSSD detector (``init_ssd3d_detector``'s) in train mode on
+    ``device`` with its config's optimizer (``build_fcaf3d_optimizer(
+    params, steps_per_epoch, **optimizer)``: the global-norm clip, AdamW
+    and the lr stepped down at the ``lr_steps`` epochs; ``optimizer`` is a
+    config file's ``optimizer`` block, ``SSD3D_OPTIMIZER`` when None)."""
+    model = init_ssd3d_detector(cfg, state_dict, device, seed).model.train()
+    opt = dict(SSD3D_OPTIMIZER if optimizer is None else optimizer)
+    return TrainState(model=model,
+                      optimizer=build_fcaf3d_optimizer(model.parameters(),
+                                                       steps_per_epoch,
+                                                       **opt),
+                      step=0, generator=torch.Generator().manual_seed(seed))
+
+
+def ssd3d_train_step(trainer: TrainState, batch, mark=None):
+    """One 3DSSD train step on a batch of ``KittiDetDataset`` samples (as
+    tensors or numpy; the labels of the config's classes, Car 0 for the
+    car config). ``mark`` is the step's stage hook
+    (``loop.ssd3d_train_step``). Returns the step's logs as 0-d tensors
+    on the trainer's device."""
+    return loop.ssd3d_train_step(trainer, _det_batch(trainer, batch), mark)
+
+
+@torch.no_grad()
+def infer_ssd3d(bundle: DetectorBundle, points, points_valid):
+    """3DSSD inference on a batch: forward in eval mode, then
+    ``decode_ssd3d`` (the boxes and a class-aware BEV NMS).
+
+    Args:
+        points: [B, P, 4] f32 (tensor or numpy); points_valid: [B, P] bool.
+    Returns:
+        dict(boxes [B, max_out, 7] bottom-centre lidar, scores, labels,
+        valid) on the bundle's device.
+    """
+    preds = bundle.model.eval()(*_points(bundle, points, points_valid))
+    return decode_ssd3d(bundle.cfg.head, preds)
+
+
+def init_point_rcnn_detector(cfg: PointRCNNConfig, state_dict=None,
+                             device='cuda', seed=0) -> DetectorBundle:
+    """The PointRCNN detector in eval mode on ``device`` (f32, as
+    gga_tpu's); the weights as ``init_ssd3d_detector``'s
+    (``PointRCNNDetector.init_weights`` when drawn)."""
+    return _init_point_detector(PointRCNNDetector(cfg), state_dict, device,
+                                seed)
+
+
+def init_point_rcnn_trainer(cfg: PointRCNNConfig, total_steps,
+                            state_dict=None, device='cuda', seed=0,
+                            optimizer=None) -> TrainState:
+    """The PointRCNN detector (``init_point_rcnn_detector``'s) in train
+    mode on ``device`` with the KITTI recipe's optimizer
+    (``build_optimizer(params, total_steps, **optimizer)``: the global-norm
+    clip, AdamW and the cyclic lr and beta1 of a config file's
+    ``optimizer`` block, configs/_base_/schedules/cyclic_40e.py's under
+    the PointRCNN config's lr and betas) and a generator, seeded with
+    ``seed``, for the RoI sampler's draws."""
+    model = init_point_rcnn_detector(cfg, state_dict, device,
+                                     seed).model.train()
+    return TrainState(model=model,
+                      optimizer=build_optimizer(model.parameters(),
+                                                total_steps,
+                                                **(optimizer or {})),
+                      step=0, generator=torch.Generator().manual_seed(seed))
+
+
+def point_rcnn_train_step(trainer: TrainState, batch, mark=None,
+                          sample_u=None):
+    """One PointRCNN train step on a batch of ``KittiDetDataset`` samples
+    (as tensors or numpy). ``mark`` is the step's stage hook and
+    ``sample_u`` the RoI sampler's draw (``loop.point_rcnn_train_step``).
+    Returns the step's logs as 0-d tensors on the trainer's device."""
+    return loop.point_rcnn_train_step(trainer, _det_batch(trainer, batch),
+                                      mark, sample_u)
+
+
+@torch.no_grad()
+def infer_point_rcnn(bundle: DetectorBundle, points, points_valid):
+    """PointRCNN inference on a batch: forward in eval mode (the test
+    proposals, their pooling and the RCNN), then ``decode_point_rcnn``
+    (the refined boxes and a rotated BEV NMS).
+
+    Args:
+        points: [B, P, 4] f32 (tensor or numpy); points_valid: [B, P] bool.
+    Returns:
+        dict(boxes [B, R, 7] bottom-centre lidar, scores, labels, valid) on
+        the bundle's device, R = ``rpn.num_proposals``.
+    """
+    out = bundle.model.eval()(*_points(bundle, points, points_valid))
+    return decode_point_rcnn(bundle.cfg, out)

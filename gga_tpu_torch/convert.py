@@ -17,8 +17,31 @@ SECOND + SECONDFPN, the RPN, the semantic head and the part-aggregation
 bbox head, whose dense 3-D convs and linears keep torch's layouts); and
 VoteNet (``votenet_rules``, the copy of ``torch2flax.votenet_rules`` and
 ``_votenet_pred_slices``: the fused ``pred_out`` goes to mmdet3d's
-``conv_cls`` and ``conv_reg`` as ``export_votenet`` splits it). A
-released mmdet3d GGA checkpoint loads into the port directly, with no
+``conv_cls`` and ``conv_reg`` as ``export_votenet`` splits it); and the
+point-based KITTI detectors, which ``torch2flax`` has no rules for:
+3DSSD (``ssd3d_rules``) and PointRCNN (``point_rcnn_rules``), under
+mmdet3d's module names:
+
+- ``backbone.SA_modules.{i}.mlps.{j}.layer{k}.conv.weight`` / ``.bn.*``
+  from ``PointNet2SAMSG_0/sa{i}/mlp{j}/fc{k}`` / ``bn{k}`` (Conv2d), and
+  3DSSD's ``backbone.aggregation_mlps.{i}`` from ``sa{i}/aggregation``;
+- 3DSSD's ``bbox_head.vote_module.vote_conv.{k}`` / ``conv_out`` from
+  ``SSD3DHead_0/vote_mlp`` / ``vote_out``, ``bbox_head.vote_aggregation
+  .mlps.{j}`` from ``vote_aggregation/mlp{j}``, ``bbox_head.conv_pred
+  .shared_convs`` / ``cls_convs`` / ``conv_cls`` / ``reg_convs`` /
+  ``conv_reg`` from ``pred_shared`` / ``cls_convs`` / ``conv_cls`` /
+  ``reg_convs`` / ``conv_reg``;
+- PointRCNN's ``neck.FP_modules.{i}.mlps.layer{k}`` from
+  ``PointNetFPNeck_0/fp{i}/SharedMLP_0``; ``rpn_head.cls_layers.{3k}``
+  (Linear) / ``{3k + 1}`` (norm) / ``{3n}`` (Linear with bias) from
+  ``PointRPNHead_0/cls_fc{k}`` / ``cls_bn{k}`` / ``cls_out`` (and
+  ``reg_``); ``roi_head.bbox_head.xyz_up_layer.{k}`` /
+  ``merge_down_layer`` / ``SA_modules.{i}.mlps.0.layer{k}`` from
+  ``PointRCNNBboxHead_0/xyz_up`` / ``merge_down`` / ``sa{i}`` (its
+  ``SharedMLP_0`` where the level samples), and ``cls_layer.{k}`` /
+  ``cls_layer.{n}`` from ``cls`` / ``cls_out`` (and ``reg``).
+
+A released mmdet3d GGA checkpoint loads into the port directly, with no
 conversion.
 """
 from __future__ import annotations
@@ -35,7 +58,9 @@ from .models.detectors.dynamic_voxelnet import DynamicVoxelNetConfig
 from .models.detectors.fcaf3d import FCAF3DModelConfig
 from .models.detectors.parta2 import PartA2Config
 from .models.detectors.pgd import PGDModelConfig
+from .models.detectors.point_rcnn import PointRCNNConfig
 from .models.detectors.sassd import SASSDConfig
+from .models.detectors.ssd3d import SSD3DNetConfig
 from .models.detectors.votenet import VoteNetConfig
 from .models.detectors.voxelnet import PointPillarsConfig, SECONDNetConfig
 
@@ -568,6 +593,101 @@ def votenet_rules(cfg: VoteNetConfig):
     return rules
 
 
+def _conv_bn(rules, torch_prefix, flax_prefix, k, conv='conv1x1'):
+    """A ConvBN ``{torch_prefix}.conv`` / ``.bn`` from flax's ``fc{k}`` /
+    ``bn{k}`` under ``flax_prefix``."""
+    rules.append((f'{torch_prefix}.conv.weight', 'params',
+                  f'{flax_prefix}/fc{k}/kernel', conv))
+    rules.extend(_bn_moves(f'{torch_prefix}.bn', f'{flax_prefix}/bn{k}'))
+
+
+def _shared_mlp(rules, torch_prefix, flax_prefix, channels, child='layer{k}',
+                conv='conv1x1'):
+    for k in range(len(channels)):
+        _conv_bn(rules, f'{torch_prefix}.{child.format(k=k)}', flax_prefix,
+                 k, conv)
+
+
+def _conv_out(rules, torch_prefix, flax_prefix, transform='conv1x1'):
+    rules.append((f'{torch_prefix}.weight', 'params',
+                  f'{flax_prefix}/kernel', transform))
+    rules.append((f'{torch_prefix}.bias', 'params', f'{flax_prefix}/bias',
+                  'copy'))
+
+
+def _samsg_rules(rules, sa_channels, aggregation_channels=None):
+    bb = 'PointNet2SAMSG_0'
+    for i, level in enumerate(sa_channels):
+        for j, chans in enumerate(level):
+            _shared_mlp(rules, f'backbone.SA_modules.{i}.mlps.{j}',
+                        f'{bb}/sa{i}/mlp{j}', chans, conv='conv1x1_2d')
+        if aggregation_channels and aggregation_channels[i]:
+            _conv_bn(rules, f'backbone.aggregation_mlps.{i}',
+                     f'{bb}/sa{i}/aggregation', 0)
+
+
+def ssd3d_rules(cfg: SSD3DNetConfig):
+    """(torch key, collection, flax path, transform) of 3DSSD: the MSG
+    encoder with its aggregation layers, and the head (the module
+    docstring lists the names)."""
+    rules = []
+    _samsg_rules(rules, cfg.sa_channels, cfg.aggregation_channels)
+    h, hd = cfg.head, 'SSD3DHead_0'
+    _shared_mlp(rules, 'bbox_head.vote_module.vote_conv', f'{hd}/vote_mlp',
+                h.vote_conv_channels, child='{k}')
+    _conv_out(rules, 'bbox_head.vote_module.conv_out', f'{hd}/vote_out')
+    for j, chans in enumerate(h.agg_mlps):
+        _shared_mlp(rules, f'bbox_head.vote_aggregation.mlps.{j}',
+                    f'{hd}/vote_aggregation/mlp{j}', chans,
+                    conv='conv1x1_2d')
+    cp = 'bbox_head.conv_pred'
+    for t, f, chans in (('shared_convs', 'pred_shared',
+                         h.shared_conv_channels),
+                        ('cls_convs', 'cls_convs', h.cls_conv_channels),
+                        ('reg_convs', 'reg_convs', h.reg_conv_channels)):
+        _shared_mlp(rules, f'{cp}.{t}', f'{hd}/{f}', chans)
+    for t in ('conv_cls', 'conv_reg'):
+        _conv_out(rules, f'{cp}.{t}', f'{hd}/{t}')
+    return rules
+
+
+def point_rcnn_rules(cfg: PointRCNNConfig):
+    """(torch key, collection, flax path, transform) of PointRCNN: the MSG
+    encoder, the FP neck, the RPN's linear branches and the RoI bbox head
+    (the module docstring lists the names)."""
+    rules = []
+    _samsg_rules(rules, cfg.sa_channels)
+    for i, chans in enumerate(cfg.fp_channels):
+        _shared_mlp(rules, f'neck.FP_modules.{i}.mlps',
+                    f'PointNetFPNeck_0/fp{i}/SharedMLP_0', chans)
+    rp = 'PointRPNHead_0'
+    for name, chans in (('cls', cfg.rpn.cls_channels),
+                        ('reg', cfg.rpn.reg_channels)):
+        t = f'rpn_head.{name}_layers'
+        for k in range(len(chans)):
+            rules.append((f'{t}.{3 * k}.weight', 'params',
+                          f'{rp}/{name}_fc{k}/kernel', 'linear'))
+            rules.extend(_bn_moves(f'{t}.{3 * k + 1}',
+                                   f'{rp}/{name}_bn{k}'))
+        _conv_out(rules, f'{t}.{3 * len(chans)}', f'{rp}/{name}_out',
+                  'linear')
+    b, bh, h = cfg.bbox, 'roi_head.bbox_head', 'PointRCNNBboxHead_0'
+    _shared_mlp(rules, f'{bh}.xyz_up_layer', f'{h}/xyz_up', b.mlp_channels,
+                child='{k}', conv='conv1x1_2d')
+    _conv_bn(rules, f'{bh}.merge_down_layer', f'{h}/merge_down', 0,
+             'conv1x1_2d')
+    for i, chans in enumerate(b.sa_channels):
+        f = f'{h}/sa{i}' + ('/SharedMLP_0' if b.num_points[i] > 0 else '')
+        _shared_mlp(rules, f'{bh}.SA_modules.{i}.mlps.0', f, chans,
+                    conv='conv1x1_2d')
+    for name, chans in (('cls', b.cls_channels), ('reg', b.reg_channels)):
+        _shared_mlp(rules, f'{bh}.{name}_layer', f'{h}/{name}', chans,
+                    child='{k}')
+        _conv_out(rules, f'{bh}.{name}_layer.{len(chans)}',
+                  f'{h}/{name}_out')
+    return rules
+
+
 def _to_torch_layout(name, x):
     """One flax tensor -> its mmdet3d state_dict layout."""
     x = np.asarray(x)
@@ -621,6 +741,8 @@ def rules_of(cfg):
     ``DynamicVoxelNetConfig`` of ``PointPillarsConfig``) are tested before
     their bases; DVSECOND has SECOND's tensors."""
     for cls, rules in ((VoteNetConfig, votenet_rules),
+                       (SSD3DNetConfig, ssd3d_rules),
+                       (PointRCNNConfig, point_rcnn_rules),
                        (PartA2Config, parta2_rules),
                        (CenterPointConfig, centerpoint_rules),
                        (PGDModelConfig, pgd_rules),
@@ -640,7 +762,8 @@ def from_jax_variables(variables_np, cfg):
     ``PGDModelConfig``, ``FCAF3DModelConfig``, ``CenterPointConfig``, or
     the config of an anchor detector: ``SECONDNetConfig``,
     ``PointPillarsConfig``, ``DynamicVoxelNetConfig``, ``DVSECONDConfig``
-    or ``SASSDConfig``, or a ``PartA2Config`` or ``VoteNetConfig``) ->
+    or ``SASSDConfig``, or a ``PartA2Config``, ``VoteNetConfig``,
+    ``SSD3DNetConfig`` or ``PointRCNNConfig``) ->
     the port's ``load_state_dict`` input (f32 tensors)."""
     flat = {c: _flatten(variables_np.get(c, {}))
             for c in ('params', 'batch_stats')}

@@ -3,8 +3,10 @@ port's copy of ``gga_tpu/models/builder.py``: the GGA detector, the
 stage-4 PGD detector, the indoor FCAF3D detector, the fully supervised
 KITTI voxel detectors: SECOND, PointPillars, DynamicVoxelNet, DVSECOND and
 SASSD and the two-stage PartA2, the fully supervised nuScenes
-CenterPoint of ``configs/centerpoint/`` and the indoor VoteNet of
-``configs/votenet/``; the rest of the zoo waits for its own slices).
+CenterPoint of ``configs/centerpoint/``, the indoor VoteNet of
+``configs/votenet/`` and the point-based KITTI detectors 3DSSD
+(``configs/3dssd/``) and PointRCNN (``configs/point_rcnn/``); the rest of
+the zoo waits for its own slices).
 
 ``config_from_dict`` converts the python config-file dict into the typed
 frozen dataclass (recursively, lists -> tuples, nested dicts -> nested
@@ -29,7 +31,9 @@ from .detectors.dynamic_voxelnet import (DVSECONDConfig, DVSECONDDetector,
 from .detectors.fcaf3d import FCAF3DDetector, FCAF3DModelConfig
 from .detectors.parta2 import PartA2Config, PartA2Detector
 from .detectors.pgd import PGDDetector, PGDModelConfig
+from .detectors.point_rcnn import PointRCNNConfig, PointRCNNDetector
 from .detectors.sassd import SASSD, SASSDConfig
+from .detectors.ssd3d import SSD3DNet, SSD3DNetConfig
 from .detectors.votenet import VoteNet, VoteNetConfig
 from .detectors.voxelnet import (PointPillars, PointPillarsConfig,
                                  SECONDDetector, SECONDNetConfig)
@@ -105,6 +109,8 @@ _register_family('SASSD', SASSDConfig, SASSD)
 _register_family('PartA2Detector', PartA2Config, PartA2Detector)
 _register_family('CenterPointDetector', CenterPointConfig, CenterPointDetector)
 _register_family('VoteNet', VoteNetConfig, VoteNet)
+_register_family('PointRCNNDetector', PointRCNNConfig, PointRCNNDetector)
+_register_family('SSD3DNet', SSD3DNetConfig, SSD3DNet)
 
 
 def build_detector(cfg):

@@ -1,9 +1,10 @@
 """Loss functions shared by the port's heads (port of
-``gga_tpu/models/losses.py`` ``smooth_l1_loss`` and
+``gga_tpu/models/losses.py`` ``smooth_l1_loss``, ``focal_loss`` and
 ``axis_aligned_iou_loss``)."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def smooth_l1_loss(pred, target, beta=1.0):
@@ -11,6 +12,20 @@ def smooth_l1_loss(pred, target, beta=1.0):
     above it, d = |pred - target|."""
     d = (pred - target).abs()
     return torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta)
+
+
+def focal_loss(logits, labels, num_classes, gamma=2.0, alpha=0.25):
+    """Sigmoid focal loss summed over the classes; a label outside [0,
+    num_classes) (the background, num_classes, or a padding -1) is all
+    negative, as ``jax.nn.one_hot`` gives it."""
+    onehot = (labels[..., None] == torch.arange(
+        num_classes, device=labels.device)).float()
+    p = torch.sigmoid(logits)
+    pt = p * onehot + (1 - p) * (1 - onehot)
+    w = alpha * onehot + (1 - alpha) * (1 - onehot)
+    ce = -(onehot * F.logsigmoid(logits)
+           + (1 - onehot) * F.logsigmoid(-logits))
+    return (w * (1 - pt) ** gamma * ce).sum(-1)
 
 
 def axis_aligned_iou_loss(pred, target):

@@ -8,13 +8,18 @@ gga_tpu computes these with XLA, not Pallas, so they are plain PyTorch.
 Distances follow gga_tpu's formula ``|a|^2 + |b|^2 - 2 a.b`` (clamped at
 0), which loses most of its digits to cancellation far from the origin;
 the port keeps the formula, since the neighbours it picks are part of
-the result. The norms accumulate as XLA's reduction does on the CPU (one
-fused multiply-add a coordinate, emulated in float64), the dot product is
-a full f32 matrix product (TF32 is off on the card, ``device.py``), and
-neighbours are ordered by (distance, index), so equal distances keep
-``jax.lax.top_k``'s order: the lower index first. Farthest point sampling
-accumulates its ``|p - last|^2`` the same way, and its argmax, like
-``jnp.argmax``, takes the first of equal values.
+the result. The norms accumulate as XLA's reduction does on the CPU
+(``squared_norm``), and so does the dot product (``pairwise_dot``: one
+fused multiply-add a coordinate, emulated in float64, on every device),
+so that the card's distances are the CPU's bits: a point's squared
+distance to itself is all cancellation at KITTI's ranges (|a|^2 near
+5 000 has an ulp of 5e-4), and three-NN's inverse-distance weight of a
+point that coincides with its source swings from 1e8 to 2e3 with one
+ulp. Neighbours are ordered by (distance, index), so equal distances
+keep ``jax.lax.top_k``'s order: the lower index first. Farthest point
+sampling, over xyz or over any wider feature (3DSSD's F-FPS),
+accumulates its ``|p - last|^2`` as ``squared_norm`` does, and its
+argmax, like ``jnp.argmax``, takes the first of equal values.
 """
 from __future__ import annotations
 
@@ -31,15 +36,58 @@ QUERY_BLOCK = 2048
 BALL_QUERY_ELEMENTS = 1 << 27
 
 
+# XLA's CPU compiler splits a reduction longer than this into windows of
+# this size (its TreeReductionRewriter)
+XLA_REDUCE_WINDOW = 32
+
+
 def squared_norm(x):
-    """[..., 3] -> [...] f32 ``x0^2 + x1^2 + x2^2``, accumulated as XLA's
-    CPU reduction does: x0 * x0 rounded, then one fused multiply-add for
-    each further coordinate (exact products in float64, one rounding a
-    step)."""
-    x64 = x.double()
-    acc = (x[..., 0] * x[..., 0]).double()
-    for i in range(1, x.shape[-1]):
-        acc = (acc + x64[..., i] * x64[..., i]).float().double()
+    """[..., D] -> [...] f32 sum of squares over the last dim, accumulated
+    as XLA's CPU reduction of ``jnp.sum(x ** 2, -1)`` does, so that the
+    bits are gga_tpu's:
+
+    - D <= 32: the square fuses into the reduction, so x0 * x0 rounded,
+      then one fused multiply-add for each further entry (exact products
+      in float64, one rounding a step);
+    - D > 32: XLA rewrites the reduction as a reduce-window of 32 entries,
+      stride 32, over the row padded with zeros, ``pad // 2`` before and
+      the rest after (to a multiple of 32), and then a reduction of the
+      window sums (the same rule again while they are more than 32). The
+      squares are rounded on their own, each window and the last
+      reduction add in order from 0.
+    """
+    D = x.shape[-1]
+    if D <= XLA_REDUCE_WINDOW:
+        x64 = x.double()
+        acc = (x[..., 0] * x[..., 0]).double()
+        for i in range(1, D):
+            acc = (acc + x64[..., i] * x64[..., i]).float().double()
+        return acc.float()
+    vals = x * x
+    while vals.shape[-1] > XLA_REDUCE_WINDOW:
+        n = vals.shape[-1]
+        pad = -n % XLA_REDUCE_WINDOW
+        vals = torch.nn.functional.pad(vals, (pad // 2, pad - pad // 2))
+        vals = vals.reshape(*vals.shape[:-1], -1, XLA_REDUCE_WINDOW)
+        acc = vals[..., 0]
+        for i in range(1, XLA_REDUCE_WINDOW):
+            acc = acc + vals[..., i]
+        vals = acc
+    acc = vals[..., 0]
+    for i in range(1, vals.shape[-1]):
+        acc = acc + vals[..., i]
+    return acc
+
+
+def pairwise_dot(a, b):
+    """[..., N, D] x [..., M, D] -> [..., N, M] f32 dot products,
+    accumulated as XLA's CPU dot (and torch's CPU matmul) does at these
+    widths: a0 * b0 rounded, then one fused multiply-add a coordinate
+    (exact products in float64, one rounding a step), on any device."""
+    acc = (a[..., :, None, 0] * b[..., None, :, 0]).double()
+    for i in range(1, a.shape[-1]):
+        acc = (acc + a[..., :, None, i].double()
+               * b[..., None, :, i].double()).float().double()
     return acc.float()
 
 
@@ -47,7 +95,7 @@ def square_distance(a, b, a_valid=None, b_valid=None):
     """[B, N, 3] x [B, M, 3] -> [B, N, M] squared euclidean distances
     (gga_tpu ``square_distance``); entries of invalid points are ``BIG``."""
     d = (squared_norm(a)[..., :, None] + squared_norm(b)[..., None, :]
-         - 2 * torch.matmul(a, b.transpose(-1, -2)))
+         - 2 * pairwise_dot(a, b))
     d = d.clamp(min=0.0)
     if a_valid is not None:
         d = torch.where(a_valid[..., :, None], d, BIG)
@@ -135,11 +183,12 @@ def furthest_point_sample(points, valid, num_samples):
     ``num_samples - 1`` sequential argmax steps, with no host sync.
 
     Args:
-        points: [B, P, 3]; valid: [B, P] bool.
+        points: [B, P, D] (xyz, or 3DSSD's [xyz, features]); valid: [B, P]
+            bool.
     Returns:
         [B, num_samples] int64 indices.
     """
-    B = points.shape[0]
+    B, _, D = points.shape
     with torch.no_grad():
         start = valid.to(torch.uint8).argmax(-1)
         idxs = torch.empty(B, num_samples, dtype=torch.long,
@@ -148,7 +197,7 @@ def furthest_point_sample(points, valid, num_samples):
         min_d = torch.where(valid, BIG, -1.0)
         last = start
         for i in range(1, num_samples):
-            lp = points.gather(1, last[:, None, None].expand(B, 1, 3))
+            lp = points.gather(1, last[:, None, None].expand(B, 1, D))
             d = torch.where(valid, squared_norm(points - lp), -1.0)
             min_d = torch.minimum(min_d, d)
             last = min_d.argmax(-1)

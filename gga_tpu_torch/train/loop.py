@@ -20,7 +20,12 @@ the RCNN, the loss, backward, clip and AdamW), and the indoor VoteNet
 step (gga_tpu's ``vote_head.loss`` of ``build_targets`` under
 ``value_and_grad``, as ``tests/test_models/test_votenet.py`` composes
 them, then the clip and AdamW of ``configs/_base_/schedules/
-schedule_3x.py``).
+schedule_3x.py``), and the point-based KITTI steps, as
+``tests/test_models/test_ssd3d.py`` and ``test_point_rcnn.py`` compose
+them: 3DSSD (``ssd3d_loss`` of a train-mode forward, then the clip and
+AdamW with the lr stepped down at the config's epochs) and PointRCNN
+(``point_rcnn_loss`` of the two-stage train-mode forward with the RoI
+sampler's draw, then the clip and the cyclic AdamW).
 
 Under a ``torch.distributed`` group (``parallel.mesh``) the GGA, PGD and
 FCAF3D steps train data-parallel: each rank runs its rows of the global
@@ -41,9 +46,11 @@ from ..models.dense_heads import centerpoint_head_gga as gga
 from ..models.dense_heads import fcaf3d_head
 from ..models.dense_heads import pgd_head
 from ..models.dense_heads import vote_head
+from ..models.dense_heads.ssd_3d_head import ssd3d_loss
 from ..models.detectors.centerpoint import centerpoint_loss
 from ..models.detectors.centerpoint_gga import GGADetector
 from ..models.detectors.parta2 import parta2_draws, parta2_loss
+from ..models.detectors.point_rcnn import point_rcnn_draws, point_rcnn_loss
 from ..models.detectors.sassd import sassd_aux_loss
 from ..parallel import mesh
 from .optim import GGAOptimizer
@@ -390,3 +397,79 @@ def votenet_train_step(state: TrainState, batch, mark=None):
     mark('optimizer')
     state.step += 1
     return {k: v.detach() for k, v in logs.items()}
+
+
+def _point_step(state: TrainState, name, loss_fn, mark):
+    """Zero the gradients, ``loss_fn()`` (which marks 'forward' and
+    'loss'), backward, clip and the optimizer; updates ``state`` in
+    place. Returns the logs, detached, with 'grad_norm'."""
+    _single_process(name)
+    mark = mark or (lambda _: None)
+    state.model.train()
+    state.optimizer.zero_grad()
+    total, logs = loss_fn(mark)
+    total.backward()
+    mark('backward')
+    logs['grad_norm'] = state.optimizer.step()
+    mark('optimizer')
+    state.step += 1
+    return {k: v.detach() for k, v in logs.items()}
+
+
+def ssd3d_train_step(state: TrainState, batch, mark=None):
+    """One 3DSSD optimization step; updates ``state`` in place.
+
+    Args:
+        batch: dict of tensors on the model's device: points [B, P, 4],
+            points_valid [B, P], gt_boxes [B, M, 7] (bottom-centre lidar),
+            gt_labels [B, M] (the config's classes from 0), gt_valid [B, M].
+        mark: called with the name of each stage as it is enqueued
+            ('forward', 'loss': targets and loss, 'backward', 'optimizer':
+            clip and AdamW); a timer hook.
+    Returns:
+        logs: 0-d tensors: ``ssd3d_loss``'s and 'grad_norm' (of the
+        unclipped gradients).
+    """
+    model = state.model
+
+    def loss_fn(mark):
+        preds = model(batch['points'], batch['points_valid'])
+        mark('forward')
+        out = ssd3d_loss(model.cfg.head, preds, batch['gt_boxes'],
+                         batch['gt_labels'], batch['gt_valid'])
+        mark('loss')
+        return out
+
+    return _point_step(state, 'ssd3d_train_step', loss_fn, mark)
+
+
+def point_rcnn_train_step(state: TrainState, batch, mark=None,
+                          sample_u=None):
+    """One PointRCNN optimization step; updates ``state`` in place.
+
+    Args:
+        batch: as ``ssd3d_train_step``'s (the labels of the config's
+            classes).
+        mark: as ``ssd3d_train_step``'s; 'forward' covers both stages
+            (encoder, neck, RPN, proposals, sampling, pooling, RCNN).
+        sample_u: the RoI sampler's draw [B, num_proposals]; drawn from
+            ``state.generator`` when None (``point_rcnn_draws``).
+    Returns:
+        logs: 0-d tensors: ``point_rcnn_loss``'s and 'grad_norm'.
+    """
+    model = state.model
+    if sample_u is None:
+        sample_u = point_rcnn_draws(model, batch['points'].shape[0],
+                                    state.generator, batch['points'].device)
+
+    def loss_fn(mark):
+        out = model(batch['points'], batch['points_valid'],
+                    batch['gt_boxes'], batch['gt_labels'], batch['gt_valid'],
+                    sample_u)
+        mark('forward')
+        res = point_rcnn_loss(model.cfg, out, batch['gt_boxes'],
+                              batch['gt_labels'], batch['gt_valid'])
+        mark('loss')
+        return res
+
+    return _point_step(state, 'point_rcnn_train_step', loss_fn, mark)

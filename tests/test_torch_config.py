@@ -32,7 +32,9 @@ from gga_tpu_torch.models.detectors import dynamic_voxelnet as tdv
 from gga_tpu_torch.models.detectors import fcaf3d as tfcaf3d
 from gga_tpu_torch.models.detectors import parta2 as tparta2
 from gga_tpu_torch.models.detectors import pgd as tpgd
+from gga_tpu_torch.models.detectors import point_rcnn as tpoint_rcnn
 from gga_tpu_torch.models.detectors import sassd as tsassd
+from gga_tpu_torch.models.detectors import ssd3d as tssd3d
 from gga_tpu_torch.models.detectors import votenet as tvotenet
 from gga_tpu_torch.models.detectors import voxelnet as tvoxelnet
 from gga_tpu_torch.ops import sparse as sp
@@ -89,6 +91,13 @@ INDOOR = {
         (tvotenet.VoteNet, tvotenet.VoteNetConfig),
     'fcaf3d/fcaf3d_8x2_scannet-3d-18class.py': (tfcaf3d.FCAF3DDetector,
                                                 tfcaf3d.FCAF3DModelConfig),
+}
+# the point-based KITTI detectors' configs, with the detector each builds
+POINT_FAMILY = {
+    '3dssd/3dssd_4x4_kitti-3d-car.py': (tssd3d.SSD3DNet,
+                                        tssd3d.SSD3DNetConfig),
+    'point_rcnn/point_rcnn_2x8_kitti-3d-3classes.py':
+        (tpoint_rcnn.PointRCNNDetector, tpoint_rcnn.PointRCNNConfig),
 }
 FP16_SECOND = ('second/hv_second_secfpn_fp16_6x8_80e_kitti-3d-3class.py',
                'second/hv_second_secfpn_fp16_6x8_80e_kitti-3d-car.py')
@@ -195,7 +204,7 @@ def test_merge_from_options_agrees(name):
 
 @pytest.mark.parametrize('name', DETECTOR_CONFIGS + (
     'gga_pdg.py', 'gga_sunrgbd.py', SECOND, POINTPILLARS, *VOXEL_FAMILY,
-    *CENTERPOINT, *INDOOR))
+    *CENTERPOINT, *INDOOR, *POINT_FAMILY))
 def test_build_detector_config_equals_gga_tpu(name):
     path = str(ROOT / 'configs' / ('' if '/' in name else 'gga') / name)
     model, mc = tbuilder.build_detector(tconfig.Config.fromfile(path))
@@ -207,7 +216,7 @@ def test_build_detector_config_equals_gga_tpu(name):
         'gga_sunrgbd.py': (tfcaf3d.FCAF3DDetector, tfcaf3d.FCAF3DModelConfig),
         SECOND: (tvoxelnet.SECONDDetector, tvoxelnet.SECONDNetConfig),
         POINTPILLARS: (tvoxelnet.PointPillars, tvoxelnet.PointPillarsConfig),
-        **VOXEL_FAMILY, **INDOOR,
+        **VOXEL_FAMILY, **INDOOR, **POINT_FAMILY,
         **dict.fromkeys(CENTERPOINT, (tcp.CenterPointDetector,
                                       tcp.CenterPointConfig)),
     }.get(name, (tdet.GGADetector, tdet.GGAModelConfig))
@@ -290,6 +299,26 @@ def test_build_detector_config_equals_gga_tpu(name):
             2 + mc.head.num_classes)
         assert model.bbox_head.conv_pred.conv_reg.weight.shape[0] == (
             3 + 2 * mc.head.num_dir_bins + 4 * mc.head.num_sizes)
+    elif det is tssd3d.SSD3DNet:
+        assert mc.num_points == (4096, 512, (256, 256))
+        assert mc.fps_mods == (('D-FPS',), ('FS',), ('F-FPS', 'D-FPS'))
+        assert mc.fps_sample_range_lists == ((-1,), (-1,), (512, -1))
+        assert mc.head.num_classes == 1 and mc.head.num_candidates == 256
+        # the aggregation layers' 64 / 128 / 256, the head's MSG of 512 +
+        # 1 024 and 3 + 3 + 2 x 12 regression channels
+        assert model.backbone.level_channels == [1, 64, 128, 256]
+        assert model.bbox_head.vote_aggregation.out_channels == 1536
+        assert model.bbox_head.conv_pred.conv_reg.weight.shape[0] == 30
+    elif det is tpoint_rcnn.PointRCNNDetector:
+        assert mc.num_points == (4096, 1024, 256, 64)
+        assert mc.rpn.num_classes == 3 and mc.rpn.nms_pre == 1024
+        assert mc.roi.num_rois == 128 and mc.roi.roi_pts_budget == 512
+        # no aggregation layers: each level the sum of its branches
+        assert model.backbone.level_channels == [1, 96, 256, 512, 1024]
+        assert model.neck.out_channels == 128
+        # the up-lifted xyz channels and the backbone's 128 merged
+        bh = model.roi_head['bbox_head']
+        assert bh.merge_down_layer.conv.weight.shape[:2] == (128, 256)
     elif name in INDOOR:
         assert mc.head.n_classes == 18 and mc.head.n_reg_outs == 6
         assert not mc.head.with_yaw and mc.depth == 34
@@ -363,7 +392,7 @@ def test_registry_names_the_known_types():
     assert reg.build({'type': 'D', 'a': 1}) == {'a': 1}
     cfg = tconfig.Config.fromfile(
         str(ROOT / 'configs' / 'gga' / 'gga_kitti_tiny.py'))
-    cfg.model.type = 'PointRCNNDetector'
+    cfg.model.type = 'H3DNet'             # not ported yet
     with pytest.raises(KeyError, match='GGADetector'):
         tbuilder.build_detector(cfg)
 
