@@ -5,7 +5,8 @@ the indoor FCAF3D retrain, the fully supervised SECOND and PointPillars,
 the accuracy benches, the rest of the KITTI voxel detectors (DVSECOND,
 SASSD, DynamicVoxelNet), the fully supervised nuScenes CenterPoint, the
 two-stage PartA2, the indoor family (stage 1 for SUN RGB-D and ScanNet,
-FCAF3D on ScanNet, VoteNet), the sharded stage 3 and the two-rank
+FCAF3D on ScanNet, VoteNet), the VoteNet-derived indoor detectors
+(GroupFree3D, H3DNet, ImVoteNet), the sharded stage 3 and the two-rank
 data-parallel GGA step, and the point-based KITTI detectors (3DSSD,
 PointRCNN) on one NVIDIA card.
 
@@ -274,6 +275,21 @@ PointRCNN) on one NVIDIA card.
     stage (FPS + ball query, SA MLPs, FP, vote head, targets + loss,
     backward, clip + AdamW), scenes/s, peak memory, and, not gated, one
     scene's forward on the card against the CPU's.
+17b. Vote-derived phase (``vote_derived_phase``, on the indoor family's
+    stage-1 data): GroupFree3D L6-O256 (B = 4 x 40 000, xyz), H3DNet
+    (B = 3 x 40 000, four towers) and ImVoteNet (B = 16 x 20 000, seeded
+    uint8 images at SUN RGB-D's size, the boxes' projections through the
+    infos' calib plus seeded distractors as 2D boxes) as shipped, f32,
+    seeded weights (``vote_derived_path``): the card's eval forward at
+    B = 1 against the CPU's (every tower's level-0 FPS equal; with the
+    CPU's picks given, every output within 1e-4 of max|CPU|; the share of
+    the picks the card makes alone that equal the CPU's printed), 2
+    recorded train steps (no kernel launch, finite losses, positives, the
+    schedule's lr, moved weights; device ms by stage: FPS, ball query +
+    grouping, backbone MLPs, heads, targets + loss, backward, clip +
+    AdamW; the FPS share; peak memory) and one ``infer_*`` call (boxes
+    [B, n, 7], finite); the widest GroupFree3D, w2x-L12-O512, the
+    forward against the CPU's and one inference only.
 18. Data-parallel phase (``data_parallel_phase``, last): two processes
     on the one card. (a) The stage-3 CLI as ``--rank 0/1 --world 2
     --tmpdir`` (spawned, started together) on the workflow's mini KITTI
@@ -323,8 +339,8 @@ PointRCNN) on one NVIDIA card.
     CenterPoint config's steps on the two f32 sparse-conv entries,
     gather_rows and render_heatmap, ``parta2`` dicts over PartA2's
     steps and ``scannet`` dicts over FCAF3D's ScanNet steps on the two
-    f32 sparse-conv entries, and ``point_family`` dicts with each
-    kernel's launches in the point family's train steps, 0),
+    f32 sparse-conv entries, and ``point_family`` and ``vote_derived``
+    dicts with each kernel's launches in those phases, 0),
     the card, then, as the last line, {"ok": true, "device": {...}}. Any
     failed phase exits non-zero.
 
@@ -4770,7 +4786,460 @@ def indoor_family_phase(torch, mods, card, tmp):
             torch, mods, card, data, config, dataset, steps, infer,
             profile=i == 0)
     res['seconds'] = time.perf_counter() - t0
+    res['data'] = data
     print(f'indoor family phase: {res["seconds"]:.1f} s')
+    return res
+
+
+# --- the VoteNet-derived indoor detectors: GroupFree3D, H3DNet and
+#     ImVoteNet on the indoor family's mini ScanNet and SUN RGB-D --------
+# (config, kind, train): the widest GroupFree3D config runs one eval
+# forward against the CPU's and one inference only
+VD_PATHS = (
+    ('configs/groupfree3d/groupfree3d_8x4_scannet-3d-18class-L6-O256.py',
+     'groupfree3d', True),
+    ('configs/groupfree3d/groupfree3d_8x4_scannet-3d-18class-w2x-L12-O512'
+     '.py', 'groupfree3d', False),
+    ('configs/h3dnet/h3dnet_3x8_scannet-3d-18class.py', 'h3dnet', True),
+    ('configs/imvotenet/imvotenet_stage2_16x8_sunrgbd-3d-10class.py',
+     'imvotenet', True))
+VD_STEPS = 2                # recorded train steps of each trained detector
+VD_TOL = 1e-4               # card forward against the CPU's, of max|CPU|
+VD_MAX_OBJS = 64            # box slots a scene
+VD_DISTRACTORS = 8          # seeded 2D boxes a scene beside the projections
+VD_STAGES = ('FPS', 'ball query + grouping', 'backbone MLPs', 'heads',
+             'targets + loss', 'backward', 'clip + AdamW')
+# the log that counts the positives of each detector's step
+VD_NUM_POS = dict(groupfree3d='num_pos', h3dnet='refined.num_pos',
+                  imvotenet='num_pos')
+
+
+def sunrgbd_depth2img(info):
+    """A SUN RGB-D info's depth -> image projection [4, 4] from its calib
+    (mmdet3d's SUNRGBDDataset: K @ flip @ Rt^T, the flip taking depth's
+    (x, y, z) to the camera's (x, -z, y))."""
+    calib = info['calib']
+    flip = np.array([[1, 0, 0], [0, 0, -1], [0, 1, 0]], np.float64)
+    m = np.eye(4, dtype=np.float32)
+    m[:3, :3] = np.asarray(calib['K'], np.float64) @ flip @ np.asarray(
+        calib['Rt'], np.float64).T
+    return m
+
+
+def image_inputs(rng, gt_boxes, gt_labels, obj_valid, d2i, shape):
+    """ImVoteNet's image inputs of one scene: a seeded uint8 image of
+    ``shape``, and as 2D boxes each valid box's projection (its 8
+    corners' extent clipped to the image, confidence 1, its class) where
+    all its corners lie 0.1 m or more in front of the camera, then
+    VD_DISTRACTORS seeded boxes (confidence 0.2-0.9, a random class).
+    Returns (image [H, W, 3], boxes [M + D, 6], valid [M + D])."""
+    H, W = shape
+    img = rng.randint(0, 256, (H, W, 3)).astype(np.uint8)
+    M = len(gt_boxes)
+    boxes = np.zeros((M + VD_DISTRACTORS, 6), np.float32)
+    valid = np.zeros(M + VD_DISTRACTORS, bool)
+    for i in np.flatnonzero(obj_valid):
+        x, y, z, dx, dy, dz, yaw = gt_boxes[i]
+        c, s = np.cos(yaw), np.sin(yaw)
+        corners = []
+        for sx in (-0.5, 0.5):
+            for sy in (-0.5, 0.5):
+                for sz in (-0.5, 0.5):
+                    corners.append([x + sx * dx * c - sy * dy * s,
+                                    y + sx * dx * s + sy * dy * c,
+                                    z + sz * dz, 1.0])
+        uvz = np.asarray(corners) @ d2i.T
+        if uvz[:, 2].min() < 0.1:
+            continue
+        uv = uvz[:, :2] / uvz[:, 2:3]
+        lo = np.clip(uv.min(0), 0, [W - 1, H - 1])
+        hi = np.clip(uv.max(0), 0, [W - 1, H - 1])
+        if (hi > lo).all():
+            boxes[i] = [*lo, *hi, 1.0, gt_labels[i]]
+            valid[i] = True
+    lo = rng.uniform(0, [W - 120, H - 120], (VD_DISTRACTORS, 2))
+    boxes[M:, :2] = lo
+    boxes[M:, 2:4] = lo + rng.uniform(30, 120, (VD_DISTRACTORS, 2))
+    boxes[M:, 4] = rng.uniform(0.2, 0.9, VD_DISTRACTORS)
+    boxes[M:, 5] = rng.randint(0, 10, VD_DISTRACTORS)
+    valid[M:] = True
+    return img, boxes, valid
+
+
+def vote_derived_batches(ds, batch, kind, seed, test_mode=False):
+    """The batches of ``ds`` as the detector's inputs (numpy): VoteNet's
+    ``votenet_input`` (xyz and the height, bottom-centre boxes), xyz alone
+    for GroupFree3D, and for ImVoteNet the images, 2D boxes and
+    projections of ``image_inputs`` from each scene's info (the scenes
+    in ``epoch_batches``' order for ``seed``)."""
+    order = np.arange(len(ds))
+    if not test_mode:
+        np.random.RandomState(seed or 0).shuffle(order)
+    rng = np.random.RandomState(100 + seed)
+    out = []
+    for i in range(0, len(order) // batch * batch, batch):
+        idx = order[i:i + batch]
+        items = [ds[j] for j in idx]
+        b = votenet_input({k: np.stack([it[k] for it in items])
+                           for k in items[0]})
+        b['gt_valid'] = b.pop('obj_valid')
+        if kind == 'groupfree3d':
+            b['points'] = np.ascontiguousarray(b['points'][..., :3])
+        if kind == 'imvotenet':
+            d2i = np.stack([sunrgbd_depth2img(ds.infos[j]) for j in idx])
+            shape = tuple(ds.infos[idx[0]]['image']['image_shape'])
+            # the 2D boxes from the gravity-centred boxes of the scene
+            grav = b['gt_boxes'].copy()
+            grav[..., 2] += grav[..., 5] / 2
+            ims = [image_inputs(rng, g, lab, v, m, shape) for g, lab, v, m
+                   in zip(grav, b['gt_labels'], b['gt_valid'], d2i)]
+            b.update(img=np.stack([x[0] for x in ims]),
+                     boxes_2d=np.stack([x[1] for x in ims]),
+                     boxes_valid=np.stack([x[2] for x in ims]),
+                     depth2img=d2i)
+        out.append(b)
+    return out
+
+
+VD_INPUTS = ('points', 'points_valid', 'img', 'boxes_2d', 'boxes_valid',
+             'depth2img')
+
+
+def vd_forward(torch, model, kind, batch, device, seed_u, sample_idx=None):
+    """One forward of ``model`` (in its mode) on ``batch`` (numpy) on
+    ``device``; the output as a dict (ImVoteNet's towers by name)."""
+    args = [torch.as_tensor(batch[k], device=device) for k in VD_INPUTS
+            if k in batch]
+    if kind == 'imvotenet':
+        out = model(*args, seed_u.to(device), sample_idx=sample_idx)
+        return dict(zip(('joint', 'pts', 'img'), out))
+    return model(*args, sample_idx=sample_idx)
+
+
+def vd_to(torch, idx, device):
+    if isinstance(idx, dict):
+        return {k: vd_to(torch, v, device) for k, v in idx.items()}
+    if isinstance(idx, list):
+        return [vd_to(torch, v, device) for v in idx]
+    return idx.to(device)
+
+
+def vd_level0(kind, idx):
+    """The level-0 farthest point sampling indices of each tower."""
+    bb = idx['backbone']
+    return [t[0] for t in bb] if kind == 'h3dnet' else [bb[0]]
+
+
+def vd_pick_shares(torch, card, ref, name=''):
+    """The share of each site's picks the card makes alone equal to the
+    CPU's."""
+    if isinstance(ref, dict):
+        return {k: v for key in ref for k, v in vd_pick_shares(
+            torch, card[key], ref[key], f'{name}{key}.').items()}
+    if isinstance(ref, list):
+        return {k: v for i, (c, r) in enumerate(zip(card, ref))
+                for k, v in vd_pick_shares(torch, c, r,
+                                           f'{name}{i}.').items()}
+    return {name[:-1]: float((card.cpu() == ref).float().mean())}
+
+
+def vd_card_vs_cpu(torch, model, kind, batch, seed_u, label):
+    """The card's eval forward against the same weights' on the CPU, on
+    the first scene of ``batch`` (B = 1: the CPU forward of the full-width
+    towers is the phase's largest host cost): every tower's level-0
+    farthest point sampling the card does alone must equal the CPU's;
+    with the CPU's picks given (every sampling, KPS and ImVoteNet's seed
+    rows), every output within VD_TOL of the CPU's largest entry and the
+    integer outputs equal. Prints, ungated, the share of each site's
+    picks the card makes alone that equal the CPU's."""
+    import copy
+    one = {k: v[:1] for k, v in batch.items()}
+    u = None if seed_u is None else seed_u[:1]
+    cpu_model = copy.deepcopy(model).cpu().eval()
+    model.eval()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = vd_forward(torch, cpu_model, kind, one, 'cpu', u)
+        cpu_s = time.perf_counter() - t0
+        ref_idx = cpu_model.sampled_indices(ref)
+        alone = vd_forward(torch, model, kind, one, DEVICE, u)
+        card_idx = model.sampled_indices(alone)
+        given = vd_forward(torch, model, kind, one, DEVICE, u,
+                           vd_to(torch, ref_idx, DEVICE))
+    if not all(torch.equal(c.cpu(), r) for c, r in zip(
+            vd_level0(kind, card_idx), vd_level0(kind, ref_idx))):
+        fail(f'{label}: the card\'s level-0 FPS indices differ from the '
+             'CPU\'s')
+    share = vd_pick_shares(torch, card_idx, ref_idx)
+    diffs, equal = max_rel_diff(torch, given, ref)
+    worst = max((v for v in diffs.values() if isinstance(v, float)),
+                default=0.0)
+    print(f'{label}: eval forward at B = 1, card against CPU (TF32 off, the '
+          f'CPU\'s picks given): max |d| / max|CPU| {worst:.3g} (gate '
+          f'{VD_TOL}), integer and mask outputs '
+          f'{"equal" if equal else "DIFFER"}; the picks the card makes '
+          'alone equal to the CPU\'s (not gated): ' + ', '.join(
+              f'{k} {v:.4f}' for k, v in share.items())
+          + f'; the CPU forward {cpu_s:.1f} s')
+    if not equal or worst > VD_TOL:
+        bad = {k: v for k, v in diffs.items()
+               if not isinstance(v, float) or v > VD_TOL}
+        fail(f'{label}: card forward against the CPU: {bad}')
+    del cpu_model
+    return dict(max_rel_diff=worst, pick_share=share, cpu_forward_s=cpu_s)
+
+
+@contextlib.contextmanager
+def vote_derived_stage_events(torch, backbone):
+    """CUDA events around every farthest point sampling and grouping
+    (``ops/points.py``) of a forward, each marked as in the backbone
+    (``backbone``'s forward, also timed) or in the heads. Yields
+    ``spans``, a list with one dict a step of {part: [(start, end),
+    ...]}; append a dict before each step."""
+    from gga_tpu_torch.ops import points as po
+    spans = []
+    where = ['heads']
+
+    def add(key, pair):
+        spans[-1].setdefault(key, []).append(pair)
+
+    def timed(fn, key):
+        def wrapper(*a, **k):
+            pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            pair[0].record()
+            out = fn(*a, **k)
+            pair[1].record()
+            add(f'{key}.{where[0]}', pair)
+            return out
+        return wrapper
+
+    pair = []
+
+    def pre(*_):
+        pair[:] = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        pair[0].record()
+        where[0] = 'backbone'
+
+    def post(*_):
+        pair[1].record()
+        add('backbone', tuple(pair))
+        where[0] = 'heads'
+
+    real = po.furthest_point_sample, po.query_and_group
+    po.furthest_point_sample = timed(real[0], 'fps')
+    po.query_and_group = timed(real[1], 'grouping')
+    handles = [backbone.register_forward_pre_hook(pre),
+               backbone.register_forward_hook(post)]
+    try:
+        yield spans
+    finally:
+        po.furthest_point_sample, po.query_and_group = real
+        for h in handles:
+            h.remove()
+
+
+def vote_derived_stage_ms(spans, marks):
+    """Device ms of one step by VD_STAGES from its spans and its marks
+    (start, forward, loss, backward, optimizer events)."""
+    def total(*keys):
+        return sum(a.elapsed_time(b) for k in keys for a, b in spans.get(k,
+                                                                          []))
+    in_bb = total('fps.backbone', 'grouping.backbone')
+    in_heads = total('fps.heads', 'grouping.heads')
+    return {'FPS': total('fps.backbone', 'fps.heads'),
+            'ball query + grouping': total('grouping.backbone',
+                                           'grouping.heads'),
+            'backbone MLPs': total('backbone') - in_bb,
+            'heads': (marks[0].elapsed_time(marks[1]) - total('backbone')
+                      - in_heads),
+            'targets + loss': marks[1].elapsed_time(marks[2]),
+            'backward': marks[2].elapsed_time(marks[3]),
+            'clip + AdamW': marks[3].elapsed_time(marks[4])}
+
+
+def vote_derived_path(torch, mods, card, data, config, kind, train):
+    """One VoteNet-derived detector (``config`` as shipped, f32, seeded
+    random weights) on the indoor family's mini ScanNet (GroupFree3D,
+    H3DNet) or SUN RGB-D (ImVoteNet, with ``vote_derived_batches``'
+    images, 2D boxes and projections) at the config's B and
+    ``num_points``:
+
+    1. the card's eval forward against the CPU's (``vd_card_vs_cpu``);
+    2. with ``train``, main path: VD_STEPS calls of the detector's
+       ``apis.*_train_step`` on the config's optimizer and schedule, the
+       counts set to 0 just before and read just after: no kernel
+       launched, finite losses, positives (VD_NUM_POS) > 0, each step's
+       lr the schedule's, every parameter and BN statistic moved (but
+       zero-initialised biases no gradient reached, printed); CUDA events
+       by VD_STAGES, the FPS share of a step, scenes/s by events, peak
+       memory;
+    3. one ``apis.infer_*`` call on a test-mode batch of the train split
+       (SUN RGB-D's val split holds fewer scenes than B = 16): no launch,
+       finite boxes [B, n, 7]."""
+    from gga_tpu_torch import apis
+    from gga_tpu_torch.config import Config
+    from gga_tpu_torch.data.scannet import ScanNetDataset
+    from gga_tpu_torch.data.sunrgbd import SunRgbdDataset
+    from gga_tpu_torch.models.builder import build_detector
+    from gga_tpu_torch.models.detectors.imvotenet import imvotenet_draws
+    from gga_tpu_torch.train.optim import piecewise_constant_schedule
+    t0 = time.perf_counter()
+    cfg = Config.fromfile(str(ROOT / config))
+    model_cfg = build_detector(cfg)[1]
+    label = f'{kind} {Path(config).stem}'
+    batch, n_points = cfg.data.samples_per_gpu, cfg.data.num_points
+    sun = kind == 'imvotenet'
+    ds_cls = SunRgbdDataset if sun else ScanNetDataset
+    d = data['sunrgbd' if sun else 'scannet']
+    train_set = ds_cls(d['root'], d['pkls']['train'], num_points=n_points,
+                       max_objs=VD_MAX_OBJS)
+    test_set = ds_cls(d['root'], d['pkls']['train'], num_points=n_points,
+                      max_objs=VD_MAX_OBJS, test_mode=True)
+    spe = len(train_set) // batch
+    if not spe:
+        fail(f'{label}: {len(train_set)} train scenes, fewer than B = '
+             f'{batch}')
+    init = getattr(apis, f'init_{kind}_trainer' if train
+                   else f'init_{kind}_detector')
+    opt = dict(cfg.optimizer)
+    bundle = (init(model_cfg, spe, device=DEVICE, seed=0, optimizer=opt)
+              if train else init(model_cfg, device=DEVICE, seed=0))
+    model = bundle.model
+    print(f'{label}: B = {batch} x {n_points} points, f32, '
+          f'{sum(p.numel() for p in model.parameters())} parameters'
+          + (f', {spe} steps an epoch' if train else ''))
+    if not all(p.device.type == DEVICE for p in model.parameters()):
+        fail(f'{label}: parameters off the card')
+    res = dict(config=Path(config).name, batch=batch, points=n_points)
+    gen = torch.Generator().manual_seed(1)
+    batches = [b for e in range(-(-VD_STEPS // spe) if train else 1)
+               for b in vote_derived_batches(train_set, batch, kind, e)]
+    seed_u = imvotenet_draws(model_cfg, batch, gen, 'cpu') if sun else None
+
+    # --- 1. the card's eval forward against the CPU's --------------------
+    res['card_vs_cpu'] = vd_card_vs_cpu(torch, model, kind, batches[0],
+                                        seed_u, label)
+
+    if train:
+        # --- 2. main path -------------------------------------------------
+        trainer = bundle
+        step_fn = getattr(apis, f'{kind}_train_step')
+        sched = piecewise_constant_schedule(
+            opt['lr'], {spe * e: opt['lr_gamma'] for e in opt['lr_steps']})
+        params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        stats0 = {n: b.clone() for n, b in model.named_buffers()}
+        logs, lrs, marks = [], [], []
+        order = ('forward', 'loss', 'backward', 'optimizer')
+        backbone = model.pts_backbone if sun else model.backbone
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(mods)
+        with vote_derived_stage_events(torch, backbone) as spans:
+            for i in range(VD_STEPS):
+                ev = {k: torch.cuda.Event(enable_timing=True)
+                      for k in ('start',) + order}
+                spans.append({})
+                ev['start'].record()
+                logs.append(step_fn(trainer, batches[i],
+                                    lambda name, ev=ev: ev[name].record()))
+                lrs.append(trainer.optimizer.adamw.param_groups[0]['lr'])
+                marks.append([ev[k] for k in ('start',) + order])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = counts(mods)
+        if any(launches.values()):
+            fail(f'{label}: {VD_STEPS} train steps launched {launches}; the '
+                 'VoteNet-derived detectors reach no hand kernel')
+        for i, (lg, lr) in enumerate(zip(logs, lrs)):
+            finite_logs(torch, lg, f'{label} step {i + 1}')
+            if not all(v.device.type == DEVICE for v in lg.values()):
+                fail(f'{label}: step {i + 1} logs off the card')
+            if not float(lg[VD_NUM_POS[kind]]) > 0:
+                fail(f'{label}: step {i + 1} met no positive')
+            if not abs(lr - sched(i)) <= 1e-12 * sched(i):
+                fail(f'{label}: step {i + 1} ran at lr {lr}, the schedule '
+                     f'gives {sched(i)}')
+        stuck = [n for n, p in model.named_parameters()
+                 if torch.equal(p, params0[n]) and bool(params0[n].any())]
+        unreached = [n for n, p in model.named_parameters()
+                     if torch.equal(p, params0[n]) and not params0[n].any()]
+        stuck += [n for n, b in model.named_buffers()
+                  if torch.equal(b, stats0[n]) or not torch.isfinite(b).all()]
+        if stuck:
+            fail(f'{label}: {len(stuck)} tensors did not move: {stuck[:8]}')
+        del params0, stats0
+        step_ms = [m[0].elapsed_time(m[-1]) for m in marks]
+        timed = list(range(1, VD_STEPS)) or [0]
+        stages = {k: float(np.mean([vote_derived_stage_ms(
+            spans[i], marks[i])[k] for i in timed])) for k in VD_STAGES}
+        fps_share = stages['FPS'] / float(np.mean([step_ms[i]
+                                                   for i in timed]))
+        res.update(steps=VD_STEPS, step_device_ms=step_ms, stage_ms=stages,
+                   fps_share=fps_share, peak_bytes=peak, launches=launches,
+                   lrs=lrs, unreached=unreached,
+                   scenes_per_s_events=batch * len(timed) / (
+                       sum(step_ms[i] for i in timed) / 1e3),
+                   logs=[{k: float(v) for k, v in lg.items()} for lg in logs])
+        print(f'{card}: {label}: {VD_STEPS} steps at B={batch} (f32): step '
+              f'device ms {[round(v, 1) for v in step_ms]}, '
+              f'{res["scenes_per_s_events"]:.2f} scenes/s by CUDA events '
+              f'(steps {[i + 1 for i in timed]}), FPS '
+              f'{100 * fps_share:.1f} % of a step, peak '
+              f'{peak / 2 ** 30:.2f} GiB; launches {launches}; lr {lrs}')
+        print(f'{card}: {label}: device ms a step by stage (events, steps '
+              f'{[i + 1 for i in timed]}): ' + ', '.join(
+                  f'{k} {v:.1f}' for k, v in stages.items()))
+        print(f'{label}: losses ' + ', '.join(
+            f'{k} {[round(lg[k], 4) for lg in res["logs"]]}'
+            for k in res['logs'][0])
+            + (f'; zero-initialised and unreached: {unreached}'
+               if unreached else ''))
+        bundle = apis.DetectorBundle(model, model_cfg, torch.device(DEVICE))
+
+    # --- 3. one inference call -------------------------------------------
+    x = vote_derived_batches(test_set, batch, kind, 0, test_mode=True)[0]
+    infer = getattr(apis, f'infer_{kind}')
+    args = [x[k] for k in VD_INPUTS if k in x]
+    zero_counts(mods)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    det = infer(bundle, *args)
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t1
+    got = counts(mods)
+    if any(got.values()):
+        fail(f'{label}: inference launched {got}')
+    boxes = det['boxes']
+    head = model_cfg.rpn if kind == 'h3dnet' else model_cfg.head
+    n_out = (min(head.max_out, head.num_proposal) if kind == 'groupfree3d'
+             else head.max_out)
+    if tuple(boxes.shape) != (batch, n_out, 7) or boxes.device.type != DEVICE:
+        fail(f'{label}: inference gave boxes {tuple(boxes.shape)} on '
+             f'{boxes.device}, expected ({batch}, {n_out}, 7) on the card')
+    if not torch.isfinite(boxes).all():
+        fail(f'{label}: non-finite boxes')
+    res['infer'] = dict(seconds=infer_s, scenes_per_s=batch / infer_s,
+                        kept=int(det['valid'].sum()), launches=got)
+    res['seconds'] = time.perf_counter() - t0
+    print(f'{card}: {label}: one inference call on {batch} scenes '
+          f'{infer_s * 1e3:.1f} ms = {batch / infer_s:.2f} scenes/s (host '
+          f'clock, decode and NMS included), {res["infer"]["kept"]} boxes '
+          f'kept; the path {res["seconds"]:.1f} s')
+    del bundle, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def vote_derived_phase(torch, mods, card, data):
+    """GroupFree3D, H3DNet and ImVoteNet (``vote_derived_path`` on each
+    VD_PATHS config) on the indoor family's stage-1 data (``data``, its
+    roots and pkls)."""
+    t0 = time.perf_counter()
+    res = {Path(config).stem: vote_derived_path(torch, mods, card, data,
+                                                config, kind, train)
+           for config, kind, train in VD_PATHS}
+    res['seconds'] = time.perf_counter() - t0
+    print(f'{card}: vote-derived phase: {res["seconds"]:.1f} s')
     return res
 
 
@@ -6089,6 +6558,9 @@ def main():
         # --- indoor stage 1, FCAF3D on ScanNet, VoteNet ---
         fam = indoor_family_phase(torch, mods, card, tmp)
         torch.cuda.empty_cache()
+        # --- GroupFree3D, H3DNet and ImVoteNet on the same data ---
+        vd = vote_derived_phase(torch, mods, card, fam['data'])
+        torch.cuda.empty_cache()
         # --- the sharded stage 3 and the two-rank GGA step ---
         dp = data_parallel_phase(torch, mods, card, tmp)
         torch.cuda.empty_cache()
@@ -6210,6 +6682,13 @@ def main():
         entry['point_family'] = dict(launches=sum(
             pf[kind]['launches'].get(entry['name'].replace('_f32', ''), 0)
             for _, kind in PF_PATHS))
+    # nor do the VoteNet-derived indoor detectors: their launches, 0
+    for entry in kernels:
+        name = entry['name'].replace('_f32', '')
+        entry['vote_derived'] = dict(launches=sum(
+            r.get('launches', {}).get(name, 0)
+            + r['infer']['launches'].get(name, 0)
+            for k, r in vd.items() if k != 'seconds'))
     print('kernels, summed over the train path\'s calls (ms by CUDA '
           'events, device ms by the profiler, share of the bound):')
     for k in kernels:
@@ -6256,7 +6735,8 @@ def main():
                        f32=f32, workflow=wf, stage4=s4, indoor=ind,
                        supervised=sup, accuracy=acc, voxel_family=vf,
                        centerpoint=cp, parta2=pa, indoor_family=fam,
-                       data_parallel=dp, point_family=pf),
+                       data_parallel=dp, point_family=pf,
+                       vote_derived=vd),
                   fh, indent=1, default=str)
 
     print(card)

@@ -12,7 +12,9 @@ supervised nuScenes path, the same for CenterPoint (voxel and pillar,
 with or without the DCN head, rotated or circle NMS); and for the
 two-stage KITTI detector, the same for PartA2; and for the indoor
 point-based detector, the same for VoteNet; and for the point-based KITTI
-detectors, the same for 3DSSD and PointRCNN."""
+detectors, the same for 3DSSD and PointRCNN; and for the VoteNet-derived
+indoor detectors, the same for GroupFree3D, H3DNet and ImVoteNet (whose
+inference takes the images, the 2D boxes and the projection too)."""
 from __future__ import annotations
 
 import dataclasses
@@ -29,12 +31,18 @@ from .models.detectors.centerpoint_gga import (GGADetector, GGAModelConfig,
                                                decode_detections)
 from .models.dense_heads import anchor3d_head, fcaf3d_head, pgd_head
 from .models.dense_heads import vote_head
+from .models.dense_heads.groupfree3d_head import decode_groupfree3d
 from .models.dense_heads.ssd_3d_head import decode_ssd3d
 from .models.detectors.dynamic_voxelnet import (DVSECONDConfig,
                                                 DVSECONDDetector,
                                                 DynamicVoxelNet,
                                                 DynamicVoxelNetConfig)
 from .models.detectors.fcaf3d import FCAF3DDetector, FCAF3DModelConfig
+from .models.detectors.groupfree3d import (GroupFree3DNet,
+                                           GroupFree3DNetConfig)
+from .models.detectors.h3dnet import H3DNet, H3DNetConfig, decode_h3dnet
+from .models.detectors.imvotenet import (ImVoteNet, ImVoteNetConfig,
+                                         decode_imvotenet, imvotenet_draws)
 from .models.detectors.parta2 import (PartA2Config, PartA2Detector,
                                       decode_parta2)
 from .models.detectors.pgd import PGDDetector, PGDModelConfig
@@ -621,14 +629,9 @@ def init_votenet_trainer(cfg: VoteNetConfig, steps_per_epoch,
     the global-norm clip, AdamW and the lr stepped down at the
     ``lr_steps`` epochs; ``optimizer`` is a config file's ``optimizer``
     block, ``VOTENET_OPTIMIZER`` when None)."""
-    model = init_votenet_detector(cfg, state_dict, device,
-                                  seed).model.train()
-    opt = dict(VOTENET_OPTIMIZER if optimizer is None else optimizer)
-    return TrainState(model=model,
-                      optimizer=build_fcaf3d_optimizer(model.parameters(),
-                                                       steps_per_epoch,
-                                                       **opt),
-                      step=0, generator=torch.Generator().manual_seed(seed))
+    return _epoch_trainer(init_votenet_detector(cfg, state_dict, device,
+                                                seed).model, steps_per_epoch,
+                          optimizer or VOTENET_OPTIMIZER, seed)
 
 
 _VOTENET_DTYPES = dict(points=torch.float32, points_valid=torch.bool,
@@ -677,6 +680,18 @@ def _init_point_detector(model, state_dict, device, seed):
     return DetectorBundle(model.to(dev).eval(), model.cfg, dev)
 
 
+def _epoch_trainer(model, steps_per_epoch, optimizer, seed):
+    """``model`` in train mode with ``build_fcaf3d_optimizer(params,
+    steps_per_epoch, **optimizer)`` (the global-norm clip, AdamW and the
+    lr stepped down at the ``lr_steps`` epochs) and a generator seeded
+    with ``seed`` for the step's draws."""
+    return TrainState(model=model.train(),
+                      optimizer=build_fcaf3d_optimizer(
+                          model.parameters(), steps_per_epoch,
+                          **dict(optimizer)),
+                      step=0, generator=torch.Generator().manual_seed(seed))
+
+
 def _det_batch(trainer, batch):
     dev = next(trainer.model.parameters()).device
     return {k: torch.as_tensor(batch[k], dtype=dt, device=dev)
@@ -713,13 +728,9 @@ def init_ssd3d_trainer(cfg: SSD3DNetConfig, steps_per_epoch, state_dict=None,
     params, steps_per_epoch, **optimizer)``: the global-norm clip, AdamW
     and the lr stepped down at the ``lr_steps`` epochs; ``optimizer`` is a
     config file's ``optimizer`` block, ``SSD3D_OPTIMIZER`` when None)."""
-    model = init_ssd3d_detector(cfg, state_dict, device, seed).model.train()
-    opt = dict(SSD3D_OPTIMIZER if optimizer is None else optimizer)
-    return TrainState(model=model,
-                      optimizer=build_fcaf3d_optimizer(model.parameters(),
-                                                       steps_per_epoch,
-                                                       **opt),
-                      step=0, generator=torch.Generator().manual_seed(seed))
+    return _epoch_trainer(init_ssd3d_detector(cfg, state_dict, device,
+                                              seed).model, steps_per_epoch,
+                          optimizer or SSD3D_OPTIMIZER, seed)
 
 
 def ssd3d_train_step(trainer: TrainState, batch, mark=None):
@@ -798,3 +809,170 @@ def infer_point_rcnn(bundle: DetectorBundle, points, points_valid):
     """
     out = bundle.model.eval()(*_points(bundle, points, points_valid))
     return decode_point_rcnn(bundle.cfg, out)
+
+
+# configs/groupfree3d/groupfree3d_8x4_scannet-3d-18class-L6-O256.py's
+# optimizer block (every GroupFree3D config's)
+GROUPFREE3D_OPTIMIZER = dict(lr=0.006, weight_decay=0.0005, grad_clip=0.1,
+                             lr_policy='step', lr_steps=(56, 68),
+                             lr_gamma=0.1)
+
+
+def init_groupfree3d_detector(cfg: GroupFree3DNetConfig, state_dict=None,
+                              device='cuda', seed=0) -> DetectorBundle:
+    """The GroupFree3D detector in eval mode on ``device`` (f32, as
+    gga_tpu's); the weights as ``init_ssd3d_detector``'s
+    (``GroupFree3DNet.init_weights`` when drawn)."""
+    return _init_point_detector(GroupFree3DNet(cfg), state_dict, device,
+                                seed)
+
+
+def init_groupfree3d_trainer(cfg: GroupFree3DNetConfig, steps_per_epoch,
+                             state_dict=None, device='cuda', seed=0,
+                             optimizer=None) -> TrainState:
+    """The GroupFree3D detector (``init_groupfree3d_detector``'s) in train
+    mode on ``device`` with its config's optimizer (``optimizer``, a
+    config file's ``optimizer`` block, ``GROUPFREE3D_OPTIMIZER`` when
+    None: clip 0.1, AdamW lr 0.006, wd 5e-4, x0.1 at epochs 56 and 68)
+    and a generator, seeded with ``seed``, for the decoder's dropout."""
+    return _epoch_trainer(init_groupfree3d_detector(
+        cfg, state_dict, device, seed).model, steps_per_epoch,
+        optimizer or GROUPFREE3D_OPTIMIZER, seed)
+
+
+def groupfree3d_train_step(trainer: TrainState, batch, mark=None, keep=None):
+    """One GroupFree3D train step on a batch (points [B, P, C], points_valid,
+    gt_boxes [B, M, 7] bottom-centre depth boxes, gt_labels, gt_valid;
+    tensors or numpy). ``mark`` is the step's stage hook and ``keep`` the
+    dropout keep masks (``loop.groupfree3d_train_step``). Returns the
+    step's logs as 0-d tensors on the trainer's device."""
+    return loop.groupfree3d_train_step(trainer, _det_batch(trainer, batch),
+                                       mark, keep)
+
+
+@torch.no_grad()
+def infer_groupfree3d(bundle: DetectorBundle, points, points_valid):
+    """GroupFree3D inference on a batch: forward in eval mode, then
+    ``decode_groupfree3d`` (the last stage's boxes and a class-aware
+    axis-aligned NMS).
+
+    Args:
+        points: [B, P, C] f32 (tensor or numpy); points_valid: [B, P] bool.
+    Returns:
+        dict(boxes [B, K, 7] bottom-centre depth boxes, scores, labels,
+        valid) on the bundle's device, K = min(max_out, num_proposal).
+    """
+    preds = bundle.model.eval()(*_points(bundle, points, points_valid))
+    return decode_groupfree3d(bundle.cfg.head, preds)
+
+
+def init_h3dnet_detector(cfg: H3DNetConfig, state_dict=None, device='cuda',
+                         seed=0) -> DetectorBundle:
+    """The H3DNet detector in eval mode on ``device`` (f32, as gga_tpu's);
+    the weights as ``init_ssd3d_detector``'s (``H3DNet.init_weights`` when
+    drawn)."""
+    return _init_point_detector(H3DNet(cfg), state_dict, device, seed)
+
+
+def init_h3dnet_trainer(cfg: H3DNetConfig, steps_per_epoch, state_dict=None,
+                        device='cuda', seed=0, optimizer=None) -> TrainState:
+    """The H3DNet detector (``init_h3dnet_detector``'s) in train mode on
+    ``device`` with the indoor 3x schedule's optimizer (``optimizer``, a
+    config file's ``optimizer`` block, ``VOTENET_OPTIMIZER`` when
+    None)."""
+    return _epoch_trainer(init_h3dnet_detector(cfg, state_dict, device,
+                                               seed).model, steps_per_epoch,
+                          optimizer or VOTENET_OPTIMIZER, seed)
+
+
+def h3dnet_train_step(trainer: TrainState, batch, mark=None):
+    """One H3DNet train step on a batch (as ``groupfree3d_train_step``'s).
+    ``mark`` is the step's stage hook (``loop.h3dnet_train_step``).
+    Returns the step's logs as 0-d tensors on the trainer's device."""
+    return loop.h3dnet_train_step(trainer, _det_batch(trainer, batch), mark)
+
+
+@torch.no_grad()
+def infer_h3dnet(bundle: DetectorBundle, points, points_valid):
+    """H3DNet inference on a batch: forward in eval mode, then
+    ``decode_h3dnet`` (the refined stage's boxes and a class-aware
+    axis-aligned NMS).
+
+    Args:
+        points: [B, P, C] f32 (tensor or numpy); points_valid: [B, P] bool.
+    Returns:
+        dict(boxes [B, max_out, 7] bottom-centre depth boxes, scores,
+        labels, valid) on the bundle's device.
+    """
+    out = bundle.model.eval()(*_points(bundle, points, points_valid))
+    return decode_h3dnet(bundle.cfg, out)
+
+
+def init_imvotenet_detector(cfg: ImVoteNetConfig, state_dict=None,
+                            device='cuda', seed=0) -> DetectorBundle:
+    """The ImVoteNet detector in eval mode on ``device`` (f32, as
+    gga_tpu's); the weights as ``init_ssd3d_detector``'s
+    (``ImVoteNet.init_weights`` when drawn)."""
+    return _init_point_detector(ImVoteNet(cfg), state_dict, device, seed)
+
+
+def init_imvotenet_trainer(cfg: ImVoteNetConfig, steps_per_epoch,
+                           state_dict=None, device='cuda', seed=0,
+                           optimizer=None) -> TrainState:
+    """The ImVoteNet detector (``init_imvotenet_detector``'s) in train mode
+    on ``device`` with the indoor 3x schedule's optimizer (as
+    ``init_h3dnet_trainer``'s) and a generator, seeded with ``seed``, for
+    the seed sampling's draws."""
+    return _epoch_trainer(init_imvotenet_detector(
+        cfg, state_dict, device, seed).model, steps_per_epoch,
+        optimizer or VOTENET_OPTIMIZER, seed)
+
+
+_IMAGE_DTYPES = dict(img=None, boxes_2d=torch.float32,
+                     boxes_valid=torch.bool, depth2img=torch.float32)
+
+
+def _image_inputs(dev, img, boxes_2d, boxes_valid, depth2img):
+    return [torch.as_tensor(x, dtype=dt, device=dev)
+            for x, dt in zip((img, boxes_2d, boxes_valid, depth2img),
+                             _IMAGE_DTYPES.values())]
+
+
+def imvotenet_train_step(trainer: TrainState, batch, mark=None, seed_u=None):
+    """One ImVoteNet train step on a batch (``groupfree3d_train_step``'s
+    keys plus img [B, H, W, 3] (raw 0-255 pixels, any dtype), boxes_2d
+    [B, Kb, 6] (x1, y1, x2, y2, confidence, class), boxes_valid [B, Kb]
+    and depth2img [B, 4, 4]). ``mark`` is the step's stage hook and
+    ``seed_u`` the seed sampling's draw (``loop.imvotenet_train_step``).
+    Returns the step's logs as 0-d tensors on the trainer's device."""
+    b = _det_batch(trainer, batch)
+    b.update(zip(_IMAGE_DTYPES, _image_inputs(
+        b['points'].device, *(batch[k] for k in _IMAGE_DTYPES))))
+    return loop.imvotenet_train_step(trainer, b, mark, seed_u)
+
+
+@torch.no_grad()
+def infer_imvotenet(bundle: DetectorBundle, points, points_valid, img,
+                    boxes_2d, boxes_valid, depth2img, seed_u=None):
+    """ImVoteNet inference on a batch: forward in eval mode (the joint
+    tower), then ``decode_imvotenet`` (VoteHead's boxes and a class-aware
+    axis-aligned NMS).
+
+    Args:
+        points: [B, P, C] f32; points_valid: [B, P] bool; img [B, H, W, 3]
+            raw pixels; boxes_2d [B, Kb, 6]; boxes_valid [B, Kb];
+            depth2img [B, 4, 4] (tensors or numpy).
+        seed_u: the seed sampling's draw [B, S * K]; when None, drawn from
+            a generator seeded with 0 (the same draw every call).
+    Returns:
+        dict(boxes [B, max_out, 7] bottom-centre depth boxes, scores,
+        labels, valid) on the bundle's device.
+    """
+    pts, val = _points(bundle, points, points_valid)
+    if seed_u is None:
+        seed_u = imvotenet_draws(bundle.cfg, pts.shape[0],
+                                 torch.Generator().manual_seed(0),
+                                 bundle.device)
+    joint, = bundle.model.eval()(pts, val, *_image_inputs(
+        bundle.device, img, boxes_2d, boxes_valid, depth2img), seed_u)
+    return decode_imvotenet(bundle.cfg, joint)

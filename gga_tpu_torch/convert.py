@@ -39,7 +39,18 @@ mmdet3d's module names:
   ``merge_down_layer`` / ``SA_modules.{i}.mlps.0.layer{k}`` from
   ``PointRCNNBboxHead_0/xyz_up`` / ``merge_down`` / ``sa{i}`` (its
   ``SharedMLP_0`` where the level samples), and ``cls_layer.{k}`` /
-  ``cls_layer.{n}`` from ``cls`` / ``cls_out`` (and ``reg``).
+  ``cls_layer.{n}`` from ``cls`` / ``cls_out`` (and ``reg``);
+
+and the VoteNet-derived indoor detectors: GroupFree3D
+(``groupfree3d_rules``: ``bbox_head.points_obj_cls.mlp.layer{k}`` from
+``GroupFree3DHead_0/points_obj_cls`` and ``points_obj_out``,
+``conv_pred`` / ``prediction_heads.{i}`` from ``proposal_*`` / ``s{i}_*``,
+``decoder_{self,cross}_posembeds.{i}`` from ``{self,cross}_pos{i}``,
+``decoder_layers.{i}.attentions.{0,1}.attn`` / ``ffns.0`` / ``norms``
+from ``decoder{i}/{self,cross}_attn`` / ``ffn0``, ``ffn1`` /
+``norm1-3``), H3DNet (``h3dnet_rules``, ``torch2flax.h3dnet_rules`` and
+the port's own keys for the refinement) and ImVoteNet
+(``imvotenet_rules``).
 
 A released mmdet3d GGA checkpoint loads into the port directly, with no
 conversion.
@@ -56,6 +67,9 @@ from .models.backbones.resnet import ARCH
 from .models.detectors.centerpoint import CenterPointConfig, common_heads
 from .models.detectors.dynamic_voxelnet import DynamicVoxelNetConfig
 from .models.detectors.fcaf3d import FCAF3DModelConfig
+from .models.detectors.groupfree3d import GroupFree3DNetConfig
+from .models.detectors.h3dnet import H3DNetConfig
+from .models.detectors.imvotenet import ImVoteNetConfig
 from .models.detectors.parta2 import PartA2Config
 from .models.detectors.pgd import PGDModelConfig
 from .models.detectors.point_rcnn import PointRCNNConfig
@@ -550,47 +564,43 @@ def votenet_rules(cfg: VoteNetConfig):
     abstractions' conv weights are Conv2d ``[O, I, 1, 1]``
     (``conv1x1_2d``), every other 1x1 weight Conv1d ``[O, I, 1]``."""
     rules = []
+    _sassg_rules(rules, 'backbone', 'PointNet2SASSG_0', cfg.sa_channels,
+                 cfg.fp_channels)
+    _vote_head_rules(rules, 'bbox_head', 'VoteHead_0', cfg.head)
+    return rules
 
-    def conv_bn(torch_prefix, flax_prefix, k, child='layer{k}',
-                conv='conv1x1'):
-        t = f'{torch_prefix}.{child.format(k=k)}'
-        rules.append((f'{t}.conv.weight', 'params', f'{flax_prefix}/fc{k}/'
-                      'kernel', conv))
-        rules.extend(_bn_moves(f'{t}.bn', f'{flax_prefix}/bn{k}'))
 
-    bb = 'PointNet2SASSG_0'
-    for i, chans in enumerate(cfg.sa_channels):
-        for k in range(len(chans)):
-            conv_bn(f'backbone.SA_modules.{i}.mlps.0',
-                    f'{bb}/sa{i}/SharedMLP_0', k, conv='conv1x1_2d')
-    for i, chans in enumerate(cfg.fp_channels):
-        for k in range(len(chans)):
-            conv_bn(f'backbone.FP_modules.{i}.mlps',
-                    f'{bb}/fp{i}/SharedMLP_0', k)
-    h, hd = cfg.head, 'VoteHead_0'
-    for k in range(len(h.vote_conv_channels)):
-        conv_bn('bbox_head.vote_module.vote_conv', f'{hd}/vote_mlp', k,
-                child='{k}')
-    rules.append(('bbox_head.vote_module.conv_out.weight', 'params',
-                  f'{hd}/vote_out/kernel', 'conv1x1'))
-    rules.append(('bbox_head.vote_module.conv_out.bias', 'params',
-                  f'{hd}/vote_out/bias', 'copy'))
-    for k in range(len(h.agg_mlp)):
-        conv_bn('bbox_head.vote_aggregation.mlps.0',
-                f'{hd}/vote_aggregation/SharedMLP_0', k)
-    for k in range(len(h.pred_conv_channels)):
-        conv_bn('bbox_head.conv_pred.shared_convs', f'{hd}/pred_shared', k)
-    # [obj 2 | reg n_reg | sem c]: conv_cls takes obj and sem, conv_reg
-    # the rest
+def _sassg_rules(rules, torch_prefix, flax_prefix, sa_channels, fp_channels):
+    """A ``PointNet2SASSG`` under ``torch_prefix`` / ``flax_prefix``."""
+    for i, chans in enumerate(sa_channels):
+        _shared_mlp(rules, f'{torch_prefix}.SA_modules.{i}.mlps.0',
+                    f'{flax_prefix}/sa{i}/SharedMLP_0', chans,
+                    conv='conv1x1_2d')
+    for i, chans in enumerate(fp_channels):
+        _shared_mlp(rules, f'{torch_prefix}.FP_modules.{i}.mlps',
+                    f'{flax_prefix}/fp{i}/SharedMLP_0', chans)
+
+
+def _vote_head_rules(rules, t, f, h):
+    """A ``VoteHead`` (config ``h``) under ``t`` / ``f``: the vote module,
+    the aggregation, the shared pred convs, and gga_tpu's fused
+    ``pred_out`` [obj 2 | reg n_reg | sem c] split into mmdet3d's
+    ``conv_cls`` (objectness and classes) and ``conv_reg`` (the rest)."""
+    _shared_mlp(rules, f'{t}.vote_module.vote_conv', f'{f}/vote_mlp',
+                h.vote_conv_channels, child='{k}')
+    _conv_out(rules, f'{t}.vote_module.conv_out', f'{f}/vote_out')
+    _shared_mlp(rules, f'{t}.vote_aggregation.mlps.0',
+                f'{f}/vote_aggregation/SharedMLP_0', h.agg_mlp)
+    _shared_mlp(rules, f'{t}.conv_pred.shared_convs', f'{f}/pred_shared',
+                h.pred_conv_channels)
     n_reg = h.n_reg
     cls_cols = f'cols:0-2,{2 + n_reg}-{2 + n_reg + h.num_classes}'
     reg_cols = f'cols:2-{2 + n_reg}'
-    for t, cols in (('conv_cls', cls_cols), ('conv_reg', reg_cols)):
-        for name in ('kernel', 'bias'):
-            rules.append((f'bbox_head.conv_pred.{t}.'
-                          f'{"weight" if name == "kernel" else "bias"}',
-                          'params', f'{hd}/pred_out/{name}', cols))
-    return rules
+    for conv, cols in (('conv_cls', cls_cols), ('conv_reg', reg_cols)):
+        rules.append((f'{t}.conv_pred.{conv}.weight', 'params',
+                      f'{f}/pred_out/kernel', cols))
+        rules.append((f'{t}.conv_pred.{conv}.bias', 'params',
+                      f'{f}/pred_out/bias', cols))
 
 
 def _conv_bn(rules, torch_prefix, flax_prefix, k, conv='conv1x1'):
@@ -688,6 +698,115 @@ def point_rcnn_rules(cfg: PointRCNNConfig):
     return rules
 
 
+def groupfree3d_rules(cfg: GroupFree3DNetConfig):
+    """(torch key, collection, flax path, transform) of GroupFree3D: the
+    SSG encoder as VoteNet's and the head under mmdet3d's names (the
+    module docstring lists them). An attention's ``in_proj_weight`` /
+    ``in_proj_bias`` stack flax's query, key and value projections (the
+    '+'-joined paths, transform ``in_proj``); its out projection's kernel
+    [heads, head_dim, C] becomes torch's [C, heads * head_dim]."""
+    rules = []
+    _sassg_rules(rules, 'backbone', 'PointNet2SASSG_0', cfg.sa_channels,
+                 cfg.fp_channels)
+    h, t, f = cfg.head, 'bbox_head', 'GroupFree3DHead_0'
+    ch = (h.in_channels,) * 2
+    _shared_mlp(rules, f'{t}.points_obj_cls.mlp', f'{f}/points_obj_cls', ch)
+    _conv_out(rules, f'{t}.points_obj_cls.mlp.layer2', f'{f}/points_obj_out')
+    for tp, fp in [('conv_pred', 'proposal')] + [
+            (f'prediction_heads.{i}', f's{i}')
+            for i in range(h.num_decoder_layers)]:
+        _shared_mlp(rules, f'{t}.{tp}.shared_convs', f'{f}/{fp}_shared', ch)
+        _conv_out(rules, f'{t}.{tp}.conv_cls', f'{f}/{fp}_cls')
+        _conv_out(rules, f'{t}.{tp}.conv_reg', f'{f}/{fp}_reg')
+    for proj in ('decoder_query_proj', 'decoder_key_proj'):
+        _conv_out(rules, f'{t}.{proj}', f'{f}/{proj}')
+    for i in range(h.num_decoder_layers):
+        for tp, fp in (('decoder_self_posembeds', 'self_pos'),
+                       ('decoder_cross_posembeds', 'cross_pos')):
+            e = f'{t}.{tp}.{i}.position_embedding_head'
+            _conv_out(rules, f'{e}.0', f'{f}/{fp}{i}/fc0')
+            rules.extend(_bn_moves(f'{e}.1', f'{f}/{fp}{i}/bn'))
+            _conv_out(rules, f'{e}.3', f'{f}/{fp}{i}/fc1')
+        d, fd = f'{t}.decoder_layers.{i}', f'{f}/decoder{i}'
+        for j, name in enumerate(('self_attn', 'cross_attn')):
+            a, fa = f'{d}.attentions.{j}.attn', f'{fd}/{name}'
+            for tn, fn in (('weight', 'kernel'), ('bias', 'bias')):
+                rules.append((f'{a}.in_proj_{tn}', 'params', '+'.join(
+                    f'{fa}/{p}/{fn}' for p in ('query', 'key', 'value')),
+                    'in_proj'))
+            _conv_out(rules, f'{a}.out_proj', f'{fa}/out', 'out_proj')
+        _conv_out(rules, f'{d}.ffns.0.layers.0.0', f'{fd}/ffn0', 'linear')
+        _conv_out(rules, f'{d}.ffns.0.layers.1', f'{fd}/ffn1', 'linear')
+        for k in range(3):
+            rules.append((f'{d}.norms.{k}.weight', 'params',
+                          f'{fd}/norm{k + 1}/scale', 'copy'))
+            rules.append((f'{d}.norms.{k}.bias', 'params',
+                          f'{fd}/norm{k + 1}/bias', 'copy'))
+    return rules
+
+
+def h3dnet_rules(cfg: H3DNetConfig):
+    """(torch key, collection, flax path, transform) of H3DNet. On every
+    key ``torch2flax.h3dnet_rules`` maps (the towers, the fused
+    aggregation, the RPN and the three primitive heads) it is that table,
+    plus the RPN's ``conv_cls`` / ``conv_reg`` split as ``export_h3dnet``
+    splits them. gga_tpu's refinement has no mmdet3d counterpart
+    (``torch2flax.py:362-374``), so its keys are the port's own:
+    ``roi_head.bbox_head.{surface,line}_matcher.mlps.0.layer{k}``,
+    ``roi_head.bbox_head.{matching,sem_matching}_conv.layer0`` and
+    ``_pred``, ``roi_head.bbox_head.feat_agg.layer{k}``,
+    ``roi_head.bbox_head.refine_proj``, ``roi_head.refine_shared
+    .layer{k}`` and ``roi_head.refine_out`` (1x1 Conv1d weights)."""
+    rules = []
+    bb = cfg.backbone
+    for i in range(bb.num_streams):
+        _sassg_rules(rules, f'backbone.backbone_list.{i}',
+                     f'backbone/backbone{i}', bb.sa_channels, bb.fp_channels)
+    _conv_bn(rules, 'backbone.aggregation_layers.layer0',
+             'backbone/aggregation', 0)
+    _vote_head_rules(rules, 'rpn_head', 'rpn_head', cfg.rpn)
+    for prim in cfg.primitives:
+        t, f = f'roi_head.primitive_{prim.mode}', f'primitive_{prim.mode}'
+        _conv_bn(rules, f'{t}.flag_conv', f'{f}/flag_conv', 0)
+        _conv_out(rules, f'{t}.flag_pred', f'{f}/flag_pred')
+        _shared_mlp(rules, f'{t}.vote_module.vote_conv', f'{f}/vote_mlp',
+                    prim.vote_conv_channels, child='{k}')
+        _conv_out(rules, f'{t}.vote_module.conv_out', f'{f}/vote_out')
+        _shared_mlp(rules, f'{t}.vote_aggregation.mlps.0',
+                    f'{f}/vote_aggregation/SharedMLP_0', prim.agg_mlp)
+        _shared_mlp(rules, f'{t}.conv_pred', f'{f}/conv_pred',
+                    prim.feat_channels, child='{k}')
+        _conv_out(rules, f'{t}.conv_pred.conv_out', f'{f}/pred_out')
+    b, t, f = cfg.bbox, 'roi_head.bbox_head', 'bbox_head'
+    for m in ('surface_matcher', 'line_matcher'):
+        _shared_mlp(rules, f'{t}.{m}.mlps.0', f'{f}/{m}/SharedMLP_0',
+                    b.match_mlp)
+    for m in ('matching', 'sem_matching'):
+        _shared_mlp(rules, f'{t}.{m}_conv', f'{f}/{m}_conv', (128,))
+        _conv_out(rules, f'{t}.{m}_pred', f'{f}/{m}_pred')
+    _shared_mlp(rules, f'{t}.feat_agg', f'{f}/feat_agg', b.agg_channels)
+    _conv_out(rules, f'{t}.refine_proj', f'{f}/refine_proj')
+    _shared_mlp(rules, 'roi_head.refine_shared', 'refine_shared',
+                cfg.rpn.pred_conv_channels)
+    _conv_out(rules, 'roi_head.refine_out', 'refine_out')
+    return rules
+
+
+def imvotenet_rules(cfg: ImVoteNetConfig):
+    """(torch key, collection, flax path, transform) of ImVoteNet under
+    mmdet3d's names: ``pts_backbone`` (VoteNet's SSG encoder),
+    ``img_mlp.mlp.layer{k}`` and the three towers
+    ``pts_bbox_head_{joint,pts,img}`` (VoteNet's head each)."""
+    rules = []
+    _sassg_rules(rules, 'pts_backbone', 'PointNet2SASSG_0', cfg.sa_channels,
+                 cfg.fp_channels)
+    _shared_mlp(rules, 'img_mlp.mlp', 'img_mlp', cfg.img_mlp_channels)
+    for name in ('joint', 'pts', 'img'):
+        _vote_head_rules(rules, f'pts_bbox_head_{name}', f'head_{name}',
+                         cfg.head)
+    return rules
+
+
 def _to_torch_layout(name, x):
     """One flax tensor -> its mmdet3d state_dict layout."""
     x = np.asarray(x)
@@ -698,6 +817,15 @@ def _to_torch_layout(name, x):
                  for r in name[len('cols:'):].split(',')]
         x = np.concatenate([x[..., a:b] for a, b in spans], -1)
         return x.T[..., None] if x.ndim == 2 else x
+    if name == 'in_proj':
+        # the query, key and value kernels [3, C, heads, head_dim] -> rows
+        # [3 * heads * head_dim, C], or their biases -> [3 * C]
+        if x.ndim == 4:
+            return x.reshape(3, x.shape[1], -1).transpose(0, 2, 1).reshape(
+                -1, x.shape[1])
+        return x.reshape(-1)
+    if name == 'out_proj':          # [heads, head_dim, C] -> [C, C]
+        return x.reshape(-1, x.shape[-1]).T
     if name == 'conv1x1':           # [I, O] -> [O, I, 1]
         return x.T[..., None]
     if name == 'conv1x1_2d':        # [I, O] -> [O, I, 1, 1]
@@ -741,6 +869,9 @@ def rules_of(cfg):
     ``DynamicVoxelNetConfig`` of ``PointPillarsConfig``) are tested before
     their bases; DVSECOND has SECOND's tensors."""
     for cls, rules in ((VoteNetConfig, votenet_rules),
+                       (GroupFree3DNetConfig, groupfree3d_rules),
+                       (H3DNetConfig, h3dnet_rules),
+                       (ImVoteNetConfig, imvotenet_rules),
                        (SSD3DNetConfig, ssd3d_rules),
                        (PointRCNNConfig, point_rcnn_rules),
                        (PartA2Config, parta2_rules),
@@ -763,15 +894,18 @@ def from_jax_variables(variables_np, cfg):
     the config of an anchor detector: ``SECONDNetConfig``,
     ``PointPillarsConfig``, ``DynamicVoxelNetConfig``, ``DVSECONDConfig``
     or ``SASSDConfig``, or a ``PartA2Config``, ``VoteNetConfig``,
-    ``SSD3DNetConfig`` or ``PointRCNNConfig``) ->
+    ``SSD3DNetConfig``, ``PointRCNNConfig``, ``GroupFree3DNetConfig``,
+    ``H3DNetConfig`` or ``ImVoteNetConfig``) ->
     the port's ``load_state_dict`` input (f32 tensors)."""
     flat = {c: _flatten(variables_np.get(c, {}))
             for c in ('params', 'batch_stats')}
     rules = rules_of(cfg)
     out = {}
     for tk, coll, fp, tr in rules:
-        if fp in flat[coll]:
-            arr = _to_torch_layout(tr, flat[coll][fp])
+        paths = fp.split('+')
+        if all(p in flat[coll] for p in paths):
+            arr = _to_torch_layout(tr, [flat[coll][p] for p in paths]
+                                   if len(paths) > 1 else flat[coll][fp])
             # np.array keeps a 0-d array 0-d (fuse_lambda), as
             # np.ascontiguousarray would not
             out[tk] = torch.from_numpy(np.array(arr, dtype=np.float32,

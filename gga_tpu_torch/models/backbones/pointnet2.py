@@ -18,8 +18,9 @@ level). A set abstraction's conv weights are Conv2d ``[O, I, 1, 1]``,
 every other 1x1 weight Conv1d ``[O, I, 1]``, as gga_tpu's
 ``tools/model_converters/torch2flax.py export_votenet`` lays them out.
 
-A set abstraction keeps the indices it sampled (``last_idx``; the MSG
-encoder returns them as ``sa_indices``) and takes them back through
+A set abstraction groups around given centres (``target_xyz``) or
+samples its own; it keeps the indices it sampled (``last_idx``; both
+encoders return them as ``sa_indices``) and takes them back through
 ``sample_idx``: a forward on the card can be given the CPU's picks, where
 near-ties of the distances (features out of matrix products differ in
 their last bits) would otherwise part the two.
@@ -106,6 +107,17 @@ def group_pool(mlp, xyz, features, valid, centers, center_valid, radius,
     return torch.where((mask.any(-1) & center_valid)[..., None], pooled, 0.0)
 
 
+def centres(xyz, valid, target_xyz, target_valid, sample_idx, sample):
+    """A set abstraction's centres: ``target_xyz`` / ``target_valid`` where
+    given (H3DNet's matchers, 3DSSD's 'spec' grouping), else the points at
+    ``sample_idx``, ``sample()``'s indices when None. Returns (new_xyz
+    [B, S, 3], new_valid [B, S], the indices or None)."""
+    if target_xyz is not None:
+        return target_xyz, target_valid, None
+    idx = sample() if sample_idx is None else sample_idx
+    return po.gather_points(xyz, idx), valid.gather(1, idx), idx
+
+
 class PointSAModule(nn.Module):
     """Set abstraction (gga_tpu ``PointSAModule``; mmdet3d's with max
     pool, use_xyz and normalize_xyz). ``in_channels`` counts the input
@@ -120,20 +132,22 @@ class PointSAModule(nn.Module):
         self.mlps = nn.ModuleList([SharedMLP(3 + in_channels, mlp_channels,
                                              conv2d=conv2d)])
 
-    def forward(self, xyz, features, valid, sample_idx=None):
+    def forward(self, xyz, features, valid, sample_idx=None, target_xyz=None,
+                target_valid=None):
         """xyz [B, N, 3]; features [B, N, C] or None; valid [B, N];
-        ``sample_idx`` [B, S] the centres' indices, sampled here when None.
+        ``target_xyz`` [B, S, 3] / ``target_valid`` [B, S] the given
+        centres; else ``sample_idx`` [B, S] their indices, sampled here
+        when None.
 
         Returns (new_xyz [B, S, 3], pooled features [B, S, C'], new_valid
-        [B, S]): the S centres by farthest point sampling, each with the
-        max over its ball's members of the MLP's output (``finfo.min``
-        where the ball is empty), 0 where the ball is empty or the centre
-        invalid. The indices are kept in ``self.last_idx``."""
-        idx = (po.furthest_point_sample(xyz, valid, self.num_point)
-               if sample_idx is None else sample_idx)
-        self.last_idx = idx
-        new_xyz = po.gather_points(xyz, idx)
-        new_valid = valid.gather(1, idx)
+        [B, S]): the S centres (by farthest point sampling unless given),
+        each with the max over its ball's members of the MLP's output
+        (``finfo.min`` where the ball is empty), 0 where the ball is empty
+        or the centre invalid. The sampled indices (None for given
+        centres) are kept in ``self.last_idx``."""
+        new_xyz, new_valid, self.last_idx = centres(
+            xyz, valid, target_xyz, target_valid, sample_idx,
+            lambda: po.furthest_point_sample(xyz, valid, self.num_point))
         pooled = group_pool(self.mlps[0], xyz, features, valid, new_xyz,
                             new_valid, self.radius, self.num_sample, True)
         return new_xyz, pooled, new_valid
@@ -182,17 +196,21 @@ class PointNet2SASSG(nn.Module):
             feat = ch[-1]
         self.out_channels = feat
 
-    def forward(self, points, valid):
-        """points [B, P, in_channels] (xyz + features); valid [B, P].
+    def forward(self, points, valid, sample_idx=None):
+        """points [B, P, in_channels] (xyz + features); valid [B, P];
+        ``sample_idx`` a list of each level's [B, S] centre indices, or
+        None to sample.
 
         Returns dict: fp_xyz / fp_features / fp_valid (the last feature
-        propagation's level) and the sa_xyz / sa_features / sa_valid
-        lists (input level first)."""
+        propagation's level), the sa_xyz / sa_features / sa_valid lists
+        (input level first) and sa_indices (each level's sampled
+        indices)."""
         xyz = points[..., :3].contiguous()
         feats = points[..., 3:] if points.shape[-1] > 3 else None
         sa_xyz, sa_feats, sa_valid = [xyz], [feats], [valid]
-        for sa in self.SA_modules:
-            x, f, v = sa(sa_xyz[-1], sa_feats[-1], sa_valid[-1])
+        for i, sa in enumerate(self.SA_modules):
+            x, f, v = sa(sa_xyz[-1], sa_feats[-1], sa_valid[-1],
+                         None if sample_idx is None else sample_idx[i])
             sa_xyz.append(x)
             sa_feats.append(f)
             sa_valid.append(v)
@@ -203,7 +221,8 @@ class PointNet2SASSG(nn.Module):
                       sa_valid[tgt])
             fp_x, fp_v = sa_xyz[tgt], sa_valid[tgt]
         return dict(fp_xyz=fp_x, fp_features=fp_f, fp_valid=fp_v,
-                    sa_xyz=sa_xyz, sa_features=sa_feats, sa_valid=sa_valid)
+                    sa_xyz=sa_xyz, sa_features=sa_feats, sa_valid=sa_valid,
+                    sa_indices=[sa.last_idx for sa in self.SA_modules])
 
 
 def sample_points_multi_mode(xyz, features, valid, num_points, fps_mods,
@@ -272,19 +291,13 @@ class PointSAModuleMSG(nn.Module):
         Returns (new_xyz [B, S, 3], features [B, S, sum of the branches'
         widths], new_valid [B, S]); the sampled indices (None for given
         centres) are kept in ``self.last_idx``."""
-        self.last_idx = None
-        if target_xyz is not None:
-            new_xyz, new_valid = target_xyz, target_valid
-        else:
-            if sample_idx is None:
-                feats = (features if features is not None
-                         else xyz.new_zeros(xyz.shape[:-1] + (0,)))
-                sample_idx = sample_points_multi_mode(
-                    xyz, feats, valid, self.num_point, self.fps_mods,
-                    self.fps_sample_ranges)
-            self.last_idx = sample_idx
-            new_xyz = po.gather_points(xyz, sample_idx)
-            new_valid = valid.gather(1, sample_idx)
+        feats = (features if features is not None
+                 else xyz.new_zeros(xyz.shape[:-1] + (0,)))
+        new_xyz, new_valid, self.last_idx = centres(
+            xyz, valid, target_xyz, target_valid, sample_idx,
+            lambda: sample_points_multi_mode(
+                xyz, feats, valid, self.num_point, self.fps_mods,
+                self.fps_sample_ranges))
         outs = [group_pool(mlp, xyz, features, valid, new_xyz, new_valid,
                            radius, nsample, self.normalize_xyz)
                 for mlp, radius, nsample in zip(self.mlps, self.radii,

@@ -4,9 +4,11 @@ stage-4 PGD detector, the indoor FCAF3D detector, the fully supervised
 KITTI voxel detectors: SECOND, PointPillars, DynamicVoxelNet, DVSECOND and
 SASSD and the two-stage PartA2, the fully supervised nuScenes
 CenterPoint of ``configs/centerpoint/``, the indoor VoteNet of
-``configs/votenet/`` and the point-based KITTI detectors 3DSSD
-(``configs/3dssd/``) and PointRCNN (``configs/point_rcnn/``); the rest of
-the zoo waits for its own slices).
+``configs/votenet/``, the point-based KITTI detectors 3DSSD
+(``configs/3dssd/``) and PointRCNN (``configs/point_rcnn/``) and the
+VoteNet-derived indoor detectors GroupFree3D (``configs/groupfree3d/``),
+H3DNet (``configs/h3dnet/``) and ImVoteNet (``configs/imvotenet/``); the
+rest of the zoo waits for its own slices).
 
 ``config_from_dict`` converts the python config-file dict into the typed
 frozen dataclass (recursively, lists -> tuples, nested dicts -> nested
@@ -29,6 +31,9 @@ from .detectors.dynamic_voxelnet import (DVSECONDConfig, DVSECONDDetector,
                                          DynamicVoxelNet,
                                          DynamicVoxelNetConfig)
 from .detectors.fcaf3d import FCAF3DDetector, FCAF3DModelConfig
+from .detectors.groupfree3d import GroupFree3DNet, GroupFree3DNetConfig
+from .detectors.h3dnet import H3DNet, H3DNetConfig
+from .detectors.imvotenet import ImVoteNet, ImVoteNetConfig
 from .detectors.parta2 import PartA2Config, PartA2Detector
 from .detectors.pgd import PGDDetector, PGDModelConfig
 from .detectors.point_rcnn import PointRCNNConfig, PointRCNNDetector
@@ -52,7 +57,9 @@ def config_from_dict(cfg_cls, d, base=None):
       strict ``**cfg`` expansion in the reference builder);
     - lists become (nested) tuples so configs stay hashable;
     - a dict value for a dataclass-typed field is merged OVER the
-      field's default instance (partial head dicts work).
+      field's default instance (partial head dicts work);
+    - a list of dicts for a tuple-of-dataclass field builds one element
+      of the default's element type from each.
     """
     base = cfg_cls() if base is None else base
     fields = {f.name for f in dataclasses.fields(cfg_cls)}
@@ -67,6 +74,15 @@ def config_from_dict(cfg_cls, d, base=None):
         cur = getattr(base, k)
         if dataclasses.is_dataclass(cur) and isinstance(v, dict):
             kwargs[k] = config_from_dict(type(cur), v, base=cur)
+        elif (isinstance(cur, tuple) and cur
+              and dataclasses.is_dataclass(cur[0])
+              and isinstance(v, (list, tuple))
+              and all(isinstance(x, dict) for x in v)):
+            # a tuple-of-dataclass field (H3DNet's primitive heads): each
+            # dict builds an element of the default's element type
+            kwargs[k] = tuple(type(cur[0])(**{ek: _tuplify(ev)
+                                              for ek, ev in x.items()})
+                              for x in v)
         else:
             kwargs[k] = _tuplify(v)
     return dataclasses.replace(base, **kwargs)
@@ -111,6 +127,9 @@ _register_family('CenterPointDetector', CenterPointConfig, CenterPointDetector)
 _register_family('VoteNet', VoteNetConfig, VoteNet)
 _register_family('PointRCNNDetector', PointRCNNConfig, PointRCNNDetector)
 _register_family('SSD3DNet', SSD3DNetConfig, SSD3DNet)
+_register_family('GroupFree3DNet', GroupFree3DNetConfig, GroupFree3DNet)
+_register_family('H3DNet', H3DNetConfig, H3DNet)
+_register_family('ImVoteNet', ImVoteNetConfig, ImVoteNet)
 
 
 def build_detector(cfg):

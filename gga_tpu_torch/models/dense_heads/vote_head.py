@@ -112,10 +112,12 @@ class VoteHead(nn.Module):
             cfg.in_channels, cfg.agg_mlp, conv2d=False)
         self.conv_pred = ConvPred(cfg)
 
-    def forward(self, feat_dict):
+    def forward(self, feat_dict, sample_idx=None):
         """feat_dict: ``PointNet2SASSG``'s (fp_xyz / fp_features /
-        fp_valid). Returns the proposal dict of gga_tpu's VoteHead (all
-        [B, S, ...])."""
+        fp_valid); ``sample_idx`` [B, agg_num_point] the aggregation's
+        centres among the votes, sampled when None (the indices are kept
+        in ``vote_aggregation.last_idx``). Returns the proposal dict of
+        gga_tpu's VoteHead (all [B, S, ...])."""
         c = self.cfg
         seed_xyz = feat_dict['fp_xyz']
         seed_feat = feat_dict['fp_features']
@@ -134,7 +136,7 @@ class VoteHead(nn.Module):
                                        keepdim=True).clamp(min=1e-6))
 
         agg_xyz, agg_feat, agg_valid = self.vote_aggregation(
-            vote_xyz, vote_feat, seed_valid)
+            vote_xyz, vote_feat, seed_valid, sample_idx)
 
         cp = self.conv_pred
         y = cp.shared_convs(agg_feat, agg_valid)

@@ -157,6 +157,13 @@ def three_interpolate(features, idx, dist2, eps=1e-8):
     """Inverse-distance weighted interpolation (gga_tpu
     ``three_interpolate``, mmcv's).
 
+    The arithmetic is XLA's on the CPU, so that the bits are gga_tpu's
+    (rows whose neighbours share one feature vector stay equal to one
+    another, as there): the weights as XLA rewrites ``(1 / d) / sum``,
+    1 / (d * sum), and the weighted sum as its dot, the first product
+    rounded, then one fused multiply-add a neighbour (exact products in
+    float64, one rounding a step), on any device.
+
     Args:
         features: [B, M, C] support features.
         idx: [B, Q, 3]; dist2: [B, Q, 3] squared distances.
@@ -164,12 +171,18 @@ def three_interpolate(features, idx, dist2, eps=1e-8):
         [B, Q, C] in the features' dtype; the gradient reaches
         ``features`` only.
     """
-    w = 1.0 / dist2.clamp(min=eps)
-    w = w / w.sum(-1, keepdim=True)
+    d = dist2.clamp(min=eps)
+    r = 1.0 / d
+    w = (1.0 / (d * (r[..., 0] + r[..., 1] + r[..., 2])[..., None])).to(
+        features.dtype)
     B, Q, S = idx.shape
     g = features.gather(1, idx.reshape(B, Q * S, 1).expand(
         B, Q * S, features.shape[-1])).reshape(B, Q, S, -1)
-    return torch.einsum('bqs,bqsc->bqc', w.to(g.dtype), g)
+    acc = w[..., 0, None] * g[..., 0, :]
+    for i in range(1, S):
+        acc = (acc.double() + w[..., i, None].double()
+               * g[..., i, :].double()).to(g.dtype)
+    return acc
 
 
 def furthest_point_sample(points, valid, num_samples):

@@ -25,7 +25,13 @@ schedule_3x.py``), and the point-based KITTI steps, as
 them: 3DSSD (``ssd3d_loss`` of a train-mode forward, then the clip and
 AdamW with the lr stepped down at the config's epochs) and PointRCNN
 (``point_rcnn_loss`` of the two-stage train-mode forward with the RoI
-sampler's draw, then the clip and the cyclic AdamW).
+sampler's draw, then the clip and the cyclic AdamW), and the
+VoteNet-derived indoor steps, as gga_tpu's tests compose them:
+GroupFree3D (``groupfree3d_loss`` of a train-mode forward with the
+decoder's dropout keep masks), H3DNet (``h3dnet_loss``) and ImVoteNet
+(``imvotenet_loss`` of the three towers, with the seed sampling's draw),
+each then the clip and AdamW with the lr stepped down at the config's
+epochs.
 
 Under a ``torch.distributed`` group (``parallel.mesh``) the GGA, PGD and
 FCAF3D steps train data-parallel: each rank runs its rows of the global
@@ -48,7 +54,11 @@ from ..models.dense_heads import pgd_head
 from ..models.dense_heads import vote_head
 from ..models.dense_heads.ssd_3d_head import ssd3d_loss
 from ..models.detectors.centerpoint import centerpoint_loss
+from ..models.dense_heads.groupfree3d_head import (groupfree3d_draws,
+                                                  groupfree3d_loss)
 from ..models.detectors.centerpoint_gga import GGADetector
+from ..models.detectors.h3dnet import h3dnet_loss
+from ..models.detectors.imvotenet import imvotenet_draws, imvotenet_loss
 from ..models.detectors.parta2 import parta2_draws, parta2_loss
 from ..models.detectors.point_rcnn import point_rcnn_draws, point_rcnn_loss
 from ..models.detectors.sassd import sassd_aux_loss
@@ -473,3 +483,81 @@ def point_rcnn_train_step(state: TrainState, batch, mark=None,
         return res
 
     return _point_step(state, 'point_rcnn_train_step', loss_fn, mark)
+
+
+def groupfree3d_train_step(state: TrainState, batch, mark=None, keep=None):
+    """One GroupFree3D optimization step; updates ``state`` in place.
+
+    Args:
+        batch: dict of tensors on the model's device: points [B, P, C],
+            points_valid [B, P], gt_boxes [B, M, 7] (bottom-centre depth
+            boxes), gt_labels [B, M], gt_valid [B, M].
+        mark: as ``ssd3d_train_step``'s.
+        keep: the decoder's dropout keep masks (``groupfree3d_draws``);
+            drawn from ``state.generator`` when None.
+    Returns:
+        logs: 0-d tensors: ``groupfree3d_loss``'s and 'grad_norm'.
+    """
+    model = state.model
+    if keep is None:
+        keep = groupfree3d_draws(model.cfg, batch['points'].shape[0],
+                                 state.generator, batch['points'].device)
+
+    def loss_fn(mark):
+        preds = model(batch['points'], batch['points_valid'], keep=keep)
+        mark('forward')
+        out = groupfree3d_loss(model.cfg.head, preds, batch['gt_boxes'],
+                               batch['gt_labels'], batch['gt_valid'])
+        mark('loss')
+        return out
+
+    return _point_step(state, 'groupfree3d_train_step', loss_fn, mark)
+
+
+def h3dnet_train_step(state: TrainState, batch, mark=None):
+    """One H3DNet optimization step; updates ``state`` in place. ``batch``
+    and ``mark`` as ``groupfree3d_train_step``'s ('forward' covers the
+    towers, the RPN, the primitives and the refinement). Returns the logs:
+    ``h3dnet_loss``'s and 'grad_norm'."""
+    model = state.model
+
+    def loss_fn(mark):
+        out = model(batch['points'], batch['points_valid'])
+        mark('forward')
+        res = h3dnet_loss(model.cfg, out, batch['gt_boxes'],
+                          batch['gt_labels'], batch['gt_valid'])
+        mark('loss')
+        return res
+
+    return _point_step(state, 'h3dnet_train_step', loss_fn, mark)
+
+
+def imvotenet_train_step(state: TrainState, batch, mark=None, seed_u=None):
+    """One ImVoteNet optimization step; updates ``state`` in place.
+
+    Args:
+        batch: as ``groupfree3d_train_step``'s, plus img [B, H, W, 3],
+            boxes_2d [B, Kb, 6], boxes_valid [B, Kb] and depth2img
+            [B, 4, 4].
+        mark: as ``groupfree3d_train_step``'s.
+        seed_u: the seed sampling's draw [B, S * K]; drawn from
+            ``state.generator`` when None (``imvotenet_draws``).
+    Returns:
+        logs: 0-d tensors: ``imvotenet_loss``'s and 'grad_norm'.
+    """
+    model = state.model
+    if seed_u is None:
+        seed_u = imvotenet_draws(model.cfg, batch['points'].shape[0],
+                                 state.generator, batch['points'].device)
+
+    def loss_fn(mark):
+        towers = model(batch['points'], batch['points_valid'], batch['img'],
+                       batch['boxes_2d'], batch['boxes_valid'],
+                       batch['depth2img'], seed_u)
+        mark('forward')
+        res = imvotenet_loss(model.cfg, towers, batch['gt_boxes'],
+                             batch['gt_labels'], batch['gt_valid'])
+        mark('loss')
+        return res
+
+    return _point_step(state, 'imvotenet_train_step', loss_fn, mark)

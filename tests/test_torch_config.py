@@ -7,7 +7,9 @@ both benchmark ones), the three dynamic-voxelization configs, SASSD and
 all 16 nuScenes CenterPoint configs (voxel and pillar, DCN head, circle
 NMS, tta), the three PartA2 configs (3-class, car, the benchmark one),
 the three VoteNet configs (SUN RGB-D, ScanNet, ScanNet with the IoU
-loss) and FCAF3D's ScanNet config;
+loss), FCAF3D's ScanNet config, the two point-based KITTI configs and
+the six VoteNet-derived indoor configs (the four GroupFree3D, H3DNet's
+and ImVoteNet's);
 the _fp16_ SECOND configs parse to model configs equal to gga_tpu's.
 Also the port's refusal of gga_tpu's TPU-only encoder options, of the
 PointPillars backbones and necks it does not have, and of the _fp16_
@@ -30,6 +32,9 @@ from gga_tpu_torch.models.detectors import centerpoint as tcp
 from gga_tpu_torch.models.detectors import centerpoint_gga as tdet
 from gga_tpu_torch.models.detectors import dynamic_voxelnet as tdv
 from gga_tpu_torch.models.detectors import fcaf3d as tfcaf3d
+from gga_tpu_torch.models.detectors import groupfree3d as tgroupfree3d
+from gga_tpu_torch.models.detectors import h3dnet as th3dnet
+from gga_tpu_torch.models.detectors import imvotenet as timvotenet
 from gga_tpu_torch.models.detectors import parta2 as tparta2
 from gga_tpu_torch.models.detectors import pgd as tpgd
 from gga_tpu_torch.models.detectors import point_rcnn as tpoint_rcnn
@@ -92,6 +97,16 @@ INDOOR = {
     'fcaf3d/fcaf3d_8x2_scannet-3d-18class.py': (tfcaf3d.FCAF3DDetector,
                                                 tfcaf3d.FCAF3DModelConfig),
 }
+# the VoteNet-derived indoor configs, with the detector each builds
+VOTE_FAMILY = {
+    **{f'groupfree3d/{p.name}': (tgroupfree3d.GroupFree3DNet,
+                                 tgroupfree3d.GroupFree3DNetConfig)
+       for p in sorted((ROOT / 'configs' / 'groupfree3d').glob('*.py'))},
+    'h3dnet/h3dnet_3x8_scannet-3d-18class.py': (th3dnet.H3DNet,
+                                                th3dnet.H3DNetConfig),
+    'imvotenet/imvotenet_stage2_16x8_sunrgbd-3d-10class.py':
+        (timvotenet.ImVoteNet, timvotenet.ImVoteNetConfig),
+}
 # the point-based KITTI detectors' configs, with the detector each builds
 POINT_FAMILY = {
     '3dssd/3dssd_4x4_kitti-3d-car.py': (tssd3d.SSD3DNet,
@@ -118,10 +133,15 @@ def _plain(obj):
 
 def _fields(dc):
     """A frozen config as nested (name, value) pairs, dataclass fields
-    compared recursively."""
-    return {f.name: (_fields(getattr(dc, f.name))
-                     if dataclasses.is_dataclass(getattr(dc, f.name))
-                     else getattr(dc, f.name))
+    (and tuples of them, as H3DNet's primitive heads) compared
+    recursively."""
+    def value(v):
+        if dataclasses.is_dataclass(v):
+            return _fields(v)
+        if isinstance(v, tuple) and v and dataclasses.is_dataclass(v[0]):
+            return tuple(map(value, v))
+        return v
+    return {f.name: value(getattr(dc, f.name))
             for f in dataclasses.fields(dc)}
 
 
@@ -204,7 +224,7 @@ def test_merge_from_options_agrees(name):
 
 @pytest.mark.parametrize('name', DETECTOR_CONFIGS + (
     'gga_pdg.py', 'gga_sunrgbd.py', SECOND, POINTPILLARS, *VOXEL_FAMILY,
-    *CENTERPOINT, *INDOOR, *POINT_FAMILY))
+    *CENTERPOINT, *INDOOR, *POINT_FAMILY, *VOTE_FAMILY))
 def test_build_detector_config_equals_gga_tpu(name):
     path = str(ROOT / 'configs' / ('' if '/' in name else 'gga') / name)
     model, mc = tbuilder.build_detector(tconfig.Config.fromfile(path))
@@ -216,7 +236,7 @@ def test_build_detector_config_equals_gga_tpu(name):
         'gga_sunrgbd.py': (tfcaf3d.FCAF3DDetector, tfcaf3d.FCAF3DModelConfig),
         SECOND: (tvoxelnet.SECONDDetector, tvoxelnet.SECONDNetConfig),
         POINTPILLARS: (tvoxelnet.PointPillars, tvoxelnet.PointPillarsConfig),
-        **VOXEL_FAMILY, **INDOOR, **POINT_FAMILY,
+        **VOXEL_FAMILY, **INDOOR, **POINT_FAMILY, **VOTE_FAMILY,
         **dict.fromkeys(CENTERPOINT, (tcp.CenterPointDetector,
                                       tcp.CenterPointConfig)),
     }.get(name, (tdet.GGADetector, tdet.GGAModelConfig))
@@ -319,6 +339,44 @@ def test_build_detector_config_equals_gga_tpu(name):
         # the up-lifted xyz channels and the backbone's 128 merged
         bh = model.roi_head['bbox_head']
         assert bh.merge_down_layer.conv.weight.shape[:2] == (128, 256)
+    elif det is tgroupfree3d.GroupFree3DNet:
+        wide = '-w2x-' in name
+        assert mc.in_channels == 3 and mc.fp_channels[-1][-1] == 288
+        assert mc.sa_channels[1] == ((256, 256, 512) if wide
+                                     else (128, 128, 256))
+        assert mc.head.num_decoder_layers == (6 if '-L6-' in name else 12)
+        assert mc.head.num_proposal == (512 if name.endswith('O512.py')
+                                        else 256)
+        assert mc.head.num_classes == 18 and not mc.head.with_rot
+        assert len(model.bbox_head.decoder_layers) == (
+            mc.head.num_decoder_layers)
+        # [objectness | 18 classes] and 3 + 2 x 1 + 4 x 18 regression
+        head = model.bbox_head.prediction_heads[-1]
+        assert head.conv_cls.weight.shape[0] == 19
+        assert head.conv_reg.weight.shape[0] == 77
+        attn = model.bbox_head.decoder_layers[0].attentions[1].attn
+        assert tuple(attn.in_proj_weight.shape) == (3 * 288, 288)
+    elif det is th3dnet.H3DNet:
+        assert mc.backbone.num_streams == 4
+        assert len(model.backbone.backbone_list) == 4
+        # the four towers' 256 fused into 256
+        assert model.backbone.aggregation_layers.layer0.conv.weight.shape[
+            :2] == (256, 1024)
+        assert mc.rpn.num_classes == 18 and mc.rpn.num_dir_bins == 1
+        assert [p.mode for p in mc.primitives] == ['z', 'xy', 'line']
+        # 6 face and 12 edge centres of 128 channels each
+        bh = model.roi_head['bbox_head']
+        assert bh.feat_agg.layer0.conv.weight.shape[1] == 18 * 128
+        assert model.roi_head['refine_out'].weight.shape[0] == (
+            2 + mc.rpn.n_reg + 18)
+    elif det is timvotenet.ImVoteNet:
+        assert mc.num_sampled_seed == 1024 and mc.loss_weights == (
+            0.8, 0.1, 0.1)
+        assert mc.fusion.num_classes == 10 and mc.fusion.cue_channels == 18
+        assert mc.num_seeds == 1024
+        # the joint tower's [point 256 | image 256] features
+        assert [getattr(model, f'pts_bbox_head_{n}').cfg.in_channels
+                for n in ('joint', 'pts', 'img')] == [512, 256, 256]
     elif name in INDOOR:
         assert mc.head.n_classes == 18 and mc.head.n_reg_outs == 6
         assert not mc.head.with_yaw and mc.depth == 34
@@ -382,6 +440,22 @@ def test_unknown_key_raises_in_both():
             builder.build_detector(cfg)
 
 
+def test_primitive_list_builds_as_gga_tpu(tmp_path):
+    """A list of dicts for a tuple-of-dataclass field (H3DNet's
+    ``primitives``) builds one element a dict, as gga_tpu's builder."""
+    path = tmp_path / 'h3dnet_narrow.py'
+    path.write_text(
+        f"_base_ = ['{ROOT}/configs/h3dnet/h3dnet_3x8_scannet-3d-18class.py']"
+        "\nmodel = dict(primitives=[dict(mode=m, num_proposal=128, "
+        "agg_mlp=[64, 64]) for m in ('z', 'xy', 'line')])\n")
+    model, mc = tbuilder.build_detector(tconfig.Config.fromfile(str(path)))
+    _, ref = jbuilder.build_detector(jconfig.Config.fromfile(str(path)))
+    assert _fields(mc) == _fields(ref)
+    assert [p.num_proposal for p in mc.primitives] == [128] * 3
+    assert model.roi_head['bbox_head'].surface_matcher.mlps[0].layer0.conv \
+        .weight.shape[1] == 3 + 64
+
+
 def test_registry_names_the_known_types():
     reg = tconfig.Registry('things')
     reg.register(dict, name='D')
@@ -392,7 +466,7 @@ def test_registry_names_the_known_types():
     assert reg.build({'type': 'D', 'a': 1}) == {'a': 1}
     cfg = tconfig.Config.fromfile(
         str(ROOT / 'configs' / 'gga' / 'gga_kitti_tiny.py'))
-    cfg.model.type = 'H3DNet'             # not ported yet
+    cfg.model.type = 'MVXNet'             # not ported yet
     with pytest.raises(KeyError, match='GGADetector'):
         tbuilder.build_detector(cfg)
 

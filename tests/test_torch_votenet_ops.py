@@ -10,9 +10,9 @@ CPU:
   queries that hit nothing;
 - ``aligned_3d_nms``'s keep mask exactly on tie-free scores, with
   overlapping boxes of one class and of two, and invalid entries;
-- ``PointSAModule`` and ``PointFPModule`` in train mode (batch
-  statistics) at 1e-5 of the largest entry, and their BN statistics'
-  updates at 1e-5.
+- ``PointSAModule`` (sampling its centres, or given them) and
+  ``PointFPModule`` in train mode (batch statistics) at 1e-5 of the
+  largest entry, and their BN statistics' updates at 1e-5.
 
 gga_tpu's functions are jitted once per case (vmapped over the batch).
 """
@@ -180,6 +180,44 @@ def test_point_sa_module_matches_gga_tpu(features):
     np.testing.assert_array_equal(x.numpy(), np.asarray(rx))
     np.testing.assert_array_equal(v.numpy(), np.asarray(rv))
     _close(f.detach().numpy(), np.asarray(rf))
+    ref_stats = _flat_stats(upd['batch_stats']['SharedMLP_0'])
+    for k, s in _stats(tm.mlps[0]).items():
+        _close(s, ref_stats[k], k)
+
+
+@pytest.mark.parametrize('features', [0, 6])
+def test_point_sa_module_given_centres_matches_gga_tpu(features):
+    """``target_xyz`` / ``target_valid`` (H3DNet's matchers): the given
+    centres grouped as they are, some invalid and some parked 1e4 m away
+    (no member), as gga_tpu's ``pointnet2.py:44-56``; no indices kept."""
+    pts, valid = _cloud('invalid', seed=8, B=3, P=1200)
+    rng = np.random.RandomState(9)
+    feats = (rng.randn(3, 1200, features).astype(np.float32)
+             if features else None)
+    centres = pts[:, rng.randint(0, 1200, 96)] + rng.normal(
+        0, 0.2, (3, 96, 3)).astype(np.float32)
+    centres[:, ::7] = 1e4
+    cvalid = rng.rand(3, 96) < 0.8
+    jm = jpn2.PointSAModule(96, 0.5, 8, (16, 24))
+    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), pts, feats,
+                                            valid, False))
+    var = {c: _fill(shapes[c], rng) for c in ('params', 'batch_stats')}
+    (rx, rf, rv), upd = jax.jit(lambda v, p, f, m, c, cv: jm.apply(
+        v, p, f, m, True, target_xyz=c, target_valid=cv,
+        mutable=['batch_stats']))(var, pts, feats, valid, centres, cvalid)
+    tm = tpn2.PointSAModule(96, 0.5, 8, features, (16, 24))
+    _load_mlp(tm.mlps[0], var['params']['SharedMLP_0'],
+              var['batch_stats']['SharedMLP_0'])
+    x, f, v = tm.train()(torch.from_numpy(pts),
+                         None if feats is None else torch.from_numpy(feats),
+                         torch.from_numpy(valid),
+                         target_xyz=torch.from_numpy(centres),
+                         target_valid=torch.from_numpy(cvalid))
+    assert tm.last_idx is None
+    np.testing.assert_array_equal(x.numpy(), np.asarray(rx))
+    np.testing.assert_array_equal(v.numpy(), np.asarray(rv))
+    _close(f.detach().numpy(), np.asarray(rf))
+    assert not np.asarray(rf)[:, ::7].any() and np.asarray(rf).any()
     ref_stats = _flat_stats(upd['batch_stats']['SharedMLP_0'])
     for k, s in _stats(tm.mlps[0]).items():
         _close(s, ref_stats[k], k)
