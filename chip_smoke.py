@@ -6,7 +6,8 @@ the accuracy benches, the rest of the KITTI voxel detectors (DVSECOND,
 SASSD, DynamicVoxelNet), the fully supervised nuScenes CenterPoint, the
 two-stage PartA2, the indoor family (stage 1 for SUN RGB-D and ScanNet,
 FCAF3D on ScanNet, VoteNet), the VoteNet-derived indoor detectors
-(GroupFree3D, H3DNet, ImVoteNet), the sharded stage 3 and the two-rank
+(GroupFree3D, H3DNet, ImVoteNet), the point-cloud segmentors (PointNet++
+SSG and MSG, DGCNN, PAConv), the sharded stage 3 and the two-rank
 data-parallel GGA step, and the point-based KITTI detectors (3DSSD,
 PointRCNN) on one NVIDIA card.
 
@@ -290,6 +291,23 @@ PointRCNN) on one NVIDIA card.
     AdamW; the FPS share; peak memory) and one ``infer_*`` call (boxes
     [B, n, 7], finite); the widest GroupFree3D, w2x-L12-O512, the
     forward against the CPU's and one inference only.
+17c. Segmentation phase (``segmentation_phase``, on the indoor family's
+    mini ScanNet and a mini S3DIS written from seed 0 and converted by
+    ``create_data s3dis``): PointNet++ SSG on ScanNet (B = 16 x 8 192, 6
+    channels), PointNet++ MSG, DGCNN (k = 20) and PAConv (M = 8) on S3DIS
+    (B = 8 / 32 / 8 x 4 096, 9 channels: xyz | rgb | xyz over the scene's
+    per-axis maximum, built here) as shipped, f32, seeded weights
+    (``segmentation_path``): the card's eval forward at B = 1 against the
+    CPU's (every FPS level, and DGCNN's D-KNN graph, equal; with the
+    CPU's picks given, the logits within 1e-4 of max|CPU|; the share of
+    the picks the card makes alone that equal the CPU's printed), 2
+    recorded ``apis.segmentor_train_step`` calls with the stage-1 label
+    weights (no kernel launch, finite losses, the cyclic schedule's lr,
+    moved weights; device ms by stage: FPS + ball query + grouping, kNN
+    graph, MLPs / PAConv, head, loss, backward, clip + AdamW, each with
+    its share; peak memory), ``infer_segmentor`` over the val split with
+    ``seg_eval`` (miou, acc, acc_cls finite) and ``inference_segmentor``
+    on one whole scene.
 18. Data-parallel phase (``data_parallel_phase``, last): two processes
     on the one card. (a) The stage-3 CLI as ``--rank 0/1 --world 2
     --tmpdir`` (spawned, started together) on the workflow's mini KITTI
@@ -339,8 +357,9 @@ PointRCNN) on one NVIDIA card.
     CenterPoint config's steps on the two f32 sparse-conv entries,
     gather_rows and render_heatmap, ``parta2`` dicts over PartA2's
     steps and ``scannet`` dicts over FCAF3D's ScanNet steps on the two
-    f32 sparse-conv entries, and ``point_family`` and ``vote_derived``
-    dicts with each kernel's launches in those phases, 0),
+    f32 sparse-conv entries, and ``point_family``, ``vote_derived`` and
+    ``segmentation`` dicts with each kernel's launches in those phases,
+    0),
     the card, then, as the last line, {"ok": true, "device": {...}}. Any
     failed phase exits non-zero.
 
@@ -5243,6 +5262,456 @@ def vote_derived_phase(torch, mods, card, data):
     return res
 
 
+# --- the point-cloud segmentors: PointNet++ SSG and MSG, DGCNN and PAConv
+#     on the indoor family's mini ScanNet and a mini S3DIS ----------------
+SEG_PATHS = (
+    'configs/pointnet2/pointnet2_ssg_16x2_cosine_200e_scannet_seg-3d-20class.py',
+    'configs/pointnet2/pointnet2_msg_16x2_cosine_80e_s3dis_seg-3d-13class.py',
+    'configs/dgcnn/dgcnn_32x4_cosine_100e_s3dis_seg-3d-13class.py',
+    'configs/paconv/paconv_ssg_8x8_cosine_150e_s3dis_seg-3d-13class.py',
+)
+# rooms of the raw mini S3DIS: the configs train on Area_1 and test on
+# Area_5; Area_1's 8 x 40 000 points give 78 resampled scene indices at
+# 4 096 points, two steps of DGCNN's B = 32
+SEG_S3DIS_ROOMS = dict(Area_1=8, Area_5=2)
+SEG_S3DIS_POINTS = 40000
+SEG_STEPS = 2               # recorded train steps of each segmentor
+SEG_TOL = 1e-4              # card forward against the CPU's, of max|CPU|
+SEG_WHOLE_POINTS = 40000    # inference_segmentor's max_points (its default)
+SEG_STAGES = ('FPS + ball query + grouping', 'kNN graph', 'MLPs / PAConv',
+              'head', 'loss', 'backward', 'clip + AdamW')
+# S3DIS's furniture and fittings written into the rooms: table, chair,
+# sofa, bookcase, board, window, door, clutter, beam, column
+S3DIS_OBJECTS = (7, 8, 9, 10, 11, 5, 6, 12, 3, 4)
+
+
+def write_raw_s3dis(root, rooms=SEG_S3DIS_ROOMS, n_points=SEG_S3DIS_POINTS,
+                    seed=0):
+    """S3DIS's raw layout under ``root`` (``s3dis_data/Area_{a}_room_{r}
+    _{point, sem_label, ins_label}.npy``): box rooms of floor (class 1),
+    ceiling (0) and walls (2), instance 0, three fifths of the points,
+    and 4-8 objects of ``S3DIS_OBJECTS`` standing on the floor, one
+    instance each; xyz in metres and rgb in 0-255 by class with noise.
+    Returns {room stem: number of objects}."""
+    import os
+    rng = np.random.RandomState(seed)
+    data = os.path.join(root, 's3dis_data')
+    os.makedirs(data, exist_ok=True)
+    colours = rng.uniform(30, 225, (13, 3))
+    written = {}
+    for area, n_rooms in rooms.items():
+        for r in range(n_rooms):
+            size = rng.uniform([4.0, 3.0, 2.6], [8.0, 6.0, 3.2])
+            classes = rng.choice(S3DIS_OBJECTS, rng.randint(4, 9))
+            n_obj = n_points * 2 // 5 // len(classes)
+            n_bg = n_points - n_obj * len(classes)
+            # the structure: floor, ceiling and the four walls
+            part = rng.choice(6, n_bg, p=[0.3, 0.2, 0.125, 0.125, 0.125,
+                                          0.125])
+            xyz = rng.uniform(0, 1, (n_bg, 3)) * size
+            xyz[part == 0, 2] = 0.0
+            xyz[part == 1, 2] = size[2]
+            for w, (axis, side) in enumerate(((0, 0), (0, 1), (1, 0),
+                                              (1, 1)), 2):
+                xyz[part == w, axis] = side * size[axis]
+            sem = np.where(part == 0, 1, np.where(part == 1, 0, 2))
+            ins = np.zeros(n_bg, np.int64)
+            pts, sems, inss = [xyz], [sem], [ins]
+            for i, cls in enumerate(classes, 1):
+                dims = rng.uniform([0.4, 0.4, 0.4], [1.6, 1.2, 1.8])
+                lo = rng.uniform(0, 1, 3) * (size - dims)
+                lo[2] = 0.0
+                pts.append(lo + rng.uniform(0, 1, (n_obj, 3)) * dims)
+                sems.append(np.full(n_obj, cls))
+                inss.append(np.full(n_obj, i, np.int64))
+            sem = np.concatenate(sems).astype(np.int64)
+            rgb = np.clip(colours[sem] + rng.randn(len(sem), 3) * 12, 0, 255)
+            stem = f'{area}_room_{r + 1}'
+            for suffix, arr in (
+                    ('point', np.concatenate([np.concatenate(pts), rgb],
+                                             -1).astype(np.float32)),
+                    ('sem_label', sem), ('ins_label', np.concatenate(inss))):
+                np.save(os.path.join(data, f'{stem}_{suffix}.npy'), arr)
+            written[stem] = len(classes)
+    return written
+
+
+def s3dis_stage1(card, tmp):
+    """The raw mini S3DIS written and converted by ``create_data.main``:
+    one pkl an area, the seg_info label weights and resampled scene
+    indices. Returns dict(root, pkls)."""
+    import os
+
+    from gga_tpu_torch.tools import create_data
+    root = os.path.join(tmp, 's3dis_raw')
+    t0 = time.perf_counter()
+    written = write_raw_s3dis(root, SEG_S3DIS_ROOMS, SEG_S3DIS_POINTS)
+    t1 = time.perf_counter()
+    pkls = create_data.main(['s3dis', '--root-path', root, '--out-dir', root,
+                             '--workers', str(IF_WORKERS)])
+    t2 = time.perf_counter()
+    if set(pkls) != set(SEG_S3DIS_ROOMS):
+        fail(f'stage 1 s3dis: pkls of {sorted(pkls)}, expected '
+             f'{sorted(SEG_S3DIS_ROOMS)}')
+    for area in SEG_S3DIS_ROOMS:
+        for f in ('resampled_scene_idxs', 'label_weight'):
+            if not os.path.exists(os.path.join(root, 'seg_info',
+                                               f'{area}_{f}.npy')):
+                fail(f'stage 1 s3dis: no seg_info {area}_{f}')
+    print(f'{card}: stage 1 s3dis: raw layout of {len(written)} rooms x '
+          f'{SEG_S3DIS_POINTS} points written in {t1 - t0:.2f} s, '
+          f'create_data s3dis --workers {IF_WORKERS} in {t2 - t1:.3f} s '
+          '(host)')
+    return dict(root=root, pkls=pkls)
+
+
+def seg_scene_max(ds):
+    """Each scene's per-axis maximum of xyz, from its whole points file."""
+    import os
+    return [np.fromfile(os.path.join(ds.root, i['pts_path']), np.float32)
+            .reshape(-1, ds.load_dim)[:, :3].max(0) for i in ds.infos]
+
+
+def seg_batch(ds, idxs, nine, maxes):
+    """``ds``'s samples of the scenes ``idxs`` (each sample a draw of the
+    dataset's RandomState) stacked; with ``nine``, mmdet3d's S3DIS
+    input, built here: xyz | rgb | xyz over the scene's per-axis
+    maximum."""
+    out = []
+    for j in idxs:
+        s = ds[int(j)]
+        if nine:
+            s['points'] = np.concatenate(
+                [s['points'], s['points'][:, :3] / maxes[int(j)]],
+                -1).astype(np.float32)
+        out.append(s)
+    return {k: np.stack([s[k] for s in out]) for k in out[0]}
+
+
+@contextlib.contextmanager
+def seg_stage_events(torch, model):
+    """CUDA events around every farthest point sampling, ball query +
+    grouping (``ops/points.py``) and DGCNN kNN graph of a forward, and
+    around ``model.decode_head``. Yields ``spans``, a list with one dict a
+    step of {part: [(start, end), ...]}; append a dict before each
+    step."""
+    from gga_tpu_torch.models.backbones import dgcnn
+    from gga_tpu_torch.ops import points as po
+    spans, head = [], []
+
+    def timed(fn, key):
+        def wrapper(*a, **k):
+            pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            pair[0].record()
+            out = fn(*a, **k)
+            pair[1].record()
+            spans[-1].setdefault(key, []).append(pair)
+            return out
+        return wrapper
+
+    def pre(*_):
+        head[:] = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        head[0].record()
+
+    def post(*_):
+        head[1].record()
+        spans[-1].setdefault('head', []).append(tuple(head))
+
+    real = po.furthest_point_sample, po.query_and_group, dgcnn.masked_knn_graph
+    po.furthest_point_sample = timed(real[0], 'fps')
+    po.query_and_group = timed(real[1], 'grouping')
+    dgcnn.masked_knn_graph = timed(real[2], 'knn')
+    handles = [model.decode_head.register_forward_pre_hook(pre),
+               model.decode_head.register_forward_hook(post)]
+    try:
+        yield spans
+    finally:
+        (po.furthest_point_sample, po.query_and_group,
+         dgcnn.masked_knn_graph) = real
+        for h in handles:
+            h.remove()
+
+
+def seg_stage_ms(spans, marks):
+    """Device ms of one step by SEG_STAGES (and 'FPS' alone) from its spans
+    and its marks (start, forward, loss, backward, optimizer events)."""
+    def total(*keys):
+        return sum(a.elapsed_time(b) for k in keys for a, b in spans.get(k,
+                                                                          []))
+    fwd = marks[0].elapsed_time(marks[1])
+    return {'FPS + ball query + grouping': total('fps', 'grouping'),
+            'kNN graph': total('knn'),
+            'MLPs / PAConv': fwd - total('fps', 'grouping', 'knn', 'head'),
+            'head': total('head'),
+            'loss': marks[1].elapsed_time(marks[2]),
+            'backward': marks[2].elapsed_time(marks[3]),
+            'clip + AdamW': marks[3].elapsed_time(marks[4]),
+            'FPS': total('fps')}
+
+
+def seg_card_vs_cpu(torch, model, kind, batch, label):
+    """The card's eval forward against the same weights' on the CPU, on the
+    first scene of ``batch``: the picks the card makes alone that key on
+    the input alone (every FPS level; DGCNN's D-KNN graph on the input's
+    last three channels) must equal the CPU's; with all the CPU's picks
+    given (DGCNN's F-KNN graphs key on learned features, whose last bits
+    differ), the logits within SEG_TOL of the CPU's largest. Prints,
+    ungated, the share of each pick site the card makes alone that equal
+    the CPU's."""
+    import copy
+    pts = torch.as_tensor(batch['points'][:1])
+    val = torch.as_tensor(batch['points_valid'][:1])
+    cpu_model = copy.deepcopy(model).cpu().eval()
+    model.eval()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = cpu_model(pts, val)
+        cpu_s = time.perf_counter() - t0
+        ref_picks = cpu_model.last_picks
+        model(pts.to(DEVICE), val.to(DEVICE))
+        card_picks = [p.cpu() for p in model.last_picks]
+        given = model(pts.to(DEVICE), val.to(DEVICE),
+                      picks=[p.to(DEVICE) for p in ref_picks]).cpu()
+    gated = [0] if kind == 'DGCNNSegmentor' else range(len(ref_picks))
+    if not all(torch.equal(card_picks[i], ref_picks[i]) for i in gated):
+        fail(f'{label}: the card\'s input-keyed picks differ from the CPU\'s')
+    share = [float((c == r).float().mean())
+             for c, r in zip(card_picks, ref_picks)]
+    err = float((given - ref).abs().max()) / max(float(ref.abs().max()),
+                                                 1e-30)
+    print(f'{label}: eval forward at B = 1, card against CPU (TF32 off, the '
+          f'CPU\'s picks given): max |d| / max|CPU| {err:.3g} (gate '
+          f'{SEG_TOL}); the picks the card makes alone equal to the CPU\'s '
+          f'(not gated but the input-keyed ones): '
+          f'{[round(s, 4) for s in share]}; the CPU forward {cpu_s:.1f} s')
+    if not err <= SEG_TOL:
+        fail(f'{label}: card forward against the CPU: {err}')
+    del cpu_model
+    return dict(max_rel_diff=err, pick_share=share, cpu_forward_s=cpu_s)
+
+
+def segmentation_path(torch, mods, card, data, config):
+    """One segmentor (``config`` as shipped, f32, seeded random weights)
+    on the indoor family's mini ScanNet or the mini S3DIS, at the config's
+    B and ``num_points``, the S3DIS configs' 9 channels built here
+    (``seg_batch``):
+
+    1. the card's eval forward against the CPU's (``seg_card_vs_cpu``);
+    2. main path: SEG_STEPS calls of ``apis.segmentor_train_step`` on the
+       resampled scene indices of stage 1, the seg_info label weights as
+       class weights (ScanNet's label 20 ignored), the config's optimizer
+       through ``build_optimizer`` over its epochs, the counts set to 0
+       just before and read just after: no kernel launched, finite
+       losses, each step's lr the cyclic schedule's, every parameter and
+       BN statistic moved; CUDA events by SEG_STAGES, the FPS share, the
+       kNN share, scenes/s, peak memory;
+    3. ``apis.infer_segmentor`` over the val split (a random sample of
+       each scene's points) and ``seg_eval``: miou, acc and acc_cls finite; ``inference_segmentor``
+       on one whole val scene (its first SEG_WHOLE_POINTS points): no
+       launch, labels in range."""
+    import os
+
+    from gga_tpu_torch import apis
+    from gga_tpu_torch.config import Config
+    from gga_tpu_torch.data import seg_datasets
+    from gga_tpu_torch.eval.seg_eval import seg_eval
+    from gga_tpu_torch.models.builder import build_detector
+    from gga_tpu_torch.models.segmentors.base import segmentor_draws
+    from gga_tpu_torch.train.optim import cyclic_cos_schedule
+    t0 = time.perf_counter()
+    cfg = Config.fromfile(str(ROOT / config))
+    model_cfg = build_detector(cfg)[1]
+    kind = cfg.model.type
+    label = f'{kind} {Path(config).stem}'
+    batch, n_points = cfg.data.samples_per_gpu, cfg.data.num_points
+    s3dis = cfg.dataset_type == 'S3DISSegDataset'
+    d = data['s3dis' if s3dis else 'scannet']
+    train_key, val_key = (
+        (cfg.data.train_info.split('infos_')[1][:-4],
+         cfg.data.val_info.split('infos_')[1][:-4]) if s3dis
+        else ('train', 'val'))
+    ds_cls = getattr(seg_datasets, cfg.dataset_type)
+    train_set = ds_cls(d['root'], d['pkls'][train_key], num_points=n_points)
+    # the val scenes sampled as the train split is (test mode takes each
+    # scene's first points, which in the mini layouts are floor and walls)
+    val_set = ds_cls(d['root'], d['pkls'][val_key], num_points=n_points)
+    ignore = None if s3dis else len(ds_cls.CLASSES)
+    nine = model_cfg.in_channels == 9
+    seg_info = os.path.join(d['root'], 'seg_info')
+    idxs = np.load(os.path.join(seg_info,
+                                f'{train_key}_resampled_scene_idxs.npy'))
+    weights = np.load(os.path.join(seg_info, f'{train_key}_label_weight.npy'))
+    spe = len(idxs) // batch
+    if spe < SEG_STEPS:
+        fail(f'{label}: {len(idxs)} resampled scenes, fewer than '
+             f'{SEG_STEPS} steps of B = {batch}')
+    total = spe * cfg.max_epochs
+    order = np.random.RandomState(0).permutation(len(idxs))
+    maxes = seg_scene_max(train_set)
+    batches = [seg_batch(train_set, idxs[order[i * batch:(i + 1) * batch]],
+                         nine, maxes) for i in range(SEG_STEPS)]
+    opt = dict(cfg.optimizer)
+    trainer = apis.init_segmentor_trainer(model_cfg, total, device=DEVICE,
+                                          seed=0, optimizer=opt)
+    model = trainer.model
+    print(f'{label}: B = {batch} x {n_points} points x '
+          f'{model_cfg.in_channels} channels, f32, '
+          f'{sum(p.numel() for p in model.parameters())} parameters, '
+          f'{spe} steps an epoch, {total} steps in all; class weights '
+          f'{[round(float(w), 3) for w in weights]}')
+    if not all(p.device.type == DEVICE for p in model.parameters()):
+        fail(f'{label}: parameters off the card')
+    res = dict(config=Path(config).name, batch=batch, points=n_points,
+               channels=model_cfg.in_channels)
+
+    # --- 1. the card's eval forward against the CPU's --------------------
+    res['card_vs_cpu'] = seg_card_vs_cpu(torch, model, kind, batches[0],
+                                         label)
+
+    # --- 2. main path -----------------------------------------------------
+    sched = cyclic_cos_schedule(opt['lr'], (10, 1e-4), 0.4, total)
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {n: b.clone() for n, b in model.named_buffers()}
+    on_card = [{k: torch.as_tensor(v).to(DEVICE) for k, v in b.items()}
+               for b in batches]
+    keeps = [segmentor_draws(model_cfg, batch, n_points, trainer.generator,
+                             DEVICE) for _ in range(SEG_STEPS)]
+    logs, lrs, marks = [], [], []
+    stage_order = ('forward', 'loss', 'backward', 'optimizer')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(mods)
+    with seg_stage_events(torch, model) as spans:
+        for i in range(SEG_STEPS):
+            ev = {k: torch.cuda.Event(enable_timing=True)
+                  for k in ('start',) + stage_order}
+            spans.append({})
+            ev['start'].record()
+            logs.append(apis.segmentor_train_step(
+                trainer, on_card[i], weights, ignore,
+                lambda name, ev=ev: ev[name].record(), keeps[i]))
+            lrs.append(trainer.optimizer.adamw.param_groups[0]['lr'])
+            marks.append([ev[k] for k in ('start',) + stage_order])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = counts(mods)
+    if any(launches.values()):
+        fail(f'{label}: {SEG_STEPS} train steps launched {launches}; the '
+             'segmentors reach no hand kernel')
+    for i, (lg, lr) in enumerate(zip(logs, lrs)):
+        finite_logs(torch, lg, f'{label} step {i + 1}')
+        if not all(v.device.type == DEVICE for v in lg.values()):
+            fail(f'{label}: step {i + 1} logs off the card')
+        if not abs(lr - sched(i)) <= 1e-12 * sched(i):
+            fail(f'{label}: step {i + 1} ran at lr {lr}, the schedule gives '
+                 f'{sched(i)}')
+    stuck = [n for n, p in model.named_parameters()
+             if torch.equal(p, params0[n])]
+    stuck += [n for n, b in model.named_buffers()
+              if torch.equal(b, stats0[n]) or not torch.isfinite(b).all()]
+    if stuck:
+        fail(f'{label}: {len(stuck)} tensors did not move: {stuck[:8]}')
+    del params0, stats0, on_card, keeps
+    step_ms = [m[0].elapsed_time(m[-1]) for m in marks]
+    timed = list(range(1, SEG_STEPS)) or [0]
+    mean_step = float(np.mean([step_ms[i] for i in timed]))
+    stages = {k: float(np.mean([seg_stage_ms(spans[i], marks[i])[k]
+                                for i in timed]))
+              for k in SEG_STAGES + ('FPS',)}
+    shares = {k: stages[k] / mean_step for k in stages}
+    res.update(steps=SEG_STEPS, step_device_ms=step_ms, stage_ms=stages,
+               stage_shares=shares, peak_bytes=peak, launches=launches,
+               lrs=lrs, scenes_per_s_events=batch * len(timed) / (
+                   sum(step_ms[i] for i in timed) / 1e3),
+               logs=[{k: float(v) for k, v in lg.items()} for lg in logs])
+    print(f'{card}: {label}: {SEG_STEPS} steps at B={batch} (f32): step '
+          f'device ms {[round(v, 1) for v in step_ms]}, '
+          f'{res["scenes_per_s_events"]:.2f} scenes/s by CUDA events (steps '
+          f'{[i + 1 for i in timed]}), FPS {100 * shares["FPS"]:.1f} % and '
+          f'the kNN graph {100 * shares["kNN graph"]:.1f} % of a step, peak '
+          f'{peak / 2 ** 30:.2f} GiB; launches {launches}; lr {lrs}')
+    print(f'{card}: {label}: device ms a step by stage (events, steps '
+          f'{[i + 1 for i in timed]}): ' + ', '.join(
+              f'{k} {stages[k]:.1f} ({100 * shares[k]:.1f} %)'
+              for k in SEG_STAGES))
+    print(f'{label}: losses ' + ', '.join(
+        f'{k} {[round(lg[k], 4) for lg in res["logs"]]}'
+        for k in res['logs'][0]))
+
+    # --- 3. inference -----------------------------------------------------
+    bundle = apis.DetectorBundle(model.eval(), model_cfg,
+                                 torch.device(DEVICE))
+    x = seg_batch(val_set, range(len(val_set)), nine, seg_scene_max(val_set))
+    zero_counts(mods)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pred = apis.infer_segmentor(bundle, x['points'], x['points_valid'])
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t1
+    if (tuple(pred.shape) != x['seg_labels'].shape
+            or pred.device.type != DEVICE):
+        fail(f'{label}: infer_segmentor gave {tuple(pred.shape)} on '
+             f'{pred.device}')
+    pred = pred.cpu().numpy()
+    if not ((pred >= 0) & (pred < model_cfg.num_classes)).all():
+        fail(f'{label}: labels out of range')
+    metrics = seg_eval(list(x['seg_labels']), list(pred),
+                       dict(enumerate(ds_cls.CLASSES)),
+                       255 if ignore is None else ignore)
+    if not all(np.isfinite(metrics[k]) for k in ('miou', 'acc', 'acc_cls')):
+        fail(f'{label}: seg_eval gave {metrics}')
+    i = 0
+    whole = np.fromfile(os.path.join(val_set.root,
+                                     val_set.infos[i]['pts_path']),
+                        np.float32).reshape(-1, val_set.load_dim)
+    if nine:
+        whole = np.concatenate([whole, whole[:, :3] / whole[:, :3].max(0)],
+                               -1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    lab = apis.inference_segmentor(bundle, whole, SEG_WHOLE_POINTS)
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t2
+    got = counts(mods)
+    if any(got.values()):
+        fail(f'{label}: inference launched {got}')
+    n_whole = min(len(whole), SEG_WHOLE_POINTS)
+    if lab.shape != (n_whole,) or not (
+            (lab >= 0) & (lab < model_cfg.num_classes)).all():
+        fail(f'{label}: inference_segmentor gave {lab.shape}, '
+             f'{lab.min()}..{lab.max()}')
+    res['infer'] = dict(
+        seconds=infer_s, scenes=len(pred), scenes_per_s=len(pred) / infer_s,
+        miou=metrics['miou'], acc=metrics['acc'], acc_cls=metrics['acc_cls'],
+        whole_points=n_whole, whole_seconds=whole_s,
+        whole_points_per_s=n_whole / whole_s, launches=got)
+    res['seconds'] = time.perf_counter() - t0
+    print(f'{card}: {label}: infer_segmentor on the {len(pred)} val scenes '
+          f'{infer_s * 1e3:.1f} ms = {len(pred) / infer_s:.2f} scenes/s (host '
+          f'clock), seg_eval miou {metrics["miou"]:.4f} acc '
+          f'{metrics["acc"]:.4f} acc_cls {metrics["acc_cls"]:.4f} (random '
+          f'weights); inference_segmentor on one whole scene of {n_whole} '
+          f'points {whole_s * 1e3:.1f} ms = {n_whole / whole_s:.0f} points/s; '
+          f'the path {res["seconds"]:.1f} s')
+    del bundle, model, trainer
+    torch.cuda.empty_cache()
+    return res
+
+
+def segmentation_phase(torch, mods, card, data, tmp):
+    """Stage 1 of a mini S3DIS (``s3dis_stage1``) and each SEG_PATHS
+    config (``segmentation_path``) on it or on the indoor family's mini
+    ScanNet (``data``, its roots and pkls)."""
+    t0 = time.perf_counter()
+    data = dict(data, s3dis=s3dis_stage1(card, tmp))
+    res = {Path(config).stem: segmentation_path(torch, mods, card, data,
+                                                config)
+           for config in SEG_PATHS}
+    res['seconds'] = time.perf_counter() - t0
+    print(f'{card}: segmentation phase: {res["seconds"]:.1f} s')
+    return res
+
+
 # --- the accuracy benches: weak GGA training to pseudo-label AP, then the
 #     PGD retrain on those pseudo labels ----------------------------------
 ACC_SCENES = 16             # synthetic scenes (make_synth_kitti, seed 0)
@@ -6561,6 +7030,9 @@ def main():
         # --- GroupFree3D, H3DNet and ImVoteNet on the same data ---
         vd = vote_derived_phase(torch, mods, card, fam['data'])
         torch.cuda.empty_cache()
+        # --- the segmentors on the same ScanNet and a mini S3DIS ---
+        seg = segmentation_phase(torch, mods, card, fam['data'], tmp)
+        torch.cuda.empty_cache()
         # --- the sharded stage 3 and the two-rank GGA step ---
         dp = data_parallel_phase(torch, mods, card, tmp)
         torch.cuda.empty_cache()
@@ -6689,6 +7161,12 @@ def main():
             r.get('launches', {}).get(name, 0)
             + r['infer']['launches'].get(name, 0)
             for k, r in vd.items() if k != 'seconds'))
+    # nor do the segmentors: their launches, 0
+    for entry in kernels:
+        name = entry['name'].replace('_f32', '')
+        entry['segmentation'] = dict(launches=sum(
+            r['launches'].get(name, 0) + r['infer']['launches'].get(name, 0)
+            for k, r in seg.items() if k != 'seconds'))
     print('kernels, summed over the train path\'s calls (ms by CUDA '
           'events, device ms by the profiler, share of the bound):')
     for k in kernels:
@@ -6736,7 +7214,7 @@ def main():
                        supervised=sup, accuracy=acc, voxel_family=vf,
                        centerpoint=cp, parta2=pa, indoor_family=fam,
                        data_parallel=dp, point_family=pf,
-                       vote_derived=vd),
+                       vote_derived=vd, segmentation=seg),
                   fh, indent=1, default=str)
 
     print(card)

@@ -14,7 +14,10 @@ two-stage KITTI detector, the same for PartA2; and for the indoor
 point-based detector, the same for VoteNet; and for the point-based KITTI
 detectors, the same for 3DSSD and PointRCNN; and for the VoteNet-derived
 indoor detectors, the same for GroupFree3D, H3DNet and ImVoteNet (whose
-inference takes the images, the 2D boxes and the projection too)."""
+inference takes the images, the 2D boxes and the projection too); and for
+the point-cloud segmentors (the PointNet++ EncoderDecoder3D, DGCNN and
+PAConv), the same, with per-point labels for a batch
+(``infer_segmentor``) or one whole cloud (``inference_segmentor``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -53,7 +56,11 @@ from .models.detectors.ssd3d import SSD3DNet, SSD3DNetConfig
 from .models.detectors.votenet import VoteNet, VoteNetConfig
 from .models.detectors.voxelnet import (PointPillars, PointPillarsConfig,
                                         SECONDDetector, SECONDNetConfig)
+from .models.backbones.dgcnn import DGCNNConfig, DGCNNSegmentor
+from .models.backbones.paconv import PAConvConfig, PAConvSegmentor
 from .models.layers import init_params
+from .models.segmentors.encoder_decoder import (EncoderDecoder3D,
+                                                EncoderDecoder3DConfig)
 from .train import loop
 from .train.loop import TrainState, gga_train_step
 from .train.optim import (build_fcaf3d_optimizer, build_optimizer,
@@ -976,3 +983,95 @@ def infer_imvotenet(bundle: DetectorBundle, points, points_valid, img,
     joint, = bundle.model.eval()(pts, val, *_image_inputs(
         bundle.device, img, boxes_2d, boxes_valid, depth2img), seed_u)
     return decode_imvotenet(bundle.cfg, joint)
+
+
+# configs/pointnet2/pointnet2_ssg_16x2_cosine_200e_scannet_seg-3d-20class.py's
+# optimizer block; neither package reads its lr_policy or min_lr_ratio
+SEGMENTOR_OPTIMIZER = dict(lr=0.001, weight_decay=0.01, grad_clip=10.0)
+_SEGMENTORS = ((EncoderDecoder3DConfig, EncoderDecoder3D),
+               (DGCNNConfig, DGCNNSegmentor),
+               (PAConvConfig, PAConvSegmentor))
+_SEG_DTYPES = dict(points=torch.float32, points_valid=torch.bool,
+                   seg_labels=torch.int64)
+
+
+def init_segmentor(cfg, state_dict=None, device='cuda',
+                   seed=0) -> DetectorBundle:
+    """The segmentor ``cfg`` describes (an ``EncoderDecoder3DConfig``,
+    ``DGCNNConfig`` or ``PAConvConfig``) in eval mode on ``device`` (f32,
+    as gga_tpu's); the weights as ``init_ssd3d_detector``'s (the
+    segmentor's ``init_weights`` when drawn)."""
+    for cfg_cls, model_cls in _SEGMENTORS:
+        if isinstance(cfg, cfg_cls):
+            return _init_point_detector(model_cls(cfg), state_dict, device,
+                                        seed)
+    raise TypeError(f'{type(cfg).__name__} is not a segmentor config')
+
+
+def init_segmentor_trainer(cfg, total_steps, state_dict=None, device='cuda',
+                           seed=0, optimizer=None) -> TrainState:
+    """The segmentor (``init_segmentor``'s) in train mode on ``device`` with
+    ``build_optimizer(params, total_steps, lr, weight_decay, grad_clip,
+    betas)`` of a config file's ``optimizer`` block (``SEGMENTOR_OPTIMIZER``
+    when None; betas (0.95, 0.99) unless given), as gga_tpu's
+    ``tools/train_supervised.py`` treats every config: the global-norm
+    clip and AdamW with the cyclic lr and beta1 over ``total_steps``. The
+    block's ``lr_policy`` and ``min_lr_ratio`` are read by neither package.
+    The generator, seeded with ``seed``, draws the dropout's keep masks."""
+    o = dict(optimizer or SEGMENTOR_OPTIMIZER)
+    model = init_segmentor(cfg, state_dict, device, seed).model.train()
+    return TrainState(
+        model=model,
+        optimizer=build_optimizer(
+            model.parameters(), total_steps, lr=o['lr'],
+            weight_decay=o['weight_decay'], grad_clip=o['grad_clip'],
+            betas=tuple(o.get('betas', (0.95, 0.99)))),
+        step=0, generator=torch.Generator().manual_seed(seed))
+
+
+def segmentor_train_step(trainer: TrainState, batch, class_weights=None,
+                         ignore_index=None, mark=None, keep=None,
+                         picks=None):
+    """One segmentor train step on a batch (points [B, P, C], points_valid,
+    seg_labels; tensors or numpy), with the stage-1 ``seg_info`` label
+    weights as ``class_weights`` and the dataset's ignored label as
+    ``ignore_index`` (ScanNet's 20), either None. ``mark`` is the step's
+    stage hook, ``keep`` the dropout keep mask and ``picks`` the forward's
+    picks (``loop.segmentor_train_step``). Returns the step's logs as 0-d
+    tensors on the trainer's device."""
+    dev = next(trainer.model.parameters()).device
+    b = {k: torch.as_tensor(batch[k], dtype=dt, device=dev)
+         for k, dt in _SEG_DTYPES.items()}
+    if class_weights is not None:
+        class_weights = torch.as_tensor(class_weights, dtype=torch.float32,
+                                        device=dev)
+    return loop.segmentor_train_step(trainer, b, class_weights, ignore_index,
+                                     mark, keep, picks)
+
+
+@torch.no_grad()
+def infer_segmentor(bundle: DetectorBundle, points, points_valid):
+    """Segmentor inference on a batch: the eval-mode logits' argmax.
+
+    Args:
+        points: [B, P, in_channels] f32 (tensor or numpy); points_valid:
+            [B, P] bool.
+    Returns:
+        [B, P] int64 labels on the bundle's device (padding's too).
+    """
+    return bundle.model.eval()(*_points(bundle, points,
+                                        points_valid)).argmax(-1)
+
+
+def inference_segmentor(bundle: DetectorBundle, points, max_points=40000):
+    """Segment one cloud (gga_tpu's ``apis.inference_segmentor``): its first
+    ``max_points`` points padded to ``max_points``, the argmax of the
+    logits. Returns [n] int64 labels (numpy), n = min(len(points),
+    max_points)."""
+    points = np.asarray(points, np.float32)
+    n = min(len(points), max_points)
+    pts = np.zeros((1, max_points, points.shape[1]), np.float32)
+    val = np.zeros((1, max_points), bool)
+    pts[0, :n] = points[:n]
+    val[0, :n] = True
+    return infer_segmentor(bundle, pts, val)[0, :n].cpu().numpy()

@@ -41,6 +41,22 @@ mmdet3d's module names:
   ``SharedMLP_0`` where the level samples), and ``cls_layer.{k}`` /
   ``cls_layer.{n}`` from ``cls`` / ``cls_out`` (and ``reg``);
 
+and the point-cloud segmentors, which ``torch2flax`` has no rules for
+either: the PointNet++ ``EncoderDecoder3D`` (``encoder_decoder_rules``:
+``backbone.SA_modules.*`` as VoteNet's or 3DSSD's encoder,
+``decode_head.FP_modules.{i}.mlps.layer{k}`` from
+``PointNet2SegHead_0/fp{i}/SharedMLP_0``, ``decode_head.pre_seg_conv``
+from ``pre_seg``, ``decode_head.conv_seg`` from ``cls_seg``), DGCNN
+(``dgcnn_rules``: ``backbone.GF_modules.{i}.mlps.layer{k}`` (Conv2d)
+from ``backbone/gf{i}/SharedMLP_0``, ``backbone.FA_module.mlps`` from
+``backbone/fa``, ``decode_head.FP_module.mlps`` from ``fp``, the
+pre-seg and class layers from ``pre_seg`` / ``cls_seg``) and PAConv
+(``paconv_rules``: ``backbone.SA_modules.{i}.mlps.0.layer{k}.weight_bank``
+from ``sa{i}/paconv{k}/weight_bank`` as it is, ``.scorenet.mlps.layer
+{0,1}`` and ``.scorenet.mlps.layer2.conv`` (Conv2d) from ``scorenet/mlp``
+and ``scorenet/out``, ``.bn`` from ``bn``, and the head as
+EncoderDecoder3D's from ``fp{i}/SharedMLP_0``, ``pre_seg``, ``cls_seg``);
+
 and the VoteNet-derived indoor detectors: GroupFree3D
 (``groupfree3d_rules``: ``bbox_head.points_obj_cls.mlp.layer{k}`` from
 ``GroupFree3DHead_0/points_obj_cls`` and ``points_obj_out``,
@@ -63,6 +79,8 @@ import numpy as np
 import torch
 
 from .models.backbones import mink_resnet
+from .models.backbones.dgcnn import DGCNNConfig
+from .models.backbones.paconv import PAConvConfig
 from .models.backbones.resnet import ARCH
 from .models.detectors.centerpoint import CenterPointConfig, common_heads
 from .models.detectors.dynamic_voxelnet import DynamicVoxelNetConfig
@@ -77,6 +95,7 @@ from .models.detectors.sassd import SASSDConfig
 from .models.detectors.ssd3d import SSD3DNetConfig
 from .models.detectors.votenet import VoteNetConfig
 from .models.detectors.voxelnet import PointPillarsConfig, SECONDNetConfig
+from .models.segmentors.encoder_decoder import EncoderDecoder3DConfig
 
 
 def _bn_moves(torch_prefix, flax_prefix):
@@ -807,6 +826,65 @@ def imvotenet_rules(cfg: ImVoteNetConfig):
     return rules
 
 
+def _seg_head_rules(rules, flax_prefix, fp_channels):
+    """A segmentation head under ``decode_head``: the feature propagations
+    from ``{flax_prefix}fp{i}/SharedMLP_0``, ``pre_seg`` and ``cls_seg``."""
+    for i, chans in enumerate(fp_channels):
+        _shared_mlp(rules, f'decode_head.FP_modules.{i}.mlps',
+                    f'{flax_prefix}fp{i}/SharedMLP_0', chans)
+    _conv_bn(rules, 'decode_head.pre_seg_conv', f'{flax_prefix}pre_seg', 0)
+    _conv_out(rules, 'decode_head.conv_seg', f'{flax_prefix}cls_seg')
+
+
+def encoder_decoder_rules(cfg: EncoderDecoder3DConfig):
+    """(torch key, collection, flax path, transform) of the PointNet++
+    segmentor: the SSG encoder without feature propagation, or the MSG
+    encoder without aggregation layers, and ``PointNet2SegHead``."""
+    rules = []
+    if cfg.msg:
+        _samsg_rules(rules, cfg.msg_sa_channels)
+    else:
+        _sassg_rules(rules, 'backbone', 'PointNet2SASSG_0', cfg.sa_channels,
+                     ())
+    _seg_head_rules(rules, 'PointNet2SegHead_0/', cfg.fp_channels)
+    return rules
+
+
+def dgcnn_rules(cfg: DGCNNConfig):
+    """(torch key, collection, flax path, transform) of DGCNN (the module
+    docstring lists the names)."""
+    rules = []
+    for i, chans in enumerate(cfg.gf_channels):
+        _shared_mlp(rules, f'backbone.GF_modules.{i}.mlps',
+                    f'backbone/gf{i}/SharedMLP_0', chans, conv='conv1x1_2d')
+    _shared_mlp(rules, 'backbone.FA_module.mlps', 'backbone/fa',
+                cfg.fa_channels)
+    _shared_mlp(rules, 'decode_head.FP_module.mlps', 'fp', cfg.fp_channels)
+    _conv_bn(rules, 'decode_head.pre_seg_conv', 'pre_seg', 0)
+    _conv_out(rules, 'decode_head.conv_seg', 'cls_seg')
+    return rules
+
+
+def paconv_rules(cfg: PAConvConfig):
+    """(torch key, collection, flax path, transform) of PAConv: each set
+    abstraction's PAConv layers (weight bank, ScoreNet, BatchNorm), then
+    the head (the module docstring lists the names)."""
+    rules = []
+    for i, chans in enumerate(cfg.sa_channels):
+        for k in range(len(chans)):
+            t = f'backbone.SA_modules.{i}.mlps.0.layer{k}'
+            f = f'sa{i}/paconv{k}'
+            rules.append((f'{t}.weight_bank', 'params', f'{f}/weight_bank',
+                          'copy'))
+            _shared_mlp(rules, f'{t}.scorenet.mlps', f'{f}/scorenet/mlp',
+                        (16, 16), conv='conv1x1_2d')
+            _conv_out(rules, f'{t}.scorenet.mlps.layer2.conv',
+                      f'{f}/scorenet/out', 'conv1x1_2d')
+            rules.extend(_bn_moves(f'{t}.bn', f'{f}/bn'))
+    _seg_head_rules(rules, '', cfg.fp_channels)
+    return rules
+
+
 def _to_torch_layout(name, x):
     """One flax tensor -> its mmdet3d state_dict layout."""
     x = np.asarray(x)
@@ -868,7 +946,10 @@ def rules_of(cfg):
     (``SASSDConfig``, ``DVSECONDConfig`` of ``SECONDNetConfig``,
     ``DynamicVoxelNetConfig`` of ``PointPillarsConfig``) are tested before
     their bases; DVSECOND has SECOND's tensors."""
-    for cls, rules in ((VoteNetConfig, votenet_rules),
+    for cls, rules in ((EncoderDecoder3DConfig, encoder_decoder_rules),
+                       (DGCNNConfig, dgcnn_rules),
+                       (PAConvConfig, paconv_rules),
+                       (VoteNetConfig, votenet_rules),
                        (GroupFree3DNetConfig, groupfree3d_rules),
                        (H3DNetConfig, h3dnet_rules),
                        (ImVoteNetConfig, imvotenet_rules),
@@ -895,7 +976,8 @@ def from_jax_variables(variables_np, cfg):
     ``PointPillarsConfig``, ``DynamicVoxelNetConfig``, ``DVSECONDConfig``
     or ``SASSDConfig``, or a ``PartA2Config``, ``VoteNetConfig``,
     ``SSD3DNetConfig``, ``PointRCNNConfig``, ``GroupFree3DNetConfig``,
-    ``H3DNetConfig`` or ``ImVoteNetConfig``) ->
+    ``H3DNetConfig`` or ``ImVoteNetConfig``, or a segmentor's:
+    ``EncoderDecoder3DConfig``, ``DGCNNConfig`` or ``PAConvConfig``) ->
     the port's ``load_state_dict`` input (f32 tensors)."""
     flat = {c: _flatten(variables_np.get(c, {}))
             for c in ('params', 'batch_stats')}

@@ -7,8 +7,16 @@ CenterPoint of ``configs/centerpoint/``, the indoor VoteNet of
 ``configs/votenet/``, the point-based KITTI detectors 3DSSD
 (``configs/3dssd/``) and PointRCNN (``configs/point_rcnn/``) and the
 VoteNet-derived indoor detectors GroupFree3D (``configs/groupfree3d/``),
-H3DNet (``configs/h3dnet/``) and ImVoteNet (``configs/imvotenet/``); the
-rest of the zoo waits for its own slices).
+H3DNet (``configs/h3dnet/``) and ImVoteNet (``configs/imvotenet/``), and
+the point-cloud segmentors: the PointNet++ EncoderDecoder3D
+(``configs/pointnet2/``), DGCNN (``configs/dgcnn/``) and PAConv
+(``configs/paconv/``); the rest of the zoo waits for its own slices).
+
+A segmentor's weights are shaped by its config's ``in_channels`` (flax
+infers a layer's width from its first input), and it refuses a cloud of
+another width by name: the S3DIS DGCNN, PAConv and PointNet2-MSG configs
+declare 9 channels (mmdet3d's xyz | rgb | normalised xyz), while
+``S3DISSegDataset`` loads 6.
 
 ``config_from_dict`` converts the python config-file dict into the typed
 frozen dataclass (recursively, lists -> tuples, nested dicts -> nested
@@ -42,6 +50,10 @@ from .detectors.ssd3d import SSD3DNet, SSD3DNetConfig
 from .detectors.votenet import VoteNet, VoteNetConfig
 from .detectors.voxelnet import (PointPillars, PointPillarsConfig,
                                  SECONDDetector, SECONDNetConfig)
+from .backbones.dgcnn import DGCNNConfig, DGCNNSegmentor
+from .backbones.paconv import PAConvConfig, PAConvSegmentor
+from .segmentors.encoder_decoder import (EncoderDecoder3D,
+                                         EncoderDecoder3DConfig)
 
 
 def _tuplify(v):
@@ -130,6 +142,10 @@ _register_family('SSD3DNet', SSD3DNetConfig, SSD3DNet)
 _register_family('GroupFree3DNet', GroupFree3DNetConfig, GroupFree3DNet)
 _register_family('H3DNet', H3DNetConfig, H3DNet)
 _register_family('ImVoteNet', ImVoteNetConfig, ImVoteNet)
+_register_family('EncoderDecoder3D', EncoderDecoder3DConfig,
+                 EncoderDecoder3D)
+_register_family('DGCNNSegmentor', DGCNNConfig, DGCNNSegmentor)
+_register_family('PAConvSegmentor', PAConvConfig, PAConvSegmentor)
 
 
 def build_detector(cfg):

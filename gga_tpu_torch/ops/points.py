@@ -79,6 +79,54 @@ def squared_norm(x):
     return acc
 
 
+def pairwise_squared_diff(q, s):
+    """[..., R, D] x [..., N, D] -> [..., R, N] f32 sums over D of
+    ``(q_r - s_n) ** 2`` (gga_tpu's ``((a[:, None] - b[None]) ** 2)
+    .sum(-1)``), accumulated in ``squared_norm``'s order, which is XLA's on
+    the CPU: an FMA chain at D <= 32, else windows of 32 coordinates (the
+    row padded as there) summed in order and then their sums. Built one
+    coordinate at a time, so no [..., R, N, D] array is held."""
+    D = q.shape[-1]
+
+    def diff(i):
+        return q[..., :, None, i] - s[..., None, :, i]
+
+    if D <= XLA_REDUCE_WINDOW:
+        d = diff(0)
+        acc = (d * d).double()
+        for i in range(1, D):
+            d = diff(i).double()
+            acc = (acc + d * d).float().double()
+        return acc.float()
+    # windows of the row padded with pad // 2 zeros before (a zero adds
+    # nothing), each summed in order as its coordinates come
+    pad = -D % XLA_REDUCE_WINDOW
+    sums, acc = [], None
+    for p in range(D + pad):
+        i = p - pad // 2
+        if 0 <= i < D:
+            d = diff(i)
+            acc = d * d if acc is None else acc + d * d
+        if (p + 1) % XLA_REDUCE_WINDOW == 0:
+            sums.append(acc)
+            acc = None
+    while len(sums) > XLA_REDUCE_WINDOW:
+        pad = -len(sums) % XLA_REDUCE_WINDOW
+        padded = [None] * (pad // 2) + sums + [None] * (pad - pad // 2)
+        sums = []
+        for w in range(0, len(padded), XLA_REDUCE_WINDOW):
+            part = [v for v in padded[w:w + XLA_REDUCE_WINDOW]
+                    if v is not None]
+            acc = part[0]
+            for v in part[1:]:
+                acc = acc + v
+            sums.append(acc)
+    acc = sums[0]
+    for v in sums[1:]:
+        acc = acc + v
+    return acc
+
+
 def pairwise_dot(a, b):
     """[..., N, D] x [..., M, D] -> [..., N, M] f32 dot products,
     accumulated as XLA's CPU dot (and torch's CPU matmul) does at these
@@ -104,7 +152,7 @@ def square_distance(a, b, a_valid=None, b_valid=None):
     return d
 
 
-def _smallest(d, k):
+def smallest(d, k):
     """The k smallest entries of each row of ``d`` (>= 0) and their
     columns, by the lower column first among equal values.
 
@@ -114,6 +162,8 @@ def _smallest(d, k):
     where they tie (exact ties at the boundary, or fewer than k + 1 valid
     entries) are taken again by a top-k of int64 keys (the f32 bits,
     monotone for non-negative floats, above the column)."""
+    if d.shape[-1] <= k:            # no (k + 1)-th candidate to compare
+        return _smallest_by_key(d, k)
     vals, idx = torch.topk(d, k + 1, dim=-1, largest=False)
     o = torch.argsort(idx, dim=-1)      # by column, then stably by value
     vals, idx = vals.gather(-1, o), idx.gather(-1, o)
@@ -122,12 +172,17 @@ def _smallest(d, k):
     tied = vals[..., k - 1] == vals[..., k]
     vals, idx = vals[..., :k], idx[..., :k]
     if bool(tied.any()):
-        rows = d[tied]
-        cols = torch.arange(d.shape[-1], device=d.device)
-        key = ((rows + 0.0).view(torch.int32).long() << 32) | cols
-        i = torch.topk(key, k, dim=-1, largest=False, sorted=True).indices
-        vals[tied], idx[tied] = rows.gather(-1, i), i
+        vals[tied], idx[tied] = _smallest_by_key(d[tied], k)
     return vals, idx
+
+
+def _smallest_by_key(d, k):
+    """``smallest`` by a top-k of int64 keys alone (the f32 bits of each
+    entry, monotone for non-negative floats, above its column)."""
+    cols = torch.arange(d.shape[-1], device=d.device)
+    key = ((d + 0.0).view(torch.int32).long() << 32) | cols
+    i = torch.topk(key, k, dim=-1, largest=False, sorted=True).indices
+    return d.gather(-1, i), i
 
 
 def knn(query, support, k, q_valid=None, s_valid=None):
@@ -140,7 +195,7 @@ def knn(query, support, k, q_valid=None, s_valid=None):
         for s in range(0, query.shape[-2], QUERY_BLOCK):
             q = query[..., s:s + QUERY_BLOCK, :]
             qv = None if q_valid is None else q_valid[..., s:s + QUERY_BLOCK]
-            d, i = _smallest(square_distance(q, support, qv, s_valid), k)
+            d, i = smallest(square_distance(q, support, qv, s_valid), k)
             dists.append(d)
             idx.append(i)
     return torch.cat(idx, -2), torch.cat(dists, -2)

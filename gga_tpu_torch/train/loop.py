@@ -31,7 +31,12 @@ GroupFree3D (``groupfree3d_loss`` of a train-mode forward with the
 decoder's dropout keep masks), H3DNet (``h3dnet_loss``) and ImVoteNet
 (``imvotenet_loss`` of the three towers, with the seed sampling's draw),
 each then the clip and AdamW with the lr stepped down at the config's
-epochs.
+epochs; and the segmentors' step (EncoderDecoder3D, DGCNN, PAConv):
+``segmentation_loss`` of a train-mode forward with the head's dropout
+keep mask, plus, for PAConv, ``paconv_regularization_loss`` at weight 1.0
+(the PAConv configs' recipe), then the clip and the cyclic AdamW of
+``build_optimizer``, as gga_tpu's ``tools/train_supervised.py`` builds it
+for every config.
 
 Under a ``torch.distributed`` group (``parallel.mesh``) the GGA, PGD and
 FCAF3D steps train data-parallel: each rank runs its rows of the global
@@ -47,6 +52,8 @@ import dataclasses
 
 import torch
 
+from ..models.backbones.paconv import (PAConvSegmentor,
+                                      paconv_regularization_loss)
 from ..models.dense_heads import anchor3d_head as ah
 from ..models.dense_heads import centerpoint_head_gga as gga
 from ..models.dense_heads import fcaf3d_head
@@ -62,6 +69,8 @@ from ..models.detectors.imvotenet import imvotenet_draws, imvotenet_loss
 from ..models.detectors.parta2 import parta2_draws, parta2_loss
 from ..models.detectors.point_rcnn import point_rcnn_draws, point_rcnn_loss
 from ..models.detectors.sassd import sassd_aux_loss
+from ..models.segmentors.base import segmentor_draws
+from ..models.segmentors.encoder_decoder import segmentation_loss
 from ..parallel import mesh
 from .optim import GGAOptimizer
 
@@ -561,3 +570,60 @@ def imvotenet_train_step(state: TrainState, batch, mark=None, seed_u=None):
         return res
 
     return _point_step(state, 'imvotenet_train_step', loss_fn, mark)
+
+
+def segmentor_loss(model, batch, keep=None, class_weights=None,
+                   ignore_index=None, mark=None, picks=None):
+    """A segmentor's train loss on ``batch`` (points, points_valid,
+    seg_labels): ``segmentation_loss`` of the forward's logits (``picks``
+    given to the forward), plus ``paconv_regularization_loss`` at weight
+    1.0 for PAConv; ``mark`` is called with 'forward' after the forward.
+    Returns (total, logs:
+    'loss_sem_seg', PAConv's 'loss_regularize', 'loss')."""
+    logits = model(batch['points'], batch['points_valid'], keep=keep,
+                   picks=picks)
+    if mark is not None:
+        mark('forward')
+    ce = segmentation_loss(logits, batch['seg_labels'],
+                           batch['points_valid'], class_weights, ignore_index)
+    logs = {'loss_sem_seg': ce}
+    total = ce
+    if isinstance(model, PAConvSegmentor):
+        reg = paconv_regularization_loss(model, model.cfg.num_kernels)
+        logs['loss_regularize'] = reg
+        total = total + 1.0 * reg
+    logs['loss'] = total
+    return total, logs
+
+
+def segmentor_train_step(state: TrainState, batch, class_weights=None,
+                         ignore_index=None, mark=None, keep=None,
+                         picks=None):
+    """One segmentor optimization step; updates ``state`` in place.
+
+    Args:
+        batch: dict of tensors on the model's device: points [B, P, C],
+            points_valid [B, P], seg_labels [B, P].
+        class_weights: [num_classes] or None (the stage-1 ``seg_info``
+            label weights); ignore_index: the label left out, or None.
+        mark: as ``ssd3d_train_step``'s.
+        keep: the head's dropout keep mask (``segmentor_draws``); drawn
+            from ``state.generator`` when None.
+        picks: the forward's picks (FPS indices, or DGCNN's graphs), made
+            by the forward when None.
+    Returns:
+        logs: 0-d tensors: ``segmentor_loss``'s and 'grad_norm'.
+    """
+    model = state.model
+    if keep is None:
+        B, P = batch['points'].shape[:2]
+        keep = segmentor_draws(model.cfg, B, P, state.generator,
+                               batch['points'].device)
+
+    def loss_fn(mark):
+        out = segmentor_loss(model, batch, keep, class_weights, ignore_index,
+                             mark, picks)
+        mark('loss')
+        return out
+
+    return _point_step(state, 'segmentor_train_step', loss_fn, mark)

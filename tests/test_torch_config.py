@@ -9,7 +9,8 @@ NMS, tta), the three PartA2 configs (3-class, car, the benchmark one),
 the three VoteNet configs (SUN RGB-D, ScanNet, ScanNet with the IoU
 loss), FCAF3D's ScanNet config, the two point-based KITTI configs and
 the six VoteNet-derived indoor configs (the four GroupFree3D, H3DNet's
-and ImVoteNet's);
+and ImVoteNet's) and the fifteen segmentor configs (six PointNet++
+EncoderDecoder3D, seven DGCNN, two PAConv);
 the _fp16_ SECOND configs parse to model configs equal to gga_tpu's.
 Also the port's refusal of gga_tpu's TPU-only encoder options, of the
 PointPillars backbones and necks it does not have, and of the _fp16_
@@ -28,6 +29,8 @@ from gga_tpu import config as jconfig
 from gga_tpu.models import builder as jbuilder
 from gga_tpu_torch import config as tconfig
 from gga_tpu_torch.models import builder as tbuilder
+from gga_tpu_torch.models.backbones import dgcnn as tdgcnn
+from gga_tpu_torch.models.backbones import paconv as tpaconv
 from gga_tpu_torch.models.detectors import centerpoint as tcp
 from gga_tpu_torch.models.detectors import centerpoint_gga as tdet
 from gga_tpu_torch.models.detectors import dynamic_voxelnet as tdv
@@ -42,6 +45,7 @@ from gga_tpu_torch.models.detectors import sassd as tsassd
 from gga_tpu_torch.models.detectors import ssd3d as tssd3d
 from gga_tpu_torch.models.detectors import votenet as tvotenet
 from gga_tpu_torch.models.detectors import voxelnet as tvoxelnet
+from gga_tpu_torch.models.segmentors import encoder_decoder as tenc
 from gga_tpu_torch.ops import sparse as sp
 
 torch.set_num_threads(1)
@@ -114,6 +118,14 @@ POINT_FAMILY = {
     'point_rcnn/point_rcnn_2x8_kitti-3d-3classes.py':
         (tpoint_rcnn.PointRCNNDetector, tpoint_rcnn.PointRCNNConfig),
 }
+# the point-cloud segmentors' configs, with the segmentor each builds
+SEGMENTORS = {
+    f'{family}/{p.name}': kinds
+    for family, kinds in (
+        ('pointnet2', (tenc.EncoderDecoder3D, tenc.EncoderDecoder3DConfig)),
+        ('dgcnn', (tdgcnn.DGCNNSegmentor, tdgcnn.DGCNNConfig)),
+        ('paconv', (tpaconv.PAConvSegmentor, tpaconv.PAConvConfig)))
+    for p in sorted((ROOT / 'configs' / family).glob('*.py'))}
 FP16_SECOND = ('second/hv_second_secfpn_fp16_6x8_80e_kitti-3d-3class.py',
                'second/hv_second_secfpn_fp16_6x8_80e_kitti-3d-car.py')
 
@@ -179,6 +191,11 @@ def test_there_are_sixteen_centerpoint_configs():
     assert len(CENTERPOINT) == 16
 
 
+def test_there_are_fifteen_segmentor_configs():
+    assert len(SEGMENTORS) == 15
+    assert sum(k.startswith('dgcnn/') for k in SEGMENTORS) == 7
+
+
 def test_there_are_five_gga_configs():
     assert [p.name for p in GGA_CONFIGS] == [
         'gga_kitti.py', 'gga_kitti_matching.py', 'gga_kitti_tiny.py',
@@ -224,7 +241,7 @@ def test_merge_from_options_agrees(name):
 
 @pytest.mark.parametrize('name', DETECTOR_CONFIGS + (
     'gga_pdg.py', 'gga_sunrgbd.py', SECOND, POINTPILLARS, *VOXEL_FAMILY,
-    *CENTERPOINT, *INDOOR, *POINT_FAMILY, *VOTE_FAMILY))
+    *CENTERPOINT, *INDOOR, *POINT_FAMILY, *VOTE_FAMILY, *SEGMENTORS))
 def test_build_detector_config_equals_gga_tpu(name):
     path = str(ROOT / 'configs' / ('' if '/' in name else 'gga') / name)
     model, mc = tbuilder.build_detector(tconfig.Config.fromfile(path))
@@ -237,6 +254,7 @@ def test_build_detector_config_equals_gga_tpu(name):
         SECOND: (tvoxelnet.SECONDDetector, tvoxelnet.SECONDNetConfig),
         POINTPILLARS: (tvoxelnet.PointPillars, tvoxelnet.PointPillarsConfig),
         **VOXEL_FAMILY, **INDOOR, **POINT_FAMILY, **VOTE_FAMILY,
+        **SEGMENTORS,
         **dict.fromkeys(CENTERPOINT, (tcp.CenterPointDetector,
                                       tcp.CenterPointConfig)),
     }.get(name, (tdet.GGADetector, tdet.GGAModelConfig))
@@ -377,6 +395,31 @@ def test_build_detector_config_equals_gga_tpu(name):
         # the joint tower's [point 256 | image 256] features
         assert [getattr(model, f'pts_bbox_head_{n}').cfg.in_channels
                 for n in ('joint', 'pts', 'img')] == [512, 256, 256]
+    elif name in SEGMENTORS:
+        s3dis = 's3dis' in name
+        assert mc.num_classes == (13 if s3dis else 20)
+        # mmdet3d's S3DIS xyz | rgb | normalised xyz, but for the SSG
+        # PointNet++; xyz alone for the xyz-only configs
+        nine = s3dis and (det is not tenc.EncoderDecoder3D or mc.msg)
+        assert mc.in_channels == (3 if 'xyz-only' in name
+                                  else 9 if nine else 6)
+        bb = model.backbone
+        if det is tdgcnn.DGCNNSegmentor:
+            assert mc.knn_modes == ('D-KNN', 'F-KNN', 'F-KNN')
+            assert bb.GF_modules[0].mlps.layer0.conv.weight.shape[1] == 18
+            # the global 1 024 and the three GF modules' 64 each
+            assert bb.out_channels == 1024 + 3 * 64
+        elif det is tpaconv.PAConvSegmentor:
+            assert mc.num_kernels == 8
+            assert bb.SA_modules[0].mlps[0].layer0.weight_bank.shape == (
+                12, 8 * 32)
+        else:
+            assert mc.msg == ('_msg_' in name)
+            first = bb.SA_modules[0].mlps[0].layer0.conv.weight
+            assert first.shape[1] == mc.in_channels
+            # the head's last propagation takes no raw features
+            assert model.decode_head.FP_modules[-1].mlps.layer0.conv.weight \
+                .shape[1] == mc.fp_channels[-2][-1]
     elif name in INDOOR:
         assert mc.head.n_classes == 18 and mc.head.n_reg_outs == 6
         assert not mc.head.with_yaw and mc.depth == 34

@@ -214,10 +214,18 @@ def test_conversion_loads_strictly(setup):
     model.load_state_dict(sd)
 
 
-def test_eval_forward_matches_gga_tpu(setup):
-    _, model, variables, inputs, tcfg = setup
-    ref = jax.jit(lambda v, p, m: model.apply(v, p, m, train=False))(
+@pytest.fixture(scope='module')
+def jax_eval(setup):
+    """gga_tpu's eval-mode forward, jitted once for the forward and the
+    decode tests."""
+    _, model, variables, inputs, _ = setup
+    return jax.jit(lambda v, p, m: model.apply(v, p, m, train=False))(
         variables, *inputs[:2])
+
+
+def test_eval_forward_matches_gga_tpu(setup, jax_eval):
+    _, model, variables, inputs, tcfg = setup
+    ref = jax_eval
     bundle = apis.init_ssd3d_detector(
         tcfg, convert.from_jax_variables(variables, tcfg), device='cpu')
     with torch.no_grad():
@@ -284,11 +292,9 @@ def test_loss_terms_match_gga_tpu(loss_pair, term):
                                err_msg=term)
 
 
-def test_decode_matches_gga_tpu(setup):
+def test_decode_matches_gga_tpu(setup, jax_eval):
     cfg, model, variables, inputs, tcfg = setup
-    jp = jax.jit(lambda v, p, m: model.apply(v, p, m, train=False))(
-        variables, *inputs[:2])
-    jp = {k: np.array(v) for k, v in jp.items()}
+    jp = {k: np.array(v) for k, v in jax_eval.items()}
     # every second proposal 0.1 m from the one before it, both 2 m wide,
     # so that they suppress one another
     jp['center'][:, 1::2] = jp['center'][:, ::2] + 0.1

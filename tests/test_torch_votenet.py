@@ -210,10 +210,18 @@ def test_train_forward_matches_gga_tpu(train_pass):
         _close(got[k], ref[k], 1e-4, k)
 
 
-def test_eval_forward_matches_gga_tpu(setup):
-    cfg, model, variables, inputs, _, tcfg = setup
-    ref = jax.jit(lambda v, p, m: model.apply(v, p, m, train=False))(
+@pytest.fixture(scope='module')
+def jax_eval(setup):
+    """gga_tpu's eval-mode forward, jitted once for the forward and the
+    decode tests."""
+    _, model, variables, inputs, _, _ = setup
+    return jax.jit(lambda v, p, m: model.apply(v, p, m, train=False))(
         variables, *inputs)
+
+
+def test_eval_forward_matches_gga_tpu(setup, jax_eval):
+    cfg, model, variables, inputs, _, tcfg = setup
+    ref = jax_eval
     bundle = apis.init_votenet_detector(
         tcfg, convert.from_jax_variables(variables, tcfg), device='cpu')
     with torch.no_grad():
@@ -268,10 +276,9 @@ def test_loss_terms_match_gga_tpu(loss_pair, term):
                                rtol=1e-4, err_msg=term)
 
 
-def test_decode_matches_gga_tpu(setup):
+def test_decode_matches_gga_tpu(setup, jax_eval):
     cfg, model, variables, inputs, _, tcfg = setup
-    jpreds = jax.jit(lambda v, p, m: model.apply(v, p, m, train=False))(
-        variables, *inputs)
+    jpreds = jax_eval
     # a slot for every proposal, and every second proposal moved 0.1 m
     # from the one before it, so that they suppress one another
     jpreds = {k: np.array(v) for k, v in jpreds.items()}
