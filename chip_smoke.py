@@ -7,7 +7,8 @@ SASSD, DynamicVoxelNet), the fully supervised nuScenes CenterPoint, the
 two-stage PartA2, the indoor family (stage 1 for SUN RGB-D and ScanNet,
 FCAF3D on ScanNet, VoteNet), the VoteNet-derived indoor detectors
 (GroupFree3D, H3DNet, ImVoteNet), the point-cloud segmentors (PointNet++
-SSG and MSG, DGCNN, PAConv), the sharded stage 3 and the two-rank
+SSG and MSG, DGCNN, PAConv), the image-fusion and image-to-voxel
+detectors (MVXNet, ImVoxelNet), the sharded stage 3 and the two-rank
 data-parallel GGA step, and the point-based KITTI detectors (3DSSD,
 PointRCNN) on one NVIDIA card.
 
@@ -308,6 +309,22 @@ PointRCNN) on one NVIDIA card.
     its share; peak memory), ``infer_segmentor`` over the val split with
     ``seg_eval`` (miou, acc, acc_cls finite) and ``inference_segmentor``
     on one whole scene.
+17d. Fusion phase (``fusion_phase``, on the workflow's mini KITTI and the
+    indoor family's mini SUN RGB-D): MVXNet as shipped (B = 2 x up to
+    24 000 points and the scenes' 375 x 1242 PNGs, f32, seeded weights;
+    ``mvxnet_path``): the card's eval forward at B = 1 against the CPU's
+    (1e-4 of max|CPU|), the whole step with kernels against plain (cuDNN
+    off; the f32 gates), 2 recorded ``apis.mvxnet_train_step`` calls with
+    exactly 20 gather_gemm_conv (conv_input's input gradient among them:
+    the fused VFE below it carries weights), 12 gather_gemm_dw and 4
+    gather_rows a step, finite losses, positives, the cyclic lr, moved
+    weights, device ms by stage and peak memory, every recorded kernel
+    call replayed against its plain version, a profile of one more step
+    (cuDNN's FFT plan's share), ``infer_mvxnet`` and
+    ``inference_multi_modality_detector``; both ImVoxelNet configs (KITTI
+    car at B = 4, Car as label 0; SUN RGB-D at B = 2 on seeded 530 x 730
+    images; ``imvoxelnet_path``): the card against the CPU, 2 steps with
+    no launch of any wrapper, ``infer_imvoxelnet``.
 18. Data-parallel phase (``data_parallel_phase``, last): two processes
     on the one card. (a) The stage-3 CLI as ``--rank 0/1 --world 2
     --tmpdir`` (spawned, started together) on the workflow's mini KITTI
@@ -830,9 +847,10 @@ def breakdown(torch, bundle, batches):
 
 
 def device_profile(torch, fn, top=12):
-    """``fn()`` under torch.profiler: device busy share of the window and
-    the kernels with the most device time (one stream, so kernel times
-    do not overlap)."""
+    """``fn()`` under torch.profiler: device busy share of the window, the
+    kernels with the most device time (one stream, so kernel times do not
+    overlap) and the time of cuDNN's FFT conv plans (the kernels named as
+    FFTs and the complex f32 GEMMs, ``cf32``, between them)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     start = torch.cuda.Event(enable_timing=True)
@@ -850,6 +868,9 @@ def device_profile(torch, fn, top=12):
     return dict(window_ms=window_ms, busy_ms=busy_ms,
                 busy_share=busy_ms / window_ms if window_ms else None,
                 kernel_launches=sum(e.count for e in ops),
+                fft_ms=sum(e.self_device_time_total for e in ops
+                           if 'fft' in e.key.lower() or 'cf32' in e.key)
+                / 1e3,
                 top=[dict(name=e.key, calls=e.count,
                           device_ms=e.self_device_time_total / 1e3)
                      for e in ops[:top]])
@@ -5490,6 +5511,75 @@ def seg_card_vs_cpu(torch, model, kind, batch, label):
     return dict(max_rel_diff=err, pick_share=share, cpu_forward_s=cpu_s)
 
 
+# the stage marks of a train step (``recorded_steps``)
+STEP_STAGES = ('forward', 'loss', 'backward', 'optimizer')
+
+
+def recorded_steps(torch, mods, trainer, step_fn, batches, label,
+                   record=()):
+    """Main path: ``step_fn(trainer, batch, mark)`` on each batch (on the
+    card), the counts set to 0 just before and read just after, CUDA
+    events at the stage marks; the calls of the wrappers in ``record``
+    ((module, name) pairs) recorded with the stage each came in.
+    Returns (logs, lrs, marks, launches, peak bytes, recorded calls)."""
+    stage = ['forward']
+    logs, lrs, marks = [], [], []
+    with contextlib.ExitStack() as stack:
+        rec = {name: stack.enter_context(recording(mod, name,
+                                                   lambda: stage[0]))
+               for mod, name in record}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(mods)
+        for b in batches:
+            ev = {k: torch.cuda.Event(enable_timing=True)
+                  for k in ('start',) + STEP_STAGES}
+
+            def mark(name, ev=ev):
+                ev[name].record()
+                stage[0] = STEP_STAGES[min(STEP_STAGES.index(name) + 1,
+                                           len(STEP_STAGES) - 1)]
+            stage[0] = 'forward'
+            ev['start'].record()
+            logs.append(step_fn(trainer, b, mark))
+            lrs.append(trainer.optimizer.adamw.param_groups[0]['lr'])
+            marks.append([ev[k] for k in ('start',) + STEP_STAGES])
+        torch.cuda.synchronize()
+        launches = counts(mods)
+    return (logs, lrs, marks, launches, torch.cuda.max_memory_allocated(),
+            rec)
+
+
+def step_checks(torch, trainer, logs, lrs, sched, params0, stats0, marks,
+                label, num_pos='num_pos', unreached=()):
+    """Of ``recorded_steps``' steps: finite logs on the card, positives
+    (the log ``num_pos``, unless None), each step's lr the schedule's,
+    every parameter (but ``unreached``) and BN statistic moved; returns
+    (step device ms, device ms a step by STEP_STAGES)."""
+    model = trainer.model
+    for i, (lg, lr) in enumerate(zip(logs, lrs)):
+        finite_logs(torch, lg, f'{label} step {i + 1}')
+        if not all(v.device.type == DEVICE for v in lg.values()):
+            fail(f'{label}: step {i + 1} logs off the card')
+        if num_pos is not None and not float(lg[num_pos]) > 0:
+            fail(f'{label}: step {i + 1} met no positive')
+        if not abs(lr - sched(i)) <= 1e-12 * sched(i):
+            fail(f'{label}: step {i + 1} ran at lr {lr}, the schedule gives '
+                 f'{sched(i)}')
+    stuck = [n for n, p in model.named_parameters()
+             if torch.equal(p, params0[n]) and n not in unreached]
+    stuck += [n for n, b in model.named_buffers()
+              if torch.equal(b, stats0[n]) or not torch.isfinite(b).all()]
+    if stuck:
+        fail(f'{label}: {len(stuck)} tensors did not move: {stuck[:8]}')
+    step_ms = [m[0].elapsed_time(m[-1]) for m in marks]
+    timed = list(range(1, len(marks))) or [0]
+    stages = {k: float(np.mean([marks[i][j].elapsed_time(marks[i][j + 1])
+                                for i in timed]))
+              for j, k in enumerate(STEP_STAGES)}
+    return step_ms, stages
+
+
 def segmentation_path(torch, mods, card, data, config):
     """One segmentor (``config`` as shipped, f32, seeded random weights)
     on the indoor family's mini ScanNet or the mini S3DIS, at the config's
@@ -5576,43 +5666,19 @@ def segmentation_path(torch, mods, card, data, config):
                for b in batches]
     keeps = [segmentor_draws(model_cfg, batch, n_points, trainer.generator,
                              DEVICE) for _ in range(SEG_STEPS)]
-    logs, lrs, marks = [], [], []
-    stage_order = ('forward', 'loss', 'backward', 'optimizer')
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts(mods)
     with seg_stage_events(torch, model) as spans:
-        for i in range(SEG_STEPS):
-            ev = {k: torch.cuda.Event(enable_timing=True)
-                  for k in ('start',) + stage_order}
+        def step(tr, b, mark):
             spans.append({})
-            ev['start'].record()
-            logs.append(apis.segmentor_train_step(
-                trainer, on_card[i], weights, ignore,
-                lambda name, ev=ev: ev[name].record(), keeps[i]))
-            lrs.append(trainer.optimizer.adamw.param_groups[0]['lr'])
-            marks.append([ev[k] for k in ('start',) + stage_order])
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    launches = counts(mods)
+            return apis.segmentor_train_step(tr, b[0], weights, ignore, mark,
+                                             b[1])
+        logs, lrs, marks, launches, peak, _ = recorded_steps(
+            torch, mods, trainer, step, list(zip(on_card, keeps)), label)
     if any(launches.values()):
         fail(f'{label}: {SEG_STEPS} train steps launched {launches}; the '
              'segmentors reach no hand kernel')
-    for i, (lg, lr) in enumerate(zip(logs, lrs)):
-        finite_logs(torch, lg, f'{label} step {i + 1}')
-        if not all(v.device.type == DEVICE for v in lg.values()):
-            fail(f'{label}: step {i + 1} logs off the card')
-        if not abs(lr - sched(i)) <= 1e-12 * sched(i):
-            fail(f'{label}: step {i + 1} ran at lr {lr}, the schedule gives '
-                 f'{sched(i)}')
-    stuck = [n for n, p in model.named_parameters()
-             if torch.equal(p, params0[n])]
-    stuck += [n for n, b in model.named_buffers()
-              if torch.equal(b, stats0[n]) or not torch.isfinite(b).all()]
-    if stuck:
-        fail(f'{label}: {len(stuck)} tensors did not move: {stuck[:8]}')
+    step_ms, _ = step_checks(torch, trainer, logs, lrs, sched, params0,
+                             stats0, marks, label, num_pos=None)
     del params0, stats0, on_card, keeps
-    step_ms = [m[0].elapsed_time(m[-1]) for m in marks]
     timed = list(range(1, SEG_STEPS)) or [0]
     mean_step = float(np.mean([step_ms[i] for i in timed]))
     stages = {k: float(np.mean([seg_stage_ms(spans[i], marks[i])[k]
@@ -5709,6 +5775,631 @@ def segmentation_phase(torch, mods, card, data, tmp):
            for config in SEG_PATHS}
     res['seconds'] = time.perf_counter() - t0
     print(f'{card}: segmentation phase: {res["seconds"]:.1f} s')
+    return res
+
+
+# --- the image-fusion and image-to-voxel detectors: MVXNet and ImVoxelNet
+#     (KITTI and SUN RGB-D) ---------------------------------------------
+FU_MVXNET = ('configs/mvxnet/'
+             'dv_mvx-fpn_second_secfpn_adamw_2x8_40e_kitti-3d-3class.py')
+FU_IMVOXELNET = (
+    ('kitti', 'configs/imvoxelnet/imvoxelnet_4x8_kitti-3d-car.py'),
+    ('indoor', 'configs/imvoxelnet/imvoxelnet_4x2_sunrgbd-3d-10class.py'))
+FU_STEPS = 2                # recorded train steps of each detector
+FU_TOL = 1e-4               # card forward against the CPU's, of max|CPU|
+# MVXNet's encoder is SECOND's conv_module one at 128 input channels; the
+# fused VFE below conv_input carries weights, so conv_input takes an input
+# gradient too: one more SubM input gradient than SECOND's
+FU_CONVS, FU_DGRAD, FU_STRIDED = SUP_CONVS, SUP_DGRAD + 1, SUP_STRIDED
+FU_PER_STEP = dict(gather_gemm_conv=FU_CONVS + FU_DGRAD,
+                   gather_gemm_dw=FU_CONVS, gather_rows=FU_STRIDED,
+                   gather_rows_t=0, render_heatmap=0)
+# mmdet3d's img_norm_cfg of each config: MVXNet's caffe ResNet takes BGR
+# less the mean, ImVoxelNet's RGB over the std
+FU_IMG_NORM = dict(
+    mvxnet=((103.53, 116.28, 123.675), (1.0, 1.0, 1.0), True),
+    imvoxelnet=((123.675, 116.28, 103.53), (58.395, 57.12, 57.375), False))
+# the mini SUN RGB-D rooms span y in +-2.5 m about the camera, so that
+# half their objects stand behind it: ImVoxelNet's batches move each room
+# this far forward (+y), into the frustum its prior range covers
+FU_ROOM_SHIFT = 2.5
+# the biases right before a batch norm (PointFusion's two transforms):
+# their gradient is 0 up to rounding, so a step may leave them
+FU_PRE_BN_BIASES = ('pts_voxel_encoder.fusion_layer.img_transform.0.bias',
+                    'pts_voxel_encoder.fusion_layer.pts_transform.0.bias')
+
+
+def normalized_image(img, norm):
+    """An RGB uint8 image [H, W, 3] -> f32 (less the mean, over the std;
+    BGR first where ``norm`` says)."""
+    mean, std, bgr = norm
+    x = np.asarray(img, np.float32)
+    if bgr:
+        x = x[..., ::-1]
+    return ((x - np.asarray(mean, np.float32))
+            / np.asarray(std, np.float32)).astype(np.float32)
+
+
+def kitti_lidar2img(info):
+    """P2 @ R0_rect @ Tr_velo_to_cam of a KITTI info's calib, f32 [4, 4]."""
+    c = info['calib']
+    return (np.asarray(c['P2'], np.float64) @ np.asarray(c['R0_rect'])
+            @ np.asarray(c['Tr_velo_to_cam'])).astype(np.float32)
+
+
+def fusion_kitti_batches(dataset, root, batch, n, norm, car=False):
+    """``n`` batches of the mini KITTI (``KittiDetDataset`` in test mode: no
+    point augmentation, which gga_tpu's ``point_sample`` would not undo),
+    epoch after epoch, each with its scenes' PNGs (normalized, [B, H, W,
+    3]) and lidar2img; ``car``: Car as label 0 (``car_only``)."""
+    import os
+
+    from gga_tpu_torch.data.kitti.png import read_png
+    out, epoch = [], 0
+    while len(out) < n:
+        for b in dataset.epoch_batches(batch, seed=epoch):
+            infos = [dataset.infos[i] for i in b['sample_idx']]
+            b['img'] = np.stack([normalized_image(read_png(os.path.join(
+                root, i['image']['image_path'])), norm) for i in infos])
+            b['lidar2img'] = np.stack([kitti_lidar2img(i) for i in infos])
+            out.append(car_only(b) if car else b)
+        epoch += 1
+    return out[:n]
+
+
+def fusion_indoor_batches(dataset, batch, n, norm, seed=0):
+    """``n`` batches of the indoor family's mini SUN RGB-D (test mode) with
+    a seeded uint8 image of each scene's image shape (its JPEGs hold no
+    scan), normalized, and the depth -> image projection of its calib
+    (``sunrgbd_depth2img``); the datasets' gravity-centred boxes and the
+    points moved FU_ROOM_SHIFT forward."""
+    rng = np.random.RandomState(seed)
+    out, epoch = [], 0
+    while len(out) < n:
+        order = np.random.RandomState(epoch).permutation(len(dataset))
+        for i in range(0, len(order) // batch * batch, batch):
+            idx = order[i:i + batch]
+            items = [dataset[j] for j in idx]
+            b = {k: np.stack([it[k] for it in items]) for k in items[0]}
+            infos = [dataset.infos[j] for j in idx]
+            b['img'] = np.stack([normalized_image(rng.randint(
+                0, 256, (*i['image']['image_shape'], 3)), norm)
+                for i in infos])
+            b['lidar2img'] = np.stack([sunrgbd_depth2img(i) for i in infos])
+            b['gt_valid'] = b.pop('obj_valid')
+            b['points'][..., 1] += FU_ROOM_SHIFT
+            b['gt_boxes'][..., 1] += np.where(b['gt_valid'], FU_ROOM_SHIFT,
+                                              0.0).astype(np.float32)
+            out.append(b)
+        epoch += 1
+    return out[:n]
+
+
+def fusion_inputs(torch, kind, batch, device, rows=slice(None)):
+    """The detector's forward inputs on ``device`` (images NCHW)."""
+    img = torch.as_tensor(batch['img'][rows]).to(device).permute(
+        0, 3, 1, 2).contiguous()
+    l2i = torch.as_tensor(batch['lidar2img'][rows]).to(device)
+    if kind != 'mvxnet':
+        return img, l2i
+    return (torch.as_tensor(batch['points'][rows]).to(device),
+            torch.as_tensor(batch['points_valid'][rows]).to(device), img, l2i)
+
+
+@contextlib.contextmanager
+def leaf_outputs(torch, model, prefixes=None):
+    """Record, in call order, (name, output on the CPU) of every leaf
+    module of ``model`` (whose name starts with one of ``prefixes``, if
+    given) that returns a tensor, a sparse tensor (its features) or a
+    tuple that starts with one."""
+    out, handles = [], []
+
+    def first_tensor(o):
+        o = getattr(o, 'features', o)
+        if isinstance(o, (tuple, list)) and o:
+            return first_tensor(o[0])
+        return o if torch.is_tensor(o) else None
+
+    for name, m in model.named_modules():
+        if next(m.children(), None) is None and (
+                prefixes is None or name.startswith(tuple(prefixes))):
+            def hook(_, __, o, name=name):
+                t = first_tensor(o)
+                if t is not None and t.dtype.is_floating_point:
+                    out.append((name, t.detach().cpu()))
+            handles.append(m.register_forward_hook(hook))
+    try:
+        yield out
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def module_drift(torch, model, got, ref):
+    """Each leaf module's output on the card against the CPU's (the
+    ``leaf_outputs`` of one forward each), as max |d| / max|CPU|: the
+    first module past FU_TOL / 10 and the three worst, with, for a batch
+    norm among them, its smallest running variance and its largest
+    |running mean| / sqrt(running variance + eps) (how far it magnifies a
+    difference of its input that cancels in the subtraction)."""
+    if [n for n, _ in got] != [n for n, _ in ref]:
+        return dict(error='the card and the CPU called other modules')
+    mods = dict(model.named_modules())
+    rows = []
+    for i, ((name, g), (_, r)) in enumerate(zip(got, ref)):
+        scale = float(r[torch.isfinite(r)].abs().max()) if bool(
+            torch.isfinite(r).any()) else 0.0
+        d = torch.where(g == r, 0.0, (g - r).abs()).nan_to_num(
+            nan=float('inf'))
+        row = dict(index=i, module=name, rel=float(d.max()) / max(scale, 1e-30)
+                   if r.numel() else 0.0, max_abs_cpu=scale)
+        m = mods[name]
+        if getattr(m, 'running_var', None) is not None:
+            var = m.running_var.detach().float().cpu()
+            mean = m.running_mean.detach().float().cpu()
+            row.update(min_running_var=float(var.min()), gain=float(
+                (mean.abs() / (var + m.eps).sqrt()).max()))
+        rows.append(row)
+    first = next((r for r in rows if r['rel'] > FU_TOL / 10), None)
+    return dict(modules=len(rows), first_past=first,
+                worst=sorted(rows, key=lambda r: -r['rel'])[:3])
+
+
+def fusion_card_vs_cpu(torch, model, kind, batch, label, gate=True,
+                       trace=True):
+    """The card's eval forward against the same weights' on the CPU, on the
+    first scene of ``batch``: every float output within FU_TOL of the
+    CPU's largest entry, the projection validity (indoor) equal; with
+    ``gate`` False the reading is reported only. ImVoxelHead's face
+    distances are ``exp()`` of its ``conv_reg`` logits: the logits are
+    compared (``leaf_outputs``), and the distances are reported where both
+    sides are finite, beside the largest logit and the worst logit
+    difference. With ``trace`` (True, or the name prefixes of the modules
+    to trace), ``module_drift`` reports where the difference grows."""
+    import copy
+    cpu_model = copy.deepcopy(model).cpu().eval()
+    model.eval()
+    trace = trace or kind == 'indoor'
+    prefixes = None if trace is True else trace
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        with (leaf_outputs(torch, cpu_model, prefixes) if trace
+              else contextlib.nullcontext([])) as ref_leaves:
+            ref = cpu_model(*fusion_inputs(torch, kind, batch, 'cpu',
+                                           slice(1)))
+        cpu_s = time.perf_counter() - t0
+        with (leaf_outputs(torch, model, prefixes) if trace
+              else contextlib.nullcontext([])) as got_leaves:
+            got = model(*fusion_inputs(torch, kind, batch, DEVICE, slice(1)))
+    res = dict(cpu_forward_s=cpu_s, gated=gate)
+    if kind == 'indoor':
+        logits = [[t for n, t in leaves if n == 'bbox_head.conv_reg']
+                  for leaves in (got_leaves, ref_leaves)]
+        dist = [[p['bbox'][..., :6].detach().cpu() for p in out[0]]
+                for out in (got, ref)]
+        res['distances'] = []
+        for g, r, lg, lr in zip(*dist, *logits):
+            both = torch.isfinite(g) & torch.isfinite(r)
+            res['distances'].append(dict(
+                rel_where_finite=float((g - r).abs()[both].max())
+                / float(r[both].abs().max()) if bool(both.any())
+                else float('nan'),
+                share_finite=float(both.float().mean()),
+                max_abs_logit=float(lr.abs().max()),
+                max_logit_diff=float((lg - lr).abs().max())))
+        got, ref = ([[dict(center=p['center'], cls=p['cls'],
+                           angle=p['bbox'][..., 6:], reg_logits=lv)
+                      for p, lv in zip(out[0], lvs)], out[1]]
+                    for out, lvs in zip((got, ref), logits))
+    diffs, equal = max_rel_diff(torch, got, ref)
+    worst = max(v for v in diffs.values() if not isinstance(v, str))
+    res.update(max_rel_diff=worst, diffs=diffs)
+    print(f'{label}: eval forward at B = 1, card against CPU (TF32 off): '
+          f'max |d| / max|CPU| {worst:.3g} over {len(diffs)} outputs ('
+          + (f'gate {FU_TOL}' if gate else f'not gated; the gate elsewhere '
+             f'{FU_TOL}') + f'); bool outputs equal: {equal}; the CPU '
+          f'forward {cpu_s:.1f} s')
+    for i, d in enumerate(res.get('distances', ())):
+        print(f'{label}: level {i} face distances (exp of the logits), card '
+              f'against CPU where both are finite ({100 * d["share_finite"]:.2f}'
+              f' %): max |d| / max|CPU| {d["rel_where_finite"]:.3g} (not '
+              f'gated); the largest |logit| {d["max_abs_logit"]:.4g}, the '
+              f'worst logit difference {d["max_logit_diff"]:.3g}')
+    if trace:
+        res['drift'] = module_drift(torch, cpu_model, got_leaves, ref_leaves)
+        dr = res['drift']
+        print(f'{label}: module drift over {dr.get("modules")} leaf modules: '
+              f'first past {FU_TOL / 10:.0e}: {dr.get("first_past")}; worst '
+              f'{dr.get("worst")}' if 'error' not in dr else
+              f'{label}: module drift: {dr["error"]}')
+    del cpu_model, got_leaves, ref_leaves
+    if gate and (not equal or not worst <= FU_TOL):
+        fail(f'{label}: card forward against the CPU: {diffs}')
+    return res
+
+
+def mvxnet_path(torch, mods, card, tmp):
+    """MVXNet (FU_MVXNET as shipped, f32, seeded random weights) on the
+    workflow's mini KITTI (its 16 trainval scenes' reduced clouds, up to
+    ``data.max_points`` points, the rendered 375 x 1242 PNGs, lidar2img
+    from each calib) at the config's B = 2:
+
+    1. the card's eval forward against the CPU's (``fusion_card_vs_cpu``),
+       gated; then, reported, the same on a copy whose BN statistics
+       ``calibrate_bn`` set to the first train batch's;
+    2. one whole step with kernels against plain, cuDNN off, on the
+       initial weights (``step_comparison``: f32 gates);
+    3. main path: FU_STEPS calls of ``apis.mvxnet_train_step`` on the
+       config's optimizer block through ``build_optimizer`` over its
+       epochs, the counts set to 0 just before and read just after:
+       exactly FU_PER_STEP launches a step, every one of them f32 (the
+       recorded calls by the features' dtype); finite losses with
+       positives, each step's lr the cyclic schedule's, every parameter
+       (but the two pre-BN biases) and BN statistic moved; CUDA events by
+       stage, peak memory, the encoder's budget occupancy (reported); then
+       the first step's recorded kernel calls replayed
+       against their plain versions (conv f32 1e-5, dW 2e-5 and the same
+       bits twice, gathers exact on a cold L2) and a profile of one more
+       step (the share of cuDNN's FFT plan);
+    4. after ``calibrate_bn`` on the val batch, the card's eval forward
+       against the CPU's again (reported, with where the difference
+       grows), ``infer_mvxnet`` on the 8 val scenes (FU_CONVS launches a
+       forward, the kept boxes finite) and
+       ``inference_multi_modality_detector`` on one of them."""
+    import copy
+    import os
+
+    from gga_tpu_torch import apis
+    from gga_tpu_torch.config import Config
+    from gga_tpu_torch.data.kitti_det import KittiDetDataset
+    from gga_tpu_torch.models.builder import build_detector
+    from gga_tpu_torch.models.layers import SparseConvBlock
+    from gga_tpu_torch.train import loop
+    from gga_tpu_torch.train.optim import cyclic_cos_schedule
+    sparse_conv, gr, _ = mods
+    t0 = time.perf_counter()
+    data = os.path.join(tmp, 'kitti')
+    cfg = Config.fromfile(str(ROOT / FU_MVXNET))
+    model_cfg = build_detector(cfg)[1]
+    d = cfg.data
+    B = d.samples_per_gpu
+    label = f'MVXNet {Path(FU_MVXNET).stem}'
+
+    def dataset(info):
+        return KittiDetDataset(data, os.path.join(data, info),
+                               pc_range=cfg.point_cloud_range,
+                               pts_prefix=d.pts_prefix,
+                               max_points=d.max_points, test_mode=True)
+    train_set = dataset(SUP_INFO)
+    spe = len(train_set) // B
+    total = spe * cfg.max_epochs
+    norm = FU_IMG_NORM['mvxnet']
+    batches = fusion_kitti_batches(train_set, data, B, FU_STEPS, norm)
+    opt = dict(cfg.optimizer)
+    trainer = apis.init_mvxnet_trainer(model_cfg, total, device=DEVICE,
+                                       seed=0, optimizer=opt)
+    model = trainer.model
+    print(f'{label}: B = {B} x up to {d.max_points} points and '
+          f'{batches[0]["img"].shape[1:3]} images, f32, '
+          f'{sum(p.numel() for p in model.parameters())} parameters, {spe} '
+          f'steps an epoch, {total} steps in all')
+    if not all(p.device.type == DEVICE for p in model.parameters()):
+        fail(f'{label}: parameters off the card')
+    res = dict(config=Path(FU_MVXNET).name, batch=B, points=d.max_points)
+
+    # --- 1. the card's eval forward against the CPU's --------------------
+    res['card_vs_cpu'] = fusion_card_vs_cpu(torch, model, 'mvxnet',
+                                            batches[0], label)
+    # the same on a copy at the statistics of the first train batch (2
+    # scenes; the main path starts from the initial ones): reported
+    twin = calibrate_bn(torch, copy.deepcopy(model), batches[0],
+                        lambda m, b: m(*fusion_inputs(torch, 'mvxnet', b,
+                                                      DEVICE)))
+    res['card_vs_cpu_train_stats'] = fusion_card_vs_cpu(
+        torch, twin, 'mvxnet', batches[0],
+        f'{label} (statistics of the first train batch)', gate=False)
+    del twin
+
+    # --- 2. one whole step with kernels against plain ---------------------
+    def as_model_batch(b):
+        pts, val, img, l2i = fusion_inputs(torch, 'mvxnet', b, DEVICE)
+        return dict(points=pts, points_valid=val, img=img, lidar2img=l2i,
+                    **{k: torch.as_tensor(b[k]).to(DEVICE)
+                       for k in ('gt_boxes', 'gt_labels', 'gt_valid')})
+
+    cmp_step = step_comparison(
+        torch, mods, trainer, as_model_batch(batches[0]),
+        lambda m, b: loop.mvxnet_loss(m, b)[0], FU_CONVS)
+    print_step_comparison(f'{label} whole step kernels vs plain', cmp_step)
+    res['step_comparison'] = cmp_step
+
+    # --- 3. main path -----------------------------------------------------
+    on_card = [{k: torch.as_tensor(v).to(DEVICE) for k, v in b.items()}
+               for b in batches]
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {n: b.clone() for n, b in model.named_buffers()}
+    diags, sites = [], []
+
+    def step(tr, b, mark):
+        diags.append({})
+        sites.append({})
+        return apis.mvxnet_train_step(tr, b, mark, diags[-1])
+
+    # the active sites a scene after each strided conv and conv_out, over
+    # its budget (the largest scene's)
+    hooks = [blk.register_forward_hook(
+        lambda blk, _, st, name=name: sites[-1].__setitem__(
+            name, st.valid.sum(-1).max() / blk[0].out_budget))
+        for name, blk in model.pts_middle_encoder.named_modules()
+        if isinstance(blk, SparseConvBlock)]
+    try:
+        logs, lrs, marks, launches, peak, rec = recorded_steps(
+            torch, mods, trainer, step, on_card, label,
+            record=((sparse_conv, 'gather_gemm_conv'),
+                    (sparse_conv, 'gather_gemm_dw'), (gr, 'gather_rows')))
+    finally:
+        for h in hooks:
+            h.remove()
+    want = {k: v * FU_STEPS for k, v in FU_PER_STEP.items()}
+    if launches != want:
+        fail(f'{label}: {FU_STEPS} steps launched {launches}, expected '
+             f'{want}')
+    # each recorded call is one launch; the launches by the dtype of the
+    # features (the f32 and bf16 entries of one wrapper)
+    by_dtype = {k: {str(dt).replace('torch.', ''): sum(
+        a[0].dtype == dt for _, a in v) for dt in (torch.float32,
+                                                    torch.bfloat16)}
+        for k, v in rec.items()}
+    if (any(sum(v.values()) != launches[k] for k, v in by_dtype.items())
+            or any(v['bfloat16'] for v in by_dtype.values())):
+        fail(f'{label}: launches by dtype {by_dtype}, counted {launches}: '
+             'the f32 config launched other than f32 kernels')
+    occupancy = dict(
+        out_mean=[float(d['occupancy_out']) for d in diags],
+        largest_scene=[{k: float(v) for k, v in s_.items()} for s_ in sites])
+    sched = cyclic_cos_schedule(opt['lr'], (10, 1e-4), 0.4, total)
+    step_ms, stages = step_checks(
+        torch, trainer, logs, lrs, sched, params0, stats0, marks, label,
+        unreached=FU_PRE_BN_BIASES)
+    del params0, stats0
+    res.update(steps=FU_STEPS, launches=launches, step_device_ms=step_ms,
+               launches_by_dtype=by_dtype, occupancy=occupancy,
+               stage_ms=stages, peak_bytes=peak, lrs=lrs,
+               scenes_per_s_events=B * max(len(step_ms) - 1, 1) / (
+                   sum(step_ms[1:] or step_ms) / 1e3),
+               logs=[{k: float(v) for k, v in lg.items()} for lg in logs])
+    print(f'{card}: {label}: {FU_STEPS} steps at B={B} (f32): step device '
+          f'ms {[round(v, 1) for v in step_ms]}; by stage (mean after the '
+          'first) ' + ', '.join(f'{k} {v:.1f}' for k, v in stages.items())
+          + f'; peak {peak / 2 ** 30:.2f} GiB; launches {launches}, by '
+          f'dtype {by_dtype}; lr {lrs}; losses '
+          f'{[round(lg["loss"], 4) for lg in res["logs"]]}, num_pos '
+          f'{[lg["num_pos"] for lg in res["logs"]]}')
+    print(f'{label}: encoder budgets: occupancy_out (mean a scene, as '
+          f'gga_tpu sows it) {occupancy["out_mean"]}; the largest scene\'s '
+          f'active sites over the budget of each strided conv and conv_out '
+          f'{occupancy["largest_scene"]} (1.0: saturated)')
+    first = {k: v[:FU_PER_STEP[k]] for k, v in rec.items()}
+    del rec
+    torch.set_grad_enabled(False)
+    conv_rows, dwr, _ = train_kernel_rows(torch, sparse_conv, first,
+                                          f'{label} kernels', FU_CONVS,
+                                          FU_DGRAD)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=DEVICE)
+    gr_rows = rows_rows(torch, gr, [a for _, a in first['gather_rows']],
+                        False, f'{label} kernels', flush)
+    del flush, first
+    torch.set_grad_enabled(True)
+    res['profile'] = device_profile(
+        torch, lambda: apis.mvxnet_train_step(trainer, on_card[0]))
+    print_profile(f'{label} train step', res['profile'])
+    print(f'{card}: {label}: cuDNN\'s FFT plan (FFT and complex GEMM '
+          f'kernels) {res["profile"]["fft_ms"]:.2f} ms of the profiled '
+          f'step\'s {res["profile"]["busy_ms"]:.2f} device ms')
+    del on_card
+    torch.cuda.empty_cache()
+
+    # --- 4. inference -----------------------------------------------------
+    val_set = dataset(SUP_VAL_INFO)
+    vb = fusion_kitti_batches(val_set, data, len(val_set), 1, norm)[0]
+    calibrate_bn(torch, model, vb, lambda m, b: m(*fusion_inputs(
+        torch, 'mvxnet', b, DEVICE)))
+    res['card_vs_cpu_calibrated'] = fusion_card_vs_cpu(
+        torch, model, 'mvxnet', vb, f'{label} (calibrated)', gate=False)
+    bundle = apis.DetectorBundle(model, model_cfg, torch.device(DEVICE))
+    zero_counts(mods)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = apis.infer_mvxnet(bundle, vb['points'], vb['points_valid'],
+                            vb['img'], vb['lidar2img'])
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t1
+    got = counts(mods)
+    n = len(val_set)
+    if (got != dict(dict.fromkeys(FU_PER_STEP, 0), gather_gemm_conv=FU_CONVS)
+            or tuple(out['boxes'].shape[:1]) != (n,)
+            or out['boxes'].shape[-1] != 7
+            or not torch.isfinite(out['boxes'][out['valid']]).all()):
+        fail(f'{label}: infer_mvxnet on {n} scenes launched {got}, boxes '
+             f'{tuple(out["boxes"].shape)}')
+    m = int(vb['points_valid'][0].sum())
+    zero_counts(mods)
+    t2 = time.perf_counter()
+    one = apis.inference_multi_modality_detector(
+        bundle, vb['points'][0, :m], vb['img'][0], vb['lidar2img'][0],
+        max_points=d.max_points)
+    one_s = time.perf_counter() - t2
+    got1 = counts(mods)
+    if (got1['gather_gemm_conv'] != FU_CONVS
+            or one['boxes_3d'].shape[1:] != (7,)
+            or not np.isfinite(one['boxes_3d']).all()):
+        fail(f'{label}: inference_multi_modality_detector launched {got1}, '
+             f'boxes {one["boxes_3d"].shape}')
+    res['infer'] = dict(scenes=n, seconds=infer_s, scenes_per_s=n / infer_s,
+                        kept=int(out['valid'].sum()), launches=got,
+                        single_seconds=one_s, single_kept=len(one['scores_3d']),
+                        single_launches=got1)
+    res.update(conv_calls=conv_rows, dw_calls=dwr, gather_rows=gr_rows,
+               seconds=time.perf_counter() - t0)
+    print(f'{card}: {label}: infer_mvxnet on the {n} val scenes in one batch '
+          f'{infer_s * 1e3:.1f} ms (host clock), {res["infer"]["kept"]} kept '
+          f'boxes, launches {got}; inference_multi_modality_detector on one '
+          f'scene of {m} points {one_s * 1e3:.1f} ms, '
+          f'{len(one["scores_3d"])} boxes; the path {res["seconds"]:.1f} s')
+    del bundle, model, trainer
+    torch.cuda.empty_cache()
+    return res
+
+
+def imvoxelnet_path(torch, mods, card, tmp, data, kind, config):
+    """ImVoxelNet (``kind`` 'kitti': the car config on the workflow's mini
+    KITTI, Car as label 0; 'indoor': the SUN RGB-D config on the indoor
+    family's mini SUN RGB-D, ``data``), as shipped, f32, seeded random
+    weights, at the config's B:
+
+    1. the card's eval forward against the CPU's (``fusion_card_vs_cpu``);
+    2. main path: FU_STEPS calls of ``apis.imvoxelnet_train_step`` on the
+       configs' optimizer block (AdamW, the lr down at epochs 8 and 11),
+       the counts set to 0 just before and read just after: no launch of
+       any wrapper; finite losses with positives, each step's lr the
+       schedule's, every parameter and BN statistic moved but the FPN
+       levels the lift does not sample (and the indoor head's scale of a
+       level no positive landed on); CUDA events by stage, peak memory;
+    3. after ``calibrate_bn`` on a batch, the card's eval forward against
+       the CPU's again (reported), then ``apis.infer_imvoxelnet`` on the
+       batch: no launch, boxes [B, n, 7], the kept ones finite."""
+    import os
+
+    from gga_tpu_torch import apis
+    from gga_tpu_torch.config import Config
+    from gga_tpu_torch.data.kitti_det import KittiDetDataset
+    from gga_tpu_torch.data.sunrgbd import SunRgbdDataset
+    from gga_tpu_torch.models.builder import build_detector
+    from gga_tpu_torch.train.optim import piecewise_constant_schedule
+    t0 = time.perf_counter()
+    cfg = Config.fromfile(str(ROOT / config))
+    model_cfg = build_detector(cfg)[1]
+    B = cfg.data.samples_per_gpu
+    label = f'ImVoxelNet {Path(config).stem}'
+    norm = FU_IMG_NORM['imvoxelnet']
+    if kind == 'kitti':
+        root = os.path.join(tmp, 'kitti')
+        d = cfg.data
+        ds = KittiDetDataset(root, os.path.join(root, SUP_INFO),
+                             pc_range=cfg.point_cloud_range,
+                             pts_prefix=d.pts_prefix, max_points=d.max_points,
+                             test_mode=True)
+        batches = fusion_kitti_batches(ds, root, B, FU_STEPS + 1, norm,
+                                       car=True)
+    else:
+        ds = SunRgbdDataset(data['sunrgbd']['root'],
+                            data['sunrgbd']['pkls']['train'], test_mode=True)
+        batches = fusion_indoor_batches(ds, B, FU_STEPS + 1, norm)
+    spe = len(ds) // B
+    if not spe:
+        fail(f'{label}: {len(ds)} scenes, fewer than B = {B}')
+    opt = dict(cfg.optimizer)
+    trainer = apis.init_imvoxelnet_trainer(model_cfg, spe, device=DEVICE,
+                                           seed=0, optimizer=opt)
+    model = trainer.model
+    print(f'{label}: B = {B} x {batches[0]["img"].shape[1:3]} images, '
+          f'{model_cfg.n_voxels} voxels, f32, '
+          f'{sum(p.numel() for p in model.parameters())} parameters, {spe} '
+          'steps an epoch')
+    if not all(p.device.type == DEVICE for p in model.parameters()):
+        fail(f'{label}: parameters off the card')
+    res = dict(config=Path(config).name, batch=B,
+               image=list(batches[0]['img'].shape[1:3]))
+
+    # --- 1. the card's eval forward against the CPU's --------------------
+    # (the KITTI neck's volumes take GBs a module: its trace covers the
+    # image backbone and FPN only)
+    trace = True if kind == 'indoor' else ('backbone.', 'neck.')
+    res['card_vs_cpu'] = fusion_card_vs_cpu(torch, model, kind, batches[0],
+                                            label, trace=trace)
+
+    # --- 2. main path -----------------------------------------------------
+    on_card = [{k: torch.as_tensor(v).to(DEVICE) for k, v in b.items()}
+               for b in batches]
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {n: b.clone() for n, b in model.named_buffers()}
+    logs, lrs, marks, launches, peak, _ = recorded_steps(
+        torch, mods, trainer, apis.imvoxelnet_train_step,
+        on_card[:FU_STEPS], label)
+    if any(launches.values()):
+        fail(f'{label}: {FU_STEPS} train steps launched {launches}; '
+             'ImVoxelNet reaches no hand kernel')
+    sched = piecewise_constant_schedule(
+        opt['lr'], {spe * e: opt['lr_gamma'] for e in opt['lr_steps']})
+    # the lift samples FPN level 0: no gradient reaches levels 1-3's
+    # output convs, nor the extra level's; and a level of the indoor head
+    # that no positive of the last step landed on takes no gradient in its
+    # scale
+    unreached = tuple(n for n, p in model.named_parameters()
+                      if (n.startswith('neck.fpn_convs.')
+                          and not n.startswith('neck.fpn_convs.0.'))
+                      or (n.startswith('bbox_head.scales.')
+                          and not bool(p.grad.abs().sum() > 0)))
+    step_ms, stages = step_checks(
+        torch, trainer, logs, lrs, sched, params0, stats0, marks, label,
+        unreached=unreached)
+    del params0, stats0
+    res.update(steps=FU_STEPS, launches=launches, step_device_ms=step_ms,
+               stage_ms=stages, peak_bytes=peak, lrs=lrs,
+               scenes_per_s_events=B * max(len(step_ms) - 1, 1) / (
+                   sum(step_ms[1:] or step_ms) / 1e3),
+               logs=[{k: float(v) for k, v in lg.items()} for lg in logs])
+    print(f'{card}: {label}: {FU_STEPS} steps at B={B} (f32): step device '
+          f'ms {[round(v, 1) for v in step_ms]}; by stage (mean after the '
+          'first) ' + ', '.join(f'{k} {v:.1f}' for k, v in stages.items())
+          + f'; peak {peak / 2 ** 30:.2f} GiB; launches {launches}; lr '
+          f'{lrs}; losses {[round(lg["loss"], 4) for lg in res["logs"]]}, '
+          f'num_pos {[lg["num_pos"] for lg in res["logs"]]}')
+
+    # --- 3. inference -----------------------------------------------------
+    b = on_card[FU_STEPS]
+    calibrate_bn(torch, model, b, lambda m, b_: m(b_['img'].permute(
+        0, 3, 1, 2).contiguous(), b_['lidar2img']))
+    res['card_vs_cpu_calibrated'] = fusion_card_vs_cpu(
+        torch, model, kind, batches[FU_STEPS], f'{label} (calibrated)',
+        gate=False, trace=trace)
+    bundle = apis.DetectorBundle(model, model_cfg, torch.device(DEVICE))
+    zero_counts(mods)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = apis.infer_imvoxelnet(bundle, b['img'], b['lidar2img'])
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t1
+    got = counts(mods)
+    if (any(got.values()) or out['boxes'].shape[0] != B
+            or out['boxes'].shape[-1] != 7
+            or not torch.isfinite(out['boxes'][out['valid']]).all()):
+        fail(f'{label}: infer_imvoxelnet launched {got}, boxes '
+             f'{tuple(out["boxes"].shape)}')
+    res['infer'] = dict(scenes=B, seconds=infer_s, scenes_per_s=B / infer_s,
+                        kept=int(out['valid'].sum()), launches=got)
+    res['seconds'] = time.perf_counter() - t0
+    print(f'{card}: {label}: infer_imvoxelnet on {B} scenes '
+          f'{infer_s * 1e3:.1f} ms (host clock), {res["infer"]["kept"]} kept '
+          f'boxes of {tuple(out["boxes"].shape)}; the path '
+          f'{res["seconds"]:.1f} s')
+    del bundle, model, trainer, on_card
+    torch.cuda.empty_cache()
+    return res
+
+
+def fusion_phase(torch, mods, card, tmp, data):
+    """MVXNet (``mvxnet_path``) and both ImVoxelNet configs
+    (``imvoxelnet_path``) on the workflow's mini KITTI and the indoor
+    family's mini SUN RGB-D (``data``)."""
+    t0 = time.perf_counter()
+    res = dict(mvxnet=mvxnet_path(torch, mods, card, tmp))
+    for kind, config in FU_IMVOXELNET:
+        res[f'imvoxelnet_{kind}'] = imvoxelnet_path(torch, mods, card, tmp,
+                                                    data, kind, config)
+    res['seconds'] = time.perf_counter() - t0
+    print(f'{card}: fusion phase: {res["seconds"]:.1f} s')
     return res
 
 
@@ -7033,6 +7724,9 @@ def main():
         # --- the segmentors on the same ScanNet and a mini S3DIS ---
         seg = segmentation_phase(torch, mods, card, fam['data'], tmp)
         torch.cuda.empty_cache()
+        # --- MVXNet and ImVoxelNet on the mini KITTI and SUN RGB-D ---
+        fu = fusion_phase(torch, mods, card, tmp, fam['data'])
+        torch.cuda.empty_cache()
         # --- the sharded stage 3 and the two-rank GGA step ---
         dp = data_parallel_phase(torch, mods, card, tmp)
         torch.cuda.empty_cache()
@@ -7167,6 +7861,35 @@ def main():
         entry['segmentation'] = dict(launches=sum(
             r['launches'].get(name, 0) + r['infer']['launches'].get(name, 0)
             for k, r in seg.items() if k != 'seconds'))
+    # MVXNet's steps (f32, B = 2): conv, dW and gather_rows; the
+    # ImVoxelNet paths reach no kernel
+    mvx = fu['mvxnet']
+    fu_rows = {'gather_gemm_conv_f32': (mvx['conv_calls'], None),
+               'gather_gemm_dw_f32': (mvx['dw_calls'], None),
+               'gather_rows': (mvx['gather_rows'], sum(
+                   r['library_ms'] for r in mvx['gather_rows']))}
+    for entry in kernels:
+        name = entry['name'].replace('_f32', '')
+        imv = sum(r['launches'].get(name, 0)
+                  + r['infer']['launches'].get(name, 0)
+                  for k, r in fu.items() if k.startswith('imvoxelnet_'))
+        # the two sparse-conv wrappers' launches split by dtype between
+        # their f32 and bf16 entries (the recorded calls)
+        n = (mvx['launches_by_dtype'][name][
+            'float32' if entry['name'].endswith('_f32') else 'bfloat16']
+            if name in mvx['launches_by_dtype'] and name != 'gather_rows'
+            else mvx['launches'][name])
+        if entry['name'] in fu_rows:
+            rows, lib = fu_rows[entry['name']]
+            e = kernel_entry(entry['name'], entry['source'].split('/')[-1],
+                             entry['replaces'], n, rows, library_ms=lib)
+            entry['fusion'] = {k: e[k] for k in (
+                'launches', 'max_abs_err', 'ms', 'device_ms', 'plain_ms',
+                'bound_ms', 'bound_by', 'bound_share', 'device_bound_share',
+                'ffma_bound_ms', 'library_ms')}
+        else:
+            entry['fusion'] = dict(launches=n)
+        entry['fusion']['imvoxelnet_launches'] = imv
     print('kernels, summed over the train path\'s calls (ms by CUDA '
           'events, device ms by the profiler, share of the bound):')
     for k in kernels:
@@ -7185,9 +7908,10 @@ def main():
                             ('centerpoint', cpm['steps']),
                             ('parta2', pa['steps']),
                             ('scannet', sn['steps']),
+                            ('fusion', mvx['steps']),
                             *((t, vf[t]['train']['steps'])
                               for t, _ in VF_PATHS)):
-            if path not in k:
+            if 'ms' not in k.get(path, {}):
                 continue
             d = k[path]
             print(f'  {"":20s} {path}: {d["launches"]:4d} launches in '
@@ -7214,7 +7938,7 @@ def main():
                        supervised=sup, accuracy=acc, voxel_family=vf,
                        centerpoint=cp, parta2=pa, indoor_family=fam,
                        data_parallel=dp, point_family=pf,
-                       vote_derived=vd, segmentation=seg),
+                       vote_derived=vd, segmentation=seg, fusion=fu),
                   fh, indent=1, default=str)
 
     print(card)

@@ -17,7 +17,11 @@ indoor detectors, the same for GroupFree3D, H3DNet and ImVoteNet (whose
 inference takes the images, the 2D boxes and the projection too); and for
 the point-cloud segmentors (the PointNet++ EncoderDecoder3D, DGCNN and
 PAConv), the same, with per-point labels for a batch
-(``infer_segmentor``) or one whole cloud (``inference_segmentor``)."""
+(``infer_segmentor``) or one whole cloud (``inference_segmentor``); and
+for the image-fusion detector MVXNet (points, images and their
+projections), the same, with ``inference_multi_modality_detector`` for
+one sample; and for ImVoxelNet (KITTI and indoor; images and their
+projections alone), the same."""
 from __future__ import annotations
 
 import dataclasses
@@ -32,7 +36,8 @@ from .models.detectors.centerpoint import (CenterPointConfig,
                                            decode_centerpoint)
 from .models.detectors.centerpoint_gga import (GGADetector, GGAModelConfig,
                                                decode_detections)
-from .models.dense_heads import anchor3d_head, fcaf3d_head, pgd_head
+from .models.dense_heads import (anchor3d_head, fcaf3d_head, imvoxel_head,
+                                 pgd_head)
 from .models.dense_heads import vote_head
 from .models.dense_heads.groupfree3d_head import decode_groupfree3d
 from .models.dense_heads.ssd_3d_head import decode_ssd3d
@@ -46,6 +51,10 @@ from .models.detectors.groupfree3d import (GroupFree3DNet,
 from .models.detectors.h3dnet import H3DNet, H3DNetConfig, decode_h3dnet
 from .models.detectors.imvotenet import (ImVoteNet, ImVoteNetConfig,
                                          decode_imvotenet, imvotenet_draws)
+from .models.detectors.imvoxelnet import (ImVoxelNet, ImVoxelNetConfig,
+                                          ImVoxelNetIndoor,
+                                          ImVoxelNetIndoorConfig)
+from .models.detectors.mvxnet import MVXNet, MVXNetConfig
 from .models.detectors.parta2 import (PartA2Config, PartA2Detector,
                                       decode_parta2)
 from .models.detectors.pgd import PGDDetector, PGDModelConfig
@@ -1075,3 +1084,162 @@ def inference_segmentor(bundle: DetectorBundle, points, max_points=40000):
     pts[0, :n] = points[:n]
     val[0, :n] = True
     return infer_segmentor(bundle, pts, val)[0, :n].cpu().numpy()
+
+
+_MVX_DTYPES = dict(_DET_DTYPES, lidar2img=torch.float32)
+
+
+def init_mvxnet_detector(cfg: MVXNetConfig, state_dict=None, device='cuda',
+                         seed=0) -> DetectorBundle:
+    """The MVXNet detector in eval mode on ``device`` (f32, as gga_tpu's);
+    the weights as ``init_anchor_detector``'s (``MVXNet.init_weights``
+    when drawn)."""
+    return _init_point_detector(MVXNet(cfg), state_dict, device, seed)
+
+
+def init_mvxnet_trainer(cfg: MVXNetConfig, total_steps, optimizer,
+                        state_dict=None, device='cuda',
+                        seed=0) -> TrainState:
+    """The MVXNet detector (``init_mvxnet_detector``'s) in train mode on
+    ``device`` with ``build_optimizer(params, total_steps, lr,
+    weight_decay, grad_clip, betas)`` of a config file's ``optimizer``
+    block (the shipped config's is configs/_base_/schedules/cosine.py's,
+    whose lr_policy, warmup and min_lr_ratio neither package reads): the
+    global-norm clip and AdamW with the cyclic lr and beta1 over
+    ``total_steps``, as gga_tpu's ``tools/train_supervised.py`` treats
+    every config."""
+    o = dict(optimizer)
+    model = init_mvxnet_detector(cfg, state_dict, device, seed).model.train()
+    return TrainState(
+        model=model,
+        optimizer=build_optimizer(
+            model.parameters(), total_steps, lr=o['lr'],
+            weight_decay=o['weight_decay'], grad_clip=o['grad_clip'],
+            betas=tuple(o.get('betas', (0.95, 0.99)))),
+        step=0, generator=torch.Generator().manual_seed(seed))
+
+
+def _image_batch(dev, batch, dtypes):
+    """The entries of ``batch`` that ``dtypes`` names as tensors on
+    ``dev``, and its images [B, H, W, 3] as [B, 3, H, W] f32."""
+    b = {k: torch.as_tensor(batch[k], dtype=dt, device=dev)
+         for k, dt in dtypes.items() if k in batch}
+    b['img'] = _images(batch['img'], dev)
+    return b
+
+
+def mvxnet_train_step(trainer: TrainState, batch, mark=None, diag=None):
+    """One MVXNet train step on a batch (``anchor_train_step``'s keys plus
+    img [B, H, W, 3] normalized and lidar2img [B, 4, 4]; tensors or
+    numpy). ``mark`` is the step's stage hook and ``diag`` a dict for the
+    encoder's occupancy (``loop.mvxnet_train_step``). Returns the step's
+    logs as 0-d tensors on the trainer's device."""
+    dev = next(trainer.model.parameters()).device
+    return loop.mvxnet_train_step(trainer, _image_batch(dev, batch,
+                                                        _MVX_DTYPES),
+                                  mark, diag)
+
+
+@torch.no_grad()
+def infer_mvxnet(bundle: DetectorBundle, points, points_valid, img,
+                 lidar2img):
+    """MVXNet inference on a batch: forward in eval mode, anchors at the
+    map's size, decode + rotated NMS a class.
+
+    Args:
+        points: [B, P, 4] f32; points_valid: [B, P] bool; img [B, H, W, 3]
+            normalized; lidar2img [B, 4, 4] (tensors or numpy).
+    Returns:
+        ``anchor3d_head.decode``'s dict (boxes [B, C*max_num, 7]
+        bottom-centre lidar, scores, labels, valid) on the bundle's device.
+    """
+    b = _image_batch(bundle.device, dict(points=points,
+                                         points_valid=points_valid, img=img,
+                                         lidar2img=lidar2img), _MVX_DTYPES)
+    preds = bundle.model.eval()(b['points'], b['points_valid'], b['img'],
+                                b['lidar2img'])
+    cfg = bundle.cfg.head
+    anchors = anchor3d_head.make_anchors(cfg, tuple(preds['cls'].shape[1:3]),
+                                         preds['cls'].device)
+    return anchor3d_head.decode(cfg, preds, anchors)
+
+
+def inference_multi_modality_detector(bundle: DetectorBundle, points, img,
+                                      lidar2img, max_points=2048):
+    """Run MVXNet on one sample (gga_tpu's
+    ``apis.inference_multi_modality_detector``): its first ``max_points``
+    points padded to ``max_points``, the image [H, W, 3] (normalized) and
+    its lidar2img [4, 4]. Returns dict(boxes_3d [n, 7], scores_3d [n],
+    labels_3d [n]) of the kept boxes (numpy)."""
+    points = np.asarray(points, np.float32)
+    pts = np.zeros((1, max_points, 4), np.float32)
+    val = np.zeros((1, max_points), bool)
+    n = min(len(points), max_points)
+    pts[0, :n] = points[:n, :4]
+    val[0, :n] = True
+    out = infer_mvxnet(bundle, pts, val, np.asarray(img)[None],
+                       np.asarray(lidar2img, np.float32)[None])
+    out = {k: v[0].cpu().numpy() for k, v in out.items()}
+    v = out['valid']
+    return dict(boxes_3d=out['boxes'][v], scores_3d=out['scores'][v],
+                labels_3d=out['labels'][v])
+
+
+_IMVOXEL_DTYPES = dict(lidar2img=torch.float32, gt_boxes=torch.float32,
+                       gt_labels=torch.int64, gt_valid=torch.bool)
+
+
+def init_imvoxelnet_detector(cfg, state_dict=None, device='cuda',
+                             seed=0) -> DetectorBundle:
+    """ImVoxelNet (``ImVoxelNetConfig``, KITTI) or its indoor detector
+    (``ImVoxelNetIndoorConfig``) in eval mode on ``device`` (f32, as
+    gga_tpu's); the weights as ``init_anchor_detector``'s (the model's
+    ``init_weights`` when drawn)."""
+    model = (ImVoxelNetIndoor(cfg) if isinstance(cfg, ImVoxelNetIndoorConfig)
+             else ImVoxelNet(cfg))
+    return _init_point_detector(model, state_dict, device, seed)
+
+
+def init_imvoxelnet_trainer(cfg, steps_per_epoch, optimizer,
+                            state_dict=None, device='cuda',
+                            seed=0) -> TrainState:
+    """An ImVoxelNet detector (``init_imvoxelnet_detector``'s) in train
+    mode on ``device`` with ``build_fcaf3d_optimizer(params,
+    steps_per_epoch, **optimizer)`` of a config file's ``optimizer`` block
+    (the shipped configs': the global-norm clip at 35 and AdamW at lr
+    1e-4, weight decay 1e-4, the lr times 0.1 at epochs 8 and 11)."""
+    return _epoch_trainer(init_imvoxelnet_detector(
+        cfg, state_dict, device, seed).model, steps_per_epoch, optimizer,
+        seed)
+
+
+def imvoxelnet_train_step(trainer: TrainState, batch, mark=None):
+    """One ImVoxelNet train step on a batch: img [B, H, W, 3] normalized,
+    lidar2img [B, 4, 4], gt_boxes [B, M, 7] (KITTI: bottom-centre lidar;
+    indoor: gravity-centred depth), gt_labels [B, M], gt_valid [B, M]
+    (tensors or numpy). ``mark`` is the step's stage hook
+    (``loop.imvoxelnet_train_step``). Returns the step's logs as 0-d
+    tensors on the trainer's device."""
+    dev = next(trainer.model.parameters()).device
+    return loop.imvoxelnet_train_step(
+        trainer, _image_batch(dev, batch, _IMVOXEL_DTYPES), mark)
+
+
+@torch.no_grad()
+def infer_imvoxelnet(bundle: DetectorBundle, img, lidar2img):
+    """ImVoxelNet inference on a batch of images [B, H, W, 3] (normalized)
+    and their lidar2img [B, 4, 4] (tensors or numpy): forward in eval
+    mode, then for the KITTI detector anchors at the map's size, decode +
+    rotated NMS (``anchor3d_head.decode``: bottom-centre lidar boxes), for
+    the indoor one ``imvoxel_head.decode`` (gravity-centred depth boxes).
+    Returns dict(boxes [B, K, 7], scores, labels, valid) on the bundle's
+    device."""
+    b = _image_batch(bundle.device, dict(img=img, lidar2img=lidar2img),
+                     _IMVOXEL_DTYPES)
+    out = bundle.model.eval()(b['img'], b['lidar2img'])
+    if isinstance(bundle.cfg, ImVoxelNetIndoorConfig):
+        return imvoxel_head.decode(bundle.cfg.head, *out)
+    cfg = bundle.cfg.head
+    anchors = anchor3d_head.make_anchors(cfg, tuple(out['cls'].shape[1:3]),
+                                         out['cls'].device)
+    return anchor3d_head.decode(cfg, out, anchors)

@@ -88,6 +88,9 @@ from .models.detectors.fcaf3d import FCAF3DModelConfig
 from .models.detectors.groupfree3d import GroupFree3DNetConfig
 from .models.detectors.h3dnet import H3DNetConfig
 from .models.detectors.imvotenet import ImVoteNetConfig
+from .models.detectors.imvoxelnet import (ImVoxelNetConfig,
+                                          ImVoxelNetIndoorConfig)
+from .models.detectors.mvxnet import MVXNetConfig
 from .models.detectors.parta2 import PartA2Config
 from .models.detectors.pgd import PGDModelConfig
 from .models.detectors.point_rcnn import PointRCNNConfig
@@ -209,6 +212,49 @@ def gga_rules(cfg):
     return rules
 
 
+def _resnet_fpn_rules(rules, depth, backbone, neck, start_level, num_outs):
+    """gga_tpu's ``ResNet_0`` and ``FPN_0`` under mmdet's names at the
+    prefixes ``backbone`` and ``neck``: ResNet blocks are numbered across
+    stages, in a block the convs and norms in order, the projection
+    shortcut last; the FPN's extra levels continue the ``fpn_convs``
+    index."""
+    def conv(torch_prefix, flax_prefix, bias=True):
+        rules.append((f'{torch_prefix}.weight', 'params',
+                      f'{flax_prefix}/kernel', 'conv2d'))
+        if bias:
+            rules.append((f'{torch_prefix}.bias', 'params',
+                          f'{flax_prefix}/bias', 'copy'))
+
+    def bn(torch_prefix, flax_prefix):
+        rules.extend(_bn_moves(torch_prefix, f'{flax_prefix}/BatchNorm_0'))
+
+    r = 'ResNet_0'
+    conv(f'{backbone}.conv1', f'{r}/Conv_0', bias=False)
+    bn(f'{backbone}.bn1', f'{r}/BatchNorm2d_0')
+    stage_blocks, kind = ARCH[depth]
+    n_convs, expansion = (3, 4) if kind == 'bottleneck' else (2, 1)
+    name = 'Bottleneck' if kind == 'bottleneck' else 'BasicBlock'
+    k, channels, planes = 0, 64, 64
+    for i, n_blocks in enumerate(stage_blocks):
+        for j in range(n_blocks):
+            t, f = f'{backbone}.layer{i + 1}.{j}', f'{r}/{name}_{k}'
+            for c in range(n_convs):
+                conv(f'{t}.conv{c + 1}', f'{f}/Conv_{c}', bias=False)
+                bn(f'{t}.bn{c + 1}', f'{f}/BatchNorm2d_{c}')
+            if channels != planes * expansion or (i and not j):
+                conv(f'{t}.downsample.0', f'{f}/Conv_{n_convs}', bias=False)
+                bn(f'{t}.downsample.1', f'{f}/BatchNorm2d_{n_convs}')
+            channels = planes * expansion
+            k += 1
+        planes *= 2
+    n_in = len(stage_blocks) - start_level
+    for i in range(n_in):
+        conv(f'{neck}.lateral_convs.{i}.conv', f'FPN_0/lateral{i}')
+        conv(f'{neck}.fpn_convs.{i}.conv', f'FPN_0/fpn{i}')
+    for i in range(n_in, num_outs):
+        conv(f'{neck}.fpn_convs.{i}.conv', f'FPN_0/fpn_extra{i}')
+
+
 def pgd_rules(cfg: PGDModelConfig):
     """(torch_key, collection, flax_path, transform) for every tensor of
     gga_tpu's ``PGDDetector`` (``gga_tpu/models/detectors/pgd.py``)."""
@@ -221,38 +267,8 @@ def pgd_rules(cfg: PGDModelConfig):
             rules.append((f'{torch_prefix}.bias', 'params',
                           f'{flax_prefix}/bias', 'copy'))
 
-    def bn(torch_prefix, flax_prefix):
-        rules.extend(_bn_moves(torch_prefix, f'{flax_prefix}/BatchNorm_0'))
-
-    # ResNet: blocks are numbered across stages; in a block the convs and
-    # norms in order, the projection shortcut last
-    r = 'ResNet_0'
-    conv('backbone.conv1', f'{r}/Conv_0', bias=False)
-    bn('backbone.bn1', f'{r}/BatchNorm2d_0')
-    stage_blocks, kind = ARCH[cfg.backbone_depth]
-    n_convs, expansion = (3, 4) if kind == 'bottleneck' else (2, 1)
-    name = 'Bottleneck' if kind == 'bottleneck' else 'BasicBlock'
-    k, channels, planes = 0, 64, 64
-    for i, n_blocks in enumerate(stage_blocks):
-        for j in range(n_blocks):
-            t, f = f'backbone.layer{i + 1}.{j}', f'{r}/{name}_{k}'
-            for c in range(n_convs):
-                conv(f'{t}.conv{c + 1}', f'{f}/Conv_{c}', bias=False)
-                bn(f'{t}.bn{c + 1}', f'{f}/BatchNorm2d_{c}')
-            if channels != planes * expansion or (i and not j):
-                conv(f'{t}.downsample.0', f'{f}/Conv_{n_convs}', bias=False)
-                bn(f'{t}.downsample.1', f'{f}/BatchNorm2d_{n_convs}')
-            channels = planes * expansion
-            k += 1
-        planes *= 2
-
-    # FPN: extra levels continue the fpn_convs index
-    n_in = len(stage_blocks) - cfg.fpn_start_level
-    for i in range(n_in):
-        conv(f'neck.lateral_convs.{i}.conv', f'FPN_0/lateral{i}')
-        conv(f'neck.fpn_convs.{i}.conv', f'FPN_0/fpn{i}')
-    for i in range(n_in, cfg.fpn_num_outs):
-        conv(f'neck.fpn_convs.{i}.conv', f'FPN_0/fpn_extra{i}')
+    _resnet_fpn_rules(rules, cfg.backbone_depth, 'backbone', 'neck',
+                      cfg.fpn_start_level, cfg.fpn_num_outs)
 
     # PGDHead
     h, t, hc = 'PGDHead_0', 'bbox_head', cfg.head
@@ -352,13 +368,15 @@ def _anchor_rules(cfg):
             + _anchor_head_rules('bbox_head'))
 
 
-def _conv_module_encoder_rules(cfg, me, base, out_channels):
+def _conv_module_encoder_rules(cfg, me, base, out_channels, in_channels=4):
     """gga_tpu's conv_module SparseEncoder under the port's prefix ``me``:
     it numbers every block ``SparseConvBlock_<n>`` in build order (SubM
-    and strided alike, conv_out last); conv_input is 4 -> ``base``."""
+    and strided alike, conv_out last); conv_input is ``in_channels`` ->
+    ``base``."""
     enc = 'SparseEncoder_0'
     rules = [(f'{me}.conv_input.0.weight', 'params',
-              f'{enc}/SubMConv3dMapped_0/kernel', f'sparse3d:4:{base}')]
+              f'{enc}/SubMConv3dMapped_0/kernel',
+              f'sparse3d:{in_channels}:{base}')]
     rules.extend(_bn_moves(f'{me}.conv_input.1', f'{enc}/MaskedBatchNorm_0'))
     n, ch = 0, base
     for i, blocks in enumerate(cfg.encoder_channels):
@@ -465,6 +483,128 @@ def sassd_rules(cfg: SASSDConfig):
     return second_rules(cfg) + [
         (f'middle_encoder.{n}.weight', 'params', f'{n}/kernel', 'linear')
         for n in ('point_fc', 'point_cls', 'point_reg')]
+
+
+def mvxnet_rules(cfg: MVXNetConfig):
+    """(torch_key, collection, flax_path, transform) for every tensor of
+    gga_tpu's ``MVXNet`` under mmdet3d's names: ``img_backbone`` /
+    ``img_neck`` from ``ResNet_0`` / ``FPN_0``; the DynamicVFE's
+    ``pts_voxel_encoder.vfe_layers.{i}.{0,1}`` from ``vfe/vfe{i}`` /
+    ``vfe/vfe_bn{i}`` and its ``fusion_layer`` from the top-level
+    ``fusion`` (``lateral{i}`` ConvModules, ``img_transform`` /
+    ``img_bn``, ``pts_transform`` / ``pts_bn``); the conv_module encoder
+    (``fusion_out_channels`` -> 16 at conv_input, 128 at conv_out) and the
+    SECOND stack under ``pts_``."""
+    rules = []
+    _resnet_fpn_rules(rules, cfg.img_depth, 'img_backbone', 'img_neck', 0,
+                      len(cfg.img_levels))
+    ve, fu = 'pts_voxel_encoder', 'pts_voxel_encoder.fusion_layer'
+    for i in range(len(cfg.vfe_channels)):
+        rules.append((f'{ve}.vfe_layers.{i}.0.weight', 'params',
+                      f'vfe/vfe{i}/kernel', 'linear'))
+        rules.extend(_bn_moves(f'{ve}.vfe_layers.{i}.1', f'vfe/vfe_bn{i}'))
+    for i in range(len(cfg.img_levels)):
+        rules.append((f'{fu}.lateral_convs.{i}.conv.weight', 'params',
+                      f'fusion/lateral{i}/Conv_0/kernel', 'conv2d'))
+        rules.extend(_bn_moves(f'{fu}.lateral_convs.{i}.bn',
+                               f'fusion/lateral{i}/BatchNorm2d_0/'
+                               'BatchNorm_0'))
+    for t, f in (('img_transform', 'img'), ('pts_transform', 'pts')):
+        rules.append((f'{fu}.{t}.0.weight', 'params',
+                      f'fusion/{t}/kernel', 'linear'))
+        rules.append((f'{fu}.{t}.0.bias', 'params', f'fusion/{t}/bias',
+                      'copy'))
+        rules.extend(_bn_moves(f'{fu}.{t}.1', f'fusion/{f}_bn'))
+    rules.extend(_conv_module_encoder_rules(
+        cfg, 'pts_middle_encoder', 16, 128, cfg.fusion_out_channels))
+    rules.extend(_second_fpn_rules(cfg, 'pts_backbone', 'pts_neck'))
+    return rules + _anchor_head_rules('pts_bbox_head')
+
+
+def _conv_module3d_rules(rules, t, f):
+    """gga_tpu's ``ConvModule3d`` ``f`` (its ``Conv_0`` and norm) ->
+    ``t.conv`` / ``t.bn``."""
+    rules.append((f'{t}.conv.weight', 'params', f'{f}/Conv_0/kernel',
+                  'conv3d'))
+    rules.extend(_bn_moves(f'{t}.bn', f'{f}/BatchNorm2d_0/BatchNorm_0'))
+
+
+def _res_module3d_rules(rules, t, f, shortcut):
+    """gga_tpu's ``ResModule3d`` ``f`` -> ``t.conv0`` (its ConvModule3d),
+    ``t.conv1`` (its ``Conv_0`` and first norm) and, with ``shortcut``,
+    ``t.downsample`` (``Conv_1`` and the second norm)."""
+    _conv_module3d_rules(rules, f'{t}.conv0', f'{f}/ConvModule3d_0')
+    convs = (('conv1', 0), ('downsample', 1)) if shortcut else (('conv1', 0),)
+    for name, i in convs:
+        rules.append((f'{t}.{name}.conv.weight', 'params',
+                      f'{f}/Conv_{i}/kernel', 'conv3d'))
+        rules.extend(_bn_moves(f'{t}.{name}.bn',
+                               f'{f}/BatchNorm2d_{i}/BatchNorm_0'))
+
+
+def imvoxelnet_rules(cfg: ImVoxelNetConfig):
+    """(torch_key, collection, flax_path, transform) for every tensor of
+    gga_tpu's KITTI ``ImVoxelNet`` under mmdet3d's names: ``backbone`` /
+    ``neck`` (ResNet + FPN), ``neck_3d.model.{0-5}`` from
+    ``OutdoorImVoxelNeck_0``'s ResModule3d / ConvModule3d pairs (the 3-D
+    kernels ``[kx, ky, kz, I, O]`` to ``[O, I, kx, ky, kz]``) and
+    ``bbox_head`` (Anchor3DHead)."""
+    rules = []
+    _resnet_fpn_rules(rules, cfg.img_depth, 'backbone', 'neck', 0, 4)
+    n = 'OutdoorImVoxelNeck_0'
+    for k in range(3):
+        _res_module3d_rules(rules, f'neck_3d.model.{2 * k}',
+                            f'{n}/ResModule3d_{k}', False)
+        _conv_module3d_rules(rules, f'neck_3d.model.{2 * k + 1}',
+                             f'{n}/ConvModule3d_{k}')
+    return rules + _anchor_head_rules('bbox_head')
+
+
+def imvoxelnet_indoor_rules(cfg: ImVoxelNetIndoorConfig):
+    """(torch_key, collection, flax_path, transform) for every tensor of
+    gga_tpu's ``ImVoxelNetIndoor`` under mmdet3d's names: ResNet + FPN;
+    ``neck_3d.down_layer_{i}.{j}`` from ``IndoorImVoxelNeck_0``'s
+    ``ResModule3d_*`` in build order, ``up_block_{i}.{0,1}`` (the
+    transposed conv, flipped on its three spatial axes, ``deconv3d``) and
+    ``.{3,4}`` from its ``_UpBlock3d_*`` and ``out_block_{i}`` from its
+    ``ConvModule3d_*`` (both built from the coarsest level up); the
+    head's ``conv_center`` / ``conv_reg`` / ``conv_cls`` and
+    ``scales.{i}.scale`` from ``ImVoxelHead_0``."""
+    rules = []
+    _resnet_fpn_rules(rules, cfg.img_depth, 'backbone', 'neck', 0, 4)
+    n, nb = 'IndoorImVoxelNeck_0', tuple(cfg.neck3d_blocks)
+    k = 0
+    for i, blocks in enumerate(nb):
+        for j in range(blocks):
+            _res_module3d_rules(rules, f'neck_3d.down_layer_{i}.{j}',
+                                f'{n}/ResModule3d_{k}', j == 0 and i > 0)
+            k += 1
+    for u, i in enumerate(range(len(nb) - 1, -1, -1)):
+        f = f'{n}/ConvModule3d_{u}'
+        rules.append((f'neck_3d.out_block_{i}.0.weight', 'params',
+                      f'{f}/Conv_0/kernel', 'conv3d'))
+        rules.extend(_bn_moves(f'neck_3d.out_block_{i}.1',
+                               f'{f}/BatchNorm2d_0/BatchNorm_0'))
+        if i:       # up_block_i takes level i to level i - 1
+            t, f = f'neck_3d.up_block_{i}', f'{n}/_UpBlock3d_{u}'
+            rules.append((f'{t}.0.weight', 'params',
+                          f'{f}/ConvTranspose_0/kernel', 'deconv3d'))
+            rules.extend(_bn_moves(f'{t}.1',
+                                   f'{f}/BatchNorm2d_0/BatchNorm_0'))
+            rules.append((f'{t}.3.weight', 'params',
+                          f'{f}/ConvModule3d_0/Conv_0/kernel', 'conv3d'))
+            rules.extend(_bn_moves(f'{t}.4', f'{f}/ConvModule3d_0/'
+                                   'BatchNorm2d_0/BatchNorm_0'))
+    h = 'ImVoxelHead_0'
+    for name in ('conv_center', 'conv_reg', 'conv_cls'):
+        rules.append((f'bbox_head.{name}.weight', 'params',
+                      f'{h}/{name}/kernel', 'conv3d'))
+    rules.append(('bbox_head.conv_cls.bias', 'params', f'{h}/conv_cls/bias',
+                  'copy'))
+    for lvl in range(cfg.head.n_levels):
+        rules.append((f'bbox_head.scales.{lvl}.scale', 'params',
+                      f'{h}/scale_lvl{lvl}', 'copy'))
+    return rules
 
 
 def _sparse_unet_rules(cfg: PartA2Config, me):
@@ -917,6 +1057,10 @@ def _to_torch_layout(name, x):
         return x.T
     if name == 'conv3d':            # [kx, ky, kz, I, O] -> [O, I, kx, ky, kz]
         return x.transpose(4, 3, 0, 1, 2)
+    if name == 'deconv3d':
+        # flax ConvTranspose [kx, ky, kz, I, O] -> torch [I, O, kx, ky, kz]
+        # with the three spatial axes flipped (flax's correlates)
+        return x[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
     if name == 'conv2d':            # [kh, kw, I, O] -> [O, I, kh, kw]
         return x.transpose(3, 2, 0, 1)
     if name == 'deform2d':
@@ -953,6 +1097,9 @@ def rules_of(cfg):
                        (GroupFree3DNetConfig, groupfree3d_rules),
                        (H3DNetConfig, h3dnet_rules),
                        (ImVoteNetConfig, imvotenet_rules),
+                       (MVXNetConfig, mvxnet_rules),
+                       (ImVoxelNetConfig, imvoxelnet_rules),
+                       (ImVoxelNetIndoorConfig, imvoxelnet_indoor_rules),
                        (SSD3DNetConfig, ssd3d_rules),
                        (PointRCNNConfig, point_rcnn_rules),
                        (PartA2Config, parta2_rules),

@@ -1,6 +1,8 @@
 """3D box geometry the GGA, PGD and SASSD losses need (port of the parts
 of ``gga_tpu/core/geometry.py`` that ``_predict_geometry``, the PGD head
-and SASSD's auxiliary targets call).
+and SASSD's auxiliary targets call), and the projection of points into
+an image that PointFusion and ImVoxelNet's lift sample through
+(``project_to_image``).
 
 LiDAR boxes follow the reference's convention: yaw about +z, 0 at +x,
 counter-clockwise; box origins are bottom centres (0.5, 0.5, 0). Camera
@@ -82,3 +84,25 @@ def points_in_rbbox(points, boxes, origin=LIDAR_ORIGIN):
     half = (boxes[..., 3:6] / 2.0)[..., None, :, :]
     return ((local_x.abs() <= half[..., 0]) & (local_y.abs() <= half[..., 1])
             & (rel[..., 2].abs() <= half[..., 2]))
+
+
+def project_to_image(pts_3d, proj_mat):
+    """Project 3D points with a 4x4 projection (e.g. lidar2img).
+
+    Args:
+        pts_3d: [..., N, 3].
+        proj_mat: [..., 4, 4] (broadcastable).
+    Returns:
+        (pixels [..., N, 2], depth [..., N]); the depth the pixels divide
+        by is floored at 1e-5, as in gga_tpu.
+
+    The product is summed in pairs, ``(m0 x + m1 y) + (m2 z + m3)``, as
+    XLA sums gga_tpu's f32 einsum on the CPU: a pixel a bilinear sample
+    keys on then has gga_tpu's bits.
+    """
+    m = proj_mat[..., None, :, :]                        # [..., 1, 4, 4]
+    p = pts_3d[..., :, None, :]                          # [..., N, 1, 3]
+    cam = ((m[..., 0] * p[..., 0] + m[..., 1] * p[..., 1])
+           + (m[..., 2] * p[..., 2] + m[..., 3]))        # [..., N, 4]
+    depth = cam[..., 2]
+    return cam[..., :2] / depth.clamp(min=1e-5)[..., None], depth

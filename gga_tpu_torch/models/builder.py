@@ -10,7 +10,10 @@ VoteNet-derived indoor detectors GroupFree3D (``configs/groupfree3d/``),
 H3DNet (``configs/h3dnet/``) and ImVoteNet (``configs/imvotenet/``), and
 the point-cloud segmentors: the PointNet++ EncoderDecoder3D
 (``configs/pointnet2/``), DGCNN (``configs/dgcnn/``) and PAConv
-(``configs/paconv/``); the rest of the zoo waits for its own slices).
+(``configs/paconv/``), and the image-fusion and image-to-voxel detectors
+MVXNet (``configs/mvxnet/``), ImVoxelNet and ImVoxelNetIndoor
+(``configs/imvoxelnet/``); the rest of the zoo waits for its own
+slices).
 
 A segmentor's weights are shaped by its config's ``in_channels`` (flax
 infers a layer's width from its first input), and it refuses a cloud of
@@ -42,6 +45,9 @@ from .detectors.fcaf3d import FCAF3DDetector, FCAF3DModelConfig
 from .detectors.groupfree3d import GroupFree3DNet, GroupFree3DNetConfig
 from .detectors.h3dnet import H3DNet, H3DNetConfig
 from .detectors.imvotenet import ImVoteNet, ImVoteNetConfig
+from .detectors.imvoxelnet import (ImVoxelNet, ImVoxelNetConfig,
+                                   ImVoxelNetIndoor, ImVoxelNetIndoorConfig)
+from .detectors.mvxnet import MVXNet, MVXNetConfig
 from .detectors.parta2 import PartA2Config, PartA2Detector
 from .detectors.pgd import PGDDetector, PGDModelConfig
 from .detectors.point_rcnn import PointRCNNConfig, PointRCNNDetector
@@ -146,6 +152,10 @@ _register_family('EncoderDecoder3D', EncoderDecoder3DConfig,
                  EncoderDecoder3D)
 _register_family('DGCNNSegmentor', DGCNNConfig, DGCNNSegmentor)
 _register_family('PAConvSegmentor', PAConvConfig, PAConvSegmentor)
+_register_family('MVXNet', MVXNetConfig, MVXNet)
+_register_family('ImVoxelNet', ImVoxelNetConfig, ImVoxelNet)
+_register_family('ImVoxelNetIndoor', ImVoxelNetIndoorConfig,
+                 ImVoxelNetIndoor)
 
 
 def build_detector(cfg):

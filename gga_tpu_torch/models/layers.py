@@ -79,11 +79,12 @@ class MaskedBatchNorm(nn.Module):
 
 
 class BatchNorm2d(nn.Module):
-    """Dense BN on NCHW maps matching flax ``nn.BatchNorm`` (eps 1e-3,
-    momentum 0.01): f32 arithmetic, output in the input dtype, and a
-    BIASED running variance (torch's own BatchNorm2d keeps it unbiased).
-    Under a process group the moments span the global batch, as
-    ``MaskedBatchNorm``'s."""
+    """Dense BN on NCHW maps (and NCDHW volumes: the statistics span every
+    axis but the channels', as flax's ``nn.BatchNorm`` on a channel-last
+    array of any rank) matching flax ``nn.BatchNorm`` (eps 1e-3, momentum
+    0.01): f32 arithmetic, output in the input dtype, and a BIASED running
+    variance (torch's own BatchNorm2d keeps it unbiased). Under a process
+    group the moments span the global batch, as ``MaskedBatchNorm``'s."""
 
     def __init__(self, num_features, eps=1e-3, momentum=0.01):
         super().__init__()
@@ -96,29 +97,31 @@ class BatchNorm2d(nn.Module):
 
     def forward(self, x):
         xf = x.float()
+        dims = (0, *range(2, x.dim()))
+        tail = (1,) * (x.dim() - 2)
         if self.training:
             if mesh.distributed():
                 sums = mesh.global_sum(torch.cat([
-                    xf.sum((0, 2, 3)),
+                    xf.sum(dims),
                     xf.new_tensor([xf.numel() // xf.shape[1]])]))
                 mean = sums[:-1] / sums[-1]
                 # the mean detached, as torch.var's backward: the variance's
                 # derivative in the mean is zero, and its f32 remainder
                 # would only add noise
                 var = mesh.global_sum(
-                    ((xf - mean.detach()[:, None, None]) ** 2)
-                    .sum((0, 2, 3))) / sums[-1]
+                    ((xf - mean.detach().view(-1, *tail)) ** 2)
+                    .sum(dims)) / sums[-1]
             else:
-                mean = xf.mean((0, 2, 3))
-                var = xf.var((0, 2, 3), unbiased=False)
+                mean = xf.mean(dims)
+                var = xf.var(dims, unbiased=False)
             with torch.no_grad():
                 self.running_mean.lerp_(mean, self.momentum)
                 self.running_var.lerp_(var, self.momentum)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] \
-            + self.bias[:, None, None]
+        y = (xf - mean.view(-1, *tail)) * mul.view(-1, *tail) \
+            + self.bias.view(-1, *tail)
         return y.to(x.dtype)
 
 

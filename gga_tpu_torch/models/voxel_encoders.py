@@ -1,6 +1,7 @@
-"""Voxel feature encoders (port of ``gga_tpu/models/voxel_encoders.py``
-``HardSimpleVFE`` and ``PillarFeatureNet``) on the padded
-[..., V, max_points, C] voxel buffers of ``ops.voxelize``."""
+"""Voxel feature encoders (port of ``gga_tpu/models/voxel_encoders.py``):
+``HardSimpleVFE`` and ``PillarFeatureNet`` on the padded
+[..., V, max_points, C] voxel buffers of ``ops.voxelize``, and MVXNet's
+``DynamicVFE`` on every point with its voxel's slot."""
 from __future__ import annotations
 
 from typing import Sequence, Tuple
@@ -9,6 +10,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.scatter import dynamic_scatter_max, dynamic_scatter_mean
 from .layers import MaskedBatchNorm
 
 
@@ -88,3 +90,77 @@ class PillarFeatureNet(nn.Module):
                 x = torch.cat([x, pooled[..., None, :].expand_as(x)],
                               -1) * pmask[..., None]
         return pooled
+
+
+def _per_point(voxel_rows, ids, V):
+    """Each point's row of its scene's voxel array [B, V, C] (slot clipped
+    to V - 1, as gga_tpu gathers) -> [B, P, C]."""
+    idx = ids.long().clamp(0, V - 1)[..., None]
+    return voxel_rows.gather(1, idx.expand(-1, -1, voxel_rows.shape[-1]))
+
+
+class DynamicVFE(nn.Module):
+    """Dynamic voxel feature encoder (mmdet3d voxel_encoder.py:88
+    DynamicVFE, as gga_tpu computes it with its defaults): each point
+    decorated with its offset to its voxel's points mean
+    (``dynamic_scatter_mean``, summed in point order) and to its voxel's
+    centre, then Linear (no bias) + masked BN + ReLU layers, each voxel's
+    max (``dynamic_scatter_max``) gathered back and concatenated between
+    two layers. A ``fusion`` callable runs on the last layer's point
+    features before the last scatter (mmdet3d's ``fusion_layer`` hook;
+    the module it calls is the ``fusion_layer`` child, so its keys are
+    mmdet3d's).
+
+    State_dict keys: ``vfe_layers.{i}.0`` (Linear), ``vfe_layers.{i}.1``
+    (norm), ``fusion_layer.*``."""
+
+    def __init__(self, in_channels=4, feat_channels: Tuple[int, ...] = (64,
+                                                                       64),
+                 voxel_size: Tuple[float, float, float] = (0.05, 0.05, 0.1),
+                 point_cloud_range: Sequence[float] = (0, -40, -3, 70.4, 40,
+                                                       1),
+                 max_voxels=16000, fusion_layer=None):
+        super().__init__()
+        self.voxel_size = tuple(voxel_size)
+        self.point_cloud_range = tuple(point_cloud_range)
+        self.max_voxels = max_voxels
+        ch = in_channels + 6
+        layers = []
+        for i, out_ch in enumerate(feat_channels):
+            layers.append(nn.Sequential(
+                nn.Linear(ch if i == 0 else 2 * ch, out_ch, bias=False),
+                MaskedBatchNorm(out_ch)))
+            ch = out_ch
+        self.vfe_layers = nn.ModuleList(layers)
+        self.fusion_layer = fusion_layer
+
+    def forward(self, points, ids, pok, coords, vvalid, fusion=None):
+        """points [B, P, C]; ids [B, P] point -> voxel slot (V where none);
+        pok [B, P] the points in range; coords [B, V, 3] (z, y, x); vvalid
+        [B, V]. ``fusion(point_feats, pok) -> point_feats`` or None.
+
+        Returns voxel features [B, V, feat_channels[-1]] (or the fusion's
+        width), 0 at padding voxels."""
+        V = self.max_voxels
+        pts_xyz = points[..., :3]
+        vmean, _ = dynamic_scatter_mean(points, ids, pok, V)
+        vsz = torch.tensor(self.voxel_size, dtype=torch.float32,
+                           device=points.device)
+        off = torch.tensor(self.point_cloud_range[:3], dtype=torch.float32,
+                           device=points.device)
+        centers = (_per_point(coords, ids, V).flip(-1).float() + 0.5) * vsz \
+            + off
+        feats = torch.where(pok[..., None], torch.cat(
+            [points, pts_xyz - _per_point(vmean, ids, V)[..., :3],
+             pts_xyz - centers], -1), 0.0)
+        vfeat = None
+        for i, layer in enumerate(self.vfe_layers):
+            feats = F.relu(layer[1](layer[0](feats), pok))
+            last = i == len(self.vfe_layers) - 1
+            if last and fusion is not None:
+                feats = fusion(feats, pok)
+            vfeat, _ = dynamic_scatter_max(feats, ids, pok, V)
+            if not last:
+                feats = torch.where(pok[..., None], torch.cat(
+                    [feats, _per_point(vfeat, ids, V)], -1), 0.0)
+        return torch.where(vvalid[..., None], vfeat, 0.0)

@@ -1,7 +1,8 @@
 """Scatters (port of ``gga_tpu/ops/scatter.py``, batched over scenes):
 the pillars' features onto PointPillars' BEV canvas (``pillar_scatter``),
 and the point-to-voxel mean colour of the FCAF3D detector
-(``dynamic_scatter_mean``, ``assign_point_voxel_ids``)."""
+(``dynamic_scatter_mean``, ``assign_point_voxel_ids``), and the voxel max
+of MVXNet's DynamicVFE (``dynamic_scatter_max``)."""
 from __future__ import annotations
 
 import torch
@@ -86,6 +87,61 @@ def dynamic_scatter_mean(point_features, point_voxel_ids, valid, num_voxels):
         0, rows, live.int())
     mean = sums / cnt.clamp(min=1)[:, None]
     return (mean.reshape(B, V + 1, C)[:, :V],
+            cnt.reshape(B, V + 1)[:, :V])
+
+
+class _ScatterMax(torch.autograd.Function):
+    """``out[r] = max(fill, max of feat[i] over rows[i] == r)`` by
+    ``scatter_reduce('amax')`` (an atomic max on the card: its result does
+    not depend on the order). The gradient is ``jax.grad``'s of
+    ``.at[].max``: each of the n entries tied at a row's maximum takes
+    ``g * (1 / n)``; the ties are counted by an integer ``index_add``, so
+    the backward has the same bits on every run."""
+
+    @staticmethod
+    def forward(ctx, feat, rows, n_rows, fill):
+        C = feat.shape[1]
+        out = feat.new_full((n_rows, C), fill).scatter_reduce_(
+            0, rows[:, None].expand(-1, C), feat, 'amax', include_self=True)
+        ctx.save_for_backward(feat, rows, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        feat, rows, out = ctx.saved_tensors
+        tied = feat == out[rows]
+        n = torch.zeros(out.shape, dtype=torch.int32,
+                        device=out.device).index_add_(0, rows, tied.int())
+        coef = 1.0 / n[rows].clamp(min=1).to(dout.dtype)
+        return torch.where(tied, dout[rows] * coef, 0.0), None, None, None
+
+
+def dynamic_scatter_max(point_features, point_voxel_ids, valid, num_voxels):
+    """Max-reduce point features into voxels (DynamicScatter 'max').
+
+    Args:
+        point_features: [B, P, C].
+        point_voxel_ids: [B, P] int slot of each point in its scene's voxel
+            list; a point that fell in no voxel carries ``num_voxels``.
+        valid: [B, P] bool.
+        num_voxels: the voxel budget V.
+    Returns:
+        ([B, V, C] maxima, 0 in a voxel no valid point reaches; [B, V]
+        int32 counts). Invalid points and points of no voxel go to a dump
+        row that is cut away.
+    """
+    B, P, C = point_features.shape
+    V = num_voxels
+    dev = point_voxel_ids.device
+    ids = torch.where(valid, point_voxel_ids.long(), V)
+    rows = (torch.arange(B, device=dev)[:, None] * (V + 1) + ids).reshape(-1)
+    neg = torch.finfo(point_features.dtype).min
+    feat = torch.where(valid[..., None], point_features, neg).reshape(-1, C)
+    out = _ScatterMax.apply(feat, rows, B * (V + 1), neg)
+    cnt = torch.zeros(B * (V + 1), dtype=torch.int32, device=dev).index_add_(
+        0, rows, valid.reshape(-1).int())
+    out = torch.where(cnt[:, None] > 0, out, 0.0)
+    return (out.reshape(B, V + 1, C)[:, :V],
             cnt.reshape(B, V + 1)[:, :V])
 
 

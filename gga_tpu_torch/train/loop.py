@@ -36,7 +36,11 @@ epochs; and the segmentors' step (EncoderDecoder3D, DGCNN, PAConv):
 keep mask, plus, for PAConv, ``paconv_regularization_loss`` at weight 1.0
 (the PAConv configs' recipe), then the clip and the cyclic AdamW of
 ``build_optimizer``, as gga_tpu's ``tools/train_supervised.py`` builds it
-for every config.
+for every config; and the image-fusion and image-to-voxel steps: MVXNet
+(the anchor step's body on the fused points' maps, then the clip and
+the cyclic AdamW) and ImVoxelNet (KITTI: the anchor step's body on the
+lifted volume's BEV maps; indoor: ``imvoxel_head.loss``; each then the
+clip and AdamW with the lr stepped down at the config's epochs).
 
 Under a ``torch.distributed`` group (``parallel.mesh``) the GGA, PGD and
 FCAF3D steps train data-parallel: each rank runs its rows of the global
@@ -57,6 +61,7 @@ from ..models.backbones.paconv import (PAConvSegmentor,
 from ..models.dense_heads import anchor3d_head as ah
 from ..models.dense_heads import centerpoint_head_gga as gga
 from ..models.dense_heads import fcaf3d_head
+from ..models.dense_heads import imvoxel_head
 from ..models.dense_heads import pgd_head
 from ..models.dense_heads import vote_head
 from ..models.dense_heads.ssd_3d_head import ssd3d_loss
@@ -66,6 +71,7 @@ from ..models.dense_heads.groupfree3d_head import (groupfree3d_draws,
 from ..models.detectors.centerpoint_gga import GGADetector
 from ..models.detectors.h3dnet import h3dnet_loss
 from ..models.detectors.imvotenet import imvotenet_draws, imvotenet_loss
+from ..models.detectors.imvoxelnet import ImVoxelNetIndoor
 from ..models.detectors.parta2 import parta2_draws, parta2_loss
 from ..models.detectors.point_rcnn import point_rcnn_draws, point_rcnn_loss
 from ..models.detectors.sassd import sassd_aux_loss
@@ -224,6 +230,17 @@ def fcaf3d_train_step(state: TrainState, batch, diag=None):
     return _global_logs({k: v.detach() for k, v in logs.items()})
 
 
+def anchor_terms(cfg, preds, batch):
+    """The anchor head's loss on its maps ``preds``: anchors at the map's
+    size, max-IoU assignment and ``anchor3d_head.loss``. Returns (total,
+    logs: 'loss', 'loss_cls', 'loss_bbox', 'loss_dir', 'num_pos')."""
+    anchors = ah.make_anchors(cfg, tuple(preds['cls'].shape[1:3]),
+                              preds['cls'].device)
+    targets = ah.assign_targets(cfg, anchors, batch['gt_boxes'],
+                                batch['gt_labels'], batch['gt_valid'])
+    return ah.loss(cfg, preds, anchors, targets)
+
+
 def anchor_loss(model, batch, diag=None, mark=None):
     """The anchor step's loss on a train-mode forward (the body of
     gga_tpu's ``tools/train_supervised.py`` step): anchors at the map's
@@ -239,12 +256,7 @@ def anchor_loss(model, batch, diag=None, mark=None):
     out = model(batch['points'], batch['points_valid'], diag)
     preds, aux = out if isinstance(out, tuple) else (out, None)
     mark('forward')
-    cfg = model.cfg.head
-    anchors = ah.make_anchors(cfg, tuple(preds['cls'].shape[1:3]),
-                              preds['cls'].device)
-    targets = ah.assign_targets(cfg, anchors, batch['gt_boxes'],
-                                batch['gt_labels'], batch['gt_valid'])
-    total, logs = ah.loss(cfg, preds, anchors, targets)
+    total, logs = anchor_terms(model.cfg.head, preds, batch)
     if aux is not None:
         logs.update(sassd_aux_loss(aux, batch['gt_boxes'],
                                    batch['gt_valid']))
@@ -627,3 +639,69 @@ def segmentor_train_step(state: TrainState, batch, class_weights=None,
         return out
 
     return _point_step(state, 'segmentor_train_step', loss_fn, mark)
+
+
+def mvxnet_loss(model, batch, diag=None, mark=None):
+    """MVXNet's loss on a train-mode forward: the anchor step's body
+    (``anchor_terms``) on the maps of the points, the images and their
+    projections. Returns (total, ``anchor_terms``' logs)."""
+    mark = mark or (lambda _: None)
+    preds = model(batch['points'], batch['points_valid'], batch['img'],
+                  batch['lidar2img'], diag)
+    mark('forward')
+    out = anchor_terms(model.cfg.head, preds, batch)
+    mark('loss')
+    return out
+
+
+def mvxnet_train_step(state: TrainState, batch, mark=None, diag=None):
+    """One MVXNet optimization step; updates ``state`` in place.
+
+    Args:
+        batch: dict of tensors on the model's device: points [B, P, 4],
+            points_valid [B, P], img [B, 3, H, W] (normalized), lidar2img
+            [B, 4, 4], gt_boxes [B, M, 7] (bottom-centre lidar),
+            gt_labels [B, M], gt_valid [B, M].
+        mark: as ``anchor_train_step``'s; diag: a dict for the encoder's
+            budget occupancy, or None.
+    Returns:
+        logs: 0-d tensors: ``mvxnet_loss``'s and 'grad_norm'.
+    """
+    return _point_step(state, 'mvxnet_train_step',
+                       lambda mark: mvxnet_loss(state.model, batch, diag,
+                                                mark), mark)
+
+
+def imvoxelnet_loss(model, batch, mark=None):
+    """ImVoxelNet's loss on a train-mode forward of the images and their
+    projections: for the KITTI detector the anchor step's body
+    (``anchor_terms``; bottom-centre lidar boxes), for the indoor one
+    ``imvoxel_head.loss`` on the head's levels and their projection
+    validity (gravity-centred depth boxes). Returns (total, logs)."""
+    mark = mark or (lambda _: None)
+    out = model(batch['img'], batch['lidar2img'])
+    mark('forward')
+    if isinstance(model, ImVoxelNetIndoor):
+        res = imvoxel_head.loss(model.cfg.head, *out, batch['gt_boxes'],
+                                batch['gt_labels'], batch['gt_valid'])
+    else:
+        res = anchor_terms(model.cfg.head, out, batch)
+    mark('loss')
+    return res
+
+
+def imvoxelnet_train_step(state: TrainState, batch, mark=None):
+    """One ImVoxelNet optimization step (KITTI or indoor); updates
+    ``state`` in place.
+
+    Args:
+        batch: dict of tensors on the model's device: img [B, 3, H, W]
+            (normalized), lidar2img [B, 4, 4], gt_boxes [B, M, 7],
+            gt_labels [B, M], gt_valid [B, M].
+        mark: as ``anchor_train_step``'s.
+    Returns:
+        logs: 0-d tensors: ``imvoxelnet_loss``'s and 'grad_norm'.
+    """
+    return _point_step(state, 'imvoxelnet_train_step',
+                       lambda mark: imvoxelnet_loss(state.model, batch,
+                                                    mark), mark)

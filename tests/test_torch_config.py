@@ -38,6 +38,8 @@ from gga_tpu_torch.models.detectors import fcaf3d as tfcaf3d
 from gga_tpu_torch.models.detectors import groupfree3d as tgroupfree3d
 from gga_tpu_torch.models.detectors import h3dnet as th3dnet
 from gga_tpu_torch.models.detectors import imvotenet as timvotenet
+from gga_tpu_torch.models.detectors import imvoxelnet as timvoxelnet
+from gga_tpu_torch.models.detectors import mvxnet as tmvxnet
 from gga_tpu_torch.models.detectors import parta2 as tparta2
 from gga_tpu_torch.models.detectors import pgd as tpgd
 from gga_tpu_torch.models.detectors import point_rcnn as tpoint_rcnn
@@ -126,6 +128,15 @@ SEGMENTORS = {
         ('dgcnn', (tdgcnn.DGCNNSegmentor, tdgcnn.DGCNNConfig)),
         ('paconv', (tpaconv.PAConvSegmentor, tpaconv.PAConvConfig)))
     for p in sorted((ROOT / 'configs' / family).glob('*.py'))}
+# the image-fusion and image-to-voxel configs, with the detector each builds
+FUSION = {
+    'mvxnet/dv_mvx-fpn_second_secfpn_adamw_2x8_40e_kitti-3d-3class.py':
+        (tmvxnet.MVXNet, tmvxnet.MVXNetConfig),
+    'imvoxelnet/imvoxelnet_4x8_kitti-3d-car.py':
+        (timvoxelnet.ImVoxelNet, timvoxelnet.ImVoxelNetConfig),
+    'imvoxelnet/imvoxelnet_4x2_sunrgbd-3d-10class.py':
+        (timvoxelnet.ImVoxelNetIndoor, timvoxelnet.ImVoxelNetIndoorConfig),
+}
 FP16_SECOND = ('second/hv_second_secfpn_fp16_6x8_80e_kitti-3d-3class.py',
                'second/hv_second_secfpn_fp16_6x8_80e_kitti-3d-car.py')
 
@@ -241,7 +252,8 @@ def test_merge_from_options_agrees(name):
 
 @pytest.mark.parametrize('name', DETECTOR_CONFIGS + (
     'gga_pdg.py', 'gga_sunrgbd.py', SECOND, POINTPILLARS, *VOXEL_FAMILY,
-    *CENTERPOINT, *INDOOR, *POINT_FAMILY, *VOTE_FAMILY, *SEGMENTORS))
+    *CENTERPOINT, *INDOOR, *POINT_FAMILY, *VOTE_FAMILY, *SEGMENTORS,
+    *FUSION))
 def test_build_detector_config_equals_gga_tpu(name):
     path = str(ROOT / 'configs' / ('' if '/' in name else 'gga') / name)
     model, mc = tbuilder.build_detector(tconfig.Config.fromfile(path))
@@ -254,7 +266,7 @@ def test_build_detector_config_equals_gga_tpu(name):
         SECOND: (tvoxelnet.SECONDDetector, tvoxelnet.SECONDNetConfig),
         POINTPILLARS: (tvoxelnet.PointPillars, tvoxelnet.PointPillarsConfig),
         **VOXEL_FAMILY, **INDOOR, **POINT_FAMILY, **VOTE_FAMILY,
-        **SEGMENTORS,
+        **SEGMENTORS, **FUSION,
         **dict.fromkeys(CENTERPOINT, (tcp.CenterPointDetector,
                                       tcp.CenterPointConfig)),
     }.get(name, (tdet.GGADetector, tdet.GGAModelConfig))
@@ -306,6 +318,16 @@ def test_build_detector_config_equals_gga_tpu(name):
         elif det is tdv.DynamicVoxelNet:
             assert mc.scatter_shape == (496, 432)
             assert model.backbone.blocks[0][0].in_channels == 4
+    elif det is tmvxnet.MVXNet:
+        assert mc.img_depth == 50 and mc.vfe_channels == (64, 64)
+        # the fused VFE feeds the encoder 128 channels
+        assert model.pts_middle_encoder.conv_input[0].in_channels == 128
+        assert model.pts_middle_encoder.bev_channels == 256
+    elif det is timvoxelnet.ImVoxelNet:
+        assert mc.n_voxels == (216, 248, 12) and mc.head.num_classes == 1
+    elif det is timvoxelnet.ImVoxelNetIndoor:
+        assert mc.n_voxels == (40, 40, 16) and mc.head.n_classes == 10
+        assert mc.head.nms_pre == 1000
     elif name in CENTERPOINT:
         assert mc.tasks == (1, 2, 2, 1, 2, 2)
         assert mc.dcn_head == ('_dcn_' in name)
@@ -509,7 +531,7 @@ def test_registry_names_the_known_types():
     assert reg.build({'type': 'D', 'a': 1}) == {'a': 1}
     cfg = tconfig.Config.fromfile(
         str(ROOT / 'configs' / 'gga' / 'gga_kitti_tiny.py'))
-    cfg.model.type = 'MVXNet'             # not ported yet
+    cfg.model.type = 'SMOKEDetector'      # not ported yet
     with pytest.raises(KeyError, match='GGADetector'):
         tbuilder.build_detector(cfg)
 

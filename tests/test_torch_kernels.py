@@ -102,6 +102,27 @@ def _second_batch_map():
 
 
 @functools.lru_cache(maxsize=1)
+def _mvxnet_map():
+    """The input SubM map of an MVXNet train batch (``samples_per_gpu`` =
+    2 scenes of 16 000 voxels, 32 000 rows) and its rows: conv_input
+    takes the fused VFE's 128 channels to 16, and its input gradient
+    (the same map, the weights flipped and transposed) takes 16 to 128."""
+    rng = np.random.RandomState(7)
+    B, P, V = 2, 24000, 16000
+    pts = np.concatenate([rng.uniform(2, 60, (B, P, 1)),
+                          rng.uniform(-30, 30, (B, P, 1)),
+                          rng.uniform(-2.9, 0.9, (B, P, 1)),
+                          rng.rand(B, P, 1)], -1).astype(np.float32)
+    vox = hard_voxelize(torch.from_numpy(pts), torch.ones(B, P, dtype=bool),
+                        voxel_size=(0.05, 0.05, 0.1),
+                        pc_range=(0, -40, -3, 70.4, 40, 1), max_voxels=V,
+                        max_points=1)
+    valid = torch.arange(V)[None] < vox['num_voxels'][:, None]
+    return flatten_nmap(sp.build_neighbor_map(vox['coords'], valid,
+                                              (41, 1600, 1408))), B * V
+
+
+@functools.lru_cache(maxsize=1)
 def _small_maps():
     """The accuracy bench's model (``GGAModelConfig.small()``: 0.1 m
     voxels of a 41 x 800 x 704 grid, 8 192 voxels a scene, stage budgets
@@ -370,6 +391,9 @@ _CONV_CASES = [
     # (3 -> 64) on its rulebook and the first stage's SubM 64 -> 64
     ('sn_conv1', 3, 64, 27, None), ('sn_layer1', 64, 64, 27, None),
 ]
+# an MVXNet train batch (2 scenes of 16 000 voxels), f32 only as MVXNet
+# runs: conv_input 128 -> 16 and its input gradient 16 -> 128
+_MVX_CONV_CASES = [('mvx_in', 128, 16, 27, None), ('mvx_in', 16, 128, 27, None)]
 
 
 def _case_map(which, k, q):
@@ -390,6 +414,9 @@ def _case_map(which, k, q):
         nmap = nmap.numpy()
     elif which == 'second_b6':
         nmap, rows = _second_batch_map()
+        nmap = nmap.numpy()
+    elif which == 'mvx_in':
+        nmap, rows = _mvxnet_map()
         nmap = nmap.numpy()
     elif which in ('small_in', 'small_s1', 'small_out'):
         nmap, rows = _small_maps()[which]
@@ -425,6 +452,16 @@ def _case_map(which, k, q):
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize('which,c,d,k,q', _CONV_CASES)
 def test_cuda_kernel_matches_plain(which, c, d, k, q, dtype):
+    _check_conv_case(which, c, d, k, q, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('which,c,d,k,q', _MVX_CONV_CASES)
+def test_cuda_kernel_matches_plain_at_mvxnet_widths(which, c, d, k, q):
+    _check_conv_case(which, c, d, k, q, torch.float32)
+
+
+def _check_conv_case(which, c, d, k, q, dtype):
     dev = _cuda()
     nmap, rows = _case_map(which, k, q)
     nmap = nmap.to(dev)
@@ -617,6 +654,16 @@ _DW_CASES = [
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize('which,c,d,k,q', _DW_CASES)
 def test_cuda_dw_kernel_matches_plain(which, c, d, k, q, dtype):
+    _check_dw_case(which, c, d, k, q, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_dw_kernel_matches_plain_at_mvxnet_widths():
+    """MVXNet's conv_input weight gradient (128 x 16), f32."""
+    _check_dw_case('mvx_in', 128, 16, 27, None, torch.float32)
+
+
+def _check_dw_case(which, c, d, k, q, dtype):
     dev = _cuda()
     nmap, rows = _case_map(which, k, q)
     nmap = nmap.to(dev)
