@@ -7,7 +7,11 @@ monocular detector or its trainer, take PGD train steps and run its
 inference on a batch of images; for the indoor retrain, the same for
 the FCAF3D detector on batches of coloured point clouds; and for the
 fully supervised KITTI path, the same for the anchor detectors: SECOND,
-PointPillars, DynamicVoxelNet, DVSECOND and SASSD; and for the fully
+PointPillars, DynamicVoxelNet, DVSECOND and SASSD, and on nuScenes and
+Lyft PointPillars with its RegNet backbones and FPN neck (its bf16
+configs refused) and FreeAnchor (the anchor entry points, FreeAnchor's
+loss by its head config); and for SSN, the same (``init_ssn_detector``,
+..., ``infer_ssn``); and for the fully
 supervised nuScenes path, the same for CenterPoint (voxel and pillar,
 with or without the DCN head, rotated or circle NMS); and for the
 two-stage KITTI detector, the same for PartA2; and for the indoor
@@ -38,7 +42,7 @@ from .models.detectors.centerpoint_gga import (GGADetector, GGAModelConfig,
                                                decode_detections)
 from .models.dense_heads import (anchor3d_head, fcaf3d_head, imvoxel_head,
                                  pgd_head)
-from .models.dense_heads import vote_head
+from .models.dense_heads import shape_aware_head, vote_head
 from .models.dense_heads.groupfree3d_head import decode_groupfree3d
 from .models.dense_heads.ssd_3d_head import decode_ssd3d
 from .models.detectors.dynamic_voxelnet import (DVSECONDConfig,
@@ -62,9 +66,12 @@ from .models.detectors.point_rcnn import (PointRCNNConfig, PointRCNNDetector,
                                           decode_point_rcnn)
 from .models.detectors.sassd import SASSD, SASSDConfig
 from .models.detectors.ssd3d import SSD3DNet, SSD3DNetConfig
+from .models.detectors.ssn import SSNConfig, SSNDetector
 from .models.detectors.votenet import VoteNet, VoteNetConfig
-from .models.detectors.voxelnet import (PointPillars, PointPillarsConfig,
-                                        SECONDDetector, SECONDNetConfig)
+from .models.detectors.voxelnet import (FreeAnchorPointPillarsConfig,
+                                        PointPillars, PointPillarsConfig,
+                                        SECONDDetector, SECONDNetConfig,
+                                        refuse_pillars_bf16)
 from .models.backbones.dgcnn import DGCNNConfig, DGCNNSegmentor
 from .models.backbones.paconv import PAConvConfig, PAConvSegmentor
 from .models.layers import init_params
@@ -393,6 +400,7 @@ def infer_indoor(bundle: DetectorBundle, points, colors, points_valid):
 # the anchor detectors by the exact type of their config
 _ANCHOR_DETECTORS = {SECONDNetConfig: SECONDDetector,
                      PointPillarsConfig: PointPillars,
+                     FreeAnchorPointPillarsConfig: PointPillars,
                      DynamicVoxelNetConfig: DynamicVoxelNet,
                      DVSECONDConfig: DVSECONDDetector,
                      SASSDConfig: SASSD}
@@ -401,17 +409,21 @@ _ANCHOR_DETECTORS = {SECONDNetConfig: SECONDDetector,
 def init_anchor_detector(cfg, state_dict=None, device='cuda',
                          seed=0) -> DetectorBundle:
     """An anchor detector in eval mode on ``device``: SECOND
-    (``SECONDNetConfig``), PointPillars (``PointPillarsConfig``),
+    (``SECONDNetConfig``), PointPillars (``PointPillarsConfig``; or
+    ``FreeAnchorPointPillarsConfig``, the same network),
     DynamicVoxelNet (``DynamicVoxelNetConfig``), DVSECOND
     (``DVSECONDConfig``) or SASSD (``SASSDConfig``).
 
     With a ``state_dict`` (e.g. from ``convert.from_jax_variables``) the
     weights are loaded strictly; without one they are drawn from
     ``torch.Generator().manual_seed(seed)`` (``init_weights``). Raises if
-    ``device`` is CUDA and no card is present, or if ``cfg`` cannot run
-    there (``check_compute_dtype``)."""
+    ``device`` is CUDA and no card is present, if ``cfg`` cannot run
+    there (``check_compute_dtype``), or for a bf16 PointPillars config
+    (``voxelnet.refuse_pillars_bf16``)."""
     dev = resolve_device(device)
     check_compute_dtype(cfg, dev)
+    if type(cfg) in (PointPillarsConfig, FreeAnchorPointPillarsConfig):
+        refuse_pillars_bf16(cfg)
     model = _ANCHOR_DETECTORS[type(cfg)](cfg)
     if state_dict is None:
         model.init_weights(torch.Generator().manual_seed(seed))
@@ -441,16 +453,27 @@ _DET_DTYPES = dict(points=torch.float32, points_valid=torch.bool,
                    gt_valid=torch.bool)
 
 
-def anchor_train_step(trainer: TrainState, batch, mark=None, diag=None):
-    """One supervised train step on a batch of ``KittiDetDataset``
-    samples (as tensors or numpy). ``mark`` is the step's stage hook and
-    ``diag`` a dict for the encoder's occupancy (``loop.anchor_train_step``).
-    Returns the step's logs as 0-d tensors on the trainer's device (for
-    SASSD with its two auxiliary losses, which the total includes)."""
+def _anchor_batch(trainer, batch):
+    """A detection batch as tensors on the trainer's device, its boxes'
+    7 coded values (nuScenes' velocity columns are not regressed by the
+    anchor heads)."""
     dev = next(trainer.model.parameters()).device
     b = {k: torch.as_tensor(batch[k], dtype=dt, device=dev)
          for k, dt in _DET_DTYPES.items()}
-    return loop.anchor_train_step(trainer, b, mark, diag)
+    b['gt_boxes'] = b['gt_boxes'][..., :7]
+    return b
+
+
+def anchor_train_step(trainer: TrainState, batch, mark=None, diag=None):
+    """One supervised train step on a batch of ``KittiDetDataset``,
+    ``NuScenesDataset`` or ``LyftDataset`` samples (as tensors or numpy).
+    ``mark`` is the step's stage hook and ``diag`` a dict for the
+    encoder's occupancy (``loop.anchor_train_step``). Returns the step's
+    logs as 0-d tensors on the trainer's device (for SASSD with its two
+    auxiliary losses, which the total includes; for FreeAnchor its
+    positive and negative bag losses)."""
+    return loop.anchor_train_step(trainer, _anchor_batch(trainer, batch),
+                                  mark, diag)
 
 
 @torch.no_grad()
@@ -474,6 +497,66 @@ def infer_anchor(bundle: DetectorBundle, points, points_valid):
     anchors = anchor3d_head.make_anchors(cfg, tuple(preds['cls'].shape[1:3]),
                                          preds['cls'].device)
     return anchor3d_head.decode(cfg, preds, anchors)
+
+
+def init_ssn_detector(cfg: SSNConfig, state_dict=None, device='cuda',
+                      seed=0) -> DetectorBundle:
+    """The SSN detector in eval mode on ``device`` (f32, as gga_tpu's).
+    With a ``state_dict`` (e.g. from ``convert.from_jax_variables``) the
+    weights are loaded strictly; without one they are drawn from
+    ``torch.Generator().manual_seed(seed)``. Raises if ``device`` is CUDA
+    and no card is present."""
+    dev = resolve_device(device)
+    model = SSNDetector(cfg)
+    if state_dict is None:
+        model.init_weights(torch.Generator().manual_seed(seed))
+    else:
+        model.load_state_dict(state_dict)
+    return DetectorBundle(model.to(dev).eval(), cfg, dev)
+
+
+def init_ssn_trainer(cfg: SSNConfig, total_steps, state_dict=None,
+                     device='cuda', seed=0, optimizer=None) -> TrainState:
+    """SSN (``init_ssn_detector``'s) in train mode on ``device`` with
+    ``build_optimizer(params, total_steps, **optimizer)``: the clip, AdamW
+    and the cyclic lr and beta1, as gga_tpu's
+    ``tools/train_supervised.py`` builds them for every config."""
+    model = init_ssn_detector(cfg, state_dict, device, seed).model.train()
+    return TrainState(model=model,
+                      optimizer=build_optimizer(model.parameters(),
+                                                total_steps,
+                                                **(optimizer or {})),
+                      step=0, generator=torch.Generator().manual_seed(seed))
+
+
+def ssn_train_step(trainer: TrainState, batch, mark=None):
+    """One SSN train step on a batch of ``NuScenesDataset`` or
+    ``LyftDataset`` samples (as tensors or numpy; the boxes' 7 coded
+    values are read). Returns ``loop.ssn_train_step``'s logs."""
+    return loop.ssn_train_step(trainer, _anchor_batch(trainer, batch), mark)
+
+
+@torch.no_grad()
+def infer_ssn(bundle: DetectorBundle, points, points_valid):
+    """SSN inference on a batch: forward in eval mode, each class's
+    anchors at its group's map size, ``decode_shape_aware`` (each class's
+    best anchors, one rotated BEV NMS over the classes a scene).
+
+    Args:
+        points: [B, P, >= 4] f32 (tensor or numpy); points_valid [B, P].
+    Returns:
+        dict: boxes [B, max_num, 7] bottom-centre lidar, scores, labels
+        (the head's class index), valid, on the bundle's device.
+    """
+    model = bundle.model.eval()
+    outs = model(torch.as_tensor(points, dtype=torch.float32,
+                                 device=bundle.device),
+                 torch.as_tensor(points_valid, dtype=torch.bool,
+                                 device=bundle.device))
+    cfg = bundle.cfg.head
+    anchors = shape_aware_head.shape_aware_anchors(
+        cfg, shape_aware_head.feat_sizes(outs), bundle.device)
+    return shape_aware_head.decode_shape_aware(cfg, outs, anchors)
 
 
 def init_centerpoint_detector(cfg: CenterPointConfig, state_dict=None,

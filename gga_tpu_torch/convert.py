@@ -7,9 +7,12 @@ port's own copy of the GGA rule table and layout transforms of
 PGD detector (``pgd_rules``: flax's automatic names of ResNet, FPN and
 PGDHead to mmdet3d's keys), the indoor FCAF3D detector
 (``fcaf3d_rules``) and the supervised KITTI voxel detectors
-(``second_rules`` for SECOND and DVSECOND, ``pointpillars_rules``,
-``sassd_rules``, and DynamicVoxelNet's dense half alone, whose voxel
-features and scatter have no parameters) and the nuScenes CenterPoint
+(``second_rules`` for SECOND and DVSECOND, ``pointpillars_rules`` with
+the SECOND or a RegNet backbone and the SECONDFPN or FPN neck, FreeAnchor
+included, ``sassd_rules``, and DynamicVoxelNet's dense half alone, whose
+voxel features and scatter have no parameters) and SSN (``ssn_rules``);
+the RegNet backbones' ``regnet_rules`` are the copy of
+``torch2flax.regnet_rules`` (``export_regnet`` gives the same tensors) and the nuScenes CenterPoint
 family (``centerpoint_rules``: voxel and pillar, with and without the DCN
 head, to mmdet3d's CenterPoint names); gga_tpu has no converter rules for
 these, so theirs stand alone; and PartA2 (``parta2_rules``: SparseUNet,
@@ -81,6 +84,7 @@ import torch
 from .models.backbones import mink_resnet
 from .models.backbones.dgcnn import DGCNNConfig
 from .models.backbones.paconv import PAConvConfig
+from .models.backbones import regnet
 from .models.backbones.resnet import ARCH
 from .models.detectors.centerpoint import CenterPointConfig, common_heads
 from .models.detectors.dynamic_voxelnet import DynamicVoxelNetConfig
@@ -96,6 +100,7 @@ from .models.detectors.pgd import PGDModelConfig
 from .models.detectors.point_rcnn import PointRCNNConfig
 from .models.detectors.sassd import SASSDConfig
 from .models.detectors.ssd3d import SSD3DNetConfig
+from .models.detectors.ssn import SSNConfig
 from .models.detectors.votenet import VoteNetConfig
 from .models.detectors.voxelnet import PointPillarsConfig, SECONDNetConfig
 from .models.segmentors.encoder_decoder import EncoderDecoder3DConfig
@@ -111,9 +116,8 @@ def _bn_moves(torch_prefix, flax_prefix):
              f'{flax_prefix}/var', 'copy')]
 
 
-def _second_fpn_rules(cfg, backbone, neck):
-    """SECOND (``backbone``) + SECONDFPN (``neck``) of any of gga_tpu's
-    detectors that build them under ``SECOND_0`` / ``SECONDFPN_0``."""
+def _second_rules(cfg, backbone):
+    """gga_tpu's ``SECOND_0`` at the port's prefix ``backbone``."""
     rules = []
     cm = 0
     for s, num in enumerate(cfg.backbone_layers):
@@ -124,6 +128,12 @@ def _second_fpn_rules(cfg, backbone, neck):
             rules.extend(_bn_moves(f'{backbone}.blocks.{s}.{3 * j + 1}',
                                    f'{f}/BatchNorm2d_0/BatchNorm_0'))
             cm += 1
+    return rules
+
+
+def _secfpn_rules(cfg, neck):
+    """gga_tpu's ``SECONDFPN_0`` at the port's prefix ``neck``."""
+    rules = []
     n_conv = n_dec = 0
     for i, stride in enumerate(cfg.neck_strides):
         t = f'{neck}.deblocks.{i}'
@@ -139,6 +149,85 @@ def _second_fpn_rules(cfg, backbone, neck):
         rules.extend(_bn_moves(f'{t}.1',
                                f'SECONDFPN_0/BatchNorm2d_{i}/BatchNorm_0'))
     return rules
+
+
+def _second_fpn_rules(cfg, backbone, neck):
+    """SECOND (``backbone``) + SECONDFPN (``neck``) of any of gga_tpu's
+    detectors that build them under ``SECOND_0`` / ``SECONDFPN_0``."""
+    return _second_rules(cfg, backbone) + _secfpn_rules(cfg, neck)
+
+
+def regnet_rules(arch, backbone='backbone', flax_prefix='NoStemRegNet_0',
+                 in_channels=64):
+    """(torch_key, collection, flax_path, transform) for gga_tpu's
+    NoStemRegNet: the port's copy of ``torch2flax.regnet_rules`` (mmdet's
+    ``layer{i}.{j}.conv1-3`` / ``bn1-3`` / ``downsample.0/1``, its
+    ``conv_oihw`` being the port's ``conv2d``), with the torch keys under
+    ``backbone`` and the flax paths under ``flax_prefix`` (empty for the
+    backbone's own variables)."""
+    widths, depths, _ = regnet.generate_regnet(**regnet.REGNET_ARCHS[arch])
+    pre = f'{flax_prefix}/' if flax_prefix else ''
+    rules = []
+    blk = 0
+    prev_w = in_channels
+    for i, (w, d) in enumerate(zip(widths, depths)):
+        for j in range(d):
+            t = f'{backbone}.layer{i + 1}.{j}'
+            f = f'{pre}RegNetXBlock_{blk}'
+            for conv, fmod in (('conv1', 'ConvModule2d_0'),
+                               ('conv3', 'ConvModule2d_1')):
+                rules.append((f'{t}.{conv}.weight', 'params',
+                              f'{f}/{fmod}/Conv_0/kernel', 'conv2d'))
+            rules.append((f'{t}.conv2.weight', 'params',
+                          f'{f}/Conv_0/kernel', 'conv2d'))
+            for bn, fmod in (('bn1', 'ConvModule2d_0/BatchNorm2d_0'),
+                             ('bn2', 'BatchNorm2d_0'),
+                             ('bn3', 'ConvModule2d_1/BatchNorm2d_0')):
+                rules += _bn_moves(f'{t}.{bn}', f'{f}/{fmod}/BatchNorm_0')
+            stride = regnet.STRIDES[i] if j == 0 else 1
+            if stride != 1 or prev_w != w:
+                rules.append((f'{t}.downsample.0.weight', 'params',
+                              f'{f}/ConvModule2d_2/Conv_0/kernel', 'conv2d'))
+                rules += _bn_moves(
+                    f'{t}.downsample.1',
+                    f'{f}/ConvModule2d_2/BatchNorm2d_0/BatchNorm_0')
+            prev_w = w
+            blk += 1
+    return rules
+
+
+def _fpn_rules(num_levels, neck):
+    """gga_tpu's ``FPN_0`` of ``num_levels`` levels and no extra ones."""
+    rules = []
+    for i in range(num_levels):
+        for t, f in (('lateral_convs', 'lateral'), ('fpn_convs', 'fpn')):
+            rules.append((f'{neck}.{t}.{i}.conv.weight', 'params',
+                          f'FPN_0/{f}{i}/kernel', 'conv2d'))
+            rules.append((f'{neck}.{t}.{i}.conv.bias', 'params',
+                          f'FPN_0/{f}{i}/bias', 'copy'))
+    return rules
+
+
+def _pillar_dense_rules(cfg, neck='secfpn'):
+    """The pillar detectors' PillarFeatureNet, SECOND or NoStemRegNet
+    backbone and SECONDFPN or FPN neck under mmdet3d's names."""
+    rules = []
+    for i in range(len(cfg.pfn_channels)):
+        t = f'voxel_encoder.pfn_layers.{i}'
+        rules.append((f'{t}.linear.weight', 'params',
+                      f'PillarFeatureNet_0/Dense_{i}/kernel', 'linear'))
+        rules.extend(_bn_moves(f'{t}.norm',
+                               f'PillarFeatureNet_0/MaskedBatchNorm_{i}'))
+    if cfg.backbone == 'second':
+        rules += _second_rules(cfg, 'backbone')
+        levels = len(cfg.backbone_channels)
+    else:
+        rules += regnet_rules(cfg.backbone,
+                              in_channels=cfg.pfn_channels[-1])
+        levels = 3
+    if neck == 'fpn':
+        return rules + _fpn_rules(levels, 'neck')
+    return rules + _secfpn_rules(cfg, 'neck')
 
 
 def gga_rules(cfg):
@@ -465,15 +554,34 @@ def centerpoint_rules(cfg: CenterPointConfig):
 
 def pointpillars_rules(cfg: PointPillarsConfig):
     """(torch_key, collection, flax_path, transform) for every tensor of
-    gga_tpu's ``PointPillars`` (its scatter has no parameters)."""
-    rules = []
-    for i in range(len(cfg.pfn_channels)):
-        t = f'voxel_encoder.pfn_layers.{i}'
-        rules.append((f'{t}.linear.weight', 'params',
-                      f'PillarFeatureNet_0/Dense_{i}/kernel', 'linear'))
-        rules.extend(_bn_moves(f'{t}.norm',
-                               f'PillarFeatureNet_0/MaskedBatchNorm_{i}'))
-    return rules + _anchor_rules(cfg)
+    gga_tpu's ``PointPillars`` (its scatter has no parameters), with the
+    SECOND or a RegNet backbone and the SECONDFPN or FPN neck; FreeAnchor's
+    are the same."""
+    return (_pillar_dense_rules(cfg, cfg.neck)
+            + _anchor_head_rules('bbox_head'))
+
+
+def ssn_rules(cfg: SSNConfig):
+    """gga_tpu's ``SSNDetector``: the pillar net, SECOND or NoStemRegNet,
+    SECONDFPN, and the shape-aware head under mmdet3d's ShapeAwareHead
+    names (``bbox_head.heads.{i}.shared_conv.{j}.conv`` / ``.bn`` from
+    ``ShapeAwareHead_0/task{i}_conv{j}``, ``conv_cls`` / ``conv_reg`` /
+    ``conv_dir_cls`` from ``task{i}_cls`` / ``_reg`` / ``_dir``)."""
+    rules = _pillar_dense_rules(cfg)
+    for ti, task in enumerate(cfg.head.tasks):
+        t, f = f'bbox_head.heads.{ti}', f'ShapeAwareHead_0/task{ti}'
+        for j in range(len(task.shared_conv_channels)):
+            rules.append((f'{t}.shared_conv.{j}.conv.weight', 'params',
+                          f'{f}_conv{j}/Conv_0/kernel', 'conv2d'))
+            rules.extend(_bn_moves(f'{t}.shared_conv.{j}.bn',
+                                   f'{f}_conv{j}/BatchNorm2d_0/BatchNorm_0'))
+        for tn, fn in (('conv_cls', 'cls'), ('conv_reg', 'reg'),
+                       ('conv_dir_cls', 'dir')):
+            rules.append((f'{t}.{tn}.weight', 'params', f'{f}_{fn}/kernel',
+                          'conv2d'))
+            rules.append((f'{t}.{tn}.bias', 'params', f'{f}_{fn}/bias',
+                          'copy'))
+    return rules
 
 
 def sassd_rules(cfg: SASSDConfig):
@@ -1106,6 +1214,7 @@ def rules_of(cfg):
                        (CenterPointConfig, centerpoint_rules),
                        (PGDModelConfig, pgd_rules),
                        (FCAF3DModelConfig, fcaf3d_rules),
+                       (SSNConfig, ssn_rules),
                        (SASSDConfig, sassd_rules),
                        (DynamicVoxelNetConfig, _anchor_rules),
                        (SECONDNetConfig, second_rules),
@@ -1123,12 +1232,19 @@ def from_jax_variables(variables_np, cfg):
     ``PointPillarsConfig``, ``DynamicVoxelNetConfig``, ``DVSECONDConfig``
     or ``SASSDConfig``, or a ``PartA2Config``, ``VoteNetConfig``,
     ``SSD3DNetConfig``, ``PointRCNNConfig``, ``GroupFree3DNetConfig``,
-    ``H3DNetConfig`` or ``ImVoteNetConfig``, or a segmentor's:
+    ``H3DNetConfig``, ``ImVoteNetConfig``, ``SSNConfig`` or
+    ``FreeAnchorPointPillarsConfig``, or a segmentor's:
     ``EncoderDecoder3DConfig``, ``DGCNNConfig`` or ``PAConvConfig``) ->
     the port's ``load_state_dict`` input (f32 tensors)."""
+    return convert_with_rules(variables_np, rules_of(cfg))
+
+
+def convert_with_rules(variables_np, rules):
+    """gga_tpu ``{'params', 'batch_stats'}`` trees -> the state_dict the
+    ``rules`` name (f32 tensors); a tensor whose flax path is missing is
+    left out."""
     flat = {c: _flatten(variables_np.get(c, {}))
             for c in ('params', 'batch_stats')}
-    rules = rules_of(cfg)
     out = {}
     for tk, coll, fp, tr in rules:
         paths = fp.split('+')

@@ -127,3 +127,19 @@ def rotated_iou_camera_eval(boxes1, boxes2, criterion=-1):
         # fall-through; consumed by d3_box_overlap, eval.py:158)
         return inter
     return inter / np.maximum(denom, 1e-8)
+
+
+def rotated_iou_3d(boxes1, boxes2, eps=1e-8):
+    """Pairwise 3D IoU of [N, 7] x [M, 7] bottom-centre boxes (x, y, z,
+    dx, dy, dz, yaw): the rotated BEV overlap times the z overlap."""
+    inter_bev = rotated_overlap(boxes1[:, [0, 1, 3, 4, 6]],
+                                boxes2[:, [0, 1, 3, 4, 6]])
+    z1lo, z1hi = boxes1[:, 2], boxes1[:, 2] + boxes1[:, 5]
+    z2lo, z2hi = boxes2[:, 2], boxes2[:, 2] + boxes2[:, 5]
+    zoverlap = np.maximum(
+        np.minimum(z1hi[:, None], z2hi[None, :])
+        - np.maximum(z1lo[:, None], z2lo[None, :]), 0.0)
+    inter = inter_bev * zoverlap
+    v1 = boxes1[:, 3] * boxes1[:, 4] * boxes1[:, 5]
+    v2 = boxes2[:, 3] * boxes2[:, 4] * boxes2[:, 5]
+    return inter / np.maximum(v1[:, None] + v2[None, :] - inter, eps)

@@ -9,8 +9,11 @@ past sweeps moved into the key lidar frame, with a time-lag channel.
 
 Ragged scenes become static shapes: points padded or subsampled to
 ``max_points`` from a per-(seed, epoch, index) generator, objects padded
-to ``max_objs`` with validity masks. gga_tpu's LyftDataset waits for its
-slice (with ``eval/lyft_eval.py``).
+to ``max_objs`` with validity masks.
+
+``LyftDataset`` (mmdet3d's lyft_dataset.py, gga_tpu's ``LyftDataset``)
+reads nuScenes-format info pkls with Lyft's 9 classes and no velocity
+channels; ``eval/lyft_eval.py`` scores it.
 """
 from __future__ import annotations
 
@@ -212,3 +215,21 @@ class NuScenesDataset:
             with open(out_path, 'w') as f:
                 json.dump(submission, f)
         return submission
+
+
+LYFT_CLASSES = ('car', 'truck', 'bus', 'emergency_vehicle',
+                'other_vehicle', 'motorcycle', 'bicycle', 'pedestrian',
+                'animal')
+
+
+class LyftDataset(NuScenesDataset):
+    """Lyft L5 on nuScenes-format infos: Lyft's 9 classes, no velocity
+    channels (7-dim boxes) and the range (-80, -80, -10, 80, 80, 10)
+    unless given."""
+    CLASSES = LYFT_CLASSES
+
+    def __init__(self, data_root, info_path, **kwargs):
+        kwargs.setdefault('with_velocity', False)
+        kwargs.setdefault('point_cloud_range',
+                          (-80, -80, -10, 80, 80, 10))
+        super().__init__(data_root, info_path, **kwargs)

@@ -2,7 +2,9 @@
 port's copy of ``gga_tpu/models/builder.py``: the GGA detector, the
 stage-4 PGD detector, the indoor FCAF3D detector, the fully supervised
 KITTI voxel detectors: SECOND, PointPillars, DynamicVoxelNet, DVSECOND and
-SASSD and the two-stage PartA2, the fully supervised nuScenes
+SASSD and the two-stage PartA2, the nuScenes and Lyft pillar detectors
+(PointPillars with the RegNet backbones, the FPN neck and bf16,
+FreeAnchor of ``configs/free_anchor/`` and SSN of ``configs/ssn/``), the fully supervised nuScenes
 CenterPoint of ``configs/centerpoint/``, the indoor VoteNet of
 ``configs/votenet/``, the point-based KITTI detectors 3DSSD
 (``configs/3dssd/``) and PointRCNN (``configs/point_rcnn/``) and the
@@ -52,10 +54,12 @@ from .detectors.parta2 import PartA2Config, PartA2Detector
 from .detectors.pgd import PGDDetector, PGDModelConfig
 from .detectors.point_rcnn import PointRCNNConfig, PointRCNNDetector
 from .detectors.sassd import SASSD, SASSDConfig
+from .detectors.ssn import SSNConfig, SSNDetector
 from .detectors.ssd3d import SSD3DNet, SSD3DNetConfig
 from .detectors.votenet import VoteNet, VoteNetConfig
-from .detectors.voxelnet import (PointPillars, PointPillarsConfig,
-                                 SECONDDetector, SECONDNetConfig)
+from .detectors.voxelnet import (FreeAnchorPointPillarsConfig, PointPillars,
+                                 PointPillarsConfig, SECONDDetector,
+                                 SECONDNetConfig, refuse_pillars_bf16)
 from .backbones.dgcnn import DGCNNConfig, DGCNNSegmentor
 from .backbones.paconv import PAConvConfig, PAConvSegmentor
 from .segmentors.encoder_decoder import (EncoderDecoder3D,
@@ -122,12 +126,15 @@ def _build_gga(cfg):
     return GGADetector(mc), mc
 
 
-def _register_family(name, cfg_cls, model_cls):
+def _register_family(name, cfg_cls, model_cls, check=None):
     """A type whose config files keep the whole model in ``model`` (the
-    head merged over its config's defaults), as gga_tpu's families."""
+    head merged over its config's defaults), as gga_tpu's families;
+    ``check(model_cfg)`` may refuse a config before the build."""
     @MODELS.register(name=name)
     def _build(cfg):
         mc = config_from_dict(cfg_cls, dict(cfg['model']))
+        if check is not None:
+            check(mc)
         return model_cls(mc), mc
     _build.__name__ = f'build_{name}'
     return _build
@@ -135,7 +142,11 @@ def _register_family(name, cfg_cls, model_cls):
 
 _register_family('PGDDetector', PGDModelConfig, PGDDetector)
 _register_family('FCAF3DDetector', FCAF3DModelConfig, FCAF3DDetector)
-_register_family('PointPillars', PointPillarsConfig, PointPillars)
+_register_family('PointPillars', PointPillarsConfig, PointPillars,
+                 refuse_pillars_bf16)
+_register_family('FreeAnchorPointPillars', FreeAnchorPointPillarsConfig,
+                 PointPillars, refuse_pillars_bf16)
+_register_family('SSNDetector', SSNConfig, SSNDetector)
 _register_family('SECONDDetector', SECONDNetConfig, SECONDDetector)
 _register_family('DVSECONDDetector', DVSECONDConfig, DVSECONDDetector)
 _register_family('DynamicVoxelNet', DynamicVoxelNetConfig, DynamicVoxelNet)

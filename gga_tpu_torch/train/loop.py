@@ -8,7 +8,10 @@ loss, backward through every sparse conv, clip and AdamW) and the fully
 supervised anchor step of SECOND, PointPillars, DynamicVoxelNet, DVSECOND
 and SASSD (``tools/train_supervised.py:86-108``: forward in train mode,
 anchors at the map's size, max-IoU assignment, the anchor loss, for SASSD
-plus its auxiliary point losses, backward, clip and AdamW), and the fully
+plus its auxiliary point losses, backward, clip and AdamW; FreeAnchor's
+the same with ``free_anchor_loss`` in place of assignment and loss), and
+SSN's (``shape_aware_loss`` over each class's anchors at its task
+group's map size, then the clip and AdamW), and the fully
 supervised nuScenes CenterPoint step (gga_tpu's ``centerpoint_loss``
 under ``value_and_grad``, then the clip and AdamW of a config's
 ``optimizer`` block: forward in train mode, targets at the head's map
@@ -63,7 +66,10 @@ from ..models.dense_heads import centerpoint_head_gga as gga
 from ..models.dense_heads import fcaf3d_head
 from ..models.dense_heads import imvoxel_head
 from ..models.dense_heads import pgd_head
+from ..models.dense_heads import shape_aware_head as sah
 from ..models.dense_heads import vote_head
+from ..models.dense_heads.free_anchor3d_head import (FreeAnchor3DConfig,
+                                                    free_anchor_loss)
 from ..models.dense_heads.ssd_3d_head import ssd3d_loss
 from ..models.detectors.centerpoint import centerpoint_loss
 from ..models.dense_heads.groupfree3d_head import (groupfree3d_draws,
@@ -232,10 +238,16 @@ def fcaf3d_train_step(state: TrainState, batch, diag=None):
 
 def anchor_terms(cfg, preds, batch):
     """The anchor head's loss on its maps ``preds``: anchors at the map's
-    size, max-IoU assignment and ``anchor3d_head.loss``. Returns (total,
-    logs: 'loss', 'loss_cls', 'loss_bbox', 'loss_dir', 'num_pos')."""
+    size, then max-IoU assignment and ``anchor3d_head.loss`` (logs 'loss',
+    'loss_cls', 'loss_bbox', 'loss_dir', 'num_pos'), or, for a
+    ``FreeAnchor3DConfig``, ``free_anchor_loss`` (logs 'loss',
+    'positive_bag_loss', 'negative_bag_loss', 'num_pos'). Returns (total,
+    logs)."""
     anchors = ah.make_anchors(cfg, tuple(preds['cls'].shape[1:3]),
                               preds['cls'].device)
+    if isinstance(cfg, FreeAnchor3DConfig):
+        return free_anchor_loss(cfg, preds, anchors, batch['gt_boxes'],
+                                batch['gt_labels'], batch['gt_valid'])
     targets = ah.assign_targets(cfg, anchors, batch['gt_boxes'],
                                 batch['gt_labels'], batch['gt_valid'])
     return ah.loss(cfg, preds, anchors, targets)
@@ -287,6 +299,40 @@ def anchor_train_step(state: TrainState, batch, mark=None, diag=None):
     model.train()
     state.optimizer.zero_grad()
     total, logs = anchor_loss(model, batch, diag, mark)
+    total.backward()
+    mark('backward')
+    logs['grad_norm'] = state.optimizer.step()
+    mark('optimizer')
+    state.step += 1
+    return {k: v.detach() for k, v in logs.items()}
+
+
+def ssn_loss(model, batch, mark=None):
+    """SSN's loss on a train-mode forward: each class's anchors at its
+    task group's map size, then ``shape_aware_loss``."""
+    mark = mark or (lambda _: None)
+    outs = model(batch['points'], batch['points_valid'])
+    mark('forward')
+    cfg = model.cfg.head
+    anchors = sah.shape_aware_anchors(cfg, sah.feat_sizes(outs),
+                                      outs[0]['cls'].device)
+    total, logs = sah.shape_aware_loss(cfg, outs, anchors, batch['gt_boxes'],
+                                       batch['gt_labels'], batch['gt_valid'])
+    mark('loss')
+    return total, logs
+
+
+def ssn_train_step(state: TrainState, batch, mark=None):
+    """One SSN optimization step (forward in train mode, ``ssn_loss``,
+    backward, clip and AdamW); updates ``state`` in place. ``batch`` and
+    ``mark`` as ``anchor_train_step``'s. Returns the logs of
+    ``shape_aware_loss`` and 'grad_norm' as 0-d tensors."""
+    _single_process('ssn_train_step')
+    mark = mark or (lambda _: None)
+    model = state.model
+    model.train()
+    state.optimizer.zero_grad()
+    total, logs = ssn_loss(model, batch, mark)
     total.backward()
     mark('backward')
     logs['grad_norm'] = state.optimizer.step()

@@ -11,10 +11,14 @@ loss), FCAF3D's ScanNet config, the two point-based KITTI configs and
 the six VoteNet-derived indoor configs (the four GroupFree3D, H3DNet's
 and ImVoteNet's) and the fifteen segmentor configs (six PointNet++
 EncoderDecoder3D, seven DGCNN, two PAConv);
-the _fp16_ SECOND configs parse to model configs equal to gga_tpu's.
-Also the port's refusal of gga_tpu's TPU-only encoder options, of the
-PointPillars backbones and necks it does not have, and of the _fp16_
-SECOND and PointPillars configs.
+and 20 of the 23 nuScenes and Lyft pillar configs of FreeAnchor, SSN,
+the RegNet backbones and PointPillars' FPN neck (six
+``configs/free_anchor``, eight ``configs/regnet``, four ``configs/ssn``,
+five ``configs/pointpillars``); the _fp16_ SECOND and PointPillars
+configs parse to model configs equal to gga_tpu's. Also the port's
+refusal of gga_tpu's TPU-only encoder options and of the _fp16_ SECOND
+and PointPillars configs, and the class order that the SSN and FreeAnchor
+configs share with gga_tpu.
 """
 import ast
 import dataclasses
@@ -45,6 +49,7 @@ from gga_tpu_torch.models.detectors import pgd as tpgd
 from gga_tpu_torch.models.detectors import point_rcnn as tpoint_rcnn
 from gga_tpu_torch.models.detectors import sassd as tsassd
 from gga_tpu_torch.models.detectors import ssd3d as tssd3d
+from gga_tpu_torch.models.detectors import ssn as tssn
 from gga_tpu_torch.models.detectors import votenet as tvotenet
 from gga_tpu_torch.models.detectors import voxelnet as tvoxelnet
 from gga_tpu_torch.models.segmentors import encoder_decoder as tenc
@@ -137,6 +142,27 @@ FUSION = {
     'imvoxelnet/imvoxelnet_4x2_sunrgbd-3d-10class.py':
         (timvoxelnet.ImVoxelNetIndoor, timvoxelnet.ImVoxelNetIndoorConfig),
 }
+# FreeAnchor, SSN, the RegNet backbones and PointPillars' FPN neck and
+# bf16 (nuScenes and Lyft), with the detector each builds
+PILLAR_FAMILY = {
+    **{f'free_anchor/{p.name}': (tvoxelnet.PointPillars,
+                                 tvoxelnet.FreeAnchorPointPillarsConfig)
+       for p in sorted((ROOT / 'configs' / 'free_anchor').glob('*.py'))},
+    **{f'regnet/{p.name}': (tvoxelnet.PointPillars,
+                            tvoxelnet.PointPillarsConfig)
+       for p in sorted((ROOT / 'configs' / 'regnet').glob('*.py'))},
+    **{f'ssn/{p.name}': (tssn.SSNDetector, tssn.SSNConfig)
+       for p in sorted((ROOT / 'configs' / 'ssn').glob('*.py'))},
+    **{f'pointpillars/{p.name}': (tvoxelnet.PointPillars,
+                                  tvoxelnet.PointPillarsConfig)
+       for p in sorted((ROOT / 'configs' / 'pointpillars').glob('*.py'))
+       if '_fpn_' in p.name or p.name == (
+           'hv_pointpillars_secfpn_sbn-all_fp16_2x8_2x_nus-3d.py')},
+}
+# of those, the three _fp16_ (bf16) ones: their model configs equal
+# gga_tpu's, and the builder refuses them (their whole bf16 step missed
+# the bf16 gates on the card)
+FP16_PILLARS = tuple(p for p in PILLAR_FAMILY if '_fp16_' in p)
 FP16_SECOND = ('second/hv_second_secfpn_fp16_6x8_80e_kitti-3d-3class.py',
                'second/hv_second_secfpn_fp16_6x8_80e_kitti-3d-car.py')
 
@@ -253,7 +279,7 @@ def test_merge_from_options_agrees(name):
 @pytest.mark.parametrize('name', DETECTOR_CONFIGS + (
     'gga_pdg.py', 'gga_sunrgbd.py', SECOND, POINTPILLARS, *VOXEL_FAMILY,
     *CENTERPOINT, *INDOOR, *POINT_FAMILY, *VOTE_FAMILY, *SEGMENTORS,
-    *FUSION))
+    *FUSION, *(p for p in PILLAR_FAMILY if p not in FP16_PILLARS)))
 def test_build_detector_config_equals_gga_tpu(name):
     path = str(ROOT / 'configs' / ('' if '/' in name else 'gga') / name)
     model, mc = tbuilder.build_detector(tconfig.Config.fromfile(path))
@@ -266,7 +292,7 @@ def test_build_detector_config_equals_gga_tpu(name):
         SECOND: (tvoxelnet.SECONDDetector, tvoxelnet.SECONDNetConfig),
         POINTPILLARS: (tvoxelnet.PointPillars, tvoxelnet.PointPillarsConfig),
         **VOXEL_FAMILY, **INDOOR, **POINT_FAMILY, **VOTE_FAMILY,
-        **SEGMENTORS, **FUSION,
+        **SEGMENTORS, **FUSION, **PILLAR_FAMILY,
         **dict.fromkeys(CENTERPOINT, (tcp.CenterPointDetector,
                                       tcp.CenterPointConfig)),
     }.get(name, (tdet.GGADetector, tdet.GGAModelConfig))
@@ -442,6 +468,15 @@ def test_build_detector_config_equals_gga_tpu(name):
             # the head's last propagation takes no raw features
             assert model.decode_head.FP_modules[-1].mlps.layer0.conv.weight \
                 .shape[1] == mc.fp_channels[-2][-1]
+    elif name in PILLAR_FAMILY:
+        lyft = name.endswith('lyft-3d.py')
+        assert mc.head.num_classes == (9 if lyft else 10)
+        if 'regnet' in name:
+            assert mc.backbone.startswith('regnetx_')
+            assert type(model.backbone).__name__ == 'NoStemRegNet'
+        if det is tvoxelnet.PointPillars:
+            assert mc.compute_dtype == 'float32'
+            assert model.fpn == (mc.neck == 'fpn') == ('_fpn_' in name)
     elif name in INDOOR:
         assert mc.head.n_classes == 18 and mc.head.n_reg_outs == 6
         assert not mc.head.with_yaw and mc.depth == 34
@@ -450,45 +485,66 @@ def test_build_detector_config_equals_gga_tpu(name):
         assert mc.head.max_objs == 128 and mc.max_per_task == 100
 
 
-@pytest.mark.parametrize('field', [dict(backbone='regnetx_400mf'),
-                                   dict(neck='fpn')])
-def test_pointpillars_refuses_what_it_lacks(field):
-    cfg = tvoxelnet.PointPillarsConfig(**field)
-    with pytest.raises(NotImplementedError,
-                       match='FreeAnchor, SSN and the RegNet backbones'):
-        tvoxelnet.PointPillars(cfg)
-
-
-@pytest.mark.parametrize('name', [*FP16_SECOND, 'pointpillars'])
+@pytest.mark.parametrize('name', FP16_SECOND + FP16_PILLARS)
 def test_anchor_detectors_refuse_the_fp16_configs(name):
-    """The _fp16_ SECOND configs wait for their slice, and gga_tpu's
-    _fp16_ PointPillars configs are nuScenes ones with an FPN neck: both
-    detectors refuse bf16 by name, citing the ROADMAP item."""
-    if name == 'pointpillars':
-        with pytest.raises(NotImplementedError,
-                           match='_fp16_.*FreeAnchor, SSN and the RegNet '
-                                 'backbones'):
-            tvoxelnet.PointPillars(
-                tvoxelnet.PointPillarsConfig(compute_dtype='bfloat16'))
-    else:
-        with pytest.raises(NotImplementedError,
-                           match='_fp16_ SECOND configs \\(bf16\\)'):
-            tbuilder.build_detector(
-                tconfig.Config.fromfile(str(ROOT / 'configs' / name)))
+    """The _fp16_ SECOND and PointPillars configs wait: the builder
+    refuses bf16 by name, citing the ROADMAP item (and, for PointPillars,
+    the card's measured gate)."""
+    pillars = name in FP16_PILLARS
+    with pytest.raises(NotImplementedError,
+                       match='_fp16_ PointPillars.*_fp16_ SECOND configs '
+                             '\\(bf16\\).*cosine floor' if pillars else
+                       '_fp16_ SECOND configs \\(bf16\\)'):
+        tbuilder.build_detector(
+            tconfig.Config.fromfile(str(ROOT / 'configs' / name)))
 
 
-@pytest.mark.parametrize('name', FP16_SECOND)
-def test_fp16_second_configs_equal_gga_tpu(name):
-    """The _fp16_ SECOND configs' model configs (the port refuses to build
-    the detector) equal gga_tpu's field by field."""
+def test_there_are_23_pillar_family_configs():
+    kinds = [p.split('/')[0] for p in PILLAR_FAMILY]
+    assert {k: kinds.count(k) for k in set(kinds)} == dict(
+        free_anchor=6, regnet=8, ssn=4, pointpillars=5)
+    assert sum('_fp16_' in p for p in PILLAR_FAMILY) == 3
+
+
+@pytest.mark.parametrize('name', [
+    'free_anchor/hv_pointpillars_fpn_sbn-all_free-anchor_4x8_2x_nus-3d.py',
+    'ssn/hv_ssn_secfpn_sbn-all_2x16_2x_nus-3d.py'])
+def test_nuscenes_label_0_takes_the_bicycle_anchor_in_both(name):
+    """A finding about the reference, mirrored: the SSN and FreeAnchor
+    nuScenes configs list their per-class anchors in SSN's order (bicycle
+    first, car at index 5) but set no ``class_names`` of their own, and
+    the dataset labels by ``NUS_CLASSES`` (car first). So label 0, car, is
+    assigned the bicycle anchor (1.68 x 0.60 x 1.27) in both packages."""
+    from gga_tpu.data.nuscenes import NUS_CLASSES as J_NUS
+    from gga_tpu_torch.data.nuscenes import NUS_CLASSES as T_NUS
     path = str(ROOT / 'configs' / name)
+    port = tconfig.Config.fromfile(path)
+    ref = jconfig.Config.fromfile(path)
+    assert J_NUS[0] == T_NUS[0] == 'car'
+    assert port.class_names[0] == ref.class_names[0] == 'car'
+    bicycle = (1.68452161, 0.60058911, 1.27192197)
+    car = (4.60718145, 1.95017717, 1.72270761)
+    for cfg, builder in ((port, tbuilder), (ref, jbuilder)):
+        mc = builder.build_detector(cfg)[1]
+        assert mc.head.anchor_sizes[0] == bicycle
+        assert mc.head.anchor_sizes[5] == car
+
+
+@pytest.mark.parametrize('name', FP16_SECOND + FP16_PILLARS)
+def test_fp16_second_configs_equal_gga_tpu(name):
+    """The _fp16_ SECOND and PointPillars configs' model configs (the port
+    refuses to build the detector) equal gga_tpu's field by field."""
+    path = str(ROOT / 'configs' / name)
+    pillars = name in FP16_PILLARS
     mc = tbuilder.config_from_dict(
-        tvoxelnet.SECONDNetConfig,
+        tvoxelnet.PointPillarsConfig if pillars
+        else tvoxelnet.SECONDNetConfig,
         dict(tconfig.Config.fromfile(path)['model']))
     _, ref = jbuilder.build_detector(jconfig.Config.fromfile(path))
     assert _fields(mc) == _fields(ref)
     assert mc.compute_dtype == 'bfloat16'
-    assert mc.head.num_classes == (1 if name.endswith('-car.py') else 3)
+    assert mc.head.num_classes == (10 if pillars else 1 if name.endswith(
+        '-car.py') else 3)
 
 
 def test_unknown_key_raises_in_both():
@@ -533,6 +589,12 @@ def test_registry_names_the_known_types():
         str(ROOT / 'configs' / 'gga' / 'gga_kitti_tiny.py'))
     cfg.model.type = 'SMOKEDetector'      # not ported yet
     with pytest.raises(KeyError, match='GGADetector'):
+        tbuilder.build_detector(cfg)
+    # FreeAnchor and SSN are registered, with gga_tpu's names
+    for name in ('FreeAnchorPointPillars', 'SSNDetector'):
+        assert callable(tconfig.MODELS.get(name))
+        assert callable(jconfig.MODELS.get(name))
+    with pytest.raises(KeyError, match='FreeAnchorPointPillars.*SSNDetector'):
         tbuilder.build_detector(cfg)
 
 
