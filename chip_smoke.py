@@ -9,8 +9,9 @@ FCAF3D on ScanNet, VoteNet), the VoteNet-derived indoor detectors
 (GroupFree3D, H3DNet, ImVoteNet), the point-cloud segmentors (PointNet++
 SSG and MSG, DGCNN, PAConv), the image-fusion and image-to-voxel
 detectors (MVXNet, ImVoxelNet), the sharded stage 3 and the two-rank
-data-parallel GGA step, and the point-based KITTI detectors (3DSSD,
-PointRCNN) on one NVIDIA card.
+data-parallel GGA step, the point-based KITTI detectors (3DSSD,
+PointRCNN), the nuScenes and Lyft pillar detectors and the monocular KITTI
+detectors (SMOKE, MonoFlex) on one NVIDIA card.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -58,7 +59,10 @@ PointRCNN) on one NVIDIA card.
 7. Whole step, kernels vs plain: one step's loss and gradients with every
    kernel and with every plain version, from the same weights, batch and
    SRL draw, cuDNN off on both sides (its algorithm choice follows the
-   free workspace, so the two sides could run different dense plans): loss within 1e-2 relative, grad norm within 5e-2 relative,
+   free workspace, so the two sides could run different dense plans),
+   the later steps on the kernel step's ReLU masks and scatter-max
+   winners (a unit that rounding moves to the other branch moves its
+   whole gradient; the units overridden are printed): loss within 1e-2 relative, grad norm within 5e-2 relative,
    each sparse conv weight gradient at cosine similarity >= 0.99 or, where
    the plain step with a one-ulp perturbation of the encoder input already
    moves that gradient further (the bf16 step is that sensitive at this
@@ -385,6 +389,18 @@ PointRCNN) on one NVIDIA card.
     the 23 configs built on the card and run once at B = 1 after
     ``calibrate_bn`` (finite maps, no launch, peak memory), the three
     _fp16_ ones refused by the builder.
+19b. Mono family phase (``mono_family_phase``, last): SMOKE (B = 8) and
+    MonoFlex (B = 4) as shipped (f32, DLA-34 + DLANeck, seeded weights) on
+    the workflow's mini KITTI images through ``KittiMonoDataset`` at 384 x
+    1248 (``mono_path``): the card's eval forward of the first batch
+    against the CPU's within 1e-4 of max|CPU|; 2 recorded train steps with
+    each config's optimizer block (SMOKE: exactly one render_heatmap
+    launch a step, its B x 3 heatmap targets of 96 x 312; MonoFlex: no
+    launch), finite losses with positives, the lr, moved weights but the
+    DLA trees' discarded projections; device ms by stage after the first
+    step, peak memory; the recorded render_heatmap calls replayed against
+    the plain renderer (1e-6); ``infer_smoke`` / ``infer_monoflex`` on a
+    batch and ``inference_mono_3d_detector`` on one image (no launch).
 20. Prints one JSON line describing the kernels (each with its time
     ms, device_ms, launches, bound and bound_share = bound_ms / ms,
     device_bound_share = bound_ms / device_ms, host_ms where measured;
@@ -399,7 +415,9 @@ PointRCNN) on one NVIDIA card.
     steps and ``scannet`` dicts over FCAF3D's ScanNet steps on the two
     f32 sparse-conv entries, and ``point_family``, ``vote_derived``,
     ``segmentation`` and ``pillar_family`` dicts with each kernel's
-    launches in those phases, 0),
+    launches in those phases, 0, and ``mono_family``: render_heatmap's
+    SMOKE launches with its replayed calls' numbers, every other kernel's
+    0),
     the card, then, as the last line, {"ok": true, "device": {...}}. Any
     failed phase exits non-zero.
 
@@ -412,6 +430,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -1291,6 +1310,91 @@ def input_ulp_noise(torch, model, module=None):
         enc.forward = real
 
 
+@contextlib.contextmanager
+def frozen_branches(torch):
+    """The two value-chosen branches of the steps' forwards frozen for the
+    steps of one comparison: ``torch.nn.functional.relu`` (and so every
+    ``nn.ReLU``) and ``Tensor.scatter_reduce(_)(..., 'amax')`` of a float
+    source that takes a gradient (PartA2's RoI max pooling, the dynamic
+    VFE's voxel max). The first step run under it records, call by call,
+    each ReLU's mask (input > 0) and each scatter max's winners (the
+    sources equal to their slot's max); each later step, begun with
+    ``replay()``, passes a ReLU's input where the first step's mask is
+    set and lets only the first step's winners into a slot's max (ties
+    among them still split the gradient). A rounding that moves one
+    pre-activation across 0, or one source past its slot's max, moves
+    that unit's whole gradient, and where the loss's gradient sits on few
+    units (random weights, few positive anchors) that alone can part a
+    weight gradient by 1e-4 of cosine. With the branches frozen every step
+    takes the first step's, so what parts them is the arithmetic.
+    ``flips()`` counts, for each replayed step, the units whose own value
+    would have taken the other branch; ``units()`` the units frozen."""
+    F = torch.nn.functional
+    T = torch.Tensor
+    real_relu, real_scatter, real_scatter_ = (F.relu, T.scatter_reduce,
+                                              T.scatter_reduce_)
+    frozen, flips = [], []
+    state = dict(i=None)
+
+    def take(kind, shape):
+        i = state['i']
+        if (i >= len(frozen) or frozen[i][0] != kind
+                or frozen[i][1].shape != shape):
+            fail(f'step comparison: a replayed step\'s call {i} ({kind}) is '
+                 'not the first step\'s')
+        state['i'] = i + 1
+        return frozen[i][1]
+
+    def relu(x, inplace=False):
+        if state['i'] is None:
+            frozen.append(('relu', (x > 0).detach()))
+            return real_relu(x, inplace=inplace)
+        m = take('relu', x.shape)
+        flips[-1] = flips[-1] + ((x > 0) != m).sum()
+        return x.masked_fill_(~m, 0) if inplace else x.masked_fill(~m, 0)
+
+    def scatter_max(inplace):
+        real = real_scatter_ if inplace else real_scatter
+
+        def reduce_(self, dim, index, src, reduce, **kwargs):
+            if reduce != 'amax' or not (src.is_floating_point()
+                                        and src.requires_grad):
+                return real(self, dim, index, src, reduce, **kwargs)
+            if state['i'] is None:
+                out = real(self, dim, index, src, reduce, **kwargs)
+                frozen.append(('amax',
+                               (src == out.gather(dim, index)).detach()))
+                return out
+            w = take('amax', src.shape)
+            own = real_scatter(self, dim, index, src, reduce, **kwargs)
+            flips[-1] = flips[-1] + (
+                (src == own.gather(dim, index)) != w).sum()
+            return real(self, dim, index, src.masked_fill(~w, -torch.inf),
+                        reduce, **kwargs)
+        return reduce_
+
+    def check():
+        if state['i'] not in (None, len(frozen)):
+            fail(f'step comparison: a replayed step made {state["i"]} '
+                 f'branch calls, the first {len(frozen)}')
+
+    def replay():
+        check()
+        state['i'] = 0
+        flips.append(0)
+
+    F.relu, T.scatter_reduce, T.scatter_reduce_ = (
+        relu, scatter_max(False), scatter_max(True))
+    try:
+        yield types.SimpleNamespace(
+            replay=replay, flips=lambda: [int(f) for f in flips],
+            units=lambda: sum(m.numel() for _, m in frozen))
+        check()
+    finally:
+        F.relu, T.scatter_reduce, T.scatter_reduce_ = (
+            real_relu, real_scatter, real_scatter_)
+
+
 def conv_reordered(torch, f, nmap, w):
     """``gather_gemm_conv_plain`` with its sums in another order: tap by
     tap from the last, each tap's products summed by a GEMM of its own."""
@@ -1344,7 +1448,13 @@ def step_comparison(torch, mods, trainer, batch, loss_fn=None,
     allocator can give at that moment, which the plain versions' larger
     temporaries change, and two plans' rounding can move SECOND's
     conv_input weight gradient (a small remainder of large sums) past
-    the gate where the kernels do not."""
+    the gate where the kernels do not. Every step after the kernel step
+    takes the kernel step's ReLU masks and scatter-max winners
+    (``frozen_branches``): a unit that rounding moves to the other branch
+    would otherwise jump a gradient past the gate (PartA2's conv_out by
+    1e-4 of cosine, on the plain step with one ulp of noise as with the
+    kernels). The units each step's own values would have moved are
+    reported beside."""
     # CenterPoint's config has no dtype: it runs in f32
     gate = GATES[getattr(trainer.model.cfg, 'compute_dtype', 'float32')]
     n_convs = N_CONVS if n_convs is None else n_convs
@@ -1354,18 +1464,23 @@ def step_comparison(torch, mods, trainer, batch, loss_fn=None,
 
         def loss_fn(model, b):
             return gga_loss(model, b, srl)
-    with torch.backends.cudnn.flags(enabled=False):
+    with torch.backends.cudnn.flags(enabled=False), \
+            frozen_branches(torch) as branches:
         loss_k, norm_k, g_k, bn_k = loss_and_grads(torch, trainer, batch,
                                                    loss_fn, conv_types)
         with plain_versions(wrappers(mods)):
+            branches.replay()
             loss_p, norm_p, g_p, bn_p = loss_and_grads(torch, trainer, batch,
                                                        loss_fn, conv_types)
+            branches.replay()
             with input_ulp_noise(torch, trainer.model, noise_module):
                 _, norm_n, g_n, _ = loss_and_grads(torch, trainer, batch,
                                                    loss_fn, conv_types)
+        branches.replay()
         with plain_reordered(torch, mods):
             _, norm_r, g_r, _ = loss_and_grads(torch, trainer, batch, loss_fn,
                                                conv_types)
+    flips, units = branches.flips(), branches.units()
 
     def cosines(a, b):
         return {n: float(torch.nn.functional.cosine_similarity(
@@ -1389,6 +1504,9 @@ def step_comparison(torch, mods, trainer, batch, loss_fn=None,
                grad_norm_rel_plain_reordered=abs(norm_r - norm_p) / norm_p,
                min_cosine_plain_reordered=min(cos_reordered.values()),
                bn_update_max_rel_err=bn_err[worst_bn], bn_buffers=len(bn_err),
+               relu_units=units, relu_flips_plain=flips[0],
+               relu_flips_plain_ulp_noise=flips[1],
+               relu_flips_plain_reordered=flips[2],
                cosines=cos, cosines_plain_ulp_noise=cos_noise,
                cosines_plain_reordered=cos_reordered)
     if not gated:
@@ -1827,17 +1945,15 @@ S4_OPTIONS = ('log_interval=1',)
 S4_EVAL_BATCH = 4           # images a batch of evaluate_mono
 
 
-def forward_flop(torch, model_cfg):
-    """FLOPs of the PGD detector's forward on one 384 x 1248 image, counted
-    by ``torch.utils.flop_counter`` on the meta device (shapes only)."""
+def forward_flop(torch, detector):
+    """FLOPs of ``detector``'s forward (a model of the port, built on the
+    meta device) on one 384 x 1248 image, counted by
+    ``torch.utils.flop_counter`` (shapes only)."""
     from torch.utils.flop_counter import FlopCounterMode
-
-    from gga_tpu_torch.models.detectors.pgd import PGDDetector
     with torch.device('meta'):
-        model = PGDDetector(model_cfg)
         x = torch.empty(1, 3, 384, 1248)
     with FlopCounterMode(display=False) as counter:
-        model(x)
+        detector(x)
     return counter.get_total_flops()
 
 
@@ -1879,6 +1995,7 @@ def stage4_phase(torch, mods, card, tmp):
     from gga_tpu_torch import apis, tools_lib
     from gga_tpu_torch.config import Config
     from gga_tpu_torch.data.kitti.mono_dataset import KittiMonoDataset
+    from gga_tpu_torch.models.detectors.pgd import PGDDetector
     from gga_tpu_torch.tools import train_pgd
     from gga_tpu_torch.train import checkpoints as ckpt
     from gga_tpu_torch.train.optim import step_schedule
@@ -1899,7 +2016,10 @@ def stage4_phase(torch, mods, card, tmp):
     cfg = Config.fromfile(config)
     batch = cfg.data.samples_per_gpu
     model_cfg = tools_lib.model_config_from_cfg(cfg)
-    res['forward_flop'] = forward_flop(torch, model_cfg)
+    with torch.device('meta'):
+        detector = PGDDetector(model_cfg)
+    res['forward_flop'] = forward_flop(torch, detector)
+    del detector
     arch = f'ResNet-{model_cfg.backbone_depth}'
     print(f'stage 4: {arch} + FPN + PGDHead forward of one 384 x 1248 image: '
           f'{res["forward_flop"] / 1e12:.4f} TFLOP (counted from shapes); a '
@@ -3724,7 +3844,8 @@ PA_STAGES = ('voxelize+UNet', 'BEV+RPN+proposals+RoI pool+RCNN',
 PA_EVAL_BATCH = 2           # scenes a forward of infer_parta2
 # epoch 0's batches whose whole step is also compared, ungated: where a
 # rounding moves a ReLU or a max across a tie, the step's gradients jump
-# (ROADMAP.md §3, PartA2), and these two meet such a jump
+# (ROADMAP.md §3, PartA2), and these two meet such a jump unless the
+# branches are frozen (``frozen_branches``)
 PA_NOISE_BATCHES = (6, 3)
 
 
@@ -6746,7 +6867,13 @@ def print_step_comparison(label, cmp_step):
           f'grad norm rel {cmp_step["grad_norm_rel_plain_reordered"]:.3g}); '
           'batch-norm '
           f'updates of {cmp_step["bn_buffers"]} buffers within '
-          f'{cmp_step["bn_update_max_rel_err"]:.3g} of their largest entry')
+          f'{cmp_step["bn_update_max_rel_err"]:.3g} of their largest entry; '
+          'ReLU and scatter-max units the kernel step\'s branches '
+          'overrode: plain '
+          f'{cmp_step["relu_flips_plain"]}, one ulp of noise '
+          f'{cmp_step["relu_flips_plain_ulp_noise"]}, reordered '
+          f'{cmp_step["relu_flips_plain_reordered"]} of '
+          f'{cmp_step["relu_units"]}')
 
 
 def f32_phase(torch, apis, sp, mods, card):
@@ -8123,6 +8250,263 @@ def pillar_family_phase(torch, mods, card, tmp):
     return res
 
 
+# --- the monocular KITTI detectors: SMOKE and MonoFlex ---------------------
+MO_PATHS = (
+    ('smoke', 'configs/smoke/smoke_dla34_dlaneck_gn-all_8x4_6x_kitti-mono3d.py'),
+    ('monoflex', 'configs/monoflex/'
+     'monoflex_dla34_dlaneck_gn-all_2x4_6x_kitti-mono3d.py'))
+MO_INFO = 'kitti_infos_trainval_GGA.pkl'   # the workflow's 16 scenes
+MO_STEPS = 2                # recorded train steps of each; the first warms up
+MO_TOL = 1e-4               # card forward against the CPU's, of max|CPU|
+# kernel #7's maps of a SMOKE step at 384 x 1248: B x 3 classes of 96 x 312
+MO_HEATMAP_HW = (96, 312)
+
+
+def mono_card_vs_cpu(torch, model, images, label):
+    """The card's eval forward of a batch against the same weights' on the
+    CPU: both head maps within MO_TOL of the CPU's largest entry."""
+    import copy
+    cpu = copy.deepcopy(model).cpu().eval()
+    x = images.permute(0, 3, 1, 2).contiguous()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = cpu(x.cpu())
+        cpu_s = time.perf_counter() - t0
+        got = model.eval()(x)
+    errs = {k: float((got[k].cpu() - ref[k]).abs().max())
+            / max(float(ref[k].abs().max()), 1e-30) for k in ref}
+    finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+    print(f'{label}: eval forward at B = {len(x)}, card against CPU (TF32 '
+          f'off): max |d| / max|CPU| ' + ', '.join(
+              f'{k} {v:.3g}' for k, v in errs.items())
+          + f' (gate {MO_TOL}); the CPU forward {cpu_s:.1f} s')
+    if not finite or not max(errs.values()) <= MO_TOL:
+        fail(f'{label}: card forward against the CPU: {errs}, finite '
+             f'{finite}')
+    del cpu
+    return dict(max_rel_diff=errs, cpu_forward_s=cpu_s)
+
+
+def dead_projections(model):
+    """Parameters of the DLA trees' discarded projections (a tree of more
+    than one level projects its input and drops it, as gga_tpu's): they
+    take no gradient."""
+    from gga_tpu_torch.models.backbones.dla import Tree
+    return [f'{name}.project.{p}' for name, m in model.named_modules()
+            if isinstance(m, Tree) and m.levels > 1 and m.project is not None
+            for p, _ in m.project.named_parameters()]
+
+
+def monoflex_unreached(torch, model, batches, logs):
+    """MonoFlex's parameters that a step can leave without gradient, by
+    what the step's data show: the 2D-box branch where every object's IoU
+    sat at the loss's floor (-log of the 1e-6 clip) in every step, and the
+    offsets' edge fusion (its outputs land on the map's border only) where
+    no object counted sits on the border."""
+    import math
+
+    from gga_tpu_torch import apis
+    from gga_tpu_torch.models.dense_heads import monoflex_head as mh
+    head = model.cfg.head
+    floor = head.loss_bbox_weight * -math.log(1e-6)
+    names = []
+    if all(abs(float(lg['loss_bbox']) - floor) <= 1e-6 * floor
+           for lg in logs):
+        names += ['conv_reg_prevs.0.', 'conv_regs.0.']
+    on_border = False
+    for b in batches:
+        mb = apis.mono3d_batch(DEVICE, b, head.down_ratio)
+        H, W = (s // head.down_ratio for s in mb['img'].shape[2:])
+        t = mh.build_targets(head, mb['gt_boxes_cam'], mb['gt_labels'],
+                             mb['gt_bboxes'], mb['centers2d'], mb['depths'],
+                             mb['obj_valid'], mb['cam2img'],
+                             tuple(mb['img'].shape[2:]), (H, W))
+        x, y = t['base_int'][..., 0], t['base_int'][..., 1]
+        edge = (x == 0) | (x == W - 1) | (y == 0) | (y == H - 1)
+        on_border |= bool((edge & t['valid']).any())
+    if not on_border:
+        names.append('edge_fuse_reg.')
+    return [n for n, _ in model.named_parameters()
+            if n.startswith(tuple(f'bbox_head.{m}' for m in names))]
+
+
+def mono_path(torch, mods, card, data, label, config):
+    """One monocular config as shipped (f32, seeded weights) on the mini
+    KITTI's images through ``KittiMonoDataset``, at its
+    ``data.samples_per_gpu``:
+
+    1. the card's eval forward of the first batch against the CPU's
+       (``mono_card_vs_cpu``);
+    2. main path: MO_STEPS calls of ``apis.smoke_train_step`` or
+       ``apis.monoflex_train_step`` with the config's optimizer block, the
+       counts set to 0 just before and read just after: SMOKE's heatmap
+       targets one ``render_heatmap`` launch a step (B x 3 maps of 96 x
+       312), no other launch; finite losses with positives, each step's
+       lr the schedule's, every parameter and batch-norm statistic moved
+       but those no gradient reaches (the discarded projections; MonoFlex's
+       ``monoflex_unreached``); device ms by stage after the first step,
+       peak memory; then a profile of one more step;
+    3. each recorded ``render_heatmap`` call replayed against its plain
+       version (``heatmap_rows``: 1e-6, the same pixels at 1.0);
+    4. ``apis.infer_smoke`` / ``infer_monoflex`` on the first batch and
+       ``apis.inference_mono_3d_detector`` on one image: no launch, finite
+       boxes."""
+    import os
+
+    from gga_tpu_torch import apis
+    from gga_tpu_torch.config import Config
+    from gga_tpu_torch.data.kitti.mono_dataset import KittiMonoDataset
+    from gga_tpu_torch.kernels import heatmap
+    from gga_tpu_torch.models.builder import build_detector
+    from gga_tpu_torch.train.optim import piecewise_constant_schedule
+    t0 = time.perf_counter()
+    cfg = Config.fromfile(str(ROOT / config))
+    with torch.device('meta'):
+        meta_model, model_cfg = build_detector(cfg)
+    flop = forward_flop(torch, meta_model)
+    del meta_model
+    batch = cfg.data.samples_per_gpu
+    ds = KittiMonoDataset(data, os.path.join(data, MO_INFO),
+                          max_objs=cfg.data.max_objs)
+    spe = len(ds) // batch
+    batches = [{k: torch.as_tensor(v, device=DEVICE) for k, v in b.items()}
+               for b in ds.epoch_batches(batch, seed=0)][:MO_STEPS]
+    if len(batches) < MO_STEPS:
+        fail(f'{label}: {len(ds)} images give {len(batches)} batches of '
+             f'{batch}')
+    smoke = label == 'smoke'
+    init = apis.init_smoke_trainer if smoke else apis.init_monoflex_trainer
+    step_fn = apis.smoke_train_step if smoke else apis.monoflex_train_step
+    infer = apis.infer_smoke if smoke else apis.infer_monoflex
+    o = cfg.optimizer
+    trainer = init(model_cfg, spe, dict(o), device=DEVICE,
+                   seed=cfg.get('seed', 0))
+    model = trainer.model
+    print(f'{label}: {Path(config).name}, {type(model).__name__} DLA-'
+          f'{model_cfg.img_depth} + DLANeck, f32, '
+          f'{sum(p.numel() for p in model.parameters())} parameters; '
+          f'{flop / 1e9:.2f} GFLOP a 384 x 1248 forward (counted from '
+          f'shapes), a step of {batch} about 3x that an image: '
+          f'{3 * batch * flop / 1e12:.3f} TFLOP; B = {batch}, {spe} steps '
+          f'an epoch; lr {o.lr}, clip {o.grad_clip or None}; data in '
+          f'{time.perf_counter() - t0:.1f} s')
+    res = dict(config=Path(config).name, batch=batch, forward_flop=flop)
+
+    # --- 1. the card against the CPU, on the seeded weights --------------
+    res['card_vs_cpu'] = mono_card_vs_cpu(torch, model, batches[0]['image'],
+                                          label)
+
+    # --- 2. main path ----------------------------------------------------
+    sched = piecewise_constant_schedule(
+        o.lr, {spe * e: o.lr_gamma for e in o.lr_steps})
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {n: b.clone() for n, b in model.named_buffers()}
+    torch.cuda.empty_cache()
+    logs, lrs, marks, launches, peak, rec = recorded_steps(
+        torch, mods, trainer, step_fn, batches, label,
+        record=((heatmap, 'render_heatmap'),))
+    want = {k: 0 for k in launches}
+    want['render_heatmap'] = MO_STEPS if smoke else 0
+    if launches != want:
+        fail(f'{label}: {MO_STEPS} train steps launched {launches}, expected '
+             f'{want}')
+    unreached = dead_projections(model) + ([] if smoke else
+                                           monoflex_unreached(
+                                               torch, model, batches, logs))
+    step_ms, stages = step_checks(torch, trainer, logs, lrs, sched, params0,
+                                  stats0, marks, label, unreached=unreached)
+    del params0, stats0
+    res.update(steps=MO_STEPS, step_device_ms=step_ms, stage_ms=stages,
+               peak_bytes=peak, launches=launches, lrs=lrs,
+               unreached=unreached,
+               images_per_s_events=batch / (step_ms[-1] / 1e3),
+               tflop_per_s_events=3 * batch * flop / (step_ms[-1] / 1e3)
+               / 1e12,
+               logs=[{k: float(v) for k, v in lg.items()} for lg in logs])
+    print(f'{card}: {label}: {MO_STEPS} steps at B = {batch}: step device ms '
+          f'{[round(v, 1) for v in step_ms]}; after the first, by stage '
+          + ', '.join(f'{k} {v:.1f}' for k, v in stages.items())
+          + f' ({res["images_per_s_events"]:.2f} images/s, '
+          f'{res["tflop_per_s_events"]:.2f} TFLOP/s at 3 forwards an image)'
+          f', peak {peak / 2 ** 30:.2f} GiB; launches {launches}; lr {lrs}; '
+          f'num_pos {[lg["num_pos"] for lg in res["logs"]]}; no gradient '
+          f'(not checked for moving): {unreached}')
+    print(f'{label}: losses ' + ', '.join(
+        f'{k} {[round(lg[k], 4) for lg in res["logs"]]}'
+        for k in res['logs'][0]))
+
+    # a profile of one more step (outside the counted run)
+    res['profile'] = device_profile(torch, lambda: step_fn(
+        trainer, batches[-1]))
+    print_profile(f'{card}: {label} train step', res['profile'])
+
+    # --- 3. kernel #7's recorded calls against the plain renderer ---------
+    torch.set_grad_enabled(False)
+    try:
+        calls = rec['render_heatmap']
+        res['heatmap'] = heatmap_rows(torch, heatmap, calls, label) \
+            if calls else []
+    finally:
+        torch.set_grad_enabled(True)
+    if smoke and any((r['H'], r['W']) != MO_HEATMAP_HW
+                     or r['G'] != 3 * batch for r in res['heatmap']):
+        fail(f'{label}: render_heatmap rendered '
+             f'{[(r["G"], r["H"], r["W"]) for r in res["heatmap"]]}')
+    del rec, calls
+
+    # --- 4. inference ----------------------------------------------------
+    bundle = apis.DetectorBundle(model, model_cfg, torch.device(DEVICE))
+    images, cam2img = batches[0]['image'], batches[0]['cam2img']
+    zero_counts(mods)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = infer(bundle, images, cam2img)
+    end.record()
+    one = apis.inference_mono_3d_detector(bundle, images[0].cpu().numpy(),
+                                          cam2img[0].cpu().numpy())
+    got = counts(mods)
+    if any(got.values()):
+        fail(f'{label}: inference launched {got}')
+    if not (bool(torch.isfinite(out['boxes']).all())
+            and np.isfinite(one['boxes_3d']).all()):
+        fail(f'{label}: inference gave non-finite boxes')
+    ms = start.elapsed_time(end)
+    keep = out['valid'] if 'valid' in out else out['scores'] > 0.25
+    res['infer'] = dict(ms=ms, images_per_s=batch / (ms / 1e3),
+                        kept=int(keep.sum()), single_kept=len(one['scores_3d']),
+                        launches=got)
+    res['seconds'] = time.perf_counter() - t0
+    print(f'{card}: {label}: {infer.__name__} on {batch} images: {ms:.1f} ms '
+          f'by CUDA events ({res["infer"]["images_per_s"]:.1f} images/s), '
+          f'{res["infer"]["kept"]} boxes kept; inference_mono_3d_detector on '
+          f'one image: {res["infer"]["single_kept"]} boxes; the path '
+          f'{res["seconds"]:.1f} s')
+    del trainer, model, bundle, batches, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def mono_family_phase(torch, mods, card, tmp):
+    """SMOKE and MonoFlex (``mono_path`` on each MO_PATHS config) on the
+    workflow phase's mini KITTI (``tmp/kitti``; written here with its
+    infos if it is not there)."""
+    import os
+
+    from gga_tpu_torch.tools import create_data_gga
+    t0 = time.perf_counter()
+    data = os.path.join(tmp, 'kitti')
+    if not os.path.exists(os.path.join(data, MO_INFO)):
+        write_mini_kitti(data)
+        create_data_gga.main(['kitti', '--root-path', data,
+                              '--workers', str(os.cpu_count() or 8)])
+    res = {label: mono_path(torch, mods, card, data, label, config)
+           for label, config in MO_PATHS}
+    res['seconds'] = time.perf_counter() - t0
+    print(f'{card}: mono family phase: {res["seconds"]:.1f} s')
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -8269,6 +8653,9 @@ def main():
         torch.cuda.empty_cache()
         # --- FreeAnchor, SSN, RegNet, FPN and bf16 on nuScenes and Lyft ---
         pl = pillar_family_phase(torch, mods, card, tmp)
+        torch.cuda.empty_cache()
+        # --- SMOKE and MonoFlex on the mini KITTI's images ---
+        mo = mono_family_phase(torch, mods, card, tmp)
 
     launches, launches_f32 = tr['launches'], f32['train']['launches']
     kernels = [
@@ -8406,6 +8793,22 @@ def main():
             r['launches'].get(name, 0)
             + r.get('eval', {}).get('launches', {}).get(name, 0)
             for label, *_ in PL_PATHS for r in (pl[label],)))
+    # SMOKE's steps: render_heatmap once a step (its heatmap targets);
+    # MonoFlex reaches no kernel
+    for entry in kernels:
+        name = entry['name'].replace('_f32', '')
+        n = sum(mo[label]['launches'].get(name, 0)
+                + mo[label]['infer']['launches'].get(name, 0)
+                for label, _ in MO_PATHS)
+        if name == 'render_heatmap':
+            e = kernel_entry(entry['name'], 'heatmap.cu', entry['replaces'],
+                             n, mo['smoke']['heatmap'])
+            entry['mono_family'] = {k: e[k] for k in (
+                'launches', 'max_abs_err', 'ms', 'device_ms', 'plain_ms',
+                'bound_ms', 'bound_by', 'bound_share', 'device_bound_share',
+                'library_ms', 'host_ms')}
+        else:
+            entry['mono_family'] = dict(launches=n)
     # MVXNet's steps (f32, B = 2): conv, dW and gather_rows; the
     # ImVoxelNet paths reach no kernel
     mvx = fu['mvxnet']
@@ -8454,6 +8857,7 @@ def main():
                             ('parta2', pa['steps']),
                             ('scannet', sn['steps']),
                             ('fusion', mvx['steps']),
+                            ('mono_family', mo['smoke']['steps']),
                             *((t, vf[t]['train']['steps'])
                               for t, _ in VF_PATHS)):
             if 'ms' not in k.get(path, {}):
@@ -8484,7 +8888,7 @@ def main():
                        centerpoint=cp, parta2=pa, indoor_family=fam,
                        data_parallel=dp, point_family=pf,
                        vote_derived=vd, segmentation=seg, fusion=fu,
-                       pillar_family=pl),
+                       pillar_family=pl, mono_family=mo),
                   fh, indent=1, default=str)
 
     print(card)

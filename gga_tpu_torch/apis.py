@@ -25,7 +25,9 @@ PAConv), the same, with per-point labels for a batch
 for the image-fusion detector MVXNet (points, images and their
 projections), the same, with ``inference_multi_modality_detector`` for
 one sample; and for ImVoxelNet (KITTI and indoor; images and their
-projections alone), the same."""
+projections alone), the same; and for the monocular KITTI detectors SMOKE
+and MonoFlex, the same on ``KittiMonoDataset`` batches, with
+``inference_mono_3d_detector`` for one image."""
 from __future__ import annotations
 
 import dataclasses
@@ -58,6 +60,8 @@ from .models.detectors.imvotenet import (ImVoteNet, ImVoteNetConfig,
 from .models.detectors.imvoxelnet import (ImVoxelNet, ImVoxelNetConfig,
                                           ImVoxelNetIndoor,
                                           ImVoxelNetIndoorConfig)
+from .models.dense_heads import monoflex_head, smoke_head
+from .models.detectors.monoflex import MonoFlexDetector, MonoFlexModelConfig
 from .models.detectors.mvxnet import MVXNet, MVXNetConfig
 from .models.detectors.parta2 import (PartA2Config, PartA2Detector,
                                       decode_parta2)
@@ -65,6 +69,7 @@ from .models.detectors.pgd import PGDDetector, PGDModelConfig
 from .models.detectors.point_rcnn import (PointRCNNConfig, PointRCNNDetector,
                                           decode_point_rcnn)
 from .models.detectors.sassd import SASSD, SASSDConfig
+from .models.detectors.smoke import SMOKEDetector, SMOKEModelConfig
 from .models.detectors.ssd3d import SSD3DNet, SSD3DNetConfig
 from .models.detectors.ssn import SSNConfig, SSNDetector
 from .models.detectors.votenet import VoteNet, VoteNetConfig
@@ -1326,3 +1331,146 @@ def infer_imvoxelnet(bundle: DetectorBundle, img, lidar2img):
     anchors = anchor3d_head.make_anchors(cfg, tuple(out['cls'].shape[1:3]),
                                          out['cls'].device)
     return anchor3d_head.decode(cfg, out, anchors)
+
+
+def _mono_optimizer(optimizer):
+    """A config file's ``optimizer`` block for ``build_fcaf3d_optimizer``:
+    a ``grad_clip`` of 0 (SMOKE's) is no clip, as the reference's
+    ``grad_clip=None``; optax's clip at 0 would zero every gradient."""
+    o = dict(optimizer)
+    if not o.get('grad_clip'):
+        o['grad_clip'] = None
+    return o
+
+
+def init_smoke_detector(cfg: SMOKEModelConfig, state_dict=None,
+                        device='cuda', seed=0) -> DetectorBundle:
+    """The SMOKE detector in eval mode on ``device`` (f32, as gga_tpu's).
+
+    With a ``state_dict`` (e.g. from ``convert.from_jax_variables``) the
+    weights are loaded strictly; without one they are drawn from
+    ``torch.Generator().manual_seed(seed)`` (``SMOKEDetector.init_weights``:
+    He-uniform convs, zero biases, bilinear upsamplers). Raises if
+    ``device`` is CUDA and no card is present."""
+    return _init_point_detector(SMOKEDetector(cfg), state_dict, device, seed)
+
+
+def init_smoke_trainer(cfg: SMOKEModelConfig, steps_per_epoch, optimizer,
+                       state_dict=None, device='cuda', seed=0) -> TrainState:
+    """The SMOKE detector (``init_smoke_detector``'s) in train mode on
+    ``device`` with ``build_fcaf3d_optimizer(params, steps_per_epoch,
+    **optimizer)`` of a config file's ``optimizer`` block (the shipped
+    config's: lr 2.5e-4, no clip, the lr x0.1 at epoch 50; AdamW with the
+    builder's weight decay 1e-4, since the block names none)."""
+    return _epoch_trainer(init_smoke_detector(cfg, state_dict, device,
+                                              seed).model, steps_per_epoch,
+                          _mono_optimizer(optimizer), seed)
+
+
+def mono3d_batch(dev, batch, down_ratio=4):
+    """A ``KittiMonoDataset`` batch (tensors or numpy) on ``dev`` for the
+    SMOKE and MonoFlex losses: img [B, 3, H, W] from its ``image``, its
+    objects, gt_boxes_cam the bottom-centre camera boxes (the dataset's
+    gravity-centred ``gt_cam3d`` lowered by half their height: camera y
+    points down), trans_mat the unaugmented stride affine
+    ``diag(1 / down_ratio, 1 / down_ratio, 1)``."""
+    b = {k: torch.as_tensor(batch[k], dtype=dt, device=dev)
+         for k, dt in _MONO_DTYPES.items()}
+    b['img'] = _images(batch['image'], dev)
+    g = b['gt_cam3d']
+    b['gt_boxes_cam'] = torch.cat([g[..., :1], g[..., 1:2] + g[..., 4:5] / 2,
+                                   g[..., 2:]], -1)
+    b['trans_mat'] = smoke_head.stride_trans_mat(down_ratio, g.shape[0], dev)
+    return b
+
+
+def smoke_train_step(trainer: TrainState, batch, mark=None):
+    """One SMOKE train step on a ``KittiMonoDataset`` batch (``image`` [B,
+    H, W, 3] and the padded objects, as tensors or numpy; see
+    ``mono3d_batch``). ``mark`` is the step's stage hook
+    (``loop.smoke_train_step``). Returns the step's logs as 0-d tensors on
+    the trainer's device."""
+    dev = next(trainer.model.parameters()).device
+    return loop.smoke_train_step(trainer, mono3d_batch(
+        dev, batch, trainer.model.cfg.head.down_ratio), mark)
+
+
+@torch.no_grad()
+def infer_smoke(bundle: DetectorBundle, images, cam2img):
+    """SMOKE inference on a batch: forward in eval mode + decode at the
+    unaugmented stride affine.
+
+    Args:
+        images: [B, H, W, 3] normalized (tensor or numpy); cam2img:
+            [B, 4, 4].
+    Returns:
+        ``smoke_head.decode``'s dict (bottom-centre camera boxes [B, topk,
+        7], scores, labels) on the bundle's device.
+    """
+    x = _images(images, bundle.device)
+    c2i = torch.as_tensor(cam2img, dtype=torch.float32, device=bundle.device)
+    head = bundle.cfg.head
+    return smoke_head.decode(head, bundle.model.eval()(x), c2i,
+                             smoke_head.stride_trans_mat(
+                                 head.down_ratio, x.shape[0], bundle.device))
+
+
+def init_monoflex_detector(cfg: MonoFlexModelConfig, state_dict=None,
+                           device='cuda', seed=0) -> DetectorBundle:
+    """The MonoFlex detector in eval mode on ``device`` (f32, as
+    gga_tpu's); the weights as ``init_smoke_detector``'s, the class
+    logits' bias -2.19 when drawn."""
+    return _init_point_detector(MonoFlexDetector(cfg), state_dict, device,
+                                seed)
+
+
+def init_monoflex_trainer(cfg: MonoFlexModelConfig, steps_per_epoch,
+                          optimizer, state_dict=None, device='cuda',
+                          seed=0) -> TrainState:
+    """The MonoFlex detector in train mode with its config's optimizer
+    block, as ``init_smoke_trainer`` (the shipped config's: lr 1e-4, the
+    global-norm clip at 35, the lr x0.1 at epoch 50)."""
+    return _epoch_trainer(init_monoflex_detector(cfg, state_dict, device,
+                                                 seed).model,
+                          steps_per_epoch, _mono_optimizer(optimizer), seed)
+
+
+def monoflex_train_step(trainer: TrainState, batch, mark=None):
+    """One MonoFlex train step on a ``KittiMonoDataset`` batch (see
+    ``smoke_train_step``; the 2D boxes and depths too). Returns the step's
+    logs as 0-d tensors on the trainer's device."""
+    dev = next(trainer.model.parameters()).device
+    return loop.monoflex_train_step(trainer, mono3d_batch(
+        dev, batch, trainer.model.cfg.head.down_ratio), mark)
+
+
+@torch.no_grad()
+def infer_monoflex(bundle: DetectorBundle, images, cam2img):
+    """MonoFlex inference on a batch (``infer_smoke``'s arguments).
+    Returns ``monoflex_head.decode``'s dict (boxes, scores, labels,
+    valid) on the bundle's device."""
+    x = _images(images, bundle.device)
+    c2i = torch.as_tensor(cam2img, dtype=torch.float32, device=bundle.device)
+    return monoflex_head.decode(bundle.cfg.head, bundle.model.eval()(x), c2i)
+
+
+def inference_mono_3d_detector(bundle: DetectorBundle, img, cam2img):
+    """Run a monocular detector (SMOKE or MonoFlex) on one image (gga_tpu's
+    ``apis.inference_mono_3d_detector``): img [H, W, 3] normalized,
+    cam2img [4, 4]. Keeps the decode's ``valid``, or scores above 0.25
+    where it gives none (SMOKE's). gga_tpu calls ``model.decode(preds,
+    cam2img)``, which SMOKE's decode cannot take without its affine; its
+    test passes ``diag(0.25, 0.25, 1)``, which ``infer_smoke`` passes here.
+    Returns dict(boxes_3d [n, 7], scores_3d [n], labels_3d [n]) (numpy)."""
+    infer = {SMOKEModelConfig: infer_smoke,
+             MonoFlexModelConfig: infer_monoflex}.get(type(bundle.cfg))
+    if infer is None:
+        raise TypeError(f'inference_mono_3d_detector: '
+                        f'{type(bundle.cfg).__name__} is not a monocular '
+                        'detector')
+    out = infer(bundle, np.asarray(img, np.float32)[None],
+                np.asarray(cam2img, np.float32)[None])
+    out = {k: v[0].cpu().numpy() for k, v in out.items()}
+    keep = out['valid'] if 'valid' in out else out['scores'] > 0.25
+    return dict(boxes_3d=out['boxes'][keep], scores_3d=out['scores'][keep],
+                labels_3d=out['labels'][keep])

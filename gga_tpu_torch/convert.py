@@ -69,7 +69,12 @@ and the VoteNet-derived indoor detectors: GroupFree3D
 from ``decoder{i}/{self,cross}_attn`` / ``ffn0``, ``ffn1`` /
 ``norm1-3``), H3DNet (``h3dnet_rules``, ``torch2flax.h3dnet_rules`` and
 the port's own keys for the refinement) and ImVoteNet
-(``imvotenet_rules``).
+(``imvotenet_rules``); and the monocular KITTI detectors SMOKE
+(``smoke_rules``: DLA-34 and the DLANeck, whose depthwise upsampler's
+kernel is flipped, ``depthwise_deconv2d``, and the SMOKE head; or the
+ResNet variant with its up-fuse blocks) and MonoFlex
+(``monoflex_rules``: the same DLA, the head's branches and its two edge
+fusions' 1-D convs and batch norms).
 
 A released mmdet3d GGA checkpoint loads into the port directly, with no
 conversion.
@@ -84,7 +89,7 @@ import torch
 from .models.backbones import mink_resnet
 from .models.backbones.dgcnn import DGCNNConfig
 from .models.backbones.paconv import PAConvConfig
-from .models.backbones import regnet
+from .models.backbones import dla, regnet
 from .models.backbones.resnet import ARCH
 from .models.detectors.centerpoint import CenterPointConfig, common_heads
 from .models.detectors.dynamic_voxelnet import DynamicVoxelNetConfig
@@ -94,11 +99,14 @@ from .models.detectors.h3dnet import H3DNetConfig
 from .models.detectors.imvotenet import ImVoteNetConfig
 from .models.detectors.imvoxelnet import (ImVoxelNetConfig,
                                           ImVoxelNetIndoorConfig)
+from .models.dense_heads import monoflex_head
+from .models.detectors.monoflex import MonoFlexModelConfig
 from .models.detectors.mvxnet import MVXNetConfig
 from .models.detectors.parta2 import PartA2Config
 from .models.detectors.pgd import PGDModelConfig
 from .models.detectors.point_rcnn import PointRCNNConfig
 from .models.detectors.sassd import SASSDConfig
+from .models.detectors.smoke import SMOKEModelConfig
 from .models.detectors.ssd3d import SSD3DNetConfig
 from .models.detectors.ssn import SSNConfig
 from .models.detectors.votenet import VoteNetConfig
@@ -301,47 +309,58 @@ def gga_rules(cfg):
     return rules
 
 
-def _resnet_fpn_rules(rules, depth, backbone, neck, start_level, num_outs):
-    """gga_tpu's ``ResNet_0`` and ``FPN_0`` under mmdet's names at the
-    prefixes ``backbone`` and ``neck``: ResNet blocks are numbered across
-    stages, in a block the convs and norms in order, the projection
-    shortcut last; the FPN's extra levels continue the ``fpn_convs``
-    index."""
-    def conv(torch_prefix, flax_prefix, bias=True):
-        rules.append((f'{torch_prefix}.weight', 'params',
-                      f'{flax_prefix}/kernel', 'conv2d'))
-        if bias:
-            rules.append((f'{torch_prefix}.bias', 'params',
-                          f'{flax_prefix}/bias', 'copy'))
+def _conv_rules(rules, torch_prefix, flax_prefix, bias=True,
+                transform='conv2d'):
+    rules.append((f'{torch_prefix}.weight', 'params',
+                  f'{flax_prefix}/kernel', transform))
+    if bias:
+        rules.append((f'{torch_prefix}.bias', 'params',
+                      f'{flax_prefix}/bias', 'copy'))
 
+
+def _resnet_rules(rules, depth, backbone, base_planes=64):
+    """gga_tpu's ``ResNet_0`` under mmdet's names at the prefix
+    ``backbone``: blocks numbered across stages, in a block the convs and
+    norms in order, the projection shortcut last."""
     def bn(torch_prefix, flax_prefix):
         rules.extend(_bn_moves(torch_prefix, f'{flax_prefix}/BatchNorm_0'))
 
     r = 'ResNet_0'
-    conv(f'{backbone}.conv1', f'{r}/Conv_0', bias=False)
+    _conv_rules(rules, f'{backbone}.conv1', f'{r}/Conv_0', bias=False)
     bn(f'{backbone}.bn1', f'{r}/BatchNorm2d_0')
     stage_blocks, kind = ARCH[depth]
     n_convs, expansion = (3, 4) if kind == 'bottleneck' else (2, 1)
     name = 'Bottleneck' if kind == 'bottleneck' else 'BasicBlock'
-    k, channels, planes = 0, 64, 64
+    k, channels, planes = 0, base_planes, base_planes
     for i, n_blocks in enumerate(stage_blocks):
         for j in range(n_blocks):
             t, f = f'{backbone}.layer{i + 1}.{j}', f'{r}/{name}_{k}'
             for c in range(n_convs):
-                conv(f'{t}.conv{c + 1}', f'{f}/Conv_{c}', bias=False)
+                _conv_rules(rules, f'{t}.conv{c + 1}', f'{f}/Conv_{c}',
+                            bias=False)
                 bn(f'{t}.bn{c + 1}', f'{f}/BatchNorm2d_{c}')
             if channels != planes * expansion or (i and not j):
-                conv(f'{t}.downsample.0', f'{f}/Conv_{n_convs}', bias=False)
+                _conv_rules(rules, f'{t}.downsample.0', f'{f}/Conv_{n_convs}',
+                            bias=False)
                 bn(f'{t}.downsample.1', f'{f}/BatchNorm2d_{n_convs}')
             channels = planes * expansion
             k += 1
         planes *= 2
-    n_in = len(stage_blocks) - start_level
+
+
+def _resnet_fpn_rules(rules, depth, backbone, neck, start_level, num_outs):
+    """gga_tpu's ``ResNet_0`` and ``FPN_0`` under mmdet's names at the
+    prefixes ``backbone`` and ``neck``; the FPN's extra levels continue
+    the ``fpn_convs`` index."""
+    _resnet_rules(rules, depth, backbone)
+    n_in = len(ARCH[depth][0]) - start_level
     for i in range(n_in):
-        conv(f'{neck}.lateral_convs.{i}.conv', f'FPN_0/lateral{i}')
-        conv(f'{neck}.fpn_convs.{i}.conv', f'FPN_0/fpn{i}')
+        _conv_rules(rules, f'{neck}.lateral_convs.{i}.conv',
+                    f'FPN_0/lateral{i}')
+        _conv_rules(rules, f'{neck}.fpn_convs.{i}.conv', f'FPN_0/fpn{i}')
     for i in range(n_in, num_outs):
-        conv(f'{neck}.fpn_convs.{i}.conv', f'FPN_0/fpn_extra{i}')
+        _conv_rules(rules, f'{neck}.fpn_convs.{i}.conv',
+                    f'FPN_0/fpn_extra{i}')
 
 
 def pgd_rules(cfg: PGDModelConfig):
@@ -384,6 +403,140 @@ def pgd_rules(cfg: PGDModelConfig):
         rules.append((f'{t}.scales.{lvl}', 'params', f'{h}/scales_lvl{lvl}',
                       'copy'))
     rules.append((f'{t}.fuse_lambda', 'params', f'{h}/fuse_lambda', 'copy'))
+    return rules
+
+
+def _group_norm_rules(rules, torch_prefix, flax_prefix):
+    rules.append((f'{torch_prefix}.weight', 'params', f'{flax_prefix}/scale',
+                  'copy'))
+    rules.append((f'{torch_prefix}.bias', 'params', f'{flax_prefix}/bias',
+                  'copy'))
+
+
+def _dla_conv_rules(rules, t, f):
+    """gga_tpu's ``_Conv`` ``f`` (its ``Conv_0`` and ``_Norm_0``) ->
+    ``t.0`` / ``t.1``."""
+    _conv_rules(rules, f'{t}.0', f'{f}/Conv_0', bias=False)
+    _group_norm_rules(rules, f'{t}.1', f'{f}/_Norm_0/GroupNorm_0')
+
+
+def _dla_block_rules(rules, t, f):
+    """gga_tpu's ``DLABasicBlock`` (``_Conv_0``, ``_Conv_1``) ->
+    ``conv1`` / ``norm1``, ``conv2`` / ``norm2``."""
+    for c in range(2):
+        _conv_rules(rules, f'{t}.conv{c + 1}', f'{f}/_Conv_{c}/Conv_0',
+                    bias=False)
+        _group_norm_rules(rules, f'{t}.norm{c + 1}',
+                          f'{f}/_Conv_{c}/_Norm_0/GroupNorm_0')
+
+
+def _dla_tree_rules(rules, t, f, levels, in_channels, out_channels):
+    if in_channels != out_channels:
+        _dla_conv_rules(rules, f'{t}.project', f'{f}/project')
+    if levels == 1:
+        _dla_block_rules(rules, f'{t}.tree1', f'{f}/tree1')
+        _dla_block_rules(rules, f'{t}.tree2', f'{f}/tree2')
+        _conv_rules(rules, f'{t}.root.conv', f'{f}/root/Conv_0', bias=False)
+        _group_norm_rules(rules, f'{t}.root.norm',
+                          f'{f}/root/_Norm_0/GroupNorm_0')
+        return
+    _dla_tree_rules(rules, f'{t}.tree1', f'{f}/tree1', levels - 1,
+                    in_channels, out_channels)
+    _dla_tree_rules(rules, f'{t}.tree2', f'{f}/tree2', levels - 1,
+                    out_channels, out_channels)
+
+
+def _dla_rules(rules, channels, backbone='backbone', neck='neck'):
+    """gga_tpu's ``DLANet_0`` and ``DLANeck_0`` (start level 2, end level
+    5) under mmdet3d's names: the DLA levels and trees, then each IDA's
+    ``proj{k}`` / ``node{k}`` (conv with a bias, GroupNorm) and ``up{k}``
+    (the depthwise transposed conv's kernel, flipped) to ``projs.{k}`` /
+    ``nodes.{k}`` / ``ups.{k}``."""
+    levels = dla.ARCH[34][0]
+    d = 'DLANet_0'
+    _dla_conv_rules(rules, f'{backbone}.base_layer', f'{d}/base_layer')
+    for i in range(2):
+        _dla_conv_rules(rules, f'{backbone}.level{i}', f'{d}/level{i}_conv0')
+    for i in range(2, len(levels)):
+        _dla_tree_rules(rules, f'{backbone}.level{i}', f'{d}/level{i}',
+                        levels[i], channels[i - 1], channels[i])
+
+    def ida(t, f, steps):
+        for k in range(steps):
+            for name, flax_name in (('projs', 'proj'), ('nodes', 'node')):
+                _conv_rules(rules, f'{t}.{name}.{k}.conv',
+                            f'{f}/{flax_name}{k}/Conv_0')
+                _group_norm_rules(rules, f'{t}.{name}.{k}.gn',
+                                  f'{f}/{flax_name}{k}/_Norm_0/GroupNorm_0')
+            rules.append((f'{t}.ups.{k}.weight', 'params', f'{f}/up{k}/kernel',
+                          'depthwise_deconv2d'))
+
+    n = len(channels) - 2
+    for i in range(n - 1):
+        ida(f'{neck}.dla_up.ida_{i}', f'DLANeck_0/dla_ida{i}', i + 1)
+    ida(f'{neck}.ida_up', 'DLANeck_0/ida_up', 2)
+
+
+def _branch_rules(rules, t, f, conv, gn):
+    """A head branch's 3x3 conv (with a bias) and GroupNorm ->
+    ``t.conv`` / ``t.gn``."""
+    _conv_rules(rules, f'{t}.conv', f'{f}/{conv}')
+    _group_norm_rules(rules, f'{t}.gn', f'{f}/{gn}')
+
+
+def smoke_rules(cfg: SMOKEModelConfig):
+    """(torch_key, collection, flax_path, transform) for every tensor of
+    gga_tpu's ``SMOKEDetector``: the DLA backbone and neck (or, with
+    ``backbone='resnet'``, ``ResNet_0`` and ``_UpFuse_{i}`` to
+    ``up_fuses.{i}``: ``Conv_0`` the 3x3 ``conv_up``, ``Conv_1`` the 1x1
+    ``conv_lateral``, the batch norm ``bn``), then ``SMOKEHead_0``'s
+    ``hm_*`` and ``reg_*`` branches to ``conv_cls_prev.0`` /
+    ``conv_cls`` and ``conv_reg_prevs.0.0`` / ``conv_regs.0``."""
+    rules = []
+    if cfg.backbone == 'dla':
+        _dla_rules(rules, cfg.dla_channels or dla.ARCH[34][1])
+    else:
+        _resnet_rules(rules, cfg.img_depth, 'backbone', cfg.img_base_planes)
+        for i in range(3):
+            t, f = f'up_fuses.{i}', f'_UpFuse_{i}'
+            _conv_rules(rules, f'{t}.conv_up', f'{f}/Conv_0', bias=False)
+            _conv_rules(rules, f'{t}.conv_lateral', f'{f}/Conv_1', bias=False)
+            rules.extend(_bn_moves(f'{t}.bn', f'{f}/BatchNorm2d_0/'
+                                   'BatchNorm_0'))
+    t, f = 'bbox_head', 'SMOKEHead_0'
+    _branch_rules(rules, f'{t}.conv_cls_prev.0', f, 'hm_conv', 'hm_gn')
+    _conv_rules(rules, f'{t}.conv_cls', f'{f}/hm_out')
+    _branch_rules(rules, f'{t}.conv_reg_prevs.0.0', f, 'reg_conv', 'reg_gn')
+    _conv_rules(rules, f'{t}.conv_regs.0', f'{f}/reg_out')
+    return rules
+
+
+def monoflex_rules(cfg: MonoFlexModelConfig):
+    """(torch_key, collection, flax_path, transform) for every tensor of
+    gga_tpu's ``MonoFlexDetector``: the DLA backbone and neck, then
+    ``MonoFlexHead_0``'s ``cls_*`` branch to ``conv_cls_prev.0`` /
+    ``conv_cls``, each ``reg_{group}_*`` branch to ``conv_reg_prevs.{g}.0``
+    / ``conv_regs.{g}``, and the edge fusions ``edge_fuse_cls`` and
+    ``edge_fuse_offsets2d`` (``conv``, ``bn``, ``out``: 1-D kernels
+    [k, I, O] to [O, I, k]) to ``edge_fuse_cls`` / ``edge_fuse_reg``
+    (``edge_convs.0.conv``, ``edge_convs.0.bn``, ``edge_convs.1``)."""
+    rules = []
+    _dla_rules(rules, cfg.dla_channels or dla.ARCH[34][1])
+    t, f = 'bbox_head', 'MonoFlexHead_0'
+    _branch_rules(rules, f'{t}.conv_cls_prev.0', f, 'cls_conv', 'cls_gn')
+    _conv_rules(rules, f'{t}.conv_cls', f'{f}/cls_out')
+    for g, (name, _) in enumerate(monoflex_head.GROUPS):
+        _branch_rules(rules, f'{t}.conv_reg_prevs.{g}.0', f,
+                      f'reg_{name}_conv', f'reg_{name}_gn')
+        _conv_rules(rules, f'{t}.conv_regs.{g}', f'{f}/reg_{name}_out')
+    if cfg.head.use_edge_fusion:
+        for tn, fn in (('edge_fuse_cls', 'edge_fuse_cls'),
+                       ('edge_fuse_reg', 'edge_fuse_offsets2d')):
+            e, ef = f'{t}.{tn}.edge_convs', f'{f}/{fn}'
+            _conv_rules(rules, f'{e}.0.conv', f'{ef}/conv', bias=False,
+                        transform='conv1d')
+            rules.extend(_bn_moves(f'{e}.0.bn', f'{ef}/bn'))
+            _conv_rules(rules, f'{e}.1', f'{ef}/out', transform='conv1d')
     return rules
 
 
@@ -1154,6 +1307,13 @@ def _to_torch_layout(name, x):
         return x.reshape(-1, x.shape[-1]).T
     if name == 'conv1x1':           # [I, O] -> [O, I, 1]
         return x.T[..., None]
+    if name == 'conv1d':            # [k, I, O] -> [O, I, k]
+        return x.transpose(2, 1, 0)
+    if name == 'depthwise_deconv2d':
+        # gga_tpu's depthwise upsampler [kh, kw, 1, C], which it
+        # correlates with the dilated input -> conv_transpose2d's
+        # [C, 1, kh, kw], flipped: conv_transpose2d convolves
+        return x[::-1, ::-1].transpose(3, 2, 0, 1)
     if name == 'conv1x1_2d':        # [I, O] -> [O, I, 1, 1]
         return x.T[..., None, None]
     if name.startswith('sparse3d'):
@@ -1208,6 +1368,8 @@ def rules_of(cfg):
                        (MVXNetConfig, mvxnet_rules),
                        (ImVoxelNetConfig, imvoxelnet_rules),
                        (ImVoxelNetIndoorConfig, imvoxelnet_indoor_rules),
+                       (SMOKEModelConfig, smoke_rules),
+                       (MonoFlexModelConfig, monoflex_rules),
                        (SSD3DNetConfig, ssd3d_rules),
                        (PointRCNNConfig, point_rcnn_rules),
                        (PartA2Config, parta2_rules),
@@ -1234,7 +1396,8 @@ def from_jax_variables(variables_np, cfg):
     ``SSD3DNetConfig``, ``PointRCNNConfig``, ``GroupFree3DNetConfig``,
     ``H3DNetConfig``, ``ImVoteNetConfig``, ``SSNConfig`` or
     ``FreeAnchorPointPillarsConfig``, or a segmentor's:
-    ``EncoderDecoder3DConfig``, ``DGCNNConfig`` or ``PAConvConfig``) ->
+    ``EncoderDecoder3DConfig``, ``DGCNNConfig`` or ``PAConvConfig``, or
+    ``SMOKEModelConfig`` or ``MonoFlexModelConfig``) ->
     the port's ``load_state_dict`` input (f32 tensors)."""
     return convert_with_rules(variables_np, rules_of(cfg))
 

@@ -14,8 +14,9 @@ the point-cloud segmentors: the PointNet++ EncoderDecoder3D
 (``configs/pointnet2/``), DGCNN (``configs/dgcnn/``) and PAConv
 (``configs/paconv/``), and the image-fusion and image-to-voxel detectors
 MVXNet (``configs/mvxnet/``), ImVoxelNet and ImVoxelNetIndoor
-(``configs/imvoxelnet/``); the rest of the zoo waits for its own
-slices).
+(``configs/imvoxelnet/``), and the monocular KITTI detectors SMOKE
+(``configs/smoke/``) and MonoFlex (``configs/monoflex/``); Mask R-CNN
+waits for its own slice).
 
 A segmentor's weights are shaped by its config's ``in_channels`` (flax
 infers a layer's width from its first input), and it refuses a cloud of
@@ -49,11 +50,13 @@ from .detectors.h3dnet import H3DNet, H3DNetConfig
 from .detectors.imvotenet import ImVoteNet, ImVoteNetConfig
 from .detectors.imvoxelnet import (ImVoxelNet, ImVoxelNetConfig,
                                    ImVoxelNetIndoor, ImVoxelNetIndoorConfig)
+from .detectors.monoflex import MonoFlexDetector, MonoFlexModelConfig
 from .detectors.mvxnet import MVXNet, MVXNetConfig
 from .detectors.parta2 import PartA2Config, PartA2Detector
 from .detectors.pgd import PGDDetector, PGDModelConfig
 from .detectors.point_rcnn import PointRCNNConfig, PointRCNNDetector
 from .detectors.sassd import SASSD, SASSDConfig
+from .detectors.smoke import SMOKEDetector, SMOKEModelConfig
 from .detectors.ssn import SSNConfig, SSNDetector
 from .detectors.ssd3d import SSD3DNet, SSD3DNetConfig
 from .detectors.votenet import VoteNet, VoteNetConfig
@@ -167,6 +170,8 @@ _register_family('MVXNet', MVXNetConfig, MVXNet)
 _register_family('ImVoxelNet', ImVoxelNetConfig, ImVoxelNet)
 _register_family('ImVoxelNetIndoor', ImVoxelNetIndoorConfig,
                  ImVoxelNetIndoor)
+_register_family('SMOKEDetector', SMOKEModelConfig, SMOKEDetector)
+_register_family('MonoFlexDetector', MonoFlexModelConfig, MonoFlexDetector)
 
 
 def build_detector(cfg):

@@ -82,7 +82,8 @@ class BatchNorm2d(nn.Module):
     """Dense BN on NCHW maps (and NCDHW volumes: the statistics span every
     axis but the channels', as flax's ``nn.BatchNorm`` on a channel-last
     array of any rank) matching flax ``nn.BatchNorm`` (eps 1e-3, momentum
-    0.01): f32 arithmetic, output in the input dtype, and a BIASED running
+    0.01): f32 arithmetic (or the input's wider dtype, as flax promotes),
+    output in the input dtype, and a BIASED running
     variance (torch's own BatchNorm2d keeps it unbiased). Under a process
     group the moments span the global batch, as ``MaskedBatchNorm``'s."""
 
@@ -96,7 +97,7 @@ class BatchNorm2d(nn.Module):
         self.register_buffer('running_var', torch.ones(num_features))
 
     def forward(self, x):
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = (0, *range(2, x.dim()))
         tail = (1,) * (x.dim() - 2)
         if self.training:
@@ -122,6 +123,40 @@ class BatchNorm2d(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean.view(-1, *tail)) * mul.view(-1, *tail) \
             + self.bias.view(-1, *tail)
+        return y.to(x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm on NCHW maps matching flax ``nn.GroupNorm``: epsilon 1e-6
+    (torch's default is 1e-5) and flax's fast variance, ``max(E[x^2] -
+    E[x]^2, 0)`` over each group (torch takes the mean of squared
+    deviations); then ``(x - mean) * (rsqrt(var + eps) * weight) + bias``,
+    as flax orders it, in f32 or the input's wider dtype (flax promotes to
+    at least f32). Parameters ``weight`` and ``bias``, as torch's
+    GroupNorm names them."""
+
+    def __init__(self, num_groups, num_channels, eps=1e-6):
+        super().__init__()
+        if num_channels % num_groups:
+            raise ValueError(f'{num_groups} groups do not divide '
+                             f'{num_channels} channels')
+        self.num_groups = num_groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        B, C = x.shape[:2]
+        g = xf.reshape(B, self.num_groups, -1)
+        mean = g.mean(-1)
+        var = torch.clamp((g * g).mean(-1) - mean * mean, min=0.0)
+        tail = (1,) * (x.dim() - 2)
+        rep = C // self.num_groups
+        mean = mean.repeat_interleave(rep, 1).view(B, C, *tail)
+        mul = (torch.rsqrt(var + self.eps).repeat_interleave(rep, 1)
+               * self.weight).view(B, C, *tail)
+        y = (xf - mean) * mul + self.bias.view(-1, *tail)
         return y.to(x.dtype)
 
 

@@ -1,6 +1,6 @@
 """Loss functions shared by the port's heads (port of
-``gga_tpu/models/losses.py`` ``smooth_l1_loss``, ``focal_loss`` and
-``axis_aligned_iou_loss``)."""
+``gga_tpu/models/losses.py`` ``smooth_l1_loss``, ``focal_loss``,
+``axis_aligned_iou_loss`` and MonoFlex's ``multibin_loss``)."""
 from __future__ import annotations
 
 import torch
@@ -38,3 +38,33 @@ def axis_aligned_iou_loss(pred, target):
     vp = (pred[..., 3:] - pred[..., :3]).clamp(min=0.0).prod(-1)
     vt = (target[..., 3:] - target[..., :3]).clamp(min=0.0).prod(-1)
     return 1.0 - inter / (vp + vt - inter).clamp(min=1e-8)
+
+
+def multibin_loss(pred_orientations, gt_orientations, num_dir_bins=4):
+    """MonoFlex's multi-bin orientation loss a row (gga_tpu
+    ``multibin_loss``): each bin's 2-way cross entropy, averaged over the
+    bins, plus the smooth-L1 of (sin, cos) of the residual on the bins
+    whose label is 1, averaged over those bins.
+
+    Args:
+        pred_orientations: [N, bins * 4]: the bins' (2) logits, then their
+            (sin, cos).
+        gt_orientations: [N, bins * 2]: the bins' labels, then their
+            residuals.
+    Returns:
+        [N].
+    """
+    nb = num_dir_bins
+    cls_losses = reg_losses = reg_cnt = 0.0
+    for i in range(nb):
+        ce = -F.log_softmax(pred_orientations[:, i * 2:i * 2 + 2], -1)
+        label = gt_orientations[:, i].long()
+        cls_losses = cls_losses + ce.gather(1, label[:, None])[:, 0]
+        s = nb * 2 + i * 2
+        res = gt_orientations[:, nb + i]
+        reg = (smooth_l1_loss(pred_orientations[:, s], torch.sin(res))
+               + smooth_l1_loss(pred_orientations[:, s + 1], torch.cos(res)))
+        mask = label == 1
+        reg_losses = reg_losses + torch.where(mask, reg, 0.0)
+        reg_cnt = reg_cnt + mask.float()
+    return cls_losses / nb + reg_losses / torch.clamp(reg_cnt, min=1.0)

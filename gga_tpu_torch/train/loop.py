@@ -43,7 +43,12 @@ for every config; and the image-fusion and image-to-voxel steps: MVXNet
 (the anchor step's body on the fused points' maps, then the clip and
 the cyclic AdamW) and ImVoxelNet (KITTI: the anchor step's body on the
 lifted volume's BEV maps; indoor: ``imvoxel_head.loss``; each then the
-clip and AdamW with the lr stepped down at the config's epochs).
+clip and AdamW with the lr stepped down at the config's epochs); and the
+monocular KITTI steps, as gga_tpu's tests compose them: SMOKE
+(``smoke_head.loss`` of a train-mode forward: its heatmap targets in one
+``render_heatmap`` launch, the disentangled corner L1) and MonoFlex
+(``monoflex_head.loss``), each then the clip (none where the config's is
+0) and AdamW with the lr stepped down at the config's epochs.
 
 Under a ``torch.distributed`` group (``parallel.mesh``) the GGA, PGD and
 FCAF3D steps train data-parallel: each rank runs its rows of the global
@@ -65,8 +70,10 @@ from ..models.dense_heads import anchor3d_head as ah
 from ..models.dense_heads import centerpoint_head_gga as gga
 from ..models.dense_heads import fcaf3d_head
 from ..models.dense_heads import imvoxel_head
+from ..models.dense_heads import monoflex_head
 from ..models.dense_heads import pgd_head
 from ..models.dense_heads import shape_aware_head as sah
+from ..models.dense_heads import smoke_head
 from ..models.dense_heads import vote_head
 from ..models.dense_heads.free_anchor3d_head import (FreeAnchor3DConfig,
                                                     free_anchor_loss)
@@ -751,3 +758,63 @@ def imvoxelnet_train_step(state: TrainState, batch, mark=None):
     return _point_step(state, 'imvoxelnet_train_step',
                        lambda mark: imvoxelnet_loss(state.model, batch,
                                                     mark), mark)
+
+
+def smoke_loss(model, batch, mark=None):
+    """SMOKE's loss on a train-mode forward: the heatmap targets and the
+    corner L1 (``smoke_head.loss``). Returns (total, its logs)."""
+    mark = mark or (lambda _: None)
+    preds = model(batch['img'])
+    mark('forward')
+    logs = smoke_head.loss(model.cfg.head, preds, batch['gt_boxes_cam'],
+                           batch['gt_labels'], batch['centers2d'],
+                           batch['obj_valid'], batch['cam2img'],
+                           batch['trans_mat'])
+    mark('loss')
+    return logs['loss'], logs
+
+
+def smoke_train_step(state: TrainState, batch, mark=None):
+    """One SMOKE optimization step; updates ``state`` in place.
+
+    Args:
+        batch: dict of tensors on the model's device: img [B, 3, H, W]
+            (normalized), cam2img [B, 4, 4], trans_mat [B, 3, 3] (image ->
+            feature map), gt_boxes_cam [B, M, 7] (bottom-centre camera
+            boxes), gt_labels [B, M], centers2d [B, M, 2], obj_valid [B, M].
+        mark: as ``anchor_train_step``'s.
+    Returns:
+        logs: 0-d tensors: ``smoke_head.loss``'s and 'grad_norm'.
+    """
+    return _point_step(state, 'smoke_train_step',
+                       lambda mark: smoke_loss(state.model, batch, mark),
+                       mark)
+
+
+def monoflex_loss(model, batch, mark=None):
+    """MonoFlex's loss on a train-mode forward (``monoflex_head.loss`` at
+    the images' size). Returns (total, its logs)."""
+    mark = mark or (lambda _: None)
+    preds = model(batch['img'])
+    mark('forward')
+    out = monoflex_head.loss(
+        model.cfg.head, preds, batch['gt_boxes_cam'], batch['gt_labels'],
+        batch['gt_bboxes'], batch['centers2d'], batch['depths'],
+        batch['obj_valid'], batch['cam2img'], tuple(batch['img'].shape[2:]))
+    mark('loss')
+    return out
+
+
+def monoflex_train_step(state: TrainState, batch, mark=None):
+    """One MonoFlex optimization step; updates ``state`` in place.
+
+    Args:
+        batch: ``smoke_train_step``'s keys but trans_mat, plus gt_bboxes
+            [B, M, 4] (2D boxes in input pixels) and depths [B, M].
+        mark: as ``anchor_train_step``'s.
+    Returns:
+        logs: 0-d tensors: ``monoflex_head.loss``'s and 'grad_norm'.
+    """
+    return _point_step(state, 'monoflex_train_step',
+                       lambda mark: monoflex_loss(state.model, batch, mark),
+                       mark)

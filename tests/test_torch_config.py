@@ -14,7 +14,9 @@ EncoderDecoder3D, seven DGCNN, two PAConv);
 and 20 of the 23 nuScenes and Lyft pillar configs of FreeAnchor, SSN,
 the RegNet backbones and PointPillars' FPN neck (six
 ``configs/free_anchor``, eight ``configs/regnet``, four ``configs/ssn``,
-five ``configs/pointpillars``); the _fp16_ SECOND and PointPillars
+five ``configs/pointpillars``) and the two monocular KITTI configs (SMOKE
+and MonoFlex, whose full-width models hold as many weights and
+statistics as gga_tpu's variables); the _fp16_ SECOND and PointPillars
 configs parse to model configs equal to gga_tpu's. Also the port's
 refusal of gga_tpu's TPU-only encoder options and of the _fp16_ SECOND
 and PointPillars configs, and the class order that the SSN and FreeAnchor
@@ -22,10 +24,12 @@ configs share with gga_tpu.
 """
 import ast
 import dataclasses
+import math
 import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import pytest
 import torch
 
@@ -43,11 +47,13 @@ from gga_tpu_torch.models.detectors import groupfree3d as tgroupfree3d
 from gga_tpu_torch.models.detectors import h3dnet as th3dnet
 from gga_tpu_torch.models.detectors import imvotenet as timvotenet
 from gga_tpu_torch.models.detectors import imvoxelnet as timvoxelnet
+from gga_tpu_torch.models.detectors import monoflex as tmonoflex
 from gga_tpu_torch.models.detectors import mvxnet as tmvxnet
 from gga_tpu_torch.models.detectors import parta2 as tparta2
 from gga_tpu_torch.models.detectors import pgd as tpgd
 from gga_tpu_torch.models.detectors import point_rcnn as tpoint_rcnn
 from gga_tpu_torch.models.detectors import sassd as tsassd
+from gga_tpu_torch.models.detectors import smoke as tsmoke
 from gga_tpu_torch.models.detectors import ssd3d as tssd3d
 from gga_tpu_torch.models.detectors import ssn as tssn
 from gga_tpu_torch.models.detectors import votenet as tvotenet
@@ -141,6 +147,13 @@ FUSION = {
         (timvoxelnet.ImVoxelNet, timvoxelnet.ImVoxelNetConfig),
     'imvoxelnet/imvoxelnet_4x2_sunrgbd-3d-10class.py':
         (timvoxelnet.ImVoxelNetIndoor, timvoxelnet.ImVoxelNetIndoorConfig),
+}
+# the monocular KITTI configs, with the detector each builds
+MONO = {
+    'smoke/smoke_dla34_dlaneck_gn-all_8x4_6x_kitti-mono3d.py':
+        (tsmoke.SMOKEDetector, tsmoke.SMOKEModelConfig),
+    'monoflex/monoflex_dla34_dlaneck_gn-all_2x4_6x_kitti-mono3d.py':
+        (tmonoflex.MonoFlexDetector, tmonoflex.MonoFlexModelConfig),
 }
 # FreeAnchor, SSN, the RegNet backbones and PointPillars' FPN neck and
 # bf16 (nuScenes and Lyft), with the detector each builds
@@ -279,11 +292,11 @@ def test_merge_from_options_agrees(name):
 @pytest.mark.parametrize('name', DETECTOR_CONFIGS + (
     'gga_pdg.py', 'gga_sunrgbd.py', SECOND, POINTPILLARS, *VOXEL_FAMILY,
     *CENTERPOINT, *INDOOR, *POINT_FAMILY, *VOTE_FAMILY, *SEGMENTORS,
-    *FUSION, *(p for p in PILLAR_FAMILY if p not in FP16_PILLARS)))
+    *FUSION, *(p for p in PILLAR_FAMILY if p not in FP16_PILLARS), *MONO))
 def test_build_detector_config_equals_gga_tpu(name):
     path = str(ROOT / 'configs' / ('' if '/' in name else 'gga') / name)
     model, mc = tbuilder.build_detector(tconfig.Config.fromfile(path))
-    _, ref = jbuilder.build_detector(jconfig.Config.fromfile(path))
+    jmodel, ref = jbuilder.build_detector(jconfig.Config.fromfile(path))
     pgd = name == 'gga_pdg.py'
     indoor = name == 'gga_sunrgbd.py'
     det, cfg_cls = {
@@ -292,7 +305,7 @@ def test_build_detector_config_equals_gga_tpu(name):
         SECOND: (tvoxelnet.SECONDDetector, tvoxelnet.SECONDNetConfig),
         POINTPILLARS: (tvoxelnet.PointPillars, tvoxelnet.PointPillarsConfig),
         **VOXEL_FAMILY, **INDOOR, **POINT_FAMILY, **VOTE_FAMILY,
-        **SEGMENTORS, **FUSION, **PILLAR_FAMILY,
+        **SEGMENTORS, **FUSION, **PILLAR_FAMILY, **MONO,
         **dict.fromkeys(CENTERPOINT, (tcp.CenterPointDetector,
                                       tcp.CenterPointConfig)),
     }.get(name, (tdet.GGADetector, tdet.GGAModelConfig))
@@ -310,6 +323,16 @@ def test_build_detector_config_equals_gga_tpu(name):
         assert mc.depth == 34 and mc.voxel_size == mc.head.voxel_size == 0.01
         assert mc.head.n_classes == 10 and mc.head.n_reg_outs == 8
         assert mc.grid_zyx == (512, 1280, 1280)
+    elif name in MONO:
+        # full width: DLA-34's levels, the 64-channel stride-4 map, and as
+        # many weights and statistics as gga_tpu's variables at 384 x 1248
+        assert model.backbone.out_channels == (16, 32, 64, 128, 256, 512)
+        assert model.neck.ida_up.nodes[-1].conv.out_channels == 64
+        shapes = jax.eval_shape(
+            lambda x: jmodel.init(jax.random.PRNGKey(0), x, train=False),
+            jax.ShapeDtypeStruct((1, 384, 1248, 3), 'float32'))
+        assert sum(math.prod(x.shape) for x in jax.tree_util.tree_leaves(
+            shapes)) == sum(t.numel() for t in model.state_dict().values())
     elif pgd:
         assert mc.backbone_depth == 101 and mc.fpn_channels == 256
         assert mc.head.feat_channels == 256 and mc.head.stacked_convs == 2
@@ -587,11 +610,13 @@ def test_registry_names_the_known_types():
     assert reg.build({'type': 'D', 'a': 1}) == {'a': 1}
     cfg = tconfig.Config.fromfile(
         str(ROOT / 'configs' / 'gga' / 'gga_kitti_tiny.py'))
-    cfg.model.type = 'SMOKEDetector'      # not ported yet
+    cfg.model.type = 'MaskRCNN'           # not ported yet
     with pytest.raises(KeyError, match='GGADetector'):
         tbuilder.build_detector(cfg)
-    # FreeAnchor and SSN are registered, with gga_tpu's names
-    for name in ('FreeAnchorPointPillars', 'SSNDetector'):
+    # FreeAnchor, SSN, SMOKE and MonoFlex are registered, with gga_tpu's
+    # names
+    for name in ('FreeAnchorPointPillars', 'SSNDetector', 'SMOKEDetector',
+                 'MonoFlexDetector'):
         assert callable(tconfig.MODELS.get(name))
         assert callable(jconfig.MODELS.get(name))
     with pytest.raises(KeyError, match='FreeAnchorPointPillars.*SSNDetector'):
